@@ -1,0 +1,169 @@
+"""Build and load the port's CUDA kernels (one shared library).
+
+Every ``csrc/*.cu`` under ``repro_torch/kernels`` is compiled by ``nvcc``
+for Hopper (``sm_90a``) with FMA contraction off (``-fmad=false``: the
+float64 cost plane must equal NumPy's to the last bit), each source in
+its own ``nvcc`` process, all started together, then linked into one
+``.so`` with a plain C interface that ``ctypes`` loads. The library is
+built at first use from the checkout's sources only, into
+``<repo>/build/repro_torch/<hash>/``, keyed by a hash of the sources and
+flags, so an edited kernel is rebuilt and an unchanged one is reused.
+
+Nothing here runs at import: the CPU tests import every module on a
+machine with no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+__all__ = [
+    "SOURCES", "NVCC_FLAGS", "build", "library", "check", "launch_device", "stream_of",
+]
+
+_KERNELS = Path(__file__).resolve().parent
+SOURCES = tuple(sorted(_KERNELS.glob("*/csrc/*.cu")))
+BUILD_ROOT = _KERNELS.parents[2] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+LIB_NAME = "librepro_torch.so"
+
+_c = ctypes
+_P = _c.c_void_p
+_I64 = _c.c_int64
+# C signatures of the library's entry points (every pointer and the
+# stream as c_void_p, so ctypes never truncates them to 32 bits).
+_SIGNATURES = {
+    "repro_cost_matrix_f32": (_P, _P, _P, _P, _P, _P, _I64, _I64,
+                              _c.c_float, _c.c_float, _c.c_float, _P),
+    "repro_cost_matrix_f64": (_P, _P, _P, _P, _P, _P, _I64, _I64,
+                              _c.c_double, _c.c_double, _c.c_double, _c.c_int, _P),
+    "repro_cost_argmin_f64": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                              _c.c_double, _c.c_double, _c.c_double, _P),
+    "repro_priority_requeue_f32": (_P, _P, _P, _c.c_float, _c.c_float,
+                                   _P, _P, _I64, _P),
+    "repro_priority_requeue_f64": (_P, _P, _P, _c.c_double, _c.c_double,
+                                   _P, _P, _I64, _P),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin)")
+
+
+def _key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the library unless this exact source set is built; return
+    its path. Raises with nvcc's output when a compile or link fails."""
+    out_dir = BUILD_ROOT / _key()
+    lib = out_dir / LIB_NAME
+    if lib.is_file():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs, procs = [], []
+        for src in SOURCES:
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )))
+        log = []
+        failed = []
+        for src, proc in procs:
+            text, _ = proc.communicate()
+            log.append(f"== {src.name} (exit {proc.returncode})\n{text}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        (out_dir / "nvcc.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+        tmp_lib = Path(tmp) / LIB_NAME
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp_lib), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_lib, lib)
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on the first call)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = (ctypes.c_int,)
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise when a C entry reported a CUDA error (``cudaGetLastError``)."""
+    if rc != 0:
+        msg = library().repro_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
+
+
+def launch_device(name: str, args: dict, dtypes: dict, shapes: dict):
+    """Validate a wrapper's tensors and return their common device.
+
+    ``args`` maps argument names to tensors, ``dtypes``/``shapes`` give
+    what each must be (a shape entry of None skips that dimension). All
+    tensors must share one device and be contiguous: the kernels take
+    raw pointers with the layout they assume.
+    """
+    devices = set()
+    for key, t in args.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: {key} must be a torch.Tensor, got {type(t).__name__}")
+        if t.dtype != dtypes[key]:
+            raise TypeError(f"{name}: {key} must be {dtypes[key]}, got {t.dtype}")
+        want = shapes[key]
+        if t.dim() != len(want) or any(w is not None and w != d for w, d in zip(want, t.shape)):
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {want}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+        devices.add(t.device)
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel or plain version for device {dev}")
+    return dev
+
+
+def stream_of(device) -> int:
+    """The raw handle of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream

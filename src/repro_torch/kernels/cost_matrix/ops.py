@@ -1,0 +1,141 @@
+"""Wrappers of the cost_matrix CUDA kernels (paper §IV/§V).
+
+A tensor on the host goes to the plain version in ``ref.py``; a CUDA
+tensor launches the kernel (``csrc/cost_matrix.cu``) or raises. No
+padding: the kernels mask their ragged tiles. Each wrapper counts its
+kernel launches in its ``launches`` attribute.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from .ref import cost_argmin_f64_ref, cost_matrix_f32_ref, cost_matrix_f64_ref
+
+__all__ = ["cost_matrix", "cost_matrix_classed", "cost_matrix_f64", "cost_argmin_f64"]
+
+_F32, _F64 = torch.float32, torch.float64
+
+
+def cost_matrix(job_bytes, job_work, cap, queue, work, load, bw, loss, rtt, alive):
+    """§IV cost over (J, S) + per-job best site: ``cost_matrix_classed``
+    with all-ones class masks (net + comp + dtc). Returns (cost, best)."""
+    ones = torch.ones_like(job_bytes)
+    return cost_matrix_classed(
+        job_bytes, job_work, ones, ones, cap, queue, work, load, bw, loss, rtt, alive
+    )
+
+
+def cost_matrix_classed(
+    job_bytes, job_work, job_wcomp, job_wdtc,
+    cap, queue, work, load, bw, loss, rtt, alive, mss=1460.0,
+    *, w_queue=1.0, w_work=1.0, w_load=1.0,
+):
+    """Float32 §V per-class cost over (J, S), the TPU kernel's function:
+    net + wcomp·comp + wdtc·dtc, dead columns 3e38. Job columns are
+    (J,) float32, site columns (S,) float32, ``alive`` (S,) bool, ``mss``
+    a float or an (S,) float32 tensor. Returns (cost (J, S) float32,
+    best (J,) int32 — first index wins ties)."""
+    J, S = job_bytes.shape[0], cap.shape[0]
+    if not isinstance(mss, torch.Tensor):
+        mss = torch.full((S,), float(mss), dtype=_F32, device=cap.device)
+    jobs = dict(job_bytes=job_bytes, job_work=job_work, job_wcomp=job_wcomp, job_wdtc=job_wdtc)
+    sites = dict(cap=cap, queue=queue, work=work, load=load, bw=bw, loss=loss, rtt=rtt, mss=mss)
+    args = {**jobs, **sites, "alive": alive}
+    dtypes = {k: _F32 for k in args}
+    dtypes["alive"] = torch.bool
+    shapes = {**{k: (J,) for k in jobs}, **{k: (S,) for k in sites}, "alive": (S,)}
+    dev = _build.launch_device("cost_matrix_classed", args, dtypes, shapes)
+    rows = torch.stack([cap, queue, work, load, bw, loss, rtt, alive.to(_F32), mss])
+    if dev.type == "cpu":
+        cost = cost_matrix_f32_ref(
+            job_bytes, job_work, job_wcomp, job_wdtc, rows, w_queue, w_work, w_load
+        )
+    else:
+        cost = torch.empty((J, S), dtype=_F32, device=dev)
+        if cost.numel():
+            lib = _build.library()
+            cost_matrix_classed.launches += 1
+            rc = lib.repro_cost_matrix_f32(
+                job_bytes.data_ptr(), job_work.data_ptr(), job_wcomp.data_ptr(),
+                job_wdtc.data_ptr(), rows.data_ptr(), cost.data_ptr(), J, S,
+                w_queue, w_work, w_load, _build.stream_of(dev),
+            )
+            _build.check(rc, "cost_matrix_classed")
+    return cost, torch.argmin(cost, dim=1).to(torch.int32)
+
+
+cost_matrix_classed.launches = 0
+
+
+def _f64_args(name, bytes_, work, cls, rows, alive):
+    J, S = bytes_.shape[0], alive.shape[0]
+    if S > 65535 * 32:
+        raise ValueError(f"{name}: {S} sites exceed the kernel's grid ({65535 * 32})")
+    return J, S, _build.launch_device(
+        name,
+        dict(bytes_=bytes_, work=work, cls=cls, rows=rows, alive=alive),
+        dict(bytes_=_F64, work=_F64, cls=torch.int8, rows=_F64, alive=torch.bool),
+        dict(bytes_=(J,), work=(J,), cls=(J,), rows=(8, S), alive=(S,)),
+    )
+
+
+def cost_matrix_f64(
+    bytes_, work, cls, rows, alive,
+    *, w_queue=1.0, w_work=1.0, w_load=1.0, mask_dead=True,
+):
+    """Float64 per-class (J, S) plane in ``class_total`` order, equal to
+    the reference's NumPy plane bit for bit. ``bytes_``/``work`` (J,)
+    float64, ``cls`` (J,) int8 (0 COMPUTE, 1 DATA, 2 BOTH), ``rows``
+    (8, S) float64 in PACK_FIELDS order, ``alive`` (S,) bool."""
+    J, S, dev = _f64_args("cost_matrix_f64", bytes_, work, cls, rows, alive)
+    if dev.type == "cpu":
+        return cost_matrix_f64_ref(
+            bytes_, work, cls, rows, alive, w_queue, w_work, w_load, mask_dead
+        )
+    cost = torch.empty((J, S), dtype=_F64, device=dev)
+    if cost.numel():
+        lib = _build.library()
+        cost_matrix_f64.launches += 1
+        rc = lib.repro_cost_matrix_f64(
+            bytes_.data_ptr(), work.data_ptr(), cls.data_ptr(), rows.data_ptr(),
+            alive.data_ptr(), cost.data_ptr(), J, S, w_queue, w_work, w_load,
+            int(bool(mask_dead)), _build.stream_of(dev),
+        )
+        _build.check(rc, "cost_matrix_f64")
+    return cost
+
+
+cost_matrix_f64.launches = 0
+
+
+def cost_argmin_f64(bytes_, work, cls, rows, alive, *, w_queue=1.0, w_work=1.0, w_load=1.0):
+    """Per-job cheapest alive site over the float64 plane of
+    ``cost_matrix_f64`` (dead columns masked), without writing the
+    plane on the card. Returns (best (J,) int64, cost (J,) float64);
+    first index wins ties, a NaN counts as the minimum. Raises
+    ``RuntimeError("no alive site available")`` when a picked cost is
+    not finite."""
+    J, S, dev = _f64_args("cost_argmin_f64", bytes_, work, cls, rows, alive)
+    if J and not S:
+        raise RuntimeError("no alive site available")
+    if dev.type == "cpu":
+        best, cost = cost_argmin_f64_ref(bytes_, work, cls, rows, alive, w_queue, w_work, w_load)
+    else:
+        best = torch.empty(J, dtype=torch.int64, device=dev)
+        cost = torch.empty(J, dtype=_F64, device=dev)
+        if J:
+            lib = _build.library()
+            cost_argmin_f64.launches += 1
+            rc = lib.repro_cost_argmin_f64(
+                bytes_.data_ptr(), work.data_ptr(), cls.data_ptr(), rows.data_ptr(),
+                alive.data_ptr(), best.data_ptr(), cost.data_ptr(), J, S,
+                w_queue, w_work, w_load, _build.stream_of(dev),
+            )
+            _build.check(rc, "cost_argmin_f64")
+    if not bool(torch.isfinite(cost).all()):
+        raise RuntimeError("no alive site available")
+    return best, cost
+
+
+cost_argmin_f64.launches = 0

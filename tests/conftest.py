@@ -15,3 +15,7 @@ def pytest_configure(config):
         "markers",
         "slow: multi-minute dryrun/model-compile tests (deselect with -m 'not slow')",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card and nvcc; skips elsewhere (run with -m cuda on the card)",
+    )
