@@ -17,6 +17,31 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    seed 0) with every launch counter set to 0 before and read after;
    check what it returns against the port on the host, against an
    independent NumPy plane and against the paper's Fig 4/Fig 6 values.
+2b. Hold the flash- and decode-attention kernels against their plain
+   versions on the JAX kernel tests' cases (2e-5 float32, 2e-2 bf16),
+   on float32 rows over many key tiles and splits, then at gemma2-9b's
+   shapes: an 8192-token prefill (B 1, H 16/8, D 256, bf16, soft-cap 50;
+   causal, and a 4096 window) and 4-slot decode over an 8192 cache and a
+   4096 ring. q and k are drawn with a standard deviation of 1.5, so
+   scores spread over several units as a trained model's do, and the
+   mean error must also stay under 1% of the mean |output| (rounding
+   gives about 0.2% in bf16; a missing rescale between key tiles moves
+   the output by a large share of itself).
+   Times (CUDA events) go beside the plain version, the bound and
+   scaled_dot_product_attention at soft-cap 0 (with the backend it
+   chose, from a profiler trace).
+4. Serve gemma2-9b at its published width and depth in bf16 (weights
+   from a seeded generator on the card) through ``ServingEngine``:
+   launch/serve.py's 16 requests of two tenants, 4 slots, max_len 64,
+   8-token prompts, 8 new tokens; then one 8192-token prefill through
+   ``LM.forward(last_only=True)``, with both attention kernels' launch
+   counters set to 0 before and read after. Checks the stats, the
+   launch counts and that a second run with the same seed gives the
+   same tokens; prints tokens/s and the median decode step beside the
+   weight-streaming bound.
+5. Rebuild gemma2-9b in float32 and hold LM.forward's logits (flash
+   kernel) against a decode_step loop (decode kernel), B 2, 16 tokens,
+   rtol = atol = 2e-3.
 
 Prints the card, each phase's results and times, a ``{"kernels": …}``
 line and, last, ``{"ok": true, "device": …}``. Any failed check raises,
@@ -26,6 +51,7 @@ CUDA device or outside a checkout also exit non-zero.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import math
 import statistics
@@ -40,9 +66,10 @@ ROOT = Path(__file__).resolve().parent
 
 # NVIDIA H100 SXM data sheet (dense, no sparsity, at the 700 W limit):
 # HBM3 3.35 TB/s, FP32 67 TFLOP/s, FP64 34 TFLOP/s outside the tensor cores
-# (a division or square root is counted as one operation: a lower bound).
+# (a division or square root is counted as one operation: a lower bound),
+# BF16 989 TFLOP/s on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"f32": 67e12, "f64": 34e12}
+PEAK_OPS = {"f32": 67e12, "f64": 34e12, "bf16": 989e12}
 
 SEED = 0
 BENCH_JOBS, BENCH_SITES = 10_000, 256
@@ -456,6 +483,360 @@ def phase_main_path(torch, P):
     return launches, times
 
 
+# -- the serving slice: attention kernels and gemma2-9b ----------------------------
+
+# tests/kernels/test_kernels.py ATTN_CASES / DECODE_CASES (the JAX kernel
+# tests' cases) and the main path's shapes, with the JAX kernel tests'
+# tolerances: 2e-5 float32, 2e-2 bfloat16.
+ATTN_CASES = [
+    # (B, Sq, Sk, H, KV, D, causal, window, softcap, dtype)
+    (1, 128, 128, 4, 4, 64, True, 0, 0.0, "float32"),
+    (2, 256, 256, 4, 2, 64, True, 0, 0.0, "float32"),
+    (1, 128, 128, 8, 1, 128, True, 64, 0.0, "float32"),
+    (1, 256, 256, 4, 4, 128, True, 0, 50.0, "float32"),
+    (1, 128, 128, 4, 4, 256, True, 0, 0.0, "bfloat16"),
+    (1, 128, 256, 2, 2, 64, False, 0, 0.0, "float32"),
+]
+DECODE_CASES = [
+    # (B, S, H, KV, D, pos, window, softcap, dtype)
+    (1, 128, 4, 4, 64, 0, 0, 0.0, "float32"),
+    (2, 512, 8, 2, 64, 100, 0, 0.0, "float32"),
+    (1, 512, 8, 1, 128, 511, 64, 0.0, "float32"),
+    (2, 256, 16, 8, 256, 200, 0, 50.0, "float32"),
+    (1, 512, 8, 8, 128, 300, 0, 0.0, "bfloat16"),
+]
+# The main path's own shapes: phase 5's float32 prefill (B 2, 16 tokens,
+# a global and a local layer), the engine's decode over its 64-slot caches
+# (first prefill step, last decode step) and phase 5's 24-slot caches.
+# Then float32 rows over many of the flash kernel's 64-key tiles and the
+# decode kernel's 256-key splits, where the rescale between them shows.
+ATTN_CASES += [
+    (2, 16, 16, 16, 8, 256, True, 0, 50.0, "float32"),
+    (2, 16, 16, 16, 8, 256, True, 4096, 50.0, "float32"),
+    (1, 2048, 2048, 16, 8, 256, True, 0, 50.0, "float32"),
+    (1, 2048, 2048, 16, 8, 256, True, 512, 50.0, "float32"),
+]
+DECODE_CASES += [
+    (4, 64, 16, 8, 256, 0, 0, 50.0, "bfloat16"),
+    (4, 64, 16, 8, 256, 62, 0, 50.0, "bfloat16"),
+    (2, 24, 16, 8, 256, 15, 0, 50.0, "float32"),
+    (2, 8192, 16, 8, 256, 8191, 0, 50.0, "float32"),
+    (1, 8192, 16, 8, 256, 6000, 4096, 50.0, "float32"),
+]
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+QK_STD = 1.5          # q and k: scores of spread ~2.25 at any D
+REL_BOUND = 0.01      # mean |kernel − plain| ≤ REL_BOUND · mean |plain|
+# gemma2-9b at its published width: prefill of one 8192-token prompt
+# (max_seq_len), decode of 4 slots over an 8192 linear cache and a 4096 ring.
+PREFILL = dict(B=1, S=8192, H=16, KV=8, D=256, cap=50.0)
+DECODE = dict(B=4, S=8192, H=16, KV=8, D=256, cap=50.0, W=4096, ring_pos=6000)
+SERVE = dict(requests=16, slots=4, max_len=64, prompt_len=8, new_tokens=8)
+GEMMA2_PARAMS = 9_241_404_928             # the reference's LM.init tree, counted
+GEMMA2_WEIGHT_BYTES = GEMMA2_PARAMS * 2    # bf16, read once a decode step
+
+
+def within(torch, out, ref, tol: float) -> bool:
+    """|out − ref| ≤ tol + tol·|ref| everywhere (assert_allclose's rule)."""
+    return bool(((out.float() - ref.float()).abs() <= tol + tol * ref.float().abs()).all())
+
+
+def agree(torch, out, ref, tol: float, what: str) -> tuple[float, float]:
+    """An attention kernel's output against its plain version: within
+    ``tol`` everywhere and mean |out − ref| ≤ REL_BOUND · mean |ref|.
+    Returns (max_abs_err, mean |out − ref| / mean |ref|)."""
+    err = max_abs_err(torch, out, ref)
+    rel = float((out.float() - ref.float()).abs().mean() / ref.float().abs().mean())
+    check(within(torch, out, ref, tol), f"{what} != plain version within {tol}")
+    check(rel <= REL_BOUND, f"{what}: mean error is {rel!r} of mean |plain| (limit {REL_BOUND})")
+    return err, rel
+
+
+def sdpa_backend(torch, fn) -> str:
+    """The backend scaled_dot_product_attention ran, read from the aten
+    operator one call dispatched to (torch.profiler, host activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = {e.key for e in prof.key_averages()}
+    for backend in ("cudnn", "flash", "efficient"):
+        if f"aten::_scaled_dot_product_{backend}_attention" in ops:
+            return backend
+    if "aten::_scaled_dot_product_attention_math" in ops:
+        return "math"
+    return "not measured (no SDPA backend operator in the trace)"
+
+
+def attn_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks let through."""
+    total = 0
+    for qp in range(Sq):
+        hi = min(qp, Sk - 1) if causal else Sk - 1
+        lo = max(0, qp - window + 1) if window > 0 else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def phase_attention_kernels(torch):
+    """Flash and decode kernels against their plain versions on the card:
+    the JAX kernel tests' cases, then gemma2-9b's shapes (timed)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as da_ops, ref as da_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def draw(shape, dtype, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    for case in ATTN_CASES:
+        B, Sq, Sk, H, KV, D, causal, window, cap, name = case
+        q, k = draw((B, Sq, H, D), dt[name], QK_STD), draw((B, Sk, KV, D), dt[name], QK_STD)
+        v = draw((B, Sk, KV, D), dt[name])
+        out = fa_ops.flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+        ref = fa_ref.flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
+        torch.cuda.synchronize()
+        err, rel = agree(torch, out, ref, ATTN_TOL[name], f"flash_attention {case}")
+        print(f"phase 2 flash_attention {case}: max_abs_err {err!r} ({rel!r} mean error / mean |plain|)")
+        del q, k, v, out, ref
+    for case in DECODE_CASES:
+        B, S, H, KV, D, pos, window, cap, name = case
+        q, k = draw((B, H, D), dt[name], QK_STD), draw((B, S, KV, D), dt[name], QK_STD)
+        v = draw((B, S, KV, D), dt[name])
+        out = da_ops.decode_attention(q, k, v, pos, window=window, softcap=cap)
+        ref = da_ref.decode_attention_ref(q, k, v, pos, window=window, softcap=cap)
+        torch.cuda.synchronize()
+        err, rel = agree(torch, out, ref, ATTN_TOL[name], f"decode_attention {case}")
+        print(f"phase 2 decode_attention {case}: max_abs_err {err!r} ({rel!r} mean error / mean |plain|)")
+    torch.cuda.empty_cache()
+
+    bf = torch.bfloat16
+    out = {}
+
+    # -- flash at prefill scale: a global layer (causal) and a local one (window 4096)
+    B, S, H, KV, D, cap = (PREFILL[k] for k in ("B", "S", "H", "KV", "D", "cap"))
+    q, k, v = draw((B, S, H, D), bf, QK_STD), draw((B, S, KV, D), bf, QK_STD), draw((B, S, KV, D), bf)
+    o = torch.empty_like(q)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    rows = {}
+    for window in (0, 4096):
+        kern = fa_ops.flash_attention(q, k, v, window=window, softcap=cap)
+        plain = fa_ref.flash_attention_ref(q, k, v, window=window, softcap=cap)
+        torch.cuda.synchronize()
+        err, rel = agree(torch, kern, plain, 2e-2, f"flash_attention at prefill scale (window {window})")
+        del kern, plain
+        torch.cuda.empty_cache()
+        pairs = attn_pairs(S, S, True, window)
+        b_ms, b_by = bound((2 * B * S * H * D + 2 * B * S * KV * D) * 2, 4 * B * H * D * pairs, "bf16")
+        rows[window] = dict(
+            ms=kernel_ms(torch, fa_ops.launcher(q, k, v, o, window=window, softcap=cap), reps=5, inner=5),
+            plain_ms=kernel_ms(torch, lambda: fa_ref.flash_attention_ref(q, k, v, window=window, softcap=cap),
+                               reps=3, inner=1),
+            ms_softcap0=kernel_ms(torch, fa_ops.launcher(q, k, v, o, window=window), reps=5, inner=5),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err, mean_rel_err=rel, pairs=pairs)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
+    rows[0]["library_ms"] = kernel_ms(torch, sdpa, reps=5, inner=5)
+    rows[0]["library_backend"] = sdpa_backend(torch, sdpa)
+    out["flash_attention"] = dict(rows[0], shape=[B, S, H, KV, D], window_4096=rows[4096])
+    del q, k, v, o, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    # -- decode at serving scale: an 8192 linear cache (pos S−1) and a 4096 ring past its wrap
+    B, S, H, KV, D, cap, W = (DECODE[k] for k in ("B", "S", "H", "KV", "D", "cap", "W"))
+    q = draw((B, H, D), bf, QK_STD)
+    rows = {}
+    for name, L, pos in (("linear", S, S - 1), ("ring", W, min(DECODE["ring_pos"], W - 1))):
+        cache = torch.stack([draw((B, L, KV, D), bf, QK_STD), draw((B, L, KV, D), bf)])
+        k, v = cache[0], cache[1]
+        kern = da_ops.decode_attention(q, k, v, pos, softcap=cap)
+        plain = da_ref.decode_attention_ref(q, k, v, pos, softcap=cap)
+        torch.cuda.synchronize()
+        err, rel = agree(torch, kern, plain, 2e-2, f"decode_attention {name} at serving scale")
+        o = torch.empty_like(q)
+
+        visible = pos + 1
+        b_ms, b_by = bound(2 * B * visible * KV * D * 2 + 2 * B * H * D * 2,
+                           4 * B * H * D * visible, "bf16")
+        qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        sdpa = lambda qs=qs, ks=ks, vs=vs: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True)  # noqa: E731
+        rows[name] = dict(
+            ms=kernel_ms(torch, da_ops.launcher(q, k, v, o, pos, softcap=cap)),
+            ms_softcap0=kernel_ms(torch, da_ops.launcher(q, k, v, o, pos)),
+            plain_ms=kernel_ms(torch, lambda: da_ref.decode_attention_ref(q, k, v, pos, softcap=cap),
+                               reps=3, inner=2),
+            library_ms=kernel_ms(torch, sdpa), library_backend=sdpa_backend(torch, sdpa),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err, mean_rel_err=rel,
+            pos=pos, cache_len=L)
+        del cache, k, v, kern, plain
+    out["decode_attention"] = dict(rows["linear"], shape=[B, S, H, KV, D], ring_4096=rows["ring"])
+    torch.cuda.empty_cache()
+
+    for name, r in out.items():
+        extra = r.get("window_4096") or r.get("ring_4096")
+        print(f"phase 2 {name} {r['shape']}: kernel {r['ms']:.6f} ms (softcap 0: {r['ms_softcap0']:.6f} ms), "
+              f"plain {r['plain_ms']:.6f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
+              f"SDPA softcap 0 {r['library_ms']:.6f} ms ({r['library_backend']}), "
+              f"max_abs_err {r['max_abs_err']!r} ({r['mean_rel_err']!r} mean error / mean |plain|)")
+        print(f"  second shape: {json.dumps(extra)}")
+    return out
+
+
+def step_trace(torch, fn, steps: int) -> dict:
+    """CUDA kernels a call of ``fn`` launches and the device time they
+    take (torch.profiler, summed over kernels, averaged over ``steps``
+    calls), with the six kernels that take most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    return dict(kernels=sum(e.count for e in kern) / steps,
+                busy_ms=sum(e.self_device_time_total for e in kern) / 1e3 / steps,
+                top=[[e.key[:60], e.count // steps, e.self_device_time_total / 1e3 / steps] for e in top])
+
+
+def serve_once(torch, lm, seed: int):
+    """launch/serve.py's traffic through the engine: two tenants of
+    quota 100, random prompts from NumPy's generator(seed)."""
+    from repro_torch.serving import InferenceRequest, ServingEngine
+
+    rng = np.random.default_rng(seed)
+    engine = ServingEngine(lm, num_slots=SERVE["slots"], max_len=SERVE["max_len"],
+                           quotas={"tenant-a": 100.0, "tenant-b": 100.0})
+    reqs = []
+    for i in range(SERVE["requests"]):
+        r = InferenceRequest(user=f"tenant-{'ab'[i % 2]}",
+                             prompt=rng.integers(0, lm.cfg.vocab_size, SERVE["prompt_len"]).astype(np.int32),
+                             max_new_tokens=SERVE["new_tokens"])
+        reqs.append(r)
+        engine.submit(r, now=float(i))
+    t0 = time.perf_counter()
+    stats = engine.run_until_drained()
+    torch.cuda.synchronize()
+    return engine, reqs, stats, time.perf_counter() - t0
+
+
+def phase_serving(torch):
+    """gemma2-9b at its published width and depth, bf16, random weights
+    from a seeded generator on the card: the engine serves launch/serve.py's
+    traffic, then one 8192-token prefill through LM.forward(last_only=True)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import LM, decode
+
+    dev = torch.device("cuda")
+    cfg = get_config("gemma2-9b")
+    t0 = time.perf_counter()
+    lm = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in lm.parameters())
+    print(f"phase 4 gemma2-9b: {cfg.num_layers} layers, d {cfg.d_model}, {n_params} parameters "
+          f"({n_params * 2 / 1e9:.2f} GB bf16) on the card in {time.perf_counter() - t0:.3f} s")
+    check(n_params == GEMMA2_PARAMS, f"gemma2-9b has {n_params} parameters")
+
+    counters = {"flash_attention": fa_ops.flash_attention, "decode_attention": da_ops.decode_attention}
+    for fn in counters.values():
+        fn.launches = 0
+    engine, reqs, stats, wall = serve_once(torch, lm, SEED)
+    prompt = torch.as_tensor(np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size, (1, PREFILL["S"])),
+                             device=dev)
+    t0 = time.perf_counter()
+    logits, _ = lm.forward(prompt, last_only=True)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    tokens = sum(len(r.generated) for r in reqs)
+    print(f"phase 4 served {stats.served}/{len(reqs)} in {stats.batches} batches, {stats.decode_steps} decode "
+          f"steps, {tokens} tokens in {wall:.6f} s ({tokens / wall:.3f} tokens/s); prefill of "
+          f"{PREFILL['S']} tokens {prefill_s:.6f} s; launches {launches}")
+    check(stats.served == 16 and stats.batches == 4 and stats.decode_steps == 28 and tokens == 128,
+          f"serving stats {stats}, {tokens} tokens")
+    check(all(r.done and len(r.generated) == 8 and all(0 <= t < cfg.vocab_size for t in r.generated)
+              for r in reqs), "a request did not get 8 tokens in the vocabulary")
+    check(tuple(logits.shape) == (1, 1, cfg.padded_vocab) and bool(torch.isfinite(logits).all()),
+          "prefill logits not finite of shape (1, 1, V)")
+    check(float(logits.abs().max()) <= cfg.final_logit_softcap, "prefill logits beyond the soft-cap")
+    # prefill-by-decode: 8 steps per batch plus 7 decode steps, 42 layers each
+    check(launches["decode_attention"] == 4 * (8 + 7) * cfg.num_layers,
+          f"decode kernel launched {launches['decode_attention']} times")
+    check(launches["flash_attention"] == cfg.num_layers, f"flash kernel launched {launches['flash_attention']} times")
+
+    # Median decode step (one token for the 4 slots at pos 32 of the 64
+    # cache), host clock around a synchronize, after the run.
+    tok = torch.zeros((SERVE["slots"], 1), dtype=torch.int64, device=dev)
+    times = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        decode.decode_step(lm, tok, engine.cache, 32)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_ms = statistics.median(times[1:]) * 1e3
+    bound_ms = GEMMA2_WEIGHT_BYTES / HBM_BYTES_PER_S * 1e3
+    print(f"phase 4 decode step (4 slots, pos 32): median {step_ms:.6f} ms of 20, weight-streaming bound "
+          f"{bound_ms:.6f} ms ({GEMMA2_WEIGHT_BYTES / 1e9:.2f} GB / 3.35 TB/s)")
+    trace = step_trace(torch, lambda: decode.decode_step(lm, tok, engine.cache, 32), steps=3)
+    busy_ms = trace["busy_ms"]
+    idle = 1.0 - busy_ms / step_ms if busy_ms else None
+    print(f"phase 4 decode step trace (torch.profiler, 3 steps): {trace['kernels']:.1f} CUDA kernels and "
+          f"{busy_ms:.6f} ms of device time a step; device idle share of the median step "
+          f"{'not measured' if idle is None else f'{idle:.6f}'}; top kernels {json.dumps(trace['top'])}")
+
+    first = [list(r.generated) for r in reqs]
+    lm.init(torch.Generator(device=dev).manual_seed(SEED))
+    _, reqs2, stats2, wall2 = serve_once(torch, lm, SEED)
+    check([r.generated for r in reqs2] == first, "a second run with the same seed gave other tokens")
+    print(f"phase 4 second run, same seed: identical tokens ({wall2:.6f} s); first request {first[0]}")
+    del engine, lm, logits
+    return dict(launches=launches, tokens_per_s=tokens / wall, step_ms=step_ms, step_bound_ms=bound_ms,
+                prefill_s=prefill_s, wall_s=wall, step_busy_ms=busy_ms, step_idle_share=idle)
+
+
+def phase_prefill_equals_decode(torch):
+    """gemma2-9b at full width in float32 (36.97 GB): LM.forward's logits
+    (flash kernel) against a decode_step loop (decode kernel), B 2,
+    16 tokens, rtol = atol = 2e-3 (tests/models/test_smoke_archs.py)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import LM, decode
+
+    dev = torch.device("cuda")
+    cfg = get_config("gemma2-9b").replace(param_dtype="float32", compute_dtype="float32")
+    lm = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
+    B, T = 2, 16
+    toks = torch.as_tensor(np.random.default_rng(SEED + 2).integers(0, cfg.vocab_size, (B, T)), device=dev)
+    for fn in (fa_ops.flash_attention, da_ops.decode_attention):
+        fn.launches = 0
+    full, _ = lm.forward(toks)
+    cache = decode.init_cache(lm, B, T + 8)
+    steps = []
+    for t in range(T):
+        lt, cache = decode.decode_step(lm, toks[:, t : t + 1], cache, t)
+        steps.append(lt[:, 0])
+    dec = torch.stack(steps, dim=1)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fa_ops.flash_attention.launches,
+                "decode_attention": da_ops.decode_attention.launches}
+    err = float((dec - full).abs().max())
+    print(f"phase 5 float32 prefill vs decode at full width ({B} x {T}): max |diff| {err!r}, "
+          f"max |logit| {float(full.abs().max())!r}, launches {launches}")
+    check(launches == {"flash_attention": cfg.num_layers, "decode_attention": T * cfg.num_layers},
+          f"phase 5 launches {launches}")
+    check(bool(torch.isfinite(full).all()), "phase 5 logits not finite")
+    check(within(torch, dec, full, 2e-3), "prefill logits != decode logits within 2e-3")
+    del lm, cache
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -464,6 +845,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.core as P
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 products in float32 (phase 5)
+    torch.backends.cudnn.allow_tf32 = False
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -476,6 +860,11 @@ def main() -> int:
     kernels = phase_kernels(torch, P, BIG_JOBS, BIG_SITES, REQUEUE_L)
     phase_fig6(P)
     launches, _ = phase_main_path(torch, P)
+    attn = phase_attention_kernels(torch)
+    serving = phase_serving(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_prefill_equals_decode(torch)
 
     meta = {
         "cost_matrix_f32": ("src/repro_torch/kernels/cost_matrix/csrc/cost_matrix.cu",
@@ -487,6 +876,12 @@ def main() -> int:
         "priority_requeue": ("src/repro_torch/kernels/priority_requeue/csrc/priority_requeue.cu",
                              "src/repro/kernels/priority_requeue/priority_requeue.py:34"),
     }
+    attn_meta = {
+        "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/flash_attention.py:72"),
+        "decode_attention": ("src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+                             "src/repro/kernels/decode_attention/decode_attention.py:65"),
+    }
     line = []
     for name, (source, replaces) in meta.items():
         r = kernels[name]
@@ -496,6 +891,10 @@ def main() -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, shape=r["shape"],
         ))
+    for name, (source, replaces) in attn_meta.items():
+        r = attn[name]
+        line.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+                         launches=serving["launches"][name], **r))
     f64 = kernels["priority_requeue_f64"]
     print(f"priority_requeue f64 instance (not on the main path): ms {f64['ms']!r} plain_ms "
           f"{f64['plain_ms']!r} bound_ms {f64['bound_ms']!r}, bit-equal to reprioritize_np")

@@ -26,7 +26,8 @@ from pathlib import Path
 import torch
 
 __all__ = [
-    "SOURCES", "NVCC_FLAGS", "build", "library", "check", "launch_device", "stream_of",
+    "SOURCES", "NVCC_FLAGS", "build", "library", "check", "launch_device", "strided_device",
+    "check_rows", "stream_of",
 ]
 
 _KERNELS = Path(__file__).resolve().parent
@@ -55,6 +56,16 @@ _SIGNATURES = {
                                    _P, _P, _I64, _P),
     "repro_priority_requeue_f64": (_P, _P, _P, _c.c_double, _c.c_double,
                                    _P, _P, _I64, _P),
+    # q, k, v, o; B, H, KV, Sq, Sk, D; q strides; k/v strides; causal,
+    # window, softcap; stream
+    **{f"repro_flash_attention_{t}": (_P, _P, _P, _P, *(_I64,) * 6, *(_I64,) * 6,
+                                      _c.c_int, _I64, _c.c_float, _P)
+       for t in ("f32", "bf16")},
+    # q, k, v, o, ws_m, ws_l, ws_acc; B, KV, rep, S, D, pos; k/v strides;
+    # window, softcap, split; stream
+    **{f"repro_decode_attention_{t}": (*(_P,) * 7, *(_I64,) * 6, *(_I64,) * 3,
+                                       _I64, _c.c_float, _I64, _P)
+       for t in ("f32", "bf16")},
 }
 
 
@@ -136,6 +147,21 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
 
 
+def _one_device(name: str, args: dict) -> torch.device:
+    """The common device of a wrapper's tensors: every argument a tensor,
+    all on one device, and that device the host or a CUDA card."""
+    for key, t in args.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: {key} must be a torch.Tensor, got {type(t).__name__}")
+    devices = {t.device for t in args.values()}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel or plain version for device {dev}")
+    return dev
+
+
 def launch_device(name: str, args: dict, dtypes: dict, shapes: dict):
     """Validate a wrapper's tensors and return their common device.
 
@@ -144,10 +170,8 @@ def launch_device(name: str, args: dict, dtypes: dict, shapes: dict):
     tensors must share one device and be contiguous: the kernels take
     raw pointers with the layout they assume.
     """
-    devices = set()
+    dev = _one_device(name, args)
     for key, t in args.items():
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name}: {key} must be a torch.Tensor, got {type(t).__name__}")
         if t.dtype != dtypes[key]:
             raise TypeError(f"{name}: {key} must be {dtypes[key]}, got {t.dtype}")
         want = shapes[key]
@@ -155,13 +179,28 @@ def launch_device(name: str, args: dict, dtypes: dict, shapes: dict):
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {want}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-        devices.add(t.device)
-    if len(devices) != 1:
-        raise ValueError(f"{name}: tensors on several devices {sorted(map(str, devices))}")
-    dev = devices.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: no kernel or plain version for device {dev}")
     return dev
+
+
+def strided_device(name: str, args: dict, dtypes: tuple) -> tuple[torch.device, torch.dtype]:
+    """Validate the tensors of a wrapper whose kernel reads through
+    strides; return their common device and type, one of ``dtypes``."""
+    dev = _one_device(name, args)
+    types = {t.dtype for t in args.values()}
+    if len(types) != 1 or next(iter(types)) not in dtypes:
+        raise TypeError(f"{name}: tensors must share one type of {list(dtypes)}, got {sorted(map(str, types))}")
+    return dev, types.pop()
+
+
+def check_rows(name: str, args: dict) -> None:
+    """A strided kernel's tensors: the last dimension contiguous, and the
+    base and every other stride on 16 bytes (its vector loads)."""
+    for key, t in args.items():
+        per16 = 16 // t.element_size()
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: {key} must have a contiguous last dimension")
+        if t.data_ptr() % 16 or any(s % per16 for s in t.stride()[:-1]):
+            raise ValueError(f"{name}: {key} must start and stride on 16 bytes, strides {t.stride()}")
 
 
 def stream_of(device) -> int:

@@ -1,0 +1,89 @@
+"""Wrapper of the decode_attention CUDA kernel.
+
+Takes the model's layout, q (B, H, D) and a (B, S, KV, D) cache, as the
+reference wrapper ``repro.kernels.decode_attention.ops.decode_attention``
+does; the kernel reads the cache through its strides, so the transposed
+copy the reference wrapper makes on every call is gone. A tensor on the
+host goes to the plain version in ``ref.py``; a CUDA tensor launches
+the kernel (``csrc/decode_attention.cu``: a split pass and a combine
+pass, counted as one launch) or raises. The wrapper counts its launches
+in ``decode_attention.launches``. ``launcher`` builds the kernel's call
+on checked CUDA tensors, workspace included, for the wrapper and for
+timing it alone.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from .ref import decode_attention_ref
+
+__all__ = ["decode_attention", "launcher", "HEAD_DIMS", "MAX_REP", "SPLIT"]
+
+_ENTRY = {torch.float32: "repro_decode_attention_f32", torch.bfloat16: "repro_decode_attention_bf16"}
+HEAD_DIMS = (32, 64, 128, 256)   # the kernel's instances
+MAX_REP = 16                     # query heads a kv group, at most
+SPLIT = 256                      # keys a block of the split pass
+
+
+def decode_attention(q, k, v, pos: int, *, window: int = 0, softcap: float = 0.0):
+    """q: (B, H, D); k, v: (B, S, KV, D); 0 ≤ pos < S → (B, H, D).
+
+    Keys at positions kp ≤ pos (and pos − kp < window with a window)
+    are visible to the one query token."""
+    dev, dtype = _build.strided_device("decode_attention", dict(q=q, k=k, v=v), tuple(_ENTRY))
+    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"decode_attention: q (B,H,D), k and v (B,S,KV,D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or KV < 1 or H % KV:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)} and k {tuple(k.shape)} do not "
+                         "share B and D with H a multiple of KV")
+    pos = int(pos)
+    if not 0 <= pos < S:
+        raise ValueError(f"decode_attention: pos {pos} outside the cache [0, {S})")
+    if window < 0 or softcap < 0:
+        raise ValueError("decode_attention: window and softcap must be ≥ 0")
+    if dev.type == "cpu":
+        return decode_attention_ref(q, k, v, pos, window=window, softcap=softcap)
+    rep = H // KV
+    if D not in HEAD_DIMS or rep > MAX_REP:
+        raise ValueError(f"decode_attention: the kernel takes D in {HEAD_DIMS} and at most "
+                         f"{MAX_REP} query heads a kv group, got D {D}, {rep}")
+    if not q.is_contiguous():
+        raise ValueError("decode_attention: q must be contiguous")
+    if k.stride() != v.stride():
+        raise ValueError("decode_attention: k and v must have the same strides")
+    _build.check_rows("decode_attention", dict(q=q, k=k, v=v))
+    o = torch.empty((B, H, D), dtype=dtype, device=dev)
+    if B == 0:
+        return o
+    run = launcher(q, k, v, o, pos, window=window, softcap=softcap)
+    decode_attention.launches += 1
+    run()
+    return o
+
+
+def launcher(q, k, v, o, pos: int, *, window: int = 0, softcap: float = 0.0):
+    """The kernel's launch into ``o`` (B, H, D) as a closure, on CUDA
+    tensors that ``decode_attention`` has checked; the closure holds the
+    split pass's float32 workspace (m, l, then acc per split and head)."""
+    B, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    nsplit = -(-S // SPLIT)
+    n = B * KV * nsplit * rep
+    ws = torch.empty(n * (D + 2), dtype=torch.float32, device=q.device)
+    fn = getattr(_build.library(), _ENTRY[q.dtype])
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            ws.data_ptr(), ws[n:].data_ptr(), ws[2 * n:].data_ptr(),
+            B, KV, rep, S, D, int(pos), k.stride(0), k.stride(1), k.stride(2),
+            int(window), float(softcap), SPLIT, _build.stream_of(q.device))
+
+    def run(_hold=(q, k, v, o, ws)):
+        _build.check(fn(*args), "decode_attention")
+    return run
+
+
+decode_attention.launches = 0

@@ -142,3 +142,153 @@ def test_scheduler_on_the_card_equals_the_host(dev):
     a, b = gpu.place_batch(copy.deepcopy(jobs)), cpu.place_batch(copy.deepcopy(jobs))
     assert a.sites == b.sites and a.costs.tolist() == b.costs.tolist()
     assert all(gpu.sites[n].queue_length == cpu.sites[n].queue_length for n in sites)
+
+
+# -- attention kernels --------------------------------------------------------
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as da_ops, ref as da_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref  # noqa: E402
+from repro_torch.models import LM, decode  # noqa: E402
+
+# The JAX kernel tests' cases (tests/kernels/test_kernels.py ATTN_CASES,
+# DECODE_CASES) plus ragged lengths, D 32, a window on a long row, and
+# float32 rows over many key tiles (flash: 64 keys) and many splits
+# (decode: 256 keys), where the cross-tile rescale shows at 2e-5.
+FLASH_CASES = [
+    # (B, Sq, Sk, H, KV, D, causal, window, softcap, dtype)
+    (1, 128, 128, 4, 4, 64, True, 0, 0.0, torch.float32),
+    (2, 256, 256, 4, 2, 64, True, 0, 0.0, torch.float32),
+    (1, 128, 128, 8, 1, 128, True, 64, 0.0, torch.float32),
+    (1, 256, 256, 4, 4, 128, True, 0, 50.0, torch.float32),
+    (1, 128, 128, 4, 4, 256, True, 0, 0.0, torch.bfloat16),
+    (1, 128, 256, 2, 2, 64, False, 0, 0.0, torch.float32),
+    (2, 200, 200, 4, 2, 256, True, 96, 50.0, torch.bfloat16),
+    (1, 77, 77, 4, 2, 32, True, 0, 0.0, torch.bfloat16),
+    (1, 77, 77, 4, 2, 32, True, 16, 0.0, torch.float32),
+    (1, 300, 300, 8, 4, 128, True, 0, 0.0, torch.bfloat16),
+    (1, 1024, 1024, 4, 2, 128, True, 0, 50.0, torch.float32),
+    (1, 1024, 1024, 8, 4, 256, True, 300, 50.0, torch.float32),
+]
+DECODE_CASES = [
+    # (B, S, H, KV, D, pos, window, softcap, dtype)
+    (1, 128, 4, 4, 64, 0, 0, 0.0, torch.float32),
+    (2, 512, 8, 2, 64, 100, 0, 0.0, torch.float32),
+    (1, 512, 8, 1, 128, 511, 64, 0.0, torch.float32),
+    (2, 256, 16, 8, 256, 200, 0, 50.0, torch.float32),
+    (1, 512, 8, 8, 128, 300, 0, 0.0, torch.bfloat16),
+    (3, 1000, 16, 8, 256, 999, 300, 50.0, torch.bfloat16),
+    (2, 64, 4, 2, 32, 40, 0, 0.0, torch.bfloat16),
+    (2, 8192, 16, 8, 256, 8191, 0, 50.0, torch.float32),
+    (1, 8192, 16, 8, 256, 6000, 4096, 50.0, torch.float32),
+    (1, 3000, 8, 2, 128, 2500, 0, 0.0, torch.float32),
+]
+
+
+def _tol(dtype):
+    return 2e-2 if dtype == torch.bfloat16 else 2e-5
+
+
+def _randn(rng, shape, dtype, dev, scale=1.0):
+    return torch.as_tensor(rng.standard_normal(shape) * scale, dtype=torch.float32).to(dev, dtype)
+
+
+def _qkv(rng, q_shape, kv_shape, dtype, dev):
+    """q and k of standard deviation 1.5, so that scores spread over
+    several units as a trained model's do; v standard normal."""
+    return (_randn(rng, q_shape, dtype, dev, 1.5), _randn(rng, kv_shape, dtype, dev, 1.5),
+            _randn(rng, kv_shape, dtype, dev))
+
+
+def _agree(out, ref, dtype):
+    """Within the JAX kernel tests' tolerance, and the mean error under 1%
+    of the mean |ref| (rounding gives about 0.2% in bf16; a missing rescale
+    between key tiles or splits moves the output by a large share of itself)."""
+    torch.testing.assert_close(out.float(), ref.float(), rtol=_tol(dtype), atol=_tol(dtype))
+    err = float((out.float() - ref.float()).abs().mean())
+    assert err <= 0.01 * float(ref.float().abs().mean())
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_attention_kernel(dev, case):
+    B, Sq, Sk, H, KV, D, causal, window, cap, dt = case
+    rng = np.random.default_rng(Sq * 7 + D)
+    q, k, v = _qkv(rng, (B, Sq, H, D), (B, Sk, KV, D), dt, dev)
+    before = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    ref = fa_ref.flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
+    _agree(out, ref, dt)
+
+
+def test_flash_attention_reads_strides(dev):
+    """q, k, v as column slices of one fused projection (B, S, H+2KV, D)."""
+    rng = np.random.default_rng(5)
+    qkv = _randn(rng, (2, 130, 16 + 16, 256), torch.bfloat16, dev, 1.5)
+    q, k, v = qkv[:, :, :16], qkv[:, :, 16:24], qkv[:, :, 24:]
+    out = fa_ops.flash_attention(q, k, v, window=64, softcap=50.0)
+    ref = fa_ref.flash_attention_ref(q, k, v, window=64, softcap=50.0)
+    _agree(out, ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=str)
+def test_decode_attention_kernel(dev, case):
+    B, S, H, KV, D, pos, window, cap, dt = case
+    rng = np.random.default_rng(S + pos)
+    q, k, v = _qkv(rng, (B, H, D), (B, S, KV, D), dt, dev)
+    before = da_ops.decode_attention.launches
+    out = da_ops.decode_attention(q, k, v, pos, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert da_ops.decode_attention.launches == before + 1
+    ref = da_ref.decode_attention_ref(q, k, v, pos, window=window, softcap=cap)
+    _agree(out, ref, dt)
+
+
+def test_decode_attention_ring_and_layer_slice(dev):
+    """A ring layer of a stacked cache (a strided view) read up to
+    min(pos, W − 1) equals the plain version on the same view."""
+    rng = np.random.default_rng(9)
+    cache = _randn(rng, (3, 2, 4, 96, 8, 256), torch.bfloat16, dev, 1.5)
+    k, v = cache[1, 1], cache[2, 0]
+    q = _randn(rng, (4, 16, 256), torch.bfloat16, dev, 1.5)
+    for pos in (0, 50, 95):
+        out = da_ops.decode_attention(q, k, v, pos, softcap=50.0)
+        ref = da_ref.decode_attention_ref(q, k, v, pos, softcap=50.0)
+        _agree(out, ref, torch.bfloat16)
+
+
+def test_attention_wrappers_reject_bad_cuda_input(dev):
+    q = torch.ones((1, 8, 2, 48), device=dev)
+    with pytest.raises(ValueError, match="takes D"):
+        fa_ops.flash_attention(q, q, q)
+    q = torch.ones((1, 2, 64), device=dev)
+    kv = torch.ones((1, 8, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="pos 8 outside"):
+        da_ops.decode_attention(q, kv, kv, 8)
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        odd = torch.ones((1, 8, 2, 128), device=dev)[..., ::2]
+        da_ops.decode_attention(q, odd, odd, 3)
+
+
+def test_reduced_model_on_the_card_equals_the_host(dev):
+    """Reduced gemma2 (GQA 4/2, head_dim 32, ring of 64 wrapped by a
+    max_len of 96) in float32: prefill and 16 decode steps on the card
+    against the same weights on the host."""
+    cfg = get_config("gemma2-9b", reduced=True).replace(
+        num_kv_heads=2, param_dtype="float32", compute_dtype="float32")
+    host = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = LM(cfg, device=dev)
+    card.load_state_dict(host.state_dict())
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24)))
+    lh, _ = host.forward(toks)
+    lc, _ = card.forward(toks.to(dev))
+    torch.testing.assert_close(lc.cpu(), lh, rtol=1e-4, atol=1e-4)
+    ch, cc = decode.init_cache(host, 2, 96), decode.init_cache(card, 2, 96)
+    for pos in range(56, 72):
+        t = toks[:, pos % 24 : pos % 24 + 1]
+        a, ch = decode.decode_step(host, t, ch, pos)
+        b, cc = decode.decode_step(card, t.to(dev), cc, pos)
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
+    for name in ch:
+        torch.testing.assert_close(cc[name].cpu(), ch[name], rtol=1e-4, atol=1e-4)

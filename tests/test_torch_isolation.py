@@ -31,6 +31,9 @@ def test_imports_with_jax_and_reference_blocked():
         "sys.modules['repro'] = None\n"
         "import repro_torch, repro_torch.core\n"
         "import repro_torch.kernels.cost_matrix.ops, repro_torch.kernels.priority_requeue.ops\n"
+        "import repro_torch.kernels.flash_attention.ops, repro_torch.kernels.decode_attention.ops\n"
+        "import repro_torch.configs, repro_torch.models, repro_torch.serving, repro_torch.launch.serve\n"
+        "repro_torch.configs.get_config('gemma2-9b')\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro') "
         "and sys.modules[m] is not None)\n"
         "print('LOADED', loaded)\n"
@@ -49,6 +52,8 @@ def test_no_jax_or_reference_import(path):
 def test_ops_import_and_build_nothing_without_nvcc():
     r = _run(
         "import repro_torch.kernels.cost_matrix.ops, repro_torch.kernels.priority_requeue.ops\n"
+        "import repro_torch.kernels.flash_attention.ops, repro_torch.kernels.decode_attention.ops\n"
+        "import repro_torch.serving\n"
         "from repro_torch.kernels import _build\n"
         "print('CACHED', _build.library.cache_info().currsize)\n"
         "try:\n"
@@ -63,9 +68,12 @@ def test_ops_import_and_build_nothing_without_nvcc():
 
 
 def _default_device_calls():
+    from repro_torch.configs import get_config
     from repro_torch.core import (
         DianaScheduler, JobPack, SitePack, replay_place, reprioritize, total_cost_matrix,
     )
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
 
     one = np.ones(1)
     return {
@@ -79,6 +87,9 @@ def _default_device_calls():
         "replay_place": lambda: replay_place([], {}, {}),
         "total_cost_matrix": lambda: total_cost_matrix(
             one, one, one, one, one, one, one, one, [True]),
+        # ServingEngine runs on its model's device; the CLI builds both
+        "LM": lambda: LM(get_config("gemma2-9b", reduced=True)),
+        "ServingEngine (launch.serve)": lambda: serve.main(["--requests", "1"]),
     }
 
 
@@ -157,6 +168,10 @@ class TestWrapperValidation:
         ("kernels/cost_matrix/csrc/cost_matrix.cu", "src/repro/kernels/cost_matrix/cost_matrix.py"),
         ("kernels/priority_requeue/csrc/priority_requeue.cu",
          "src/repro/kernels/priority_requeue/priority_requeue.py"),
+        ("kernels/flash_attention/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention/flash_attention.py"),
+        ("kernels/decode_attention/csrc/decode_attention.cu",
+         "src/repro/kernels/decode_attention/decode_attention.py"),
     ],
 )
 def test_kernel_sources_are_built_and_name_their_tpu_kernel(source, replaces):
