@@ -27,9 +27,14 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    mean error must also stay under 1% of the mean |output| (rounding
    gives about 0.2% in bf16; a missing rescale between key tiles moves
    the output by a large share of itself).
+   bf16 cases at every head dim with ragged lengths (77, 200, 1000)
+   exercise the bf16 flash body's tensor maps, swizzles and masked edge
+   tiles, and GQA rep 3 and 16 the decode kernel's head groups.
    Times (CUDA events) go beside the plain version, the bound and
    scaled_dot_product_attention at soft-cap 0 (with the backend it
-   chose, from a profiler trace).
+   chose, from a profiler trace; for the window-4096 layer with a
+   boolean band mask), with each kernel's share of its bound; the
+   decode rows also time the split pass at other split sizes.
 4. Serve gemma2-9b at its published width and depth in bf16 (weights
    from a seeded generator on the card) through ``ServingEngine``:
    launch/serve.py's 16 requests of two tenants, 4 slots, max_len 64,
@@ -505,18 +510,26 @@ DECODE_CASES = [
     (2, 256, 16, 8, 256, 200, 0, 50.0, "float32"),
     (1, 512, 8, 8, 128, 300, 0, 0.0, "bfloat16"),
 ]
-# The main path's own shapes: phase 5's float32 prefill (B 2, 16 tokens,
-# a global and a local layer), the engine's decode over its 64-slot caches
-# (first prefill step, last decode step) and phase 5's 24-slot caches.
+# bf16 cases at every head dim with ragged lengths, a window edge inside
+# a key tile or chunk, non-causal Sq < Sk and GQA rep 3 and 16; the main
+# path's own shapes: phase 5's float32 prefill (B 2, 16 tokens, a global
+# and a local layer), the engine's decode over its 64-slot caches (first
+# prefill step, last decode step) and phase 5's 24-slot caches.
 # Then float32 rows over many of the flash kernel's 64-key tiles and the
 # decode kernel's 256-key splits, where the rescale between them shows.
 ATTN_CASES += [
+    (1, 77, 77, 4, 2, 32, True, 0, 0.0, "bfloat16"),
+    (1, 200, 200, 4, 2, 64, True, 100, 50.0, "bfloat16"),
+    (1, 1000, 1000, 8, 2, 128, True, 0, 0.0, "bfloat16"),
+    (2, 200, 1000, 4, 2, 256, False, 0, 50.0, "bfloat16"),
     (2, 16, 16, 16, 8, 256, True, 0, 50.0, "float32"),
     (2, 16, 16, 16, 8, 256, True, 4096, 50.0, "float32"),
     (1, 2048, 2048, 16, 8, 256, True, 0, 50.0, "float32"),
     (1, 2048, 2048, 16, 8, 256, True, 512, 50.0, "float32"),
 ]
 DECODE_CASES += [
+    (2, 77, 6, 2, 128, 76, 0, 0.0, "bfloat16"),
+    (1, 1000, 32, 2, 256, 999, 45, 50.0, "bfloat16"),
     (4, 64, 16, 8, 256, 0, 0, 50.0, "bfloat16"),
     (4, 64, 16, 8, 256, 62, 0, 50.0, "bfloat16"),
     (2, 24, 16, 8, 256, 15, 0, 50.0, "float32"),
@@ -641,8 +654,14 @@ def phase_attention_kernels(torch):
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
     rows[0]["library_ms"] = kernel_ms(torch, sdpa, reps=5, inner=5)
     rows[0]["library_backend"] = sdpa_backend(torch, sdpa)
+    # The local layer's yardstick: SDPA with a boolean band mask (S² bools).
+    pos = torch.arange(S, device=dev)
+    band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < 4096)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, enable_gqa=True)  # noqa: E731
+    rows[4096]["library_ms"] = kernel_ms(torch, sdpa, reps=3, inner=2)
+    rows[4096]["library_backend"] = sdpa_backend(torch, sdpa)
     out["flash_attention"] = dict(rows[0], shape=[B, S, H, KV, D], window_4096=rows[4096])
-    del q, k, v, o, qt, kt, vt
+    del q, k, v, o, qt, kt, vt, band
     torch.cuda.empty_cache()
 
     # -- decode at serving scale: an 8192 linear cache (pos S−1) and a 4096 ring past its wrap
@@ -663,7 +682,11 @@ def phase_attention_kernels(torch):
                            4 * B * H * D * visible, "bf16")
         qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
         sdpa = lambda qs=qs, ks=ks, vs=vs: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True)  # noqa: E731
+        split = da_ops.split_size(B, KV, L)
+        sweep = {s: kernel_ms(torch, da_ops.launcher(q, k, v, o, pos, softcap=cap, split=s))
+                 for s in (L // 64, L // 32, L // 16, L // 8, L // 4, split)}
         rows[name] = dict(
+            split=split, split_sweep_ms=sweep,
             ms=kernel_ms(torch, da_ops.launcher(q, k, v, o, pos, softcap=cap)),
             ms_softcap0=kernel_ms(torch, da_ops.launcher(q, k, v, o, pos)),
             plain_ms=kernel_ms(torch, lambda: da_ref.decode_attention_ref(q, k, v, pos, softcap=cap),
@@ -675,6 +698,9 @@ def phase_attention_kernels(torch):
     out["decode_attention"] = dict(rows["linear"], shape=[B, S, H, KV, D], ring_4096=rows["ring"])
     torch.cuda.empty_cache()
 
+    for r in (out["flash_attention"], out["flash_attention"]["window_4096"], out["decode_attention"],
+              out["decode_attention"]["ring_4096"]):
+        r["bound_share"] = r["bound_ms"] / r["ms"]
     for name, r in out.items():
         extra = r.get("window_4096") or r.get("ring_4096")
         print(f"phase 2 {name} {r['shape']}: kernel {r['ms']:.6f} ms (softcap 0: {r['ms_softcap0']:.6f} ms), "
@@ -895,6 +921,9 @@ def main() -> int:
         r = attn[name]
         line.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=serving["launches"][name], **r))
+    for k in line:
+        k["bound_share"] = k["bound_ms"] / k["ms"]
+        k["launches_x_gap_ms"] = k["launches"] * (k["ms"] - k["bound_ms"])
     f64 = kernels["priority_requeue_f64"]
     print(f"priority_requeue f64 instance (not on the main path): ms {f64['ms']!r} plain_ms "
           f"{f64['plain_ms']!r} bound_ms {f64['bound_ms']!r}, bit-equal to reprioritize_np")

@@ -1,7 +1,7 @@
 // One-token GQA decode attention over a KV cache, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel
-// src/repro/kernels/decode_attention/decode_attention.py
+// src/repro/kernels/decode_attention/decode_attention.py:65
 // (decode_attention_pallas, _kernel): the rep = H / KV query heads of
 // one kv group against the group's cache, keys masked by kp <= pos and,
 // with a window, pos - kp < window; scale D^-0.5, tanh soft-cap, online
@@ -15,19 +15,37 @@
 //
 // The TPU kernel walks the S blocks of one (batch, group) in order. Here
 // that walk is split (flash-decoding): block (split, group, batch) takes
-// `split` keys, skips the keys no mask lets through, and writes its
-// partial softmax state (m, l and the unnormalised accumulator, per query
-// head) to a float32 workspace; a second kernel combines the splits,
-// rescaling each by exp(m_split - m). Each key row is read once for the
-// whole head group. A split with no visible key writes m = NEG_INF, l = 0
-// and acc = 0, and drops out of the combine. Ring caches use the same
-// kernel: the caller passes pos' = min(pos, W - 1) and no window.
+// `split` keys (chosen by the wrapper from B, KV and S), skips the keys
+// no mask lets through, and writes its partial softmax state (m and l
+// in the exp2 domain, and the unnormalised accumulator, per query head)
+// to a float32 workspace; a second kernel combines the splits,
+// rescaling each by 2^(m_split - m). Each key row is read once for the
+// whole head group. A split with no visible key writes m = NEG_INF,
+// l = 0 and acc = 0, and drops out of the combine. Ring caches use the
+// same kernel: the caller passes pos' = min(pos, W - 1) and no window.
 //
 // Bound on an H100: bytes. gemma2-9b serving (B 4, KV 8, S 8192, D 256,
 // bf16) reads 2·4·8·8192·256·2 B = 268 MB of K and V, 0.080 ms at
 // 3.35 TB/s; its 2·2·B·H·S·D = 0.54 GFLOP are far below the card's rate.
-// This first kernel is simple: one warp per key for QK (16-byte loads),
-// one thread per output column for PV (2-byte loads), no cp.async.
+// So the split pass keeps the memory busy: it streams its keys through
+// shared memory in chunks of 32 rows, three stages deep, with cp.async
+// (16 bytes a thread), K and V of a chunk in separate copy groups, so
+// that V of chunk c and both later chunks are in flight while K of
+// chunk c is scored (32-96 KB a block in flight at D 256). QK gives each
+// key a group of 8 lanes (4 at 64-byte rows), each lane 16-byte vectors
+// of the row, and reduces the per-head partial dots by a transposed
+// butterfly: the lanes exchange halves of their head sums, so with rep
+// heads a key costs log2(8) + rep - 1 shuffles in place of 5 a head, and
+// each lane ends up with one head's full dot. The softmax state of a
+// head lives in the registers of one warp (exp2, scale · log2 e folded).
+// PV gives each thread 8 consecutive output columns (one 16-byte load
+// of a V row) over a subset of the chunk's keys; the partial sums of
+// the key groups are reduced once per split, in a fixed tree order in
+// shared memory. The wrapper sizes the splits so that the grid fills
+// whole waves of resident blocks (ops.split_size: 8 splits of 1,024 keys
+// at B 4, KV 8, S 8192, 256 blocks). Budget at bf16, D 256, rep 2: 96 KB
+// of stages and 2 KB of q a block, two blocks an SM; ptxas (CUDA 12.9):
+// 86 registers, at most 208 in any instance (rep 16), 0 bytes of spills.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,21 +55,25 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -2.0e38f;
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRep = 16;
+constexpr int kChunk = 32;  // keys a stage (one a lane in the softmax)
+constexpr int kStages = 3;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
-  float* ws_m;    // (B, KV, nsplit, rep)
+  float* ws_m;    // (B, KV, nsplit, rep), exp2 domain
   float* ws_l;    // (B, KV, nsplit, rep)
   float* ws_acc;  // (B, KV, nsplit, rep, D)
   int B, KV, rep, S, pos, window, split, nsplit;
   int64_t kv_sb, kv_ss, kv_sh;  // k and v strides (elements): batch, sequence, head
-  float softcap, scale;
+  float qk_scale;  // D^-0.5 · log2 e, or D^-0.5 / softcap with a soft-cap
+  float cap_log2;  // softcap · log2 e, or 0 without one
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -64,33 +86,32 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ bf16 from_float<bf16>(float x) { return __float2bfloat16(x); }
 
-// VEC consecutive elements (VEC·sizeof(T) ∈ {4, 8, 16, 32} bytes) as floats.
-template <typename T, int VEC>
-__device__ __forceinline__ void load_vec(const T* src, float* dst) {
-  constexpr int BYTES = VEC * (int)sizeof(T);
-  constexpr int PER16 = 16 / (int)sizeof(T);
-  if constexpr (BYTES >= 16) {
+// One 16-byte vector of T from shared memory, as floats.
+template <typename T>
+__device__ __forceinline__ void load16(const unsigned char* src, float* dst) {
+  constexpr int N = 16 / (int)sizeof(T);
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-    for (int c = 0; c < BYTES / 16; ++c) {
-      const uint4 raw = reinterpret_cast<const uint4*>(src)[c];
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int t = 0; t < PER16; ++t) dst[c * PER16 + t] = to_float(e[t]);
-    }
-  } else if constexpr (BYTES == 8) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(src);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int t = 0; t < VEC; ++t) dst[t] = to_float(e[t]);
-  } else if constexpr (BYTES == 4) {
-    const uint32_t raw = *reinterpret_cast<const uint32_t*>(src);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int t = 0; t < VEC; ++t) dst[t] = to_float(e[t]);
-  } else {
-    static_assert(VEC == 1, "rows of 2, 4, 8, 16 or 32 bytes a lane");
-    dst[0] = to_float(src[0]);
-  }
+  for (int t = 0; t < N; ++t) dst[t] = to_float(e[t]);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -105,28 +126,64 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-template <int D>
-__host__ __device__ constexpr int key_groups() { return kThreads / D; }  // PV: threads a column
-
-template <int D>
-size_t split_smem_bytes(int rep, int split) {
-  const int groups = key_groups<D>();
-  return sizeof(float) *
-         ((size_t)rep * D + (size_t)rep * split + (groups > 1 ? (size_t)groups * rep * D : 0) +
-          2 * (size_t)rep);
+// Transposed butterfly over a group of 2·O lanes holding N partial sums
+// each: at every step the lanes whose bit O is set keep the upper half of
+// the sums and send the lower half, so after log2(N) steps a lane holds
+// the group's full sum of entry lg / (2·O / N), and the remaining steps
+// add plain halves.
+template <int N, int O>
+__device__ __forceinline__ float treduce(float* v, int lg) {
+  if constexpr (N == 1) {
+    float x = v[0];
+#pragma unroll
+    for (int o = O; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    return x;
+  } else {
+    const bool up = (lg & O) != 0;
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float send = up ? v[i] : v[i + N / 2];
+      const float keep = up ? v[i + N / 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    return treduce<N / 2, O / 2>(v, lg);
+  }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) decode_split_kernel(Params p) {
-  constexpr int VEC = D / 32;
-  constexpr int G = key_groups<D>();
-  extern __shared__ float sm[];
-  const int rep = p.rep;
-  float* qs = sm;                                  // rep x D
-  float* ss = qs + rep * D;                        // rep x split: scores, then p
-  float* red = ss + rep * p.split;                 // G x rep x D (G > 1)
-  float* stat = red + (G > 1 ? G * rep * D : 0);   // m[rep], l[rep]
+struct Split {
+  static constexpr int VEC = 16 / (int)sizeof(T);           // elements of a 16-byte vector
+  static constexpr int ROW = D * (int)sizeof(T);            // bytes of a key row
+  static constexpr int G = ROW / 16 < 8 ? ROW / 16 : 8;     // QK: lanes a key
+  static constexpr int NV = ROW / 16 / G;                   // QK: vectors a lane a key
+  static constexpr int KPW = 32 / G;                        // QK: keys a warp at once
+  static constexpr int CG = D / VEC;                        // PV: 16-byte column groups
+  static constexpr int KG = kThreads / CG;                  // PV: key groups
+  static constexpr int STAGE = 2 * kChunk * ROW;            // K and V rows of one chunk
+  template <int REPB>
+  __host__ __device__ static constexpr size_t region() {  // the ring, later the key-group sums
+    const size_t ring = (size_t)kStages * STAGE, red = (size_t)(KG / 2) * REPB * D * 4;
+    return ring > red ? ring : red;
+  }
+  template <int REPB>
+  __host__ __device__ static constexpr size_t bytes() {
+    return region<REPB>() + sizeof(float) * ((size_t)REPB * D + (size_t)REPB * kChunk + REPB);
+  }
+};
 
+template <typename T, int D, int REPB>
+__global__ void __launch_bounds__(kThreads, REPB <= 4 ? 2 : 1) decode_split_kernel(Params p) {
+  using L = Split<T, D>;
+  constexpr int VEC = L::VEC, G = L::G;
+  constexpr size_t kRegion = L::template region<REPB>();
+  static_assert(kChunk == 32, "the softmax gives each key of a chunk one lane");
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem + kRegion);                    // REPB x D
+  float* sc = qs + REPB * D;                                               // REPB x kChunk
+  float* corr_s = sc + REPB * kChunk;                                      // REPB
+  float* red = reinterpret_cast<float*>(smem);  // after the loop: (KG / 2) x REPB x D
+
+  const int rep = p.rep;
   const int sp = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int64_t ws_row = ((int64_t)(b * p.KV + g) * p.nsplit + sp) * rep;
@@ -145,86 +202,178 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(Params p) {
     return;
   }
   const int n = e - a + 1;
-
-  const T* qg = static_cast<const T*>(p.q) + ((int64_t)b * p.KV + g) * rep * D;
-  for (int idx = tid; idx < rep * D; idx += kThreads) qs[idx] = to_float(qg[idx]);
-  __syncthreads();
+  const int nchunks = (n + kChunk - 1) / kChunk;
 
   const T* kg = static_cast<const T*>(p.k) + b * p.kv_sb + g * p.kv_sh + (int64_t)a * p.kv_ss;
   const T* vg = static_cast<const T*>(p.v) + b * p.kv_sb + g * p.kv_sh + (int64_t)a * p.kv_ss;
 
-  // Scores: one warp per key, each lane VEC consecutive elements.
-  for (int j = warp; j < n; j += kWarps) {
-    float kv[VEC];
-    load_vec<T, VEC>(kg + (int64_t)j * p.kv_ss + lane * VEC, kv);
-    for (int r = 0; r < rep; ++r) {
-      const float* qr = qs + r * D + lane * VEC;
-      float dot = 0.f;
-#pragma unroll
-      for (int t = 0; t < VEC; ++t) dot = fmaf(qr[t], kv[t], dot);
-      dot = warp_sum(dot);
-      if (lane == 0) {
-        float s = dot * p.scale;
-        if (p.softcap > 0.f) s = p.softcap * tanhf(s / p.softcap);
-        ss[r * p.split + j] = s;
+  // Chunk ci's K rows, then its V rows, into stage ci % kStages: two
+  // copy groups (empty ones past the last chunk keep the count fixed).
+  auto issue = [&](int ci) {
+    if (ci < nchunks) {
+      constexpr int PPR = L::ROW / 16;
+      const int rows = min(kChunk, n - ci * kChunk);
+      unsigned char* ks = smem + (ci % kStages) * L::STAGE;
+      unsigned char* vs = ks + kChunk * L::ROW;
+      for (int idx = tid; idx < rows * PPR; idx += kThreads) {
+        const int r = idx / PPR, pc = idx % PPR;
+        cp_async16(ks + r * L::ROW + pc * 16, kg + (int64_t)(ci * kChunk + r) * p.kv_ss + pc * VEC);
       }
+      cp_commit();
+      for (int idx = tid; idx < rows * PPR; idx += kThreads) {
+        const int r = idx / PPR, pc = idx % PPR;
+        cp_async16(vs + r * L::ROW + pc * 16, vg + (int64_t)(ci * kChunk + r) * p.kv_ss + pc * VEC);
+      }
+      cp_commit();
+    } else {
+      cp_commit();
+      cp_commit();
     }
-  }
-  __syncthreads();
+  };
+#pragma unroll
+  for (int ci = 0; ci < kStages - 1; ++ci) issue(ci);
 
-  // Softmax state of each head row over this split: p = exp(s - m),
-  // rounded to T for the PV product; l sums the unrounded p.
-  for (int r = warp; r < rep; r += kWarps) {
-    float* row = ss + r * p.split;
-    float mx = kNegInf;
-    for (int j = lane; j < n; j += 32) mx = fmaxf(mx, row[j]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float pe = expf(row[j] - mx);
-      sum += pe;
-      row[j] = to_float(from_float<T>(pe));
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      stat[r] = mx;
-      stat[rep + r] = sum;
-    }
-  }
-  __syncthreads();
+  const T* qg = static_cast<const T*>(p.q) + ((int64_t)b * p.KV + g) * rep * D;
+  for (int idx = tid; idx < rep * D; idx += kThreads) qs[idx] = to_float(qg[idx]);
 
-  // PV: thread (group, column d) sums keys group, group + G, ...
-  const int d = tid % D, grp = tid / D;
-  float acc[kMaxRep];
+  // Softmax state of heads warp and warp + 8 (l: this lane's share).
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  // PV: 16-byte column group cg, keys kq, kq + KG, … of each chunk.
+  const int cg = tid % L::CG, kq = tid / L::CG;
+  float acc[REPB][VEC];
 #pragma unroll
-  for (int r = 0; r < kMaxRep; ++r) acc[r] = 0.f;
-  for (int j = grp; j < n; j += G) {
-    const float vv = to_float(vg[(int64_t)j * p.kv_ss + d]);
+  for (int r = 0; r < REPB; ++r)
 #pragma unroll
-    for (int r = 0; r < kMaxRep; ++r)
-      if (r < rep) acc[r] = fmaf(ss[r * p.split + j], vv, acc[r]);
-  }
-  if constexpr (G > 1) {
-#pragma unroll
-    for (int r = 0; r < kMaxRep; ++r)
-      if (r < rep) red[(grp * rep + r) * D + d] = acc[r];
+    for (int t = 0; t < VEC; ++t) acc[r][t] = 0.f;
+  // QK: key group grp of G lanes, lane lg of it.
+  const int grp = lane / G, lg = lane % G;
+
+  for (int ci = 0; ci < nchunks; ++ci) {
+    issue(ci + kStages - 1);        // into the stage chunk ci - 1 has released
+    cp_wait<2 * kStages - 1>();     // K of chunk ci has landed
     __syncthreads();
-    if (grp == 0) {
-      for (int gg = 1; gg < G; ++gg) {
+    const unsigned char* ks = smem + (ci % kStages) * L::STAGE;
+    const unsigned char* vs = ks + kChunk * L::ROW;
+    const int rows = min(kChunk, n - ci * kChunk);
+
+    // Scores of the chunk, exp2 domain; rows past the split are masked.
+    for (int j = warp * L::KPW + grp; j < kChunk; j += kWarps * L::KPW) {
+      constexpr int N = REPB < G ? REPB : G;
 #pragma unroll
-        for (int r = 0; r < kMaxRep; ++r)
-          if (r < rep) acc[r] += red[(gg * rep + r) * D + d];
+      for (int r0 = 0; r0 < REPB; r0 += N) {
+        float part[N];
+#pragma unroll
+        for (int h = 0; h < N; ++h) part[h] = 0.f;
+#pragma unroll
+        for (int i = 0; i < L::NV; ++i) {
+          const int e0 = (lg + G * i) * VEC;
+          float kv[VEC];
+          load16<T>(ks + j * L::ROW + e0 * (int)sizeof(T), kv);
+#pragma unroll
+          for (int h = 0; h < N; ++h)
+            if (r0 + h < rep) {
+              const float* qr = qs + (r0 + h) * D + e0;
+#pragma unroll
+              for (int t = 0; t < VEC; ++t) part[h] = fmaf(qr[t], kv[t], part[h]);
+            }
+        }
+        const float dot = treduce<N, G / 2>(part, lg);
+        const int r = r0 + lg / (G / N);
+        if (lg % (G / N) == 0 && r < rep) {
+          const float s = p.cap_log2 > 0.f ? tanhf(dot * p.qk_scale) * p.cap_log2 : dot * p.qk_scale;
+          sc[r * kChunk + j] = j < rows ? s : kNegInf;
+        }
+      }
+    }
+    __syncthreads();
+
+    // Online softmax, one warp a head, one lane a key; p rounded to T
+    // for the PV product, l sums the unrounded p.
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = warp + kWarps * i;
+      if (r < rep) {
+        const float x = sc[r * kChunk + lane];
+        const float m_new = fmaxf(m_run[i], warp_max(x));
+        const float corr = ex2(m_run[i] - m_new);
+        const float pe = ex2(x - m_new);
+        l_run[i] = l_run[i] * corr + pe;
+        sc[r * kChunk + lane] = to_float(from_float<T>(pe));
+        if (lane == 0) corr_s[r] = corr;
+        m_run[i] = m_new;
+      }
+    }
+    cp_wait<2 * kStages - 2>();     // V of chunk ci has landed
+    __syncthreads();
+
+    // PV over this thread's keys of the chunk.
+#pragma unroll
+    for (int r = 0; r < REPB; ++r)
+      if (r < rep) {
+        const float cr = corr_s[r];
+#pragma unroll
+        for (int t = 0; t < VEC; ++t) acc[r][t] *= cr;
+      }
+    for (int j = kq; j < rows; j += L::KG) {
+      float vv[VEC];
+      load16<T>(vs + j * L::ROW + cg * 16, vv);
+#pragma unroll
+      for (int r = 0; r < REPB; ++r)
+        if (r < rep) {
+          const float pr = sc[r * kChunk + j];
+#pragma unroll
+          for (int t = 0; t < VEC; ++t) acc[r][t] = fmaf(pr, vv[t], acc[r][t]);
+        }
+    }
+    __syncthreads();                // the stage and the scores are free again
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp + kWarps * i;
+    if (r < rep) {
+      const float l = warp_sum(l_run[i]);
+      if (lane == 0) {
+        p.ws_m[ws_row + r] = m_run[i];
+        p.ws_l[ws_row + r] = l;
       }
     }
   }
-  if (grp == 0) {
+  // Sum the key groups' partial accumulators, in a fixed tree order.
+  cp_wait<0>();
 #pragma unroll
-    for (int r = 0; r < kMaxRep; ++r)
-      if (r < rep) p.ws_acc[(ws_row + r) * D + d] = acc[r];
+  for (int half = L::KG / 2; half > 0; half /= 2) {
+    if (kq >= half && kq < 2 * half) {
+#pragma unroll
+      for (int r = 0; r < REPB; ++r)
+        if (r < rep) {
+          float* dst = red + ((kq - half) * REPB + r) * D + cg * VEC;
+#pragma unroll
+          for (int t = 0; t < VEC; t += 4)
+            *reinterpret_cast<float4*>(dst + t) =
+                make_float4(acc[r][t], acc[r][t + 1], acc[r][t + 2], acc[r][t + 3]);
+        }
+    }
+    __syncthreads();
+    if (kq < half) {
+#pragma unroll
+      for (int r = 0; r < REPB; ++r)
+        if (r < rep) {
+          const float* src = red + (kq * REPB + r) * D + cg * VEC;
+#pragma unroll
+          for (int t = 0; t < VEC; ++t) acc[r][t] += src[t];
+        }
+    }
+    __syncthreads();
   }
-  if (tid < rep) {
-    p.ws_m[ws_row + tid] = stat[tid];
-    p.ws_l[ws_row + tid] = stat[rep + tid];
+  if (kq == 0) {
+#pragma unroll
+    for (int r = 0; r < REPB; ++r)
+      if (r < rep) {
+        float* dst = p.ws_acc + (ws_row + r) * D + cg * VEC;  // 4-byte aligned only
+#pragma unroll
+        for (int t = 0; t < VEC; ++t) dst[t] = acc[r][t];
+      }
   }
 }
 
@@ -241,7 +390,7 @@ __global__ void __launch_bounds__(D) decode_combine_kernel(Params p) {
     float l = 0.f, acc = 0.f;
     for (int s = 0; s < p.nsplit; ++s) {
       const int64_t row = base + (int64_t)s * rep + r;
-      const float w = expf(p.ws_m[row] - m);
+      const float w = ex2(p.ws_m[row] - m);
       l += p.ws_l[row] * w;
       acc += p.ws_acc[row * D + d] * w;
     }
@@ -249,18 +398,26 @@ __global__ void __launch_bounds__(D) decode_combine_kernel(Params p) {
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int REPB>
 int launch(const Params& p, void* stream) {
-  const size_t smem = split_smem_bytes<D>(p.rep, p.split);
-  cudaError_t err = cudaFuncSetAttribute(decode_split_kernel<T, D>,
+  const size_t smem = Split<T, D>::template bytes<REPB>();
+  cudaError_t err = cudaFuncSetAttribute(decode_split_kernel<T, D, REPB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)p.nsplit, (unsigned)p.KV, (unsigned)p.B);
-  decode_split_kernel<T, D><<<grid, kThreads, smem, (cudaStream_t)stream>>>(p);
+  decode_split_kernel<T, D, REPB><<<grid, kThreads, smem, (cudaStream_t)stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   decode_combine_kernel<T, D><<<dim3((unsigned)p.KV, (unsigned)p.B), D, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_rep(const Params& p, void* stream) {
+  if (p.rep <= 2) return launch<T, D, 2>(p, stream);
+  if (p.rep <= 4) return launch<T, D, 4>(p, stream);
+  if (p.rep <= 8) return launch<T, D, 8>(p, stream);
+  return launch<T, D, 16>(p, stream);
 }
 
 template <typename T>
@@ -276,13 +433,14 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* ws_m, 
   p.window = (int)window; p.split = (int)split;
   p.nsplit = (int)((S + split - 1) / split);
   p.kv_sb = kv_sb; p.kv_ss = kv_ss; p.kv_sh = kv_sh;
-  p.softcap = softcap;
-  p.scale = (float)(1.0 / sqrt((double)D));
+  const float scale = (float)(1.0 / sqrt((double)D));
+  p.qk_scale = softcap > 0.f ? scale / softcap : scale * kLog2e;
+  p.cap_log2 = softcap > 0.f ? softcap * kLog2e : 0.f;
   switch (D) {
-    case 32: return launch<T, 32>(p, stream);
-    case 64: return launch<T, 64>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
-    case 256: return launch<T, 256>(p, stream);
+    case 32: return launch_rep<T, 32>(p, stream);
+    case 64: return launch_rep<T, 64>(p, stream);
+    case 128: return launch_rep<T, 128>(p, stream);
+    case 256: return launch_rep<T, 256>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -9,21 +9,52 @@ the kernel (``csrc/decode_attention.cu``: a split pass and a combine
 pass, counted as one launch) or raises. The wrapper counts its launches
 in ``decode_attention.launches``. ``launcher`` builds the kernel's call
 on checked CUDA tensors, workspace included, for the wrapper and for
-timing it alone.
+timing it alone. ``split_size`` chooses the keys a block of the split
+pass takes from (B, KV, S) alone, and ``workspace_floats`` sizes the
+workspace from it, so the launch and its workspace cannot disagree.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from .. import _build
 from .ref import decode_attention_ref
 
-__all__ = ["decode_attention", "launcher", "HEAD_DIMS", "MAX_REP", "SPLIT"]
+__all__ = ["decode_attention", "launcher", "split_size", "workspace_floats", "HEAD_DIMS", "MAX_REP",
+           "CHUNK", "WAVE", "BLOCK_COST"]
 
 _ENTRY = {torch.float32: "repro_decode_attention_f32", torch.bfloat16: "repro_decode_attention_bf16"}
 HEAD_DIMS = (32, 64, 128, 256)   # the kernel's instances
 MAX_REP = 16                     # query heads a kv group, at most
-SPLIT = 256                      # keys a block of the split pass
+CHUNK = 32                       # keys a stage of the split pass streams
+WAVE = 2 * 132                   # split-pass blocks an H100 holds at once (two an SM at bf16, D 256)
+BLOCK_COST = 4 * CHUNK           # a block's fixed cost (pipeline fill, partial state), in keys
+
+
+@functools.cache
+def split_size(B: int, KV: int, S: int) -> int:
+    """Keys a block of the split pass takes (a multiple of CHUNK).
+
+    The pass streams the cache at the card's memory rate while every SM
+    holds its blocks, so a wave of WAVE blocks takes about as long as one
+    block: its keys plus BLOCK_COST. The number of splits n minimises
+    ceil(B·KV·n / WAVE) · (ceil(S / n) + BLOCK_COST), the smallest n on a
+    tie; chip_smoke.py's sweep over split sizes is the measurement."""
+    best_n, best = 1, None
+    for n in range(1, -(-S // CHUNK) + 1):
+        cost = -(-B * KV * n // WAVE) * (-(-S // n) + BLOCK_COST)
+        if best is None or cost < best:
+            best_n, best = n, cost
+    per = -(-S // best_n)
+    return -(-per // CHUNK) * CHUNK
+
+
+def workspace_floats(B: int, KV: int, rep: int, S: int, D: int, split: int) -> int:
+    """Floats of the split pass's workspace: m and l per (batch, group,
+    split, head), then D accumulator values per (batch, group, split, head)."""
+    return B * KV * -(-S // split) * rep * (D + 2)
 
 
 def decode_attention(q, k, v, pos: int, *, window: int = 0, softcap: float = 0.0):
@@ -65,21 +96,22 @@ def decode_attention(q, k, v, pos: int, *, window: int = 0, softcap: float = 0.0
     return o
 
 
-def launcher(q, k, v, o, pos: int, *, window: int = 0, softcap: float = 0.0):
+def launcher(q, k, v, o, pos: int, *, window: int = 0, softcap: float = 0.0, split: int | None = None):
     """The kernel's launch into ``o`` (B, H, D) as a closure, on CUDA
     tensors that ``decode_attention`` has checked; the closure holds the
-    split pass's float32 workspace (m, l, then acc per split and head)."""
+    split pass's float32 workspace (m, l, then acc per split and head).
+    ``split`` overrides ``split_size`` (for measuring the choice)."""
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     rep = H // KV
-    nsplit = -(-S // SPLIT)
-    n = B * KV * nsplit * rep
-    ws = torch.empty(n * (D + 2), dtype=torch.float32, device=q.device)
+    split = split_size(B, KV, S) if split is None else split
+    ws = torch.empty(workspace_floats(B, KV, rep, S, D, split), dtype=torch.float32, device=q.device)
+    n = ws.numel() // (D + 2)
     fn = getattr(_build.library(), _ENTRY[q.dtype])
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             ws.data_ptr(), ws[n:].data_ptr(), ws[2 * n:].data_ptr(),
             B, KV, rep, S, D, int(pos), k.stride(0), k.stride(1), k.stride(2),
-            int(window), float(softcap), SPLIT, _build.stream_of(q.device))
+            int(window), float(softcap), split, _build.stream_of(q.device))
 
     def run(_hold=(q, k, v, o, ws)):
         _build.check(fn(*args), "decode_attention")

@@ -1,7 +1,7 @@
 // Blocked flash attention (forward) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel
-// src/repro/kernels/flash_attention/flash_attention.py
+// src/repro/kernels/flash_attention/flash_attention.py:72
 // (flash_attention_pallas, _kernel): causal / sliding-window GQA
 // attention with an online softmax (running max m, sum l and output
 // accumulator in float32), tanh soft-cap, scale D^-0.5 and output
@@ -10,43 +10,74 @@
 // Layout: q (B, Sq, H, D) and k, v (B, Sk, KV, D) are read through their
 // strides (batch, sequence, head; the head dimension D contiguous), so
 // the model's projections go in without a transpose; o is a contiguous
-// (B, Sq, H, D). One block computes one (batch, head, query tile): it
-// keeps its query tile, the current key and value tiles and the output
-// accumulator in shared memory and walks the key tiles in a loop (the
-// TPU kernel's sequential innermost grid axis). Key tiles that the
-// causal or window mask hides from every row of the query tile are
+// (B, Sq, H, D). A block walks the key tiles of one (batch, head, query
+// tile) in a loop (the TPU kernel's sequential innermost grid axis).
+// Key tiles that the causal or window mask hides from every row are
 // skipped; inside a visited tile masked scores are NEG_INF = -2e38, a
 // finite value, so a row whose first visited tile is fully masked gets
 // p = 1 there and the first unmasked tile wipes it (corr = 0), exactly
 // as in the TPU kernel. The wrapper rejects inputs where a query row has
 // no visible key at all.
 //
-// Two bodies:
-//  * bfloat16 (the model's type): 64 x 64 tiles, QK^T and PV on the
-//    tensor cores through WMMA (16x16x16 bf16 -> f32). Scores and the
-//    accumulator stay float32; p is rounded to bf16 before the PV
-//    product, as the TPU kernel does (p.astype(v.dtype)).
-//  * float32: 32 x 32 tiles on the CUDA cores (explicit fmaf), each
-//    thread owning a row slice of the accumulator in registers.
-//
 // Bound on an H100: operations. Causal prefill of gemma2-9b (B 1,
 // S 8192, H 16, D 256, bf16) needs 2·2·B·H·S²·D/2 = 5.5e11 FLOP, 0.56 ms
-// at 989 TFLOP/s, against 0.1 GB of q, k, v and o (0.03 ms at
-// 3.35 TB/s). This first kernel is simple, not fast: WMMA through
-// shared memory, synchronous loads, one block of 190 KB per SM; wgmma,
-// TMA and a pipelined ring of tiles are later work.
+// at 989 TFLOP/s, against 0.1 GB of q, k, v and o (0.03 ms at 3.35 TB/s).
+// Only wgmma reaches that rate, and only if the tiles it reads are in
+// shared memory when it wants them and the softmax between the two
+// products does not leave the tensor cores idle.
+//
+// Two bodies:
+//  * bfloat16 (the model's type), warp-specialised. A block of three
+//    warpgroups owns 128 query rows of one head: warpgroup 0 is the
+//    producer, warpgroups 1 and 2 each compute 64 of the rows. (The
+//    other choice, 64 rows of each of the rep heads of a kv group, would
+//    share K/V tiles across heads but ties the block to rep = 2; here the
+//    two consumers share every K/V tile of their head instead.) One
+//    producer thread loads the query tile once and then K and V tiles of
+//    64 keys by TMA (rank-4 tensor maps over the strided (B, S, heads, D)
+//    views, 128-byte swizzle, 64-byte at D 32) into a ring of two stages,
+//    each with a full barrier for K, one for V and an empty barrier that
+//    the eight consumer warps arrive on; the next stage's loads are in
+//    flight while the consumers compute on the current one. S = Q K^T is
+//    wgmma m64n64k16 with both operands in shared memory (K's rows are
+//    already the K-major B operand); the scores stay in registers, where
+//    the softmax runs in the exp2 domain (scale · log2 e folded into one
+//    multiply) with row max and sum over the quad of lanes that shares a
+//    row. A warpgroup reads only the tiles some row of it can see (a
+//    window hides a prefix, the diagonal a suffix) and runs the mask test
+//    only on tiles that cross the diagonal, the window edge or the end of
+//    the keys. The soft-cap's tanh is tanh.approx.f32 on the SFU. P is
+//    rounded to bf16 in registers and is the register A operand of the
+//    PV wgmma (the m64n64 accumulator layout is the A-fragment layout),
+//    so it never goes to shared memory; V's tile is the MN-major B
+//    operand. The f32 O accumulator (64 x D, 128 registers a thread at
+//    D 256) stays in registers and is rescaled by corr there; setmaxnreg
+//    gives the consumers 240 registers and the producer 24. The epilogue
+//    stages O / max(l, 1e-30) as bf16 in the warpgroup's own rows of the
+//    query tile and writes 16-byte rows. The two consumer warpgroups of
+//    a block overlap one's softmax with the other's products; a software
+//    pipeline inside a warpgroup (S of tile t issued before P V of tile
+//    t - 1) measured slower on the H100 and was left out.
+//    Budget at D 256: Q 64 KB + 2 x (32 + 32) KB ring = 192 KB of shared
+//    memory, one block an SM; ptxas (CUDA 12.9): 168 registers a thread
+//    at launch for every D (the consumers then raise theirs to 240),
+//    0 bytes of spills.
+//  * float32: 32 x 32 tiles on the CUDA cores (explicit fmaf), each
+//    thread owning a row slice of the accumulator in registers. It
+//    serves the float32 model, not the bf16 serving path.
+
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
 constexpr float kNegInf = -2.0e38f;
-constexpr int kThreads = 256;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kThreads = 256;  // the float32 body
 
 struct Params {
   const void* q;
@@ -70,156 +101,414 @@ __device__ __forceinline__ float score(float dot, int qp, int kp, const Params& 
 
 // The key range [begin, end) that some row of query tile [q0, q0 + bq)
 // can see; begin is rounded down to a key tile.
-__device__ __forceinline__ void key_range(const Params& p, int q0, int bq, int bk, int* begin,
-                                          int* end) {
-  const int q_last = min(q0 + bq, p.Sq) - 1;
-  int e = p.Sk;
-  if (p.causal) e = min(e, q_last + 1);
+__device__ __forceinline__ void key_range(int Sq, int Sk, int causal, int window, int q0, int bq,
+                                          int bk, int* begin, int* end) {
+  const int q_last = min(q0 + bq, Sq) - 1;
+  int e = Sk;
+  if (causal) e = min(e, q_last + 1);
   int b = 0;
-  if (p.window > 0) b = max(0, q0 - p.window + 1);
+  if (window > 0) b = max(0, q0 - window + 1);
   *begin = (b / bk) * bk;
   *end = e;
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores through WMMA
+// bfloat16: warp-specialised wgmma with a TMA ring
 // ---------------------------------------------------------------------------
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Spin until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), swizzle (1: 128 B, 2: 64 B).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint32_t swizzle) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | ((uint64_t)swizzle << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator
+// across the asynchronous wgmma that owns it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// The same for a register A operand: its registers must hold their
+// values until the wgmma that reads them has completed.
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+#define ACC8(i)                                                                               \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// D(64 x 64, f32) (+)= A(64 x 16, smem, K-major) · B(16 x 64, smem, K-major).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16"
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// D(64 x 64, f32) += A(64 x 16, registers) · B(16 x 64, smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16"
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D(64 x 32, f32) += A(64 x 16, registers) · B(16 x 32, smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16"
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef ACC8
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// tanh on the SFU (max relative error about 2^-11); the soft-cap's
+// score error is softcap · |tanh| · 2^-11.
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 template <int D>
-struct Bf16Tiles {
-  static constexpr int BQ = 64, BK = 64;
-  static constexpr int LDH = D + 8;   // bf16 q/k/v rows
-  static constexpr int LDS = BK + 4;  // f32 scores
-  static constexpr int LDP = BK + 8;  // bf16 probabilities
-  static constexpr int LDO = D + 4;   // f32 accumulator
-  static constexpr size_t bytes() {
-    return (size_t)(BQ + 2 * BK) * LDH * 2 + (size_t)BQ * LDS * 4 + (size_t)BQ * LDP * 2 +
-           (size_t)BQ * LDO * 4 + (size_t)BQ * 4;
-  }
+struct HopTiles {
+  static constexpr int BQ = 128, BK = 64, STAGES = 2, THREADS = 384;
+  static constexpr int BW = D < 64 ? D : 64;           // columns of one TMA box (one swizzled row)
+  static constexpr int NB = D / BW;                    // boxes a row
+  static constexpr int RB = BW * 2;                    // bytes of a box row
+  static constexpr uint32_t SWIZZLE = RB == 128 ? 1 : 2;  // wgmma layout: 128- or 64-byte swizzle
+  static constexpr int ATOM = 8 * RB;                  // bytes of eight swizzled rows
+  static constexpr int Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
+  static constexpr int Q_OFF = 0, K_OFF = Q_BYTES, V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  // + the barriers (q_full, k_full[STAGES], v_full[STAGES], empty[STAGES])
+  // + slack to align the base to the 1024-byte swizzle period
+  static constexpr size_t bytes() { return (size_t)BAR_OFF + 8 * (1 + 3 * STAGES) + 1024; }
+};
+
+struct TmaParams {
+  CUtensorMap tq, tk, tv;  // rank 4: (D, S, heads, B), innermost first
+  void* o;
+  int H, rep, Sq, Sk, causal, window;
+  float qk_scale;  // D^-0.5 · log2 e, or D^-0.5 / softcap with a soft-cap
+  float cap_log2;  // softcap · log2 e, or 0 without one
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bf16_kernel(Params p) {
-  using T = Bf16Tiles<D>;
-  constexpr int BQ = T::BQ, BK = T::BK, LDH = T::LDH, LDS = T::LDS, LDP = T::LDP, LDO = T::LDO;
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + BQ * LDH;
-  bf16* Vs = Ks + BK * LDH;
-  float* Ss = reinterpret_cast<float*>(Vs + BK * LDH);
-  bf16* Ps = reinterpret_cast<bf16*>(Ss + BQ * LDS);
-  float* Os = reinterpret_cast<float*>(Ps + BQ * LDP);
-  float* Ls = Os + BQ * LDO;
+__global__ void __launch_bounds__(384, 1) flash_bf16_kernel(const __grid_constant__ TmaParams p) {
+  using T = HopTiles<D>;
+  constexpr int BQ = T::BQ, BK = T::BK, ST = T::STAGES, BW = T::BW, NB = T::NB, RB = T::RB;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sgen = smem_raw + (base - raw);
+  const uint32_t sQ = base + T::Q_OFF, sK = base + T::K_OFF, sV = base + T::V_OFF;
+  const uint32_t q_full = base + T::BAR_OFF;
+  auto k_full = [&](int s) { return q_full + 8 * (1 + s); };
+  auto v_full = [&](int s) { return q_full + 8 * (1 + ST + s); };
+  auto empty = [&](int s) { return q_full + 8 * (1 + 2 * ST + s); };
 
-  const int tid = threadIdx.x, warp = tid / 32;
   const int n_qt = (p.Sq + BQ - 1) / BQ;
   const int q0 = (n_qt - 1 - (int)blockIdx.x) * BQ;  // longest causal rows first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (p.H / p.KV);
-  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.kv_sb + g * p.kv_sh;
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.kv_sb + g * p.kv_sh;
+  const int h = blockIdx.y, b = blockIdx.z, g = h / p.rep;
+  int kb, ke;
+  key_range(p.Sq, p.Sk, p.causal, p.window, q0, BQ, BK, &kb, &ke);
+  const int nt = (ke - kb + BK - 1) / BK;
 
-  for (int idx = tid; idx < BQ * VPR; idx += kThreads) {
-    const int r = idx / VPR, c = (idx % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < p.Sq) val = *reinterpret_cast<const uint4*>(qg + (int64_t)(q0 + r) * p.q_ss + c);
-    *reinterpret_cast<uint4*>(Qs + r * LDH + c) = val;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), 8);  // one arrival from each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int idx = tid; idx < BQ * LDO; idx += kThreads) Os[idx] = 0.f;
-
-  // Softmax ownership: row i, columns quarter + 4c (bank-conflict free).
-  const int i = tid >> 2, quarter = tid & 3;
-  const int qp = q0 + i;
-  float m_i = kNegInf, l_i = 0.f;
-
-  int k_begin, k_end;
-  key_range(p, q0, BQ, BK, &k_begin, &k_end);
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile's PV is done with Ks, Vs, Ps, Os
-    for (int idx = tid; idx < BK * VPR; idx += kThreads) {
-      const int r = idx / VPR, c = (idx % VPR) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (k0 + r < p.Sk) {
-        const int64_t off = (int64_t)(k0 + r) * p.kv_ss + c;
-        kv = *reinterpret_cast<const uint4*>(kg + off);
-        vv = *reinterpret_cast<const uint4*>(vg + off);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * LDH + c) = kv;
-      *reinterpret_cast<uint4*>(Vs + r * LDH + c) = vv;
-    }
-    __syncthreads();
-
-    // S = Q K^T: 4 x 4 fragments of 16 x 16, two per warp.
-    for (int f = warp; f < (BQ / 16) * (BK / 16); f += kThreads / 32) {
-      const int rb = f / (BK / 16), cb = f % (BK / 16);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll 4
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, Qs + rb * 16 * LDH + kk, LDH);
-        wmma::load_matrix_sync(fb, Ks + cb * 16 * LDH + kk, LDH);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(Ss + rb * 16 * LDS + cb * 16, acc, LDS, wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // Online softmax over this tile for row i (four threads a row).
-    float sv[BK / 4];
-    float mx = kNegInf;
-#pragma unroll
-    for (int c = 0; c < BK / 4; ++c) {
-      const int j = quarter + 4 * c;
-      sv[c] = score(Ss[i * LDS + j], qp, k0 + j, p);
-      mx = fmaxf(mx, sv[c]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m_i, mx);
-    const float corr = expf(m_i - m_new);
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < BK / 4; ++c) {
-      const float e = expf(sv[c] - m_new);
-      sum += e;
-      Ps[i * LDP + quarter + 4 * c] = __float2bfloat16(e);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    l_i = l_i * corr + sum;
-    m_i = m_new;
-    for (int d = quarter; d < D; d += 4) Os[i * LDO + d] *= corr;
-    __syncthreads();
-
-    // O += P V: 4 x (D/16) fragments, spread over the warps.
-    for (int f = warp; f < (BQ / 16) * (D / 16); f += kThreads / 32) {
-      const int rb = f / (D / 16), cb = f % (D / 16);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, Os + rb * 16 * LDO + cb * 16, LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, Ps + rb * 16 * LDP + kk, LDP);
-        wmma::load_matrix_sync(fb, Vs + kk * LDH + cb * 16, LDH);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(Os + rb * 16 * LDO + cb * 16, acc, LDO, wmma::mem_row_major);
-    }
-  }
-  if (quarter == 0) Ls[i] = l_i;
   __syncthreads();
 
-  bf16* og = static_cast<bf16*>(p.o);
-  for (int idx = tid; idx < BQ * D; idx += kThreads) {
-    const int r = idx / D, d = idx % D;
-    if (q0 + r < p.Sq) {
-      const int64_t row = ((int64_t)b * p.Sq + q0 + r) * p.H + h;
-      og[row * D + d] = __float2bfloat16(Os[r * LDO + d] / fmaxf(Ls[r], 1e-30f));
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: one thread issues every TMA load.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, T::Q_BYTES);
+      for (int j = 0; j < NB; ++j) tma_load_4d(sQ + j * BQ * RB, &p.tq, q_full, j * BW, q0, h, b);
+      for (int t = 0; t < nt; ++t) {
+        const int s = t % ST, k0 = kb + t * BK;
+        mbar_wait(empty(s), ((t / ST) & 1) ^ 1);  // the first pass over the ring finds it free
+        mbar_expect_tx(k_full(s), T::KV_BYTES);
+        for (int j = 0; j < NB; ++j)
+          tma_load_4d(sK + s * T::KV_BYTES + j * BK * RB, &p.tk, k_full(s), j * BW, k0, g, b);
+        mbar_expect_tx(v_full(s), T::KV_BYTES);
+        for (int j = 0; j < NB; ++j)
+          tma_load_4d(sV + s * T::KV_BYTES + j * BK * RB, &p.tv, v_full(s), j * BW, k0, g, b);
+      }
+    }
+  } else {
+    // Consumer warpgroup c: query rows qw0 … qw0 + 63. Thread (warp,
+    // lane) holds rows row0 and row0 + 8 and, in each 8-column block of
+    // an accumulator, columns col and col + 1 (the wgmma m64nN layout).
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    constexpr int NO = D < 64 ? 1 : D / 64;  // output chunks of 64 columns (one of 32 at D 32)
+    constexpr int OW = D < 64 ? 16 : 32;     // accumulator registers a chunk
+    const int c = threadIdx.x / 128 - 1;
+    const int tw = threadIdx.x % 128, warp = tw / 32, lane = tw % 32;
+    const int qw0 = q0 + 64 * c;
+    const int row0 = qw0 + 16 * warp + lane / 4;
+    const int col = 2 * (lane % 4);
+    const uint32_t qa = sQ + 64 * c * RB;  // this warpgroup's rows of the first box
+    const bool capped = p.cap_log2 > 0.f;
+
+    float o[NO][OW];
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int i = 0; i < OW; ++i) o[n][i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // l: this thread's share of the row sum
+
+    // S = Q K^T (64 x 64) of the tile in stage st, both operands K-major
+    // in shared memory; one wgmma group.
+    auto qk_issue = [&](float (&sc)[32], int st) {
+      const uint32_t ks = sK + st * T::KV_BYTES;
+      wg_fence();
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int kk = 0; kk < BW / 16; ++kk)
+          wgmma_ss_n64(sc, gmma_desc(qa + j * BQ * RB + kk * 32, 16, T::ATOM, T::SWIZZLE),
+                       gmma_desc(ks + j * BK * RB + kk * 32, 16, T::ATOM, T::SWIZZLE), j + kk);
+      wg_commit();
+    };
+    // O += P V of the tile in stage st: P from registers, V's tile
+    // MN-major in shared memory; one wgmma group.
+    auto pv_issue = [&](uint32_t (&pa)[BK / 16][4], int st) {
+      const uint32_t vs = sV + st * T::KV_BYTES;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) fence_regs(o[n]);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          const uint64_t dv = gmma_desc(vs + n * BK * RB + kk * 16 * RB, BK * RB, T::ATOM, T::SWIZZLE);
+          if constexpr (D < 64) {
+            wgmma_rs_n32(o[n], pa[kk], dv);
+          } else {
+            wgmma_rs_n64(o[n], pa[kk], dv);
+          }
+        }
+      wg_commit();
+    };
+    // After the PV group has completed: keep its operands' registers
+    // until here, and hand the stage back to the producer.
+    auto pv_done = [&](uint32_t (&pa)[BK / 16][4], int st) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n) fence_regs(o[n]);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) fence_frags(pa[kk]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));
+    };
+    // Scores of the tile at key k0 in the exp2 domain (the mask only where
+    // the tile crosses the diagonal, the window edge or the end of the
+    // keys), the online softmax over the quad of lanes that shares a row,
+    // p rounded to bf16 into the A fragments of the four 16-key steps (l
+    // sums the unrounded p), and the rescale factor of the older O.
+    auto softmax = [&](float (&sc)[32], int k0, uint32_t (&pa)[BK / 16][4], float (&corr)[2]) {
+      if (capped) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = tanh_approx(sc[i] * p.qk_scale) * p.cap_log2;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] *= p.qk_scale;
+      }
+      const bool edge = k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > qw0) ||
+                        (p.window > 0 && k0 <= qw0 + 63 - p.window);
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int qp = row0 + 8 * ((i >> 1) & 1);
+          const int kp = k0 + 8 * (i >> 2) + col + (i & 1);
+          const bool ok =
+              kp < p.Sk && (!p.causal || kp <= qp) && (p.window <= 0 || qp - kp < p.window);
+          if (!ok) sc[i] = kNegInf;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        corr[r] = ex2(m[r] - mx);
+        m[r] = mx;
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float p0 = ex2(sc[4 * j + 2 * r] - m[r]), p1 = ex2(sc[4 * j + 2 * r + 1] - m[r]);
+          rs[r] += p0 + p1;
+          pa[j / 2][(j % 2) * 2 + r] = pack_bf16(p0, p1);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+    };
+    // A tile none of this warpgroup's rows can see: released unread.
+    auto release = [&](int t) {
+      const int st = t % ST;
+      const uint32_t ph = (t / ST) & 1;
+      mbar_wait(k_full(st), ph);
+      mbar_wait(v_full(st), ph);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));
+    };
+
+    // The visible tiles are [t_lo, t_hi): a window hides a prefix of the
+    // block's tiles from this warpgroup, the diagonal a suffix.
+    int t_lo = 0, t_hi = 0;
+    if (qw0 < p.Sq) {
+      t_hi = p.causal ? min(nt, (qw0 + 63 - kb) / BK + 1) : nt;
+      const int x = qw0 - p.window + 2 - BK - kb;  // first t with its last key ≥ qw0 − window + 1
+      if (p.window > 0 && x > 0) t_lo = min(t_hi, (x + BK - 1) / BK);
+    }
+
+    mbar_wait(q_full, 0);
+    for (int t = 0; t < t_lo; ++t) release(t);
+    for (int t = t_lo; t < t_hi; ++t) {
+      const int st = t % ST;
+      const uint32_t ph = (t / ST) & 1;
+      mbar_wait(k_full(st), ph);
+      float sc[32];
+      qk_issue(sc, st);
+      wg_wait_all();
+      fence_regs(sc);
+      uint32_t pa[BK / 16][4];
+      float corr[2];
+      softmax(sc, kb + t * BK, pa, corr);
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int i = 0; i < OW; ++i) o[n][i] *= corr[(i >> 1) & 1];
+      mbar_wait(v_full(st), ph);
+      pv_issue(pa, st);
+      wg_wait_all();
+      pv_done(pa, st);
+    }
+    for (int t = t_hi; t < nt; ++t) release(t);
+
+    // Epilogue: O / max(l, 1e-30) as bf16 into this warpgroup's own rows
+    // of the query tile (16-byte chunks XOR-swizzled by row), then 16-byte
+    // rows to o.
+    float den[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = l[r];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      den[r] = fmaxf(sum, 1e-30f);
+    }
+    constexpr int CPB = BW / 8;  // 16-byte chunks a box row
+    auto stage_at = [&](int rr, int ch) -> unsigned char* {
+      const int j = ch / CPB, ic = ch % CPB;
+      return sgen + T::Q_OFF + j * BQ * RB + (64 * c + rr) * RB + ((ic ^ (rr % CPB)) * 16);
+    };
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int i = 0; i < OW; i += 2) {
+        const int r = (i >> 1) & 1;
+        const int rr = 16 * warp + lane / 4 + 8 * r;
+        const int ch = n * (BW / 8) + (i >> 2);
+        *reinterpret_cast<uint32_t*>(stage_at(rr, ch) + 2 * col) =
+            pack_bf16(o[n][i] / den[r], o[n][i + 1] / den[r]);
+      }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+    bf16* og = static_cast<bf16*>(p.o);
+    for (int idx = tw; idx < 64 * (D / 8); idx += 128) {
+      const int rr = idx / (D / 8), ch = idx % (D / 8);
+      const int qp = qw0 + rr;
+      if (qp < p.Sq)
+        *reinterpret_cast<uint4*>(og + (((int64_t)b * p.Sq + qp) * p.H + h) * D + ch * 8) =
+            *reinterpret_cast<const uint4*>(stage_at(rr, ch));
     }
   }
 }
@@ -271,7 +560,7 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(Params p) {
   float m_i = kNegInf, l_i = 0.f;
 
   int k_begin, k_end;
-  key_range(p, q0, BQ, BK, &k_begin, &k_end);
+  key_range(p.Sq, p.Sk, p.causal, p.window, q0, BQ, BK, &k_begin, &k_end);
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();
     for (int idx = tid; idx < BK * D; idx += kThreads) {
@@ -339,6 +628,66 @@ int launch(Kernel kernel, size_t smem, const Params& p, int bq, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime
+// (so the library needs no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return (EncodeTiled) nullptr;
+    return reinterpret_cast<EncodeTiled>(ptr);
+  }();
+  return fn;
+}
+
+// A rank-4 map over a strided (B, S, heads, D) bf16 view, boxes of
+// bw columns x rows rows of one head; rows past S read as zeros.
+bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int64_t D, int64_t S,
+            int64_t heads, int64_t B, int64_t s_seq, int64_t s_head, int64_t s_batch, int bw,
+            int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s_seq * 2, (cuuint64_t)s_head * 2,
+                                 (cuuint64_t)s_batch * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)bw, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            bw * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_bf16(const Params& p, void* stream) {
+  using T = HopTiles<D>;
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  TmaParams t;
+  if (!encode(fn, &t.tq, p.q, D, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, T::BW, T::BQ) ||
+      !encode(fn, &t.tk, p.k, D, p.Sk, p.KV, p.B, p.kv_ss, p.kv_sh, p.kv_sb, T::BW, T::BK) ||
+      !encode(fn, &t.tv, p.v, D, p.Sk, p.KV, p.B, p.kv_ss, p.kv_sh, p.kv_sb, T::BW, T::BK))
+    return (int)cudaErrorInvalidValue;
+  t.o = p.o;
+  t.H = p.H; t.rep = p.H / p.KV; t.Sq = p.Sq; t.Sk = p.Sk;
+  t.causal = p.causal; t.window = p.window;
+  t.qk_scale = p.softcap > 0.f ? p.scale / p.softcap : p.scale * kLog2e;
+  t.cap_log2 = p.softcap > 0.f ? p.softcap * kLog2e : 0.f;
+  const size_t smem = T::bytes();
+  cudaError_t err = cudaFuncSetAttribute(flash_bf16_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((p.Sq + T::BQ - 1) / T::BQ), (unsigned)p.H, (unsigned)p.B);
+  flash_bf16_kernel<D><<<grid, T::THREADS, smem, (cudaStream_t)stream>>>(t);
+  return (int)cudaGetLastError();
+}
+
 Params make_params(const void* q, const void* k, const void* v, void* o, int64_t B, int64_t H,
                    int64_t KV, int64_t Sq, int64_t Sk, int64_t D, int64_t q_sb, int64_t q_ss,
                    int64_t q_sh, int64_t kv_sb, int64_t kv_ss, int64_t kv_sh, int causal,
@@ -376,6 +725,8 @@ int repro_flash_attention_f32(const void* q, const void* k, const void* v, void*
   }
 }
 
+// Also returns cudaErrorInvalidValue when a tensor map cannot describe
+// the views (cuTensorMapEncodeTiled refused them).
 int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int64_t B,
                                int64_t H, int64_t KV, int64_t Sq, int64_t Sk, int64_t D,
                                int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t kv_sb,
@@ -384,10 +735,10 @@ int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void
   const Params p = make_params(q, k, v, o, B, H, KV, Sq, Sk, D, q_sb, q_ss, q_sh, kv_sb, kv_ss,
                                kv_sh, causal, window, softcap);
   switch (D) {
-    case 32: return launch(flash_bf16_kernel<32>, Bf16Tiles<32>::bytes(), p, 64, stream);
-    case 64: return launch(flash_bf16_kernel<64>, Bf16Tiles<64>::bytes(), p, 64, stream);
-    case 128: return launch(flash_bf16_kernel<128>, Bf16Tiles<128>::bytes(), p, 64, stream);
-    case 256: return launch(flash_bf16_kernel<256>, Bf16Tiles<256>::bytes(), p, 64, stream);
+    case 32: return launch_bf16<32>(p, stream);
+    case 64: return launch_bf16<64>(p, stream);
+    case 128: return launch_bf16<128>(p, stream);
+    case 256: return launch_bf16<256>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -258,6 +258,89 @@ def test_decode_attention_ring_and_layer_slice(dev):
         _agree(out, ref, torch.bfloat16)
 
 
+# The bf16 flash body's edges: every head dim, ragged Sq and Sk (77,
+# 200, 1000: no multiple of the 128-row query tile or the 64-key tile),
+# a window edge inside a key tile, non-causal Sq < Sk, rep 1, 2 and 4, and
+# bf16 rows over 32 and more key tiles (a missing rescale or a ring stage
+# read before its barrier completes shows there).
+FLASH_BF16_EDGES = [
+    # (B, Sq, Sk, H, KV, D, causal, window, softcap)
+    (1, 77, 77, 4, 4, 32, True, 0, 0.0),
+    (2, 200, 200, 4, 2, 64, True, 0, 50.0),
+    (1, 1000, 1000, 8, 2, 128, True, 0, 0.0),
+    (1, 1000, 1000, 4, 2, 256, True, 0, 50.0),
+    (1, 77, 77, 2, 1, 32, True, 20, 50.0),
+    (1, 200, 200, 4, 1, 256, True, 100, 0.0),
+    (1, 1000, 1000, 2, 2, 64, True, 333, 50.0),
+    (1, 77, 200, 4, 2, 128, False, 0, 0.0),
+    (2, 200, 1000, 2, 2, 256, False, 0, 50.0),
+    (1, 2048, 2048, 4, 4, 128, True, 0, 0.0),
+    (1, 2304, 2304, 2, 1, 256, True, 0, 50.0),
+    (1, 2304, 2304, 4, 2, 256, True, 1000, 50.0),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_BF16_EDGES, ids=str)
+def test_flash_attention_bf16_edges(dev, case):
+    B, Sq, Sk, H, KV, D, causal, window, cap = case
+    rng = np.random.default_rng(Sq * 13 + Sk + D + window)
+    q, k, v = _qkv(rng, (B, Sq, H, D), (B, Sk, KV, D), torch.bfloat16, dev)
+    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+    ref = fa_ref.flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
+    _agree(out, ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("D", fa_ops.HEAD_DIMS)
+def test_flash_attention_bf16_fused_qkv_slices(dev, D):
+    """q, k, v as strided slices of one fused (B, S, H + 2 KV, D) tensor,
+    at every head dim (the tensor maps read through the strides)."""
+    rng = np.random.default_rng(D)
+    qkv = _randn(rng, (2, 200, 8 + 4, D), torch.bfloat16, dev, 1.5)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    out = fa_ops.flash_attention(q, k, v, window=70, softcap=50.0)
+    ref = fa_ref.flash_attention_ref(q, k, v, window=70, softcap=50.0)
+    _agree(out, ref, torch.bfloat16)
+
+
+# The split pass's edges: rep 1-16, S not a multiple of the 32-key chunk,
+# pos inside the first chunk, a window edge inside a chunk; both types.
+DECODE_EDGES = [
+    # (B, S, H, KV, D, pos, window, softcap)
+    (2, 77, 1, 1, 64, 76, 0, 0.0),
+    (2, 77, 2, 1, 128, 5, 0, 50.0),
+    (1, 1000, 3, 1, 256, 999, 0, 50.0),
+    (3, 1000, 8, 2, 32, 640, 45, 0.0),
+    (1, 333, 10, 2, 128, 300, 0, 50.0),
+    (2, 4100, 16, 2, 64, 4099, 0, 0.0),
+    (1, 4100, 16, 1, 256, 4000, 1000, 50.0),
+    (2, 1000, 32, 2, 256, 17, 0, 50.0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("case", DECODE_EDGES, ids=str)
+def test_decode_attention_edges(dev, case, dtype):
+    B, S, H, KV, D, pos, window, cap = case
+    rng = np.random.default_rng(S * 3 + H + pos)
+    q, k, v = _qkv(rng, (B, H, D), (B, S, KV, D), dtype, dev)
+    out = da_ops.decode_attention(q, k, v, pos, window=window, softcap=cap)
+    ref = da_ref.decode_attention_ref(q, k, v, pos, window=window, softcap=cap)
+    _agree(out, ref, dtype)
+
+
+@pytest.mark.parametrize("W", [1, 2, 5, 64])
+def test_decode_attention_rings(dev, W):
+    """A ring of W slots read up to min(pos, W - 1), before and after it
+    wraps, as models.decode reads it."""
+    rng = np.random.default_rng(W)
+    q, k, v = _qkv(rng, (4, 16, 256), (4, W, 8, 256), torch.bfloat16, dev)
+    for pos in sorted({0, W - 1, W, 3 * W + 1, 300}):
+        read = min(pos, W - 1)
+        out = da_ops.decode_attention(q, k, v, read, softcap=50.0)
+        ref = da_ref.decode_attention_ref(q, k, v, read, softcap=50.0)
+        _agree(out, ref, torch.bfloat16)
+
+
 def test_attention_wrappers_reject_bad_cuda_input(dev):
     q = torch.ones((1, 8, 2, 48), device=dev)
     with pytest.raises(ValueError, match="takes D"):
