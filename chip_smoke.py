@@ -10,8 +10,13 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
 2. Hold every kernel against its plain PyTorch version on the card and
    time both (CUDA events, median of 5 runs of 10 back-to-back launches
    after a warm-up): at the main path's shapes (10,000 jobs × 256 sites,
-   10,000 queued jobs), then at 100,000 jobs × 1,024 sites and 10^7
-   queued jobs, whose numbers go into the ``kernels`` line.
+   10,000 queued jobs, seed 0), then at 100,000 jobs × 1,024 sites
+   (seed 1) and 10^7 queued jobs, whose numbers go into the ``kernels``
+   line. The fused f64 argmin's screen is also run as its plain model
+   (its skipped share), its FP64-pipe floor is read from the SASS of
+   the built library, and both f64 entries are held bit for bit to
+   their plain versions on the adversarial sets of
+   ``repro_torch.kernels.cost_matrix.cases`` and on ragged shapes.
 3. Drive the scheduler's main path through the entry points a user
    calls, at the bulk bench's configuration (10,000 jobs × 256 sites,
    seed 0) with every launch counter set to 0 before and read after;
@@ -59,6 +64,7 @@ import copy
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -165,6 +171,12 @@ def max_abs_err(torch, a, b) -> float:
     return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
 
 
+def equal_nan(torch, a, b) -> bool:
+    """Equal values, with NaN where NaN (of any sign or payload)."""
+    an, bn = a.isnan(), b.isnan()
+    return torch.equal(an, bn) and torch.equal(a[~an], b[~bn])
+
+
 def f64_cell_ops(jp, S: int) -> float:
     """Float64 operations the class_total plane needs for this run's job
     classes: DATA 2 a cell (div, add), COMPUTE 3, BOTH 5; 13 a site."""
@@ -184,14 +196,20 @@ def phase_build():
     print(f"phase 1 build: {lib_path.relative_to(ROOT)} in {secs:.3f} s")
     log = (lib_path.parent / "nvcc.log")
     if log.is_file():
+        entry = ""
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or line.startswith("=="):
+            if "Compiling entry function" in line:
+                entry = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_\d+_\w+?_cu_\w{8}\d+", "", line.split("'")[1])[:48]
+            elif "registers" in line or "spill" in line:
+                print(f"  {entry}: {line.strip()}")
+            elif line.startswith("=="):
                 print("  " + line.strip())
 
 
-def phase_kernels(torch, P, J: int, S: int, L: int):
+def phase_kernels(torch, P, J: int, S: int, L: int, seed: int):
     """Every kernel against its plain version on the card: the cost
-    kernels at J jobs × S sites, the requeue kernel at L queued jobs."""
+    kernels at J jobs × S sites (the bench's generator, ``seed``), the
+    requeue kernel at L queued jobs."""
     from repro_torch.core import batch as B
     from repro_torch.kernels import _build
     from repro_torch.kernels.cost_matrix import ops as cm_ops, ref as cm_ref
@@ -210,7 +228,7 @@ def phase_kernels(torch, P, J: int, S: int, L: int):
         return lambda: _build.check(fn(*c_args, stream), entry)
 
     # -- K1 at J × S ------------------------------------------------------------
-    site_d, link_d, jobs = bench_grid(P, J, S, seed=1)
+    site_d, link_d, jobs = bench_grid(P, J, S, seed=seed)
     sp = B.SitePack.from_scheduler(site_d, link_d, device=dev)
     jp = B.JobPack.from_jobs(jobs, device=dev)
     rows = sp.pack_rows()
@@ -225,7 +243,8 @@ def phase_kernels(torch, P, J: int, S: int, L: int):
     err_f64 = max_abs_err(torch, k, p)
     del k, p
     plane = torch.empty((J, S), dtype=torch.float64, device=dev)
-    ms = kernel_ms(torch, raw("repro_cost_matrix_f64", *f64_args, plane, J, S, 1.0, 1.0, 1.0, 1))
+    scratch = torch.empty(cm_ops.scratch_doubles(S, J), dtype=torch.float64, device=dev)
+    ms = kernel_ms(torch, raw("repro_cost_matrix_f64", *f64_args, plane, J, S, 1.0, 1.0, 1.0, 1, scratch))
     del plane
     plain_ms = kernel_ms(torch, lambda: cm_ref.cost_matrix_f64_ref(*f64_args), reps=3, inner=2)
     ops = f64_cell_ops(jp, S)
@@ -239,11 +258,18 @@ def phase_kernels(torch, P, J: int, S: int, L: int):
     check(torch.equal(bk, bp) and torch.equal(ck, cp), "cost_argmin_f64 != plain version")
     best = torch.empty(J, dtype=torch.int64, device=dev)
     cost = torch.empty(J, dtype=torch.float64, device=dev)
-    ms = kernel_ms(torch, raw("repro_cost_argmin_f64", *f64_args, best, cost, J, S, 1.0, 1.0, 1.0))
+    ms = kernel_ms(torch, raw("repro_cost_argmin_f64", *f64_args, best, cost, J, S, 1.0, 1.0, 1.0, scratch))
     plain_ms = kernel_ms(torch, lambda: cm_ref.cost_argmin_f64_ref(*f64_args), reps=3, inner=2)
     b_ms, b_by = bound(J * 17 + S * 65 + J * 16, ops + J * S, "f64")
+    # The screen's model (ref.py, plain PyTorch) on the same inputs: the
+    # same picks, and the share of cells whose exact divisions it saved.
+    bm, cm, skipped = cm_ref.cost_argmin_f64_screen_model(*f64_args)
+    check(torch.equal(bm, bp) and torch.equal(cm, cp), "cost_argmin_f64 screen model != plain version")
+    classes = torch.bincount(jp.cls.long(), minlength=3).tolist()
     out["cost_argmin_f64"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs_err(torch, ck, cp),
-                                  bound_ms=b_ms, bound_by=b_by, shape=[J, S])
+                                  bound_ms=b_ms, bound_by=b_by, shape=[J, S],
+                                  skipped_share=skipped / (J * S), classes=classes)
+    del bm, cm, scratch
 
     f32 = lambda t: t.float().contiguous()  # noqa: E731
     jobs32 = [f32(jp.bytes_), f32(jp.work), f32(jp.wcomp), f32(jp.wdtc)]
@@ -299,10 +325,99 @@ def phase_kernels(torch, P, J: int, S: int, L: int):
         del nt, qt, tt, prk, bandk, prp, bandp, pr_out, band_out
 
     for name, r in out.items():
-        print(f"phase 2 {name} {r['shape']}: kernel {r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, "
+        print(f"phase 2 {name} {r['shape']} (seed {seed}): kernel {r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, "
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']!r}"
-              + (f", bit-equal {r['exact']}" if "exact" in r else ""))
+              + (f", bit-equal {r['exact']}" if "exact" in r else "")
+              + (f", screen skipped {r['skipped_share']!r} of cells" if "skipped_share" in r else ""))
     return out
+
+
+# The float64 kernels' edges, beside the adversarial sets of cases.py:
+# every size of the pad and the odd-S pairing, a J past many waves.
+F64_SHAPES = [(1, 1), (63, 31), (65, 33), (64, 255), (100_003, 1025), (65, 4097)]
+
+
+def phase_f64_edges(torch):
+    """Both f64 entries bit-equal to their plain versions over the
+    adversarial sets (repro_torch.kernels.cost_matrix.cases) and ragged
+    shapes, NaN and +inf picks included."""
+    from repro_torch.kernels.cost_matrix import cases, ops as cm_ops, ref as cm_ref
+
+    named = [(n, cases.adversarial(n)) for n in cases.ADVERSARIAL]
+    shaped = [(f"ragged {J}x{S}", cases.ragged(J, S, seed=J + S)) for J, S in F64_SHAPES]
+    for name, case in named + shaped:
+        args, w = cases.tensors(case, "cuda")
+        wq, ww, wl = w.values()
+        for mask_dead in (True, False):
+            k = cm_ops.cost_matrix_f64(*args, mask_dead=mask_dead, **w)
+            p = cm_ref.cost_matrix_f64_ref(*args, wq, ww, wl, mask_dead)
+            check(equal_nan(torch, k, p), f"cost_matrix_f64 != plain version on {name} (mask_dead={mask_dead})")
+        bk, ck = cm_ops.argmin_f64_unchecked(*args, **w)
+        bp, cp = cm_ref.cost_argmin_f64_ref(*args, wq, ww, wl)
+        check(torch.equal(bk, bp) and equal_nan(torch, ck, cp), f"cost_argmin_f64 != plain version on {name}")
+    torch.cuda.synchronize()
+    print(f"phase 2 f64 edges: plane and argmin bit-equal to their plain versions on "
+          f"{len(named)} adversarial sets and {len(shaped)} ragged shapes {F64_SHAPES}")
+
+
+FP64_OPS = {"DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET"}
+
+
+def sass_fp64_counts() -> dict | None:
+    """FP64-pipe instructions of the never-launched probe kernels (one
+    cell's screen; one cell's exact evaluation and merge per job class),
+    from ``cuobjdump -sass`` of the built library, each counted up to
+    its first EXIT (the division's slow path lies after it). None when
+    the toolkit has no cuobjdump."""
+    import os
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    if not Path(tool).is_file():
+        return None
+    sass = subprocess.run([tool, "-sass", str(_build.build())], capture_output=True, text=True, check=True).stdout
+    counts, fn, done = {}, None, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn, done = line.split("Function :")[1].strip(), False
+            continue
+        if fn is None or not fn.startswith("repro_probe_") or done or "/*" not in line:
+            continue
+        body = line.split("*/", 1)[1].strip().lstrip("{").strip()
+        if body.startswith("@"):
+            body = body.split(None, 1)[1]
+        op = body.split(None, 1)[0].split(".")[0] if body else ""
+        if op == "EXIT":
+            done = True
+        elif op in FP64_OPS:
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
+
+
+def fp64_floor(torch, r: dict) -> None:
+    """The fused argmin's FP64-pipe floor at its phase-2 shape: per-cell
+    FP64 instructions from the SASS of the probes, the screened cells at
+    the screen's measured skipped share, over 64 FP64 lanes an SM at the
+    card's maximum SM clock."""
+    counts = sass_fp64_counts()
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm", "--format=csv,noheader"],
+                           capture_output=True, text=True, check=True).stdout.strip()
+    if not counts:
+        print(f"phase 2 cost_argmin_f64 FP64-pipe floor: not measured (no cuobjdump); clocks {clock}")
+        return
+    J, S = r["shape"]
+    mhz = float(clock.split(",")[0].split()[0])
+    lanes_per_s = torch.cuda.get_device_properties(0).multi_processor_count * 64 * mhz * 1e6
+    exact = sum(n * counts.get(f"repro_probe_exact_f64_{c}", 0)
+                for n, c in zip(r["classes"], ("compute", "data", "both"))) * S
+    screen = counts.get("repro_probe_screen_f64", 0) * J * S
+    floor_ms = (screen + (1.0 - r["skipped_share"]) * exact) / lanes_per_s * 1e3
+    print(f"phase 2 cost_argmin_f64 FP64-pipe floor at {J}x{S}: {floor_ms:.6f} ms screened "
+          f"(skipped share {r['skipped_share']!r}), {exact / lanes_per_s * 1e3:.6f} ms with every cell exact; "
+          f"bound() {r['bound_ms']:.6f} ms; SASS FP64 instructions a cell {json.dumps(counts)}; "
+          f"clocks.max.sm, clocks.sm {clock}")
 
 
 def phase_fig6(P) -> None:
@@ -882,8 +997,10 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     phase_build()
-    phase_kernels(torch, P, BENCH_JOBS, BENCH_SITES, BENCH_JOBS)   # the main path's shapes
-    kernels = phase_kernels(torch, P, BIG_JOBS, BIG_SITES, REQUEUE_L)
+    phase_kernels(torch, P, BENCH_JOBS, BENCH_SITES, BENCH_JOBS, SEED)   # the main path's shapes
+    kernels = phase_kernels(torch, P, BIG_JOBS, BIG_SITES, REQUEUE_L, seed=1)
+    fp64_floor(torch, kernels["cost_argmin_f64"])
+    phase_f64_edges(torch)
     phase_fig6(P)
     launches, _ = phase_main_path(torch, P)
     attn = phase_attention_kernels(torch)

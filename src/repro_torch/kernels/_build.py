@@ -48,10 +48,12 @@ _I64 = _c.c_int64
 _SIGNATURES = {
     "repro_cost_matrix_f32": (_P, _P, _P, _P, _P, _P, _I64, _I64,
                               _c.c_float, _c.c_float, _c.c_float, _P),
+    # bytes, work, cls, rows, alive, out; J, S; weights; mask_dead; scratch; stream
     "repro_cost_matrix_f64": (_P, _P, _P, _P, _P, _P, _I64, _I64,
-                              _c.c_double, _c.c_double, _c.c_double, _c.c_int, _P),
+                              _c.c_double, _c.c_double, _c.c_double, _c.c_int, _P, _P),
+    # bytes, work, cls, rows, alive, best, best_cost; J, S; weights; scratch; stream
     "repro_cost_argmin_f64": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64,
-                              _c.c_double, _c.c_double, _c.c_double, _P),
+                              _c.c_double, _c.c_double, _c.c_double, _P, _P),
     "repro_priority_requeue_f32": (_P, _P, _P, _c.c_float, _c.c_float,
                                    _P, _P, _I64, _P),
     "repro_priority_requeue_f64": (_P, _P, _P, _c.c_double, _c.c_double,

@@ -2,8 +2,11 @@
 
 A tensor on the host goes to the plain version in ``ref.py``; a CUDA
 tensor launches the kernel (``csrc/cost_matrix.cu``) or raises. No
-padding: the kernels mask their ragged tiles. Each wrapper counts its
-kernel launches in its ``launches`` attribute.
+padding: the kernels mask their ragged tiles. The float64 entries also
+get a scratch buffer (``scratch_doubles``) for the per-site terms that a
+pre-pass computes and the row flags of a fix-up pass, both launched by
+the same C entry. Each wrapper counts its kernel launches in its
+``launches`` attribute.
 """
 from __future__ import annotations
 
@@ -12,7 +15,8 @@ import torch
 from .. import _build
 from .ref import cost_argmin_f64_ref, cost_matrix_f32_ref, cost_matrix_f64_ref
 
-__all__ = ["cost_matrix", "cost_matrix_classed", "cost_matrix_f64", "cost_argmin_f64"]
+__all__ = ["cost_matrix", "cost_matrix_classed", "cost_matrix_f64", "cost_argmin_f64",
+           "argmin_f64_unchecked", "scratch_doubles"]
 
 _F32, _F64 = torch.float32, torch.float64
 
@@ -68,10 +72,22 @@ def cost_matrix_classed(
 cost_matrix_classed.launches = 0
 
 
+_MAX_SITES = 2**30   # the f64 kernels index columns with 32-bit ints
+_LANES, _TERM_FIELDS, _GATE_SLOTS = 32, 11, 256
+
+
+def scratch_doubles(S: int, J: int) -> int:
+    """Float64 words of the f64 kernels' scratch (``csrc/cost_matrix.cu``):
+    eleven per-site term arrays over S rounded up to 32 columns, 256
+    int32 partial gates, 256 int32 partial column flags, then J int32
+    row flags for the fix-up pass."""
+    return _TERM_FIELDS * (-(-S // _LANES) * _LANES) + _GATE_SLOTS + -(-J // 2)
+
+
 def _f64_args(name, bytes_, work, cls, rows, alive):
     J, S = bytes_.shape[0], alive.shape[0]
-    if S > 65535 * 32:
-        raise ValueError(f"{name}: {S} sites exceed the kernel's grid ({65535 * 32})")
+    if S > _MAX_SITES:
+        raise ValueError(f"{name}: {S} sites exceed the kernels' 32-bit column index ({_MAX_SITES})")
     return J, S, _build.launch_device(
         name,
         dict(bytes_=bytes_, work=work, cls=cls, rows=rows, alive=alive),
@@ -97,10 +113,11 @@ def cost_matrix_f64(
     if cost.numel():
         lib = _build.library()
         cost_matrix_f64.launches += 1
+        scratch = torch.empty(scratch_doubles(S, J), dtype=_F64, device=dev)
         rc = lib.repro_cost_matrix_f64(
             bytes_.data_ptr(), work.data_ptr(), cls.data_ptr(), rows.data_ptr(),
             alive.data_ptr(), cost.data_ptr(), J, S, w_queue, w_work, w_load,
-            int(bool(mask_dead)), _build.stream_of(dev),
+            int(bool(mask_dead)), scratch.data_ptr(), _build.stream_of(dev),
         )
         _build.check(rc, "cost_matrix_f64")
     return cost
@@ -116,25 +133,36 @@ def cost_argmin_f64(bytes_, work, cls, rows, alive, *, w_queue=1.0, w_work=1.0, 
     first index wins ties, a NaN counts as the minimum. Raises
     ``RuntimeError("no alive site available")`` when a picked cost is
     not finite."""
+    best, cost = argmin_f64_unchecked(
+        bytes_, work, cls, rows, alive, w_queue=w_queue, w_work=w_work, w_load=w_load
+    )
+    if not bool(torch.isfinite(cost).all()):
+        raise RuntimeError("no alive site available")
+    return best, cost
+
+
+def argmin_f64_unchecked(bytes_, work, cls, rows, alive, *, w_queue=1.0, w_work=1.0, w_load=1.0):
+    """``cost_argmin_f64`` without the finite check: a NaN or +inf pick
+    (an all-dead row) is returned as it is, for the checks that hold the
+    kernel to its plain version on such rows. Counts its launches on
+    ``cost_argmin_f64``."""
     J, S, dev = _f64_args("cost_argmin_f64", bytes_, work, cls, rows, alive)
     if J and not S:
         raise RuntimeError("no alive site available")
     if dev.type == "cpu":
-        best, cost = cost_argmin_f64_ref(bytes_, work, cls, rows, alive, w_queue, w_work, w_load)
-    else:
-        best = torch.empty(J, dtype=torch.int64, device=dev)
-        cost = torch.empty(J, dtype=_F64, device=dev)
-        if J:
-            lib = _build.library()
-            cost_argmin_f64.launches += 1
-            rc = lib.repro_cost_argmin_f64(
-                bytes_.data_ptr(), work.data_ptr(), cls.data_ptr(), rows.data_ptr(),
-                alive.data_ptr(), best.data_ptr(), cost.data_ptr(), J, S,
-                w_queue, w_work, w_load, _build.stream_of(dev),
-            )
-            _build.check(rc, "cost_argmin_f64")
-    if not bool(torch.isfinite(cost).all()):
-        raise RuntimeError("no alive site available")
+        return cost_argmin_f64_ref(bytes_, work, cls, rows, alive, w_queue, w_work, w_load)
+    best = torch.empty(J, dtype=torch.int64, device=dev)
+    cost = torch.empty(J, dtype=_F64, device=dev)
+    if J:
+        lib = _build.library()
+        cost_argmin_f64.launches += 1
+        scratch = torch.empty(scratch_doubles(S, J), dtype=_F64, device=dev)
+        rc = lib.repro_cost_argmin_f64(
+            bytes_.data_ptr(), work.data_ptr(), cls.data_ptr(), rows.data_ptr(),
+            alive.data_ptr(), best.data_ptr(), cost.data_ptr(), J, S,
+            w_queue, w_work, w_load, scratch.data_ptr(), _build.stream_of(dev),
+        )
+        _build.check(rc, "cost_argmin_f64")
     return best, cost
 
 

@@ -19,10 +19,19 @@ __all__ = [
     "cost_matrix_f32_ref",
     "cost_matrix_f64_ref",
     "cost_argmin_f64_ref",
+    "cost_argmin_f64_screen_model",
 ]
 
 CLASS_COMPUTE, CLASS_DATA, CLASS_BOTH = 0, 1, 2
 DEAD_F32 = 3.0e38
+# The fused f64 argmin's screen (csrc/cost_matrix.cu): the lanes of a
+# warp, the guard and the range in which an estimate's relative error
+# bound holds.
+LANES = 32
+GUARD = 1.0 + 2.0**-40
+SCREEN_LO, SCREEN_HI = 2.0**-960, 2.0**1000
+_MIN_NORMAL = 2.0**-1022
+_INF_KEY = 0x7FF00000      # +inf's screen key (the high word of its bits)
 
 
 def cost_matrix_f32_ref(jb, jw, wc, wd, rows, w_queue=1.0, w_work=1.0, w_load=1.0):
@@ -79,3 +88,112 @@ def cost_argmin_f64_ref(bytes_, work, cls, rows, alive, w_queue=1.0, w_work=1.0,
     cost = cost_matrix_f64_ref(bytes_, work, cls, rows, alive, w_queue, w_work, w_load)
     best = torch.argmin(cost, dim=1)
     return best, cost.gather(1, best[:, None])[:, 0]
+
+
+def _div_range(x):
+    """The kernels' fast division domain: normal, |x| in [2^-500, 2^501)."""
+    e = (x.view(torch.int64) >> 52) & 0x7FF
+    return (e >= 523) & (e <= 1523)
+
+
+def cost_argmin_f64_screen_model(
+    bytes_, work, cls, rows, alive, w_queue=1.0, w_work=1.0, w_load=1.0,
+):
+    """The fused f64 argmin kernel's screened walk, step for step: the
+    gate, the per-site reciprocals, the estimates, each lane's least
+    screen key, its column and the least key of its other cells (lane l
+    walks columns l, l + 32, ... of the row padded with dead columns to a
+    multiple of 32), the threshold from the lanes' least cells, which
+    cells take the exact path, and the rows the fix-up pass redoes. Rows
+    are independent, so the R rows a warp carries change no decision.
+    Returns (best (J,) int64, cost (J,) float64, skipped: real cells
+    whose exact evaluation the screen saved). For the tests: the result
+    must equal ``cost_argmin_f64_ref`` bit for bit on any input."""
+    J, S = bytes_.shape[0], rows.shape[1]
+    Sp = -(-S // LANES) * LANES
+    dev, f64 = rows.device, torch.float64
+    inf = float("inf")
+    net, eff, comp_site, cap = _site_terms_f64(rows, w_queue, w_work, w_load)
+    screen = (
+        min(w_queue, w_work, w_load) >= 0.0
+        and bool((net >= 0).all() and (eff >= 0).all())
+        and bool((rows[1] >= 0).all() and (rows[2] >= 0).all() and (rows[3] >= 0).all())
+        and bool((cap > 0).all() and (cap < inf).all())
+        and bool((bytes_ >= 0).all() and (work >= 0).all())
+    )
+    one = torch.ones_like(eff)
+    reff, rcap = one / eff, one / cap     # tensor / tensor: correctly rounded
+
+    def normal(x):
+        return (x.abs() >= _MIN_NORMAL) & (x.abs() < inf)
+
+    ok = normal(reff) & normal(rcap)
+
+    def padded(x, fill):
+        return torch.cat([x, torch.full((Sp - S,), fill, dtype=f64, device=dev)])
+
+    dead = padded((~alive).to(f64), 1.0) != 0
+    snet = torch.where(dead, inf, padded(torch.where(ok, net, float("nan")), 0.0))
+    sbase = torch.where(dead, inf, padded(torch.where(ok, net + comp_site, float("nan")), 0.0))
+    re = torch.where(dead, 0.0, padded(torch.where(ok, reff, 0.0), 0.0))
+    rc = torch.where(dead, 0.0, padded(torch.where(ok, rcap, 0.0), 0.0))
+
+    c = cls[:, None]
+    bb = torch.where(c != CLASS_COMPUTE, bytes_[:, None], 0.0)
+    wa = torch.where(c != CLASS_DATA, work[:, None], 0.0)
+    base = torch.where(c == CLASS_DATA, snet[None, :], sbase[None, :])
+    est = (base + wa * rc[None, :]) + bb * re[None, :]                 # (J, Sp)
+    exact = cost_matrix_f64_ref(bytes_, work, cls, rows, alive, w_queue, w_work, w_load)
+    exact = torch.cat([exact, torch.full((J, Sp - S), inf, dtype=f64, device=dev)], dim=1)
+
+    # Per lane (J, rounds, LANES), on screen keys (the estimate's high word,
+    # sign cleared; NaN keys, above +inf's, count as +inf): the least key,
+    # the first column reaching it, the least key of the lane's other
+    # cells, and whether the lane met a NaN.
+    lanes = est.view(J, Sp // LANES, LANES)
+    isnan = torch.isnan(lanes)
+    key = torch.clamp_max((lanes.view(torch.int64) >> 32) & 0x7FFFFFFF, _INF_KEY)
+    emin = key.amin(dim=1)
+    first = key == emin[:, None, :]
+    hits = first.sum(dim=1)
+    rounds = Sp // LANES
+    second = key.sort(dim=1).values[:, 1, :] if rounds > 1 else torch.full_like(emin, _INF_KEY)
+    e2 = torch.where(hits > 1, emin, second)
+    imin = torch.argmax(first.to(torch.int8), dim=1)                     # first round reaching it
+    # t from the least estimate of the lanes' least cells
+    ey = torch.where(emin < _INF_KEY, lanes.gather(1, imin[:, None, :])[:, 0, :], inf)
+    x = ey.amin(dim=1, keepdim=True) * GUARD * GUARD
+    t = torch.where(x <= SCREEN_HI, torch.clamp_min(x, SCREEN_LO), inf)
+    if not screen:
+        t = torch.full_like(t, inf)
+
+    def lower(k):                                                        # the key's least value
+        return (k << 32).view(f64)
+
+    rescan = isnan.any(dim=1) | ~(lower(e2) > t)
+    own = ~rescan & ~(lower(emin) > t)
+    one_cell = own[:, None, :] & (torch.arange(rounds, device=dev)[None, :, None] == imin[:, None, :])
+    evaluated = (rescan[:, None, :] & ~(lanes > t[:, :, None])) | one_cell
+    evaluated = evaluated.reshape(J, Sp)[:, :S]
+    # A row whose evaluated cells include one outside the kernels' fast
+    # division range is redone in full by the fix-up pass.
+    fast_eff, fast_cap = _div_range(eff), _div_range(cap)
+    slow = alive[None, :] & (
+        ((c != CLASS_COMPUTE) & ~(_div_range(bytes_)[:, None] & fast_eff[None, :]))
+        | ((c != CLASS_DATA) & ~(_div_range(work)[:, None] & fast_cap[None, :]))
+    )
+    redone = (evaluated & slow).any(dim=1, keepdim=True)
+    evaluated = evaluated | redone
+    skipped = int((~evaluated).sum())
+    evaluated = torch.cat([evaluated, torch.zeros((J, Sp - S), dtype=torch.bool, device=dev)], dim=1)
+
+    # The warp's merge of the lanes' bests: the argmin order (NaN first,
+    # then the least value, then the least index) over the evaluated cells.
+    col = torch.arange(Sp, device=dev).expand(J, -1)
+    nan_cell = evaluated & torch.isnan(exact)
+    value = torch.where(evaluated & ~torch.isnan(exact), exact, inf)
+    low = value.amin(dim=1, keepdim=True)
+    cand = torch.where(nan_cell.any(dim=1, keepdim=True), nan_cell, evaluated & (value == low))
+    best = torch.where(cand, col, Sp).amin(dim=1)
+    cost = exact.gather(1, best[:, None])[:, 0]
+    return best, cost, skipped

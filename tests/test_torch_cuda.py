@@ -14,7 +14,7 @@ import torch
 
 import repro_torch.core as P
 from repro_torch.core import batch as PB
-from repro_torch.kernels.cost_matrix import ops as cm_ops, ref as cm_ref
+from repro_torch.kernels.cost_matrix import cases as cm_cases, ops as cm_ops, ref as cm_ref
 from repro_torch.kernels.priority_requeue import ops as pr_ops, ref as pr_ref
 
 pytestmark = pytest.mark.cuda
@@ -91,6 +91,54 @@ def test_cost_matrix_f32(dev, J, S):
     cp = cm_ref.cost_matrix_f32_ref(*jobs32, rows9, 2.0)
     assert torch.equal(ck, cp)
     assert torch.equal(bk, torch.argmin(cp, dim=1).to(torch.int32))
+
+
+def _same(a, b):
+    """Equal values, NaN where NaN."""
+    an, bn = a.isnan(), b.isnan()
+    return torch.equal(an, bn) and torch.equal(a[~an], b[~bn])
+
+
+def _f64_case_checks(case, dev):
+    """Both f64 entries bit-equal to their plain versions on one case
+    (cost_matrix.cases), NaN and +inf picks included."""
+    args, w = cm_cases.tensors(case, dev)
+    wq, ww, wl = w.values()
+    for mask_dead in (True, False):
+        k = cm_ops.cost_matrix_f64(*args, mask_dead=mask_dead, **w)
+        assert _same(k, cm_ref.cost_matrix_f64_ref(*args, wq, ww, wl, mask_dead))
+    bk, ck = cm_ops.argmin_f64_unchecked(*args, **w)
+    bp, cp = cm_ref.cost_argmin_f64_ref(*args, wq, ww, wl)
+    assert torch.equal(bk, bp) and _same(ck, cp)
+
+
+@pytest.mark.parametrize("name", cm_cases.ADVERSARIAL)
+def test_f64_kernels_on_the_edge_cases(dev, name):
+    """One-ulp reversals of the screen's estimates, ties, NaN and inf
+    cells, the gate off, dead columns, zero bytes, subnormal and
+    near-overflow costs (rows outside the fast division's range go
+    through the fix-up pass)."""
+    _f64_case_checks(cm_cases.adversarial(name), dev)
+
+
+@pytest.mark.parametrize("S", [1, 31, 33, 255, 1025, 4097])
+@pytest.mark.parametrize("J", [1, 63, 64, 65, 100_003])
+def test_f64_kernels_on_ragged_shapes(dev, J, S):
+    """Every pad of the 32 lanes, S odd (shifted double2 slots), J across
+    the rows a warp carries, a block's rows and many waves."""
+    _f64_case_checks(cm_cases.ragged(J, S, seed=J + 7 * S), dev)
+
+
+def test_f64_fixup_rows_and_columns(dev):
+    """Cells outside the fast division's range: a tiny job (bytes 1e-200),
+    a site whose capacity is 1e-300, one whose bandwidth is 1e300."""
+    case = cm_cases.ragged(200, 300, seed=4)
+    case["bytes_"][7] = 1e-200
+    case["work"][9] = 1e200
+    case["rows"][0, 11] = 1e-300          # cap
+    case["rows"][4, 13], case["rows"][5, 13] = 1e300, 0.0   # bw, lossless
+    case["alive"][[11, 13]] = True
+    _f64_case_checks(case, dev)
 
 
 def test_argmin_tie_and_nan(dev):
