@@ -46,8 +46,9 @@ _I64 = _c.c_int64
 # C signatures of the library's entry points (every pointer and the
 # stream as c_void_p, so ctypes never truncates them to 32 bits).
 _SIGNATURES = {
+    # jb, jw, wc, wd, rows, out; J, S; weights; scratch; stream
     "repro_cost_matrix_f32": (_P, _P, _P, _P, _P, _P, _I64, _I64,
-                              _c.c_float, _c.c_float, _c.c_float, _P),
+                              _c.c_float, _c.c_float, _c.c_float, _P, _P),
     # bytes, work, cls, rows, alive, out; J, S; weights; mask_dead; scratch; stream
     "repro_cost_matrix_f64": (_P, _P, _P, _P, _P, _P, _I64, _I64,
                               _c.c_double, _c.c_double, _c.c_double, _c.c_int, _P, _P),

@@ -1,22 +1,25 @@
-"""Inputs that hold the float64 cost kernels to their plain versions at
-their edges: the fused argmin's screen (estimates that reverse a one-ulp
+"""Inputs that hold the cost kernels to their plain versions at their
+edges: the fused f64 argmin's screen (estimates that reverse a one-ulp
 order, exact ties, NaN and inf cells, the gate switched off, subnormal
-and near-overflow costs) and ragged shapes.
+and near-overflow costs), the f32 plane's exact division and its window
+(``ADVERSARIAL_F32``) and ragged shapes.
 
 Each case is a dict of NumPy arrays in the kernels' packed layout —
 ``bytes_``/``work`` (J,) float64, ``cls`` (J,) int8 (0 COMPUTE, 1 DATA,
 2 BOTH), ``rows`` (8, S) float64 in PACK_FIELDS order (cap, queue, work,
 load, bw, loss, rtt, mss), ``alive`` (S,) bool — and the weights ``w``.
 Everything is drawn from NumPy generators with fixed seeds.
+``tensors`` gives a case as the f64 kernels' arguments, ``tensors_f32``
+as the f32 plane's (``ops.cost_matrix_classed``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .ref import CLASS_BOTH, CLASS_COMPUTE, CLASS_DATA
+from .ref import CLASS_BOTH, CLASS_COMPUTE, CLASS_DATA, cost_matrix_classed_ref
 
-__all__ = ["ADVERSARIAL", "adversarial", "ragged", "tensors"]
+__all__ = ["ADVERSARIAL", "ADVERSARIAL_F32", "adversarial", "ragged", "tensors", "tensors_f32"]
 
 CAP, QUEUE, WORK, LOAD, BW, LOSS, RTT, MSS = range(8)
 
@@ -71,7 +74,9 @@ def _cheap_site(rows: np.ndarray, col: int) -> None:
 
 
 def adversarial(name: str) -> dict:
-    """The named edge case (see ADVERSARIAL)."""
+    """The named edge case (see ADVERSARIAL and ADVERSARIAL_F32)."""
+    if name.startswith("f32_"):
+        return _adversarial_f32(name)
     if name.startswith("ulp_reversal"):
         across = name.endswith("lanes")
         S = 70 if across else 2
@@ -152,6 +157,128 @@ ADVERSARIAL = (
     "eff_zero_inf", "negative_weight", "negative_load", "all_dead", "one_alive",
     "bytes_zero", "subnormal", "near_overflow",
 )
+
+
+_FLT_MIN = 2.0**-126
+_WIN_LO, _WIN_HI = 2.0**-62, 2.0**63     # the f32 division's window (ref.DIV32_EXP_LO/HI)
+
+
+def _live(case: dict, *cols: int) -> None:
+    case["alive"][list(cols)] = True
+
+
+def _adversarial_f32(name: str) -> dict:
+    if name == "f32_beyond_range":           # cast to f32: inf, 0 and subnormals
+        case = ragged(40, 70, seed=30)
+        rows = case["rows"]
+        case["bytes_"][:3] = 1e39, 1e-40, 1e-46
+        case["work"][3:6] = 1e39, 3e-42, 1e-50
+        rows[CAP, 5], rows[CAP, 6], rows[CAP, 7] = 1e40, 1e-39, 1e-46
+        rows[BW, 8], rows[LOSS, 8] = 1e39, 0.0
+        rows[BW, 9], rows[LOSS, 9] = 1e-40, 0.0
+        rows[QUEUE, 10], rows[LOSS, 11] = 1e-41, 1e-40
+        _live(case, *range(5, 12))
+        return case
+    if name == "f32_window_edges":           # operands at and just outside 2^-62 and 2^63
+        case = ragged(12, 70, seed=31)
+        rows = case["rows"]
+        below, top = np.nextafter(np.float32(_WIN_LO), np.float32(0)), np.nextafter(np.float32(_WIN_HI), np.float32(0))
+        edges = [_WIN_LO, float(below), float(top), _WIN_HI]
+        case["bytes_"][:4] = edges
+        case["work"][4:8] = edges
+        rows[CAP, 20:24] = edges
+        rows[BW, 24:28], rows[LOSS, 24:28] = edges, 0.0
+        _live(case, *range(20, 28))
+        return case
+    if name == "f32_cap_flt_min":            # RN(1/cap) = 2^126: jw·y overflows
+        case = ragged(40, 70, seed=32)
+        case["rows"][CAP, [2, 33, 65]] = _FLT_MIN
+        case["rows"][CAP, 40] = np.nextafter(np.float32(_FLT_MIN), np.float32(1))
+        _live(case, 2, 33, 40, 65)
+        return case
+    if name == "f32_huge_jobs":              # jb, jw at 3e38; caps below 1 overflow comp
+        case = ragged(40, 70, seed=33)
+        case["bytes_"][:6] = 3e38
+        case["work"][3:9] = 3e38
+        case["rows"][CAP, :10] = np.linspace(0.25, 4.0, 10)
+        case["rows"][BW, 10:14], case["rows"][LOSS, 10:14] = 0.5, 0.0   # dtc overflows
+        _live(case, *range(14))
+        return case
+    if name == "f32_loss_edges":             # loss 0, 1e-12 (the clamp) and just around it
+        case = ragged(40, 70, seed=34)
+        rows = case["rows"]
+        rows[LOSS, :6] = 0.0, 1e-12, 1e-13, 2e-12, 1.0, 1e-30
+        _live(case, *range(6))
+        return case
+    if name == "f32_nonfinite_column":       # live columns with inf and NaN terms
+        case = ragged(40, 70, seed=35)
+        rows = case["rows"]
+        nan, inf = float("nan"), float("inf")
+        rows[CAP, 1], rows[BW, 2], rows[QUEUE, 3], rows[RTT, 4] = inf, nan, inf, 0.0
+        rows[MSS, 5], rows[LOSS, 5] = nan, 0.01
+        rows[LOAD, 6], rows[WORK, 7], rows[CAP, 8] = -inf, nan, nan
+        _live(case, *range(1, 9))
+        return case
+    if name == "f32_wc_zero_inf_comp":       # 0·inf = NaN: DATA rows by an inf comp, COMPUTE by eff 0
+        case = ragged(30, 70, seed=36)
+        rows = case["rows"]
+        rows[QUEUE, 4], rows[CAP, 9] = float("inf"), 0.0
+        rows[MSS, 12], rows[LOSS, 12] = 0.0, 0.01
+        case["cls"][:] = np.resize(np.array([CLASS_COMPUTE, CLASS_DATA, CLASS_BOTH], np.int8), 30)
+        _live(case, 4, 9, 12)
+        return case
+    if name == "f32_ulp_lanes":              # job 0: column 36 one ulp below column 3
+        case = ragged(5, 70, seed=37, dead=0.0)
+        rows = case["rows"]
+        rows[LOAD] = 1e3                     # dear sites
+        for col in (3, 36):
+            rows[:, col] = [1000.0, 0.0, 0.0, 0.25, 1e10, 0.0, 0.01, 1460.0]
+        case["cls"][0] = CLASS_BOTH
+        case["bytes_"][0], case["work"][0] = float(np.float32(3e9)), float(np.float32(37.5))
+        _one_ulp_below(case, job=0, a_col=3, b_col=36)
+        return case
+    raise KeyError(name)
+
+
+def _one_ulp_below(case: dict, job: int, a_col: int, b_col: int) -> None:
+    """Lower column b_col's load, one float32 ulp at a time, until the
+    f32 plane's cost of ``job`` there is one ulp below a_col's."""
+    load_b = np.float32(case["rows"][LOAD, b_col])
+    for _ in range(4096):
+        load_b = np.nextafter(load_b, np.float32(-1))
+        case["rows"][LOAD, b_col] = float(load_b)
+        args, w = tensors_f32(case, "cpu")
+        cost = cost_matrix_classed_ref(*args, **w)[0][job]
+        a, b = cost[a_col].item(), cost[b_col].item()
+        if b < a:
+            assert b == float(np.nextafter(np.float32(a), np.float32(-np.inf))), (a, b)
+            return
+    raise RuntimeError("no load gives a one-ulp gap")
+
+
+ADVERSARIAL_F32 = (
+    "f32_beyond_range", "f32_window_edges", "f32_cap_flt_min", "f32_huge_jobs",
+    "f32_loss_edges", "f32_nonfinite_column", "f32_wc_zero_inf_comp", "f32_ulp_lanes",
+)
+
+
+def tensors_f32(case: dict, device) -> tuple:
+    """The f32 plane's arguments for a case on ``device``: (jb, jw, wc,
+    wd, cap, queue, work, load, bw, loss, rtt, alive, mss), float32 but
+    ``alive`` (bool), with the class as the wc/wd masks ``JobPack``
+    packs (COMPUTE 1/0, DATA 0/1, BOTH 1/1); and the weights as keyword
+    arguments of ``ops.cost_matrix_classed``. Values beyond float32's
+    range become inf or 0 in the cast, as ``.float()`` makes them."""
+    t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)  # noqa: E731
+    f32 = lambda a: t(torch.as_tensor(np.asarray(a, np.float64)).float().numpy(), torch.float32)  # noqa: E731
+    cls = case["cls"]
+    wc, wd = (cls != CLASS_DATA).astype(np.float32), (cls != CLASS_COMPUTE).astype(np.float32)
+    rows = case["rows"]
+    args = (f32(case["bytes_"]), f32(case["work"]), f32(wc), f32(wd),
+            *(f32(rows[i]) for i in (CAP, QUEUE, WORK, LOAD, BW, LOSS, RTT)),
+            t(case["alive"], torch.bool), f32(rows[MSS]))
+    wq, ww, wl = case["w"]
+    return args, dict(w_queue=wq, w_work=ww, w_load=wl)
 
 
 def tensors(case: dict, device) -> tuple:

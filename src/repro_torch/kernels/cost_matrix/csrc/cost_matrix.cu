@@ -17,21 +17,28 @@
 //       a NaN counts as the minimum, as np.argmin and torch.argmin do.
 //
 // Exactness: built with -fmad=false so no a*b+c is contracted into an FMA;
-// IEEE double division and sqrt are correctly rounded, as NumPy's are;
+// IEEE division and sqrt are correctly rounded in both types, as NumPy's
+// and PyTorch's are;
 // min propagates NaN like np.minimum (not fmin).
 //
-// Bound on an H100. The f32 plane is bound by the bytes it writes (half
-// the f64 plane's); site terms are computed once per 64 × 32 tile into
-// shared memory and a warp writes 32 consecutive sites of one row.
-//
-// The two f64 entries share a pre-pass (site_terms_f64_kernel) that
-// computes each site's terms once a launch into the wrapper's scratch, so
-// no block recomputes a square root or a division per site:
-//   * the f64 plane is bound by the 819 MB it writes at 100k × 1024 (0.245
-//     ms at 3.35 TB/s). A persistent grid; each thread holds its columns'
-//     terms in registers across the rows it writes and stores 16-byte
-//     double2 vectors, 512 contiguous bytes a warp, with no barrier on the
-//     row path (cost_matrix_f64_kernel).
+// Bound on an H100. Both planes are bound by the bytes they write (the
+// f32 plane 409.6 MB at 100k × 1024, 0.122 ms at 3.35 TB/s; the f64 plane
+// twice that). Each entry launches a pre-pass that computes every site's
+// terms once into the wrapper's scratch, so no block recomputes a square
+// root or a division per site, and a persistent grid whose threads hold
+// their columns' terms in registers across the rows they write and store
+// 16-byte vectors, 512 contiguous bytes a warp, with no barrier on the
+// row path. A cell's quotients are exact divisions without a divide: a
+// multiplication by the site's correctly rounded reciprocal and two FMA
+// corrections (div_rn_f32, div_rn), exact by Markstein's theorem inside a
+// window of the operands; cells outside it take IEEE division.
+//   * f32 plane (site_terms_f32_kernel, cost_matrix_f32_kernel): four
+//     adjacent columns a thread, one float4 a row; a warp loads the job
+//     columns of 32 consecutive rows in one coalesced load and hands
+//     each row out by shuffles. Out-of-window cells branch to IEEE
+//     division in the same kernel (see cost_matrix_f32_kernel).
+//   * f64 plane (site_terms_f64_kernel, cost_matrix_f64_kernel): double2
+//     pairs; out-of-window cells are rewritten by a fix-up kernel.
 //   * the fused argmin writes 16 bytes a row and is bound by the FP64 pipe:
 //     a correctly rounded division is some eight FP64 instructions, two a
 //     BOTH cell. An estimate with multiplications by the sites' reciprocals
@@ -44,10 +51,9 @@
 
 namespace {
 
-constexpr int kTileSites = 32;      // f32 plane: threadIdx.x, one warp across sites
-constexpr int kTileRows = 8;        // threadIdx.y
-constexpr int kRowsPerThread = 8;   // a block covers 64 jobs × 32 sites
-constexpr int kTileJobs = kTileRows * kRowsPerThread;
+constexpr int kLanes = 32;
+constexpr int kTermsThreads = 256;       // the site pre-passes
+constexpr int kPlaneThreads = 256;       // both planes
 
 enum JobClass : int8_t { kCompute = 0, kData = 1, kBoth = 2 };
 
@@ -59,41 +65,158 @@ __device__ __forceinline__ T np_minimum(T a, T b) {
 
 // ---- float32, Pallas order -------------------------------------------------
 
-__global__ void cost_matrix_f32_kernel(
-    const float* __restrict__ jb, const float* __restrict__ jw,
-    const float* __restrict__ wc, const float* __restrict__ wd,
+// Per-site terms of the f32 plane, written once a launch by
+// site_terms_f32_kernel into the wrapper's scratch: kF32Fields arrays of S
+// floats. kFlags32 holds int bits: kAlive (alive > 0.5) and kFastCol (dead,
+// or eff and cap both inside div32_window).
+enum F32Field { kNet32, kEff32, kComp32, kCap32, kYEff32, kYCap32, kFlags32, kF32Fields };
+constexpr int kAlive = 1, kFastCol = 2;
+
+// The window of div_rn_f32: x is a normal float with biased exponent in
+// [kDiv32ExpLo, kDiv32ExpHi], i.e. |x| in [2^-62, 2^63) (not 0, subnormal,
+// inf or NaN). With a and b in it:
+//   * 1/b lies in (2^-63, 2^62], so y = RN(1/b) is a normal number;
+//   * a/b lies in (2^-125, 2^125), so every q is normal and finite, as is
+//     r·y (about 2^-23·q) inside the FMA;
+//   * the remainder a - b·q of a faithful q is a multiple of
+//     2^(e_b + e_q - 46) ≥ 2^(e_a - 47) ≥ 2^-109 below 2^24 such units in
+//     size, so the FMA computes it exactly, above the subnormal range.
+// These are the hypotheses of Markstein's theorem (no under- or overflow,
+// y within half an ulp of 1/b, q faithful). Outside the window, a cell
+// takes IEEE division: zero or subnormal bytes or work, eff 0 (mss 0),
+// cap at FLT_MIN (its reciprocal overflows), inf and NaN.
+constexpr unsigned kDiv32ExpLo = 65, kDiv32ExpHi = 189;
+
+__device__ __forceinline__ bool div32_window(float x) {
+  const unsigned e = (__float_as_uint(x) >> 23) & 0xffu;
+  return e - kDiv32ExpLo <= kDiv32ExpHi - kDiv32ExpLo;
+}
+
+// a / b correctly rounded, for a and b in div32_window, from y = RN(1/b):
+// q0 = RN(a·y) is within 1.5 ulp of a/b; one FMA correction makes it
+// faithful, and the second is the exact rounding of a/b by Markstein's
+// theorem. Explicit __fmaf_rn and __fmul_rn, so -fmad=false does not
+// touch them and nothing else is contracted.
+__device__ __forceinline__ float div_rn_f32(float a, float b, float y) {
+  float q = __fmul_rn(a, y);
+  float r = __fmaf_rn(-b, q, a);
+  q = __fmaf_rn(r, y, q);
+  r = __fmaf_rn(-b, q, a);
+  return __fmaf_rn(r, y, q);
+}
+
+// The Pallas body's site half, in its order (IEEE sqrtf and divisions),
+// and the reciprocals of eff and cap. A column outside S is never read.
+__global__ void __launch_bounds__(kTermsThreads) site_terms_f32_kernel(
     const float* __restrict__ rows,  // (9, S): cap queue work load bw loss rtt alive mss
-    float* __restrict__ out, int64_t J, int64_t S,
-    float wq, float ww, float wl) {
-  __shared__ float s_net[kTileSites], s_eff[kTileSites], s_comp[kTileSites];
-  __shared__ float s_cap[kTileSites], s_alive[kTileSites];
-  const int64_t s = (int64_t)blockIdx.y * kTileSites + threadIdx.x;
-  if (threadIdx.y == 0 && s < S) {
+    int64_t S, float wq, float ww, float wl, float* __restrict__ terms) {
+  const int64_t stride = (int64_t)gridDim.x * kTermsThreads;
+  for (int64_t s = (int64_t)blockIdx.x * kTermsThreads + threadIdx.x; s < S; s += stride) {
     const float cap = rows[s], queue = rows[S + s], work = rows[2 * S + s];
     const float load = rows[3 * S + s], bw = rows[4 * S + s];
     const float loss = rows[5 * S + s], rtt = rows[6 * S + s];
     const float mss = rows[8 * S + s];
     const float mathis = mss / (rtt * sqrtf(fmaxf(loss, 1e-12f)));
-    s_eff[threadIdx.x] = loss > 0.0f ? np_minimum(bw, mathis) : bw;
-    s_net[threadIdx.x] = (loss / bw) * 1e6f;
-    s_comp[threadIdx.x] = (wq * queue + ww * work) / cap + wl * load;
-    s_cap[threadIdx.x] = cap;
-    s_alive[threadIdx.x] = rows[7 * S + s];
+    const float eff = loss > 0.0f ? np_minimum(bw, mathis) : bw;
+    const bool alive = rows[7 * S + s] > 0.5f;
+    const bool fast = !alive || (div32_window(eff) && div32_window(cap));
+    terms[kNet32 * S + s] = (loss / bw) * 1e6f;
+    terms[kEff32 * S + s] = eff;
+    terms[kComp32 * S + s] = (wq * queue + ww * work) / cap + wl * load;
+    terms[kCap32 * S + s] = cap;
+    terms[kYEff32 * S + s] = __frcp_rn(eff);
+    terms[kYCap32 * S + s] = __frcp_rn(cap);
+    terms[kFlags32 * S + s] = __int_as_float((alive ? kAlive : 0) | (fast ? kFastCol : 0));
   }
-  __syncthreads();
-  if (s >= S) return;
-  const float net = s_net[threadIdx.x], eff = s_eff[threadIdx.x];
-  const float comp_site = s_comp[threadIdx.x], cap = s_cap[threadIdx.x];
-  const bool alive = s_alive[threadIdx.x] > 0.5f;
-  const int64_t j0 = (int64_t)blockIdx.x * kTileJobs + threadIdx.y;
+}
+
+struct Site32 {
+  float net, eff, comp, cap, yeff, ycap;
+  bool alive;
+};
+
+// One cell: net + wc·comp + wd·dtc with comp = comp_site + jw/cap and
+// dtc = jb/eff, 3e38 in a dead column. kFast: both quotients by div_rn_f32.
+template <bool kFast>
+__device__ __forceinline__ float cell_f32(const Site32& t, float jb, float jw, float wc, float wd) {
+  const float comp = t.comp + (kFast ? div_rn_f32(jw, t.cap, t.ycap) : jw / t.cap);
+  const float dtc = kFast ? div_rn_f32(jb, t.eff, t.yeff) : jb / t.eff;
+  const float cost = t.net + wc * comp + wd * dtc;
+  return t.alive ? cost : 3.0e38f;
+}
+
+// The f32 plane. Bound by the bytes it writes (J·S·4). A persistent grid:
+// each block keeps one tile of 4·ct columns (ct quad slots, a power of two
+// from 32 to 256) and walks rows; each thread owns four adjacent columns,
+// holds their terms in registers for every row it writes and stores one
+// float4 a row (kVec, S % 4 == 0: every row starts 16-byte aligned), so a
+// warp writes 512 contiguous bytes. With S % 4 != 0 the rows start
+// misaligned and each thread stores its four cells one by one, up to the
+// row's last, partial quad. A warp takes 32 consecutive rows at a time: it
+// loads their job columns in one coalesced load each and hands every row
+// out by shuffles, so no row waits on its own load. No barrier on the row
+// path.
+//
+// Out-of-window cells take IEEE division in this kernel, by a branch and
+// not by a fix-up pass: a row's flag (jb and jw in the window) is the same
+// in every lane of the warp, and a thread's column flag (its four columns
+// fast) is fixed for the launch, so the branch diverges only in a warp
+// that holds a flagged column; a fix-up pass would cost a third launch and
+// a J-long flag array on every call, a quarter of the time at 10k × 256.
+template <bool kVec>
+__global__ void __launch_bounds__(kPlaneThreads) cost_matrix_f32_kernel(
+    const float* __restrict__ jb, const float* __restrict__ jw,
+    const float* __restrict__ wc, const float* __restrict__ wd,
+    const float* __restrict__ terms, float* __restrict__ out, int64_t J, int64_t S, int ct) {
+  const int64_t tiles = (S + 4 * ct - 1) / (4 * ct);
+  const int64_t c0 = (int64_t)(blockIdx.x % tiles) * 4 * ct + 4 * (threadIdx.x % ct);
+  const int lane = threadIdx.x % kLanes;
+  const int rows_per_pass = kPlaneThreads / ct;
+  const int64_t slots = (int64_t)(gridDim.x / tiles) * rows_per_pass;
+  const int64_t slot = (int64_t)(blockIdx.x / tiles) * rows_per_pass + threadIdx.x / ct;
+  Site32 t[4];
+  bool fast_cols = true;
 #pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-    const int64_t j = j0 + (int64_t)r * kTileRows;
-    if (j < J) {
-      const float comp = comp_site + jw[j] / cap;
-      const float dtc = jb[j] / eff;
-      const float cost = net + wc[j] * comp + wd[j] * dtc;
-      out[j * S + s] = alive ? cost : 3.0e38f;
+  for (int k = 0; k < 4; ++k) {
+    const int64_t c = c0 + k;
+    t[k] = Site32{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, false};
+    if (c < S) {
+      const int flags = __float_as_int(__ldg(terms + kFlags32 * S + c));
+      t[k] = Site32{__ldg(terms + kNet32 * S + c), __ldg(terms + kEff32 * S + c),
+                    __ldg(terms + kComp32 * S + c), __ldg(terms + kCap32 * S + c),
+                    __ldg(terms + kYEff32 * S + c), __ldg(terms + kYCap32 * S + c),
+                    (flags & kAlive) != 0};
+      fast_cols = fast_cols && (flags & kFastCol) != 0;
+    }
+  }
+  for (int64_t j0 = slot * kLanes; j0 < J; j0 += slots * kLanes) {
+    const int64_t jl = j0 + lane;       // this lane loads row jl
+    const bool in = jl < J;
+    const float bl = in ? jb[jl] : 0.0f, wl = in ? jw[jl] : 0.0f;
+    const float cl = in ? wc[jl] : 0.0f, dl = in ? wd[jl] : 0.0f;
+    const unsigned fast_rows = __ballot_sync(0xffffffffu, div32_window(bl) && div32_window(wl));
+    const int n = J - j0 < kLanes ? (int)(J - j0) : kLanes;   // the same in every lane
+#pragma unroll 4
+    for (int i = 0; i < kLanes; ++i) {
+      const float b = __shfl_sync(0xffffffffu, bl, i), w = __shfl_sync(0xffffffffu, wl, i);
+      const float c = __shfl_sync(0xffffffffu, cl, i), d = __shfl_sync(0xffffffffu, dl, i);
+      if (i >= n) break;
+      float v[4];
+      if (fast_cols && (fast_rows >> i & 1u)) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = cell_f32<true>(t[k], b, w, c, d);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = cell_f32<false>(t[k], b, w, c, d);
+      }
+      float* row = out + (j0 + i) * S + c0;
+      if (kVec) {
+        if (c0 < S) __stcs(reinterpret_cast<float4*>(row), make_float4(v[0], v[1], v[2], v[3]));
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (c0 + k < S) __stcs(row + k, v[k]);
+      }
     }
   }
 }
@@ -112,11 +235,7 @@ enum TermField {
   kScrNet, kScrBase, kRecEff, kRecCap,   // the argmin's screen
   kTermFields
 };
-constexpr int kLanes = 32;
 constexpr int kGateSlots = 256;
-constexpr int kTermsThreads = 256;
-
-constexpr int kPlaneThreads = 256;
 constexpr int kArgminThreads = 256;      // 8 warps
 constexpr int kArgminWarps = kArgminThreads / kLanes;
 constexpr int kRows = 4;                 // R: job rows a warp carries in registers
@@ -604,7 +723,7 @@ __device__ __forceinline__ void probe_exact(const double* in, double* out) {
 
 // Resident blocks of a kernel on this device, for the persistent grids.
 struct Residency {
-  int sms = 0, plane = 0, argmin = 0;
+  int sms = 0, plane32 = 0, plane = 0, argmin = 0;
 };
 
 cudaError_t residency(Residency* out) {
@@ -616,6 +735,8 @@ cudaError_t residency(Residency* out) {
   if (r.sms == 0) {
     Residency n;
     if ((rc = cudaDeviceGetAttribute(&n.sms, cudaDevAttrMultiProcessorCount, dev)) ||
+        (rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &n.plane32, cost_matrix_f32_kernel<true>, kPlaneThreads, 0)) ||
         (rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
              &n.plane, cost_matrix_f64_kernel<false>, kPlaneThreads, 0)) ||
         (rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -674,12 +795,31 @@ extern "C" {
 int repro_cost_matrix_f32(const float* jb, const float* jw, const float* wc,
                           const float* wd, const float* site_rows, float* out,
                           int64_t J, int64_t S, float wq, float ww, float wl,
-                          void* stream) {
-  const dim3 block(kTileSites, kTileRows);
-  const dim3 grid((unsigned)((J + kTileJobs - 1) / kTileJobs),
-                  (unsigned)((S + kTileSites - 1) / kTileSites));
-  cost_matrix_f32_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      jb, jw, wc, wd, site_rows, out, J, S, wq, ww, wl);
+                          void* scratch, void* stream) {
+  if (reinterpret_cast<uintptr_t>(out) % 16) return (int)cudaErrorMisalignedAddress;
+  const cudaStream_t st = (cudaStream_t)stream;
+  float* terms = static_cast<float*>(scratch);
+  Residency res;
+  cudaError_t rc = residency(&res);
+  if (rc != cudaSuccess) return (int)rc;
+  const int64_t pre = (S + kTermsThreads - 1) / kTermsThreads;
+  site_terms_f32_kernel<<<(unsigned)(pre < 1024 ? pre : 1024), kTermsThreads, 0, st>>>(
+      site_rows, S, wq, ww, wl, terms);
+  if ((rc = cudaGetLastError()) != cudaSuccess) return (int)rc;
+  // Column tile: ct quad slots (a power of two from 32 to 256), the rest
+  // of the block's threads on rows; a warp takes 32 rows at a time.
+  int ct = kLanes;
+  while (4 * ct < S && ct < kPlaneThreads) ct *= 2;
+  const int64_t tiles = (S + 4 * ct - 1) / (4 * ct);
+  const int64_t rows_per_pass = kPlaneThreads / ct;
+  int64_t row_groups = ((int64_t)res.sms * res.plane32) / tiles;
+  const int64_t needed = ((J + kLanes - 1) / kLanes + rows_per_pass - 1) / rows_per_pass;
+  row_groups = row_groups < 1 ? 1 : row_groups > needed ? needed : row_groups;
+  const dim3 grid((unsigned)(tiles * row_groups));
+  if (S % 4)
+    cost_matrix_f32_kernel<false><<<grid, kPlaneThreads, 0, st>>>(jb, jw, wc, wd, terms, out, J, S, ct);
+  else
+    cost_matrix_f32_kernel<true><<<grid, kPlaneThreads, 0, st>>>(jb, jw, wc, wd, terms, out, J, S, ct);
   return (int)cudaGetLastError();
 }
 

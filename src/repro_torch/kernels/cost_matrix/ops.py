@@ -2,23 +2,31 @@
 
 A tensor on the host goes to the plain version in ``ref.py``; a CUDA
 tensor launches the kernel (``csrc/cost_matrix.cu``) or raises. No
-padding: the kernels mask their ragged tiles. The float64 entries also
-get a scratch buffer (``scratch_doubles``) for the per-site terms that a
-pre-pass computes and the row flags of a fix-up pass, both launched by
-the same C entry. Each wrapper counts its kernel launches in its
-``launches`` attribute.
+padding: the kernels mask their ragged tiles. Every entry also gets a
+scratch buffer for the per-site terms that a pre-pass launched by the
+same C entry computes (``scratch_floats``; ``scratch_doubles`` also
+holds the float64 fix-up pass's row flags). Each wrapper counts its
+kernel launches in its ``launches`` attribute.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import _build
-from .ref import cost_argmin_f64_ref, cost_matrix_f32_ref, cost_matrix_f64_ref
+from .ref import cost_argmin_f64_ref, cost_matrix_f32_ref, cost_matrix_f64_ref, site_rows_f32
 
 __all__ = ["cost_matrix", "cost_matrix_classed", "cost_matrix_f64", "cost_argmin_f64",
-           "argmin_f64_unchecked", "scratch_doubles"]
+           "argmin_f64_unchecked", "scratch_doubles", "scratch_floats"]
 
 _F32, _F64 = torch.float32, torch.float64
+_F32_FIELDS = 7
+
+
+def scratch_floats(S: int) -> int:
+    """Float32 words of the f32 kernel's scratch (``csrc/cost_matrix.cu``):
+    seven per-site arrays of S — net, eff, comp_site, cap, RN(1/eff),
+    RN(1/cap) and the column flags."""
+    return _F32_FIELDS * S
 
 
 def cost_matrix(job_bytes, job_work, cap, queue, work, load, bw, loss, rtt, alive):
@@ -50,7 +58,7 @@ def cost_matrix_classed(
     dtypes["alive"] = torch.bool
     shapes = {**{k: (J,) for k in jobs}, **{k: (S,) for k in sites}, "alive": (S,)}
     dev = _build.launch_device("cost_matrix_classed", args, dtypes, shapes)
-    rows = torch.stack([cap, queue, work, load, bw, loss, rtt, alive.to(_F32), mss])
+    rows = site_rows_f32(cap, queue, work, load, bw, loss, rtt, alive, mss)
     if dev.type == "cpu":
         cost = cost_matrix_f32_ref(
             job_bytes, job_work, job_wcomp, job_wdtc, rows, w_queue, w_work, w_load
@@ -60,10 +68,11 @@ def cost_matrix_classed(
         if cost.numel():
             lib = _build.library()
             cost_matrix_classed.launches += 1
+            scratch = torch.empty(scratch_floats(S), dtype=_F32, device=dev)
             rc = lib.repro_cost_matrix_f32(
                 job_bytes.data_ptr(), job_work.data_ptr(), job_wcomp.data_ptr(),
                 job_wdtc.data_ptr(), rows.data_ptr(), cost.data_ptr(), J, S,
-                w_queue, w_work, w_load, _build.stream_of(dev),
+                w_queue, w_work, w_load, scratch.data_ptr(), _build.stream_of(dev),
             )
             _build.check(rc, "cost_matrix_classed")
     return cost, torch.argmin(cost, dim=1).to(torch.int32)

@@ -8,6 +8,11 @@ Job classes ride as an int8 (J,) column: 0 COMPUTE, 1 DATA, 2 BOTH.
 """
 from __future__ import annotations
 
+import math
+import struct
+from fractions import Fraction
+
+import numpy as np
 import torch
 
 from ..._device import sqrt_rn
@@ -17,9 +22,13 @@ __all__ = [
     "CLASS_DATA",
     "CLASS_BOTH",
     "cost_matrix_f32_ref",
+    "cost_matrix_classed_ref",
+    "site_rows_f32",
     "cost_matrix_f64_ref",
     "cost_argmin_f64_ref",
     "cost_argmin_f64_screen_model",
+    "div32_in_window",
+    "div_rn_f32_model",
 ]
 
 CLASS_COMPUTE, CLASS_DATA, CLASS_BOTH = 0, 1, 2
@@ -32,6 +41,10 @@ GUARD = 1.0 + 2.0**-40
 SCREEN_LO, SCREEN_HI = 2.0**-960, 2.0**1000
 _MIN_NORMAL = 2.0**-1022
 _INF_KEY = 0x7FF00000      # +inf's screen key (the high word of its bits)
+# The f32 plane's exact division (csrc/cost_matrix.cu, div_rn_f32) is
+# used where both operands' biased exponents lie in [DIV32_EXP_LO,
+# DIV32_EXP_HI], i.e. |x| in [2^-62, 2^63); other cells take IEEE division.
+DIV32_EXP_LO, DIV32_EXP_HI = 65, 189
 
 
 def cost_matrix_f32_ref(jb, jw, wc, wd, rows, w_queue=1.0, w_work=1.0, w_load=1.0):
@@ -47,6 +60,21 @@ def cost_matrix_f32_ref(jb, jw, wc, wd, rows, w_queue=1.0, w_work=1.0, w_load=1.
     dtc = jb[:, None] / eff[None, :]
     cost = net[None, :] + wc[:, None] * comp + wd[:, None] * dtc
     return torch.where(alive[None, :] > 0.5, cost, DEAD_F32)
+
+
+def site_rows_f32(cap, queue, work, load, bw, loss, rtt, alive, mss):
+    """The f32 plane's (9, S) site rows from its (S,) columns."""
+    return torch.stack([cap, queue, work, load, bw, loss, rtt, alive.to(torch.float32), mss])
+
+
+def cost_matrix_classed_ref(jb, jw, wc, wd, cap, queue, work, load, bw, loss, rtt, alive, mss,
+                            w_queue=1.0, w_work=1.0, w_load=1.0):
+    """``ops.cost_matrix_classed``'s plain version on its tensor
+    arguments (``mss`` an (S,) tensor): (cost, best (J,) int32, the
+    first index of each row's minimum; a NaN counts as the minimum)."""
+    rows = site_rows_f32(cap, queue, work, load, bw, loss, rtt, alive, mss)
+    cost = cost_matrix_f32_ref(jb, jw, wc, wd, rows, w_queue, w_work, w_load)
+    return cost, torch.argmin(cost, dim=1).to(torch.int32)
 
 
 def _site_terms_f64(rows, w_queue, w_work, w_load):
@@ -197,3 +225,58 @@ def cost_argmin_f64_screen_model(
     best = torch.where(cand, col, Sp).amin(dim=1)
     cost = exact.gather(1, best[:, None])[:, 0]
     return best, cost, skipped
+
+
+def div32_in_window(x: float) -> bool:
+    """The f32 kernel's window test (``div32_window``): ``x`` as float32
+    is a normal number with |x| in [2^-62, 2^63)."""
+    e = (struct.unpack("<I", struct.pack("<f", x))[0] >> 23) & 0xFF
+    return DIV32_EXP_LO <= e <= DIV32_EXP_HI
+
+
+def _round_f32(v: Fraction, neg_zero: bool = False) -> float:
+    """``v`` rounded to the nearest float32 (ties to even; subnormals and
+    overflow to inf as IEEE does), as a Python float. An exact zero is
+    -0.0 when ``neg_zero``."""
+    if v == 0:
+        return -0.0 if neg_zero else 0.0
+    sign = -1.0 if v < 0 else 1.0
+    n, d = abs(v.numerator), v.denominator
+    e = n.bit_length() - d.bit_length()            # floor(log2 |v|) is e or e - 1
+    if (n << max(0, -e)) < (d << max(0, e)):
+        e -= 1
+    u = max(e, -126) - 23                           # the exponent of the ulp
+    num, den = (n << -u, d) if u < 0 else (n, d << u)
+    q, r = divmod(num, den)
+    if 2 * r > den or (2 * r == den and q & 1):
+        q += 1
+    if q * 2.0**u >= 2.0**128:
+        return sign * float("inf")
+    return sign * q * 2.0**u
+
+
+def _fma32(a: float, b: float, c: float) -> float:
+    """RN32(a·b + c) with one rounding (``__fmaf_rn``), for finite
+    float32 operands."""
+    (na, da), (nb, db), (nc, dc) = a.as_integer_ratio(), b.as_integer_ratio(), c.as_integer_ratio()
+    exact = Fraction(na * nb * dc + nc * da * db, da * db * dc)
+    neg_zero = math.copysign(1.0, a) * math.copysign(1.0, b) < 0 and math.copysign(1.0, c) < 0
+    return _round_f32(exact, neg_zero=neg_zero)
+
+
+def div_rn_f32_model(a: float, b: float) -> float:
+    """a / b in float32 as the f32 plane's kernel computes it: inside the
+    window (``div32_in_window`` of both), y = RN(1/b), q = RN(a·y), then
+    two corrections r = fma(−b, q, a), q = fma(r, y, q), each FMA exact
+    before its one rounding (``fractions.Fraction``); outside it, IEEE
+    float32 division. For the tests: equal to IEEE division everywhere."""
+    a, b = float(np.float32(a)), float(np.float32(b))
+    if not (div32_in_window(a) and div32_in_window(b)):
+        with np.errstate(all="ignore"):
+            return float(np.float32(a) / np.float32(b))
+    y = _round_f32(1 / Fraction(b))
+    q = _round_f32(Fraction(a) * Fraction(y))
+    for _ in range(2):
+        r = _fma32(-b, q, a)
+        q = _fma32(r, y, q)
+    return q

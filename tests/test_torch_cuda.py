@@ -99,6 +99,35 @@ def _same(a, b):
     return torch.equal(an, bn) and torch.equal(a[~an], b[~bn])
 
 
+def _f32_case_checks(case, dev):
+    """The f32 plane bit-equal to its plain version on one case
+    (cost_matrix.cases, as ``tensors_f32`` packs it), NaN where NaN, with
+    the same first-index argmin."""
+    args, w = cm_cases.tensors_f32(case, dev)
+    before = cm_ops.cost_matrix_classed.launches
+    ck, bk = cm_ops.cost_matrix_classed(*args, **w)
+    assert cm_ops.cost_matrix_classed.launches == before + 1
+    cp, bp = cm_ref.cost_matrix_classed_ref(*args, **w)
+    assert _same(ck, cp)
+    assert torch.equal(bk, bp)
+
+
+@pytest.mark.parametrize("name", cm_cases.ADVERSARIAL + cm_cases.ADVERSARIAL_F32)
+def test_f32_plane_on_the_edge_cases(dev, name):
+    """The f64 sets cast to float32 (bytes and work beyond its range
+    become inf or 0) and the f32 sets: operands at and outside the exact
+    division's window, FLT_MIN capacities, 3e38 jobs, loss at the clamp,
+    inf and NaN columns, 0·inf, two lanes one ulp apart."""
+    _f32_case_checks(cm_cases.adversarial(name), dev)
+
+
+@pytest.mark.parametrize("J,S", [(1, 1), (7, 5), (33, 1027), (257, 4099), (65, 1024), (100, 130)])
+def test_f32_plane_on_ragged_shapes(dev, J, S):
+    """S % 4 != 0 (rows start misaligned: scalar stores up to the last,
+    partial quad), several column tiles, J off a warp's 32 rows."""
+    _f32_case_checks(cm_cases.ragged(J, S, seed=J + S), dev)
+
+
 def _f64_case_checks(case, dev):
     """Both f64 entries bit-equal to their plain versions on one case
     (cost_matrix.cases), NaN and +inf picks included."""
