@@ -54,6 +54,21 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
 5. Rebuild gemma2-9b in float32 and hold LM.forward's logits (flash
    kernel) against a decode_step loop (decode kernel), B 2, 16 tokens,
    rtol = atol = 2e-3.
+6. Run the §XI simulator (``repro_torch.sim.GridSim``) on the card and
+   on the port's CPU twin, every kernel counter set to 0 before and read
+   after, and hold it to the reference's committed results: Figs 7–8 at
+   n = 25/50/100/250 and the CMS case study (every ``:.0f`` string of
+   ``BENCH_fig7_8_queue_exec.json``/``BENCH_cms_case_study.json``),
+   Figs 9–11 (``BENCH_fig9_11_migration.json``), one migration tick of
+   the congested 10,000-job × 256-site grid (8,416 moves, the snapshot
+   equal to the CPU twin's; its device operations, kernels and copies,
+   counted by ``torch.profiler``), the event-horizon loop ≡ the per-event loop (64
+   sites × 4,000 jobs, 227 migrations), and hier ≡ flat: GridSim at
+   256/16 and 1,000/50 sites/tiers, then ``DianaScheduler`` at 10,000
+   sites × 100 tiers × 10,000 jobs (the flat select through the fused
+   f64 argmin kernel). The generators of ``benchmarks/`` are rebuilt
+   over the port's classes (the same draws); each part prints its wall
+   time on the card and on the CPU twin.
 
 Prints the card, each phase's results and times, a ``{"kernels": …}``
 line and, last, ``{"ok": true, "device": …}``. Any failed check raises,
@@ -1007,6 +1022,242 @@ def phase_prefill_equals_decode(torch):
     return launches
 
 
+
+# -- phase 6: the §XI simulator on the card ----------------------------------------
+#
+# The benchmarks' own generators (benchmarks/*.py import the reference, so
+# ``repro_torch.sim.bench_inputs`` rebuilds them over the port's classes:
+# the same draws in the same order), the results held against the
+# committed BENCH_*.json of the reference and against the port's CPU twin.
+
+POLICIES = ("diana", "fcfs", "greedy", "local")
+
+
+def bench_json(name: str) -> dict:
+    return json.loads((ROOT / name).read_text())
+
+
+def twin(torch, fn):
+    """``fn(device)`` on the card and on the port's CPU twin: (card
+    result, CPU result, card seconds, CPU seconds)."""
+    t0 = time.perf_counter()
+    card = fn("cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cpu = fn("cpu")
+    return card, cpu, t1 - t0, time.perf_counter() - t1
+
+
+def sim_trace(res) -> list:
+    return [(j.user, j.arrival, j.exec_site, j.start, j.finish, j.migrated) for j in res.jobs]
+
+
+HIER_CORE = (10_000, 100, 10_000)     # sites, tiers, jobs (the bench's 100,000 jobs cut to 10,000)
+
+
+def phase_sim(torch, P) -> dict:
+    """Phase 6: GridSim's results on the card against the committed
+    reference results and the CPU twin; returns the part times."""
+    import repro_torch.sim as S
+    from repro_torch.kernels.cost_matrix import ops as cm_ops
+    from repro_torch.sim import bench_inputs as BI
+
+    out: dict = {}
+
+    def report(part: str, t_card: float, t_cpu: float, extra: str = "") -> None:
+        out[part] = {"card_s": t_card, "cpu_s": t_cpu}
+        print(f"phase 6 {part}: card {t_card:.3f} s, CPU twin {t_cpu:.3f} s{extra}")
+
+    # 1. Figs 7-8: queue and execution time against n, four policies.
+    derived = {r["name"]: r["derived"] for r in bench_json("BENCH_fig7_8_queue_exec.json")["rows"]}
+    t_card = t_cpu = 0.0
+    for n in (25, 50, 100, 250):
+        def fig(device, n=n):
+            return {p: S.GridSim(S.paper_grid_spec(), config=S.SimConfig(policy=p),
+                                 device=device).run(BI.fig78_workload(n)) for p in POLICIES}
+        rows, rows_cpu, a, b = twin(torch, fig)
+        t_card, t_cpu = t_card + a, t_cpu + b
+        for p in POLICIES:
+            check(sim_trace(rows[p]) == sim_trace(rows_cpu[p]), f"fig 7-8 n={n} {p}: card != CPU twin")
+        q = "queue_s=" + "/".join(f"{rows[p].avg_queue_time:.0f}" for p in POLICIES) + \
+            ";order=diana/fcfs/greedy/local"
+        e = "exec_s=" + "/".join(f"{rows[p].avg_exec_time:.0f}" for p in POLICIES) + \
+            f";diana_turnaround_s={rows['diana'].avg_turnaround:.0f}"
+        check(q == derived[f"fig7_queue_time_n{n}"], f"fig 7 n={n}: {q} != {derived[f'fig7_queue_time_n{n}']}")
+        check(e == derived[f"fig8_exec_time_n{n}"], f"fig 8 n={n}: {e} != {derived[f'fig8_exec_time_n{n}']}")
+        if n == 100:
+            print(f"phase 6 fig 7-8 n=100: {q}; {e}")
+    report("fig7_8 (n 25/50/100/250, 4 policies)", t_card, t_cpu, ", every string = BENCH_fig7_8_queue_exec.json")
+
+    # 2. The CMS case study.
+    derived = {r["name"]: r["derived"] for r in bench_json("BENCH_cms_case_study.json")["rows"]}
+    def cms(device):
+        return {p: S.GridSim(S.paper_grid_spec(), config=S.SimConfig(policy=p), device=device).run(
+            S.cms_case_study(scale=0.6, seed=7)) for p in POLICIES}
+    rows, rows_cpu, a, b = twin(torch, cms)
+    for p in POLICIES:
+        res = rows[p]
+        got = (f"jobs={len(res.jobs)};turnaround_s={res.avg_turnaround:.0f};"
+               f"queue_s={res.avg_queue_time:.0f};exec_s={res.avg_exec_time:.0f};"
+               f"throughput_jobs_s={res.throughput:.4f}")
+        check(got == derived[f"cms_{p}"], f"cms {p}: {got} != {derived[f'cms_{p}']}")
+        check(sim_trace(res) == sim_trace(rows_cpu[p]), f"cms {p}: card != CPU twin")
+    report("cms_case_study (scale 0.6, seed 7)", a, b,
+           f", diana turnaround {rows['diana'].avg_turnaround:.0f} s, fcfs {rows['fcfs'].avg_turnaround:.0f} s")
+
+    # 3. Figs 9-11: export/import under overload, then a big site.
+    def fig911(device):
+        cfg = dict(policy="diana", quotas=BI.QUOTAS, migration_interval_s=30.0,
+                   congestion_window_s=120.0)
+        res = S.GridSim(S.paper_grid_spec(), config=S.SimConfig(**cfg), device=device).run(
+            BI.overload_workload())
+        res2 = S.GridSim(dict(S.paper_grid_spec(), big=50), config=S.SimConfig(**cfg),
+                         device=device).run(BI.overload_workload())
+        exported = {s: sum(res.timeline[s]["exported"]) for s in res.timeline}
+        imported = {s: sum(res.timeline[s]["imported"]) for s in res.timeline}
+        executed = {s: sum(res.timeline[s]["executed"]) for s in res.timeline}
+        return {
+            "bench": "fig9_11_migration",
+            "exported_total": sum(exported.values()),
+            "imported_total": sum(imported.values()),
+            "migrations": res.migrations(),
+            "big_site_imports": sum(res2.timeline["big"]["imported"]),
+            "busiest_site": max(executed, key=executed.get),
+            "completed": sum(1 for j in res.jobs if j.finish >= 0),
+            "jobs": len(res.jobs),
+        }
+    got, got_cpu, a, b = twin(torch, fig911)
+    expect = bench_json("BENCH_fig9_11_migration.json")["result"]
+    check(got == expect, f"figs 9-11: {got} != {expect}")
+    check(got_cpu == got, "figs 9-11: card != CPU twin")
+    report("fig9_11", a, b, f", {got['migrations']} migrations, busiest {got['busiest_site']}, "
+           f"{got['completed']}/{got['jobs']} completed")
+
+    # 4. One migration tick at 10,000 jobs x 256 sites (not cut).
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    expect = bench_json("BENCH_migration.json")
+    J, Sn = expect["jobs"], expect["sites"]
+    card, now = BI.congested_sim(J, Sn, 0, device="cuda")
+    lazy, _ = BI.congested_sim(J, Sn, 0, device="cuda", placement="hier")
+    profiled = copy.deepcopy(card)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card._on_migrate_check(now + 60.0, [])
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profiled._on_migrate_check(now + 60.0, [])
+        torch.cuda.synchronize()
+    # The raw device events: key_averages() parses the tick's ~1.4 million
+    # events into Python objects, which took minutes; the counts and
+    # durations are the same.
+    kern = [e for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
+    t_prof = time.perf_counter() - t0
+    launches = len(kern)
+    busy_s = sum(e.duration_ns() for e in kern) / 1e9
+    cpu, now = BI.congested_sim(J, Sn, 0, device="cpu")
+    t0 = time.perf_counter()
+    cpu._on_migrate_check(now + 60.0, [])
+    t_cpu = time.perf_counter() - t0
+    snap = BI.migration_snapshot(card)
+    moves = sum(1 for _, m in snap["moves"] if m)
+    check(moves == expect["migrations"], f"migration tick: {moves} migrations != {expect['migrations']}")
+    check(snap == BI.migration_snapshot(cpu), "migration tick: card != CPU twin")
+    check(BI.migration_snapshot(profiled) == snap, "migration tick: profiled run differs")
+    out["tick"] = {"launches": launches, "device_busy_s": busy_s, "migrations": moves}
+    report(f"migration tick {J} x {Sn}", t_card, t_cpu,
+           f", {moves} migrations, {launches} device operations (kernels and copies; "
+           f"{launches / moves:.1f} a move), "
+           f"device busy {busy_s:.6f} s; the profiled run and its event count {t_prof:.3f} s")
+    # The same tick under placement="hier" takes the lazy candidate-column
+    # pass; it must decide exactly as the dense one (and so as the CPU twin).
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lazy._on_migrate_check(now + 60.0, [])
+    torch.cuda.synchronize()
+    t_lazy = time.perf_counter() - t0
+    snap_lazy = BI.migration_snapshot(lazy)
+    moves_lazy = sum(1 for _, m in snap_lazy["moves"] if m)
+    check(moves_lazy == expect["migrations"],
+          f"lazy migration tick: {moves_lazy} migrations != {expect['migrations']}")
+    check(snap_lazy == snap, "lazy migration tick (placement='hier') != the dense tick")
+    out["tick_lazy"] = {"card_s": t_lazy, "migrations": moves_lazy}
+    print(f"phase 6 migration tick {J} x {Sn}, placement='hier' (lazy pass): card {t_lazy:.3f} s, "
+          f"{moves_lazy} migrations, snapshot == the dense tick's == the CPU twin's")
+
+    # 5. Event-horizon identity (benchmarks/streaming_bench.py:check_equivalence, GridSim half).
+    expect = bench_json("BENCH_streaming.json")["equivalence"]
+    nodes = BI.streaming_grid(expect["sites"])
+    base = dict(policy="diana", migration_interval_s=60.0, congestion_window_s=120.0)
+    def stream(device):
+        w = BI.streaming_workload(sorted(nodes), expect["jobs"])
+        return [S.GridSim(nodes, config=S.SimConfig(horizon=h, **base), device=device).run(
+            copy.deepcopy(w)) for h in (False, True)]
+    (ev, hz), (ev_cpu, hz_cpu), a, b = twin(torch, stream)
+    placements = lambda r: sorted((j.user, j.arrival, j.exec_site, j.start, j.finish, j.migrated)  # noqa: E731
+                                  for j in r.jobs)
+    check(placements(ev) == placements(hz), "streaming: horizon loop != per-event loop on the card")
+    check(placements(hz) == placements(hz_cpu) == placements(ev_cpu), "streaming: card != CPU twin")
+    check(hz.migrations() == expect["gridsim"]["migrations"],
+          f"streaming: {hz.migrations()} migrations != {expect['gridsim']['migrations']}")
+    report(f"streaming equivalence {expect['sites']} sites x {expect['jobs']} jobs", a, b,
+           f", horizon == per-event, {hz.migrations()} migrations")
+
+    # 6. hier == flat: GridSim at 256/16 and 1000/50, then the core at 10k sites.
+    for n_sites, tiers_n in ((256, 16), (1000, 50)):
+        spec, links, topo, jobs = BI.hier_sim_grid(n_sites, tiers_n, 0)
+        def hier(device):
+            traces = {}
+            for placement in ("flat", "hier"):
+                cfg = S.SimConfig(policy="diana", placement=placement, topology=topo,
+                                  migration_interval_s=30.0, congestion_window_s=120.0)
+                res = S.GridSim(dict(spec), links=dict(links), config=cfg, device=device).run(
+                    copy.deepcopy(jobs))
+                traces[placement] = [(j.user, j.arrival, j.exec_site, j.finish, j.migrated)
+                                     for j in res.jobs]
+            return traces
+        tr, tr_cpu, a, b = twin(torch, hier)
+        check(tr["flat"] == tr["hier"], f"hier sim {n_sites}/{tiers_n}: hier != flat on the card")
+        check(tr == tr_cpu, f"hier sim {n_sites}/{tiers_n}: card != CPU twin")
+        report(f"GridSim hier == flat at {n_sites} sites / {tiers_n} tiers (flat + hier runs)", a, b,
+               f", {sum(m for *_, m in tr['hier'])} migrations")
+
+    sites_n, tiers_n, jobs_n = HIER_CORE
+    site_d, link_d, job_list, tier_d = BI.hier_core_grid(sites_n, tiers_n, jobs_n)
+    argmin_before = cm_ops.cost_argmin_f64.launches
+    def core(device):
+        res = {}
+        for mode in ("flat", "hier"):
+            kw = {"mode": "hier", "tiers": tier_d} if mode == "hier" else {}
+            d = P.DianaScheduler(copy.deepcopy(site_d), dict(link_d), device=device)
+            t0 = time.perf_counter()
+            sel = d.select_sites_batch(job_list, **kw)
+            t1 = time.perf_counter()
+            d = P.DianaScheduler(copy.deepcopy(site_d), dict(link_d), device=device)
+            pl = d.place_batch(copy.deepcopy(job_list), **kw)
+            t2 = time.perf_counter()
+            res[mode] = (sel.sites, sel.costs.tolist(), pl.sites, pl.costs.tolist(),
+                         [(s.queue_length, s.waiting_work) for s in d.sites.values()],
+                         t1 - t0, t2 - t1)
+        return res
+    c, c_cpu, a, b = twin(torch, core)
+    check(cm_ops.cost_argmin_f64.launches > argmin_before, "hier core: the flat select launched no f64 argmin")
+    for mode in ("flat", "hier"):
+        check(c[mode][:5] == c_cpu[mode][:5], f"hier core {mode}: card != CPU twin")
+    check(c["flat"][:2] == c["hier"][:2], "hier core: select_sites_batch hier != flat (fused f64 argmin)")
+    check(c["flat"][2:5] == c["hier"][2:5], "hier core: place_batch hier != flat")
+    times = {f"{m}_{k}": v for m in ("flat", "hier") for k, v in (("select_s", c[m][5]), ("place_s", c[m][6]))}
+    times_cpu = {f"{m}_{k}": v for m in ("flat", "hier") for k, v in (("select_s", c_cpu[m][5]), ("place_s", c_cpu[m][6]))}
+    out["hier_core"] = {"card": times, "cpu": times_cpu}
+    report(f"core hier == flat at {sites_n} sites / {tiers_n} tiers x {jobs_n} jobs", a, b,
+           f"; card {json.dumps({k: round(v, 6) for k, v in times.items()})}, "
+           f"CPU {json.dumps({k: round(v, 6) for k, v in times_cpu.items()})}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1038,6 +1289,23 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_prefill_equals_decode(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phase 6 is this slice's path: every kernel counter at 0 before it,
+    # read after (the CPU twin's calls run the plain versions, uncounted).
+    from repro_torch.kernels.cost_matrix import ops as cm_ops
+    from repro_torch.kernels.priority_requeue import ops as pr_ops
+
+    sim_counters = {"cost_matrix_f32": cm_ops.cost_matrix_classed, "cost_matrix_f64": cm_ops.cost_matrix_f64,
+                    "cost_argmin_f64": cm_ops.cost_argmin_f64, "priority_requeue": pr_ops.priority_requeue}
+    for fn in sim_counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    phase_sim(torch, P)
+    sim_launches = {name: fn.launches for name, fn in sim_counters.items()}
+    print(f"phase 6 in {time.perf_counter() - t0:.3f} s, launches {sim_launches}")
+    check(sim_launches["cost_argmin_f64"] > 0, "phase 6 never launched cost_argmin_f64")
 
     meta = {
         "cost_matrix_f32": ("src/repro_torch/kernels/cost_matrix/csrc/cost_matrix.cu",
@@ -1062,12 +1330,13 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=None, shape=r["shape"], **({"wrapper_ms": r["wrapper_ms"]} if "wrapper_ms" in r else {}),
+            library_ms=None, shape=r["shape"], launches_sim=sim_launches[name],
+            **({"wrapper_ms": r["wrapper_ms"]} if "wrapper_ms" in r else {}),
         ))
     for name, (source, replaces) in attn_meta.items():
         r = attn[name]
         line.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         launches=serving["launches"][name], **r))
+                         launches=serving["launches"][name], launches_sim=0, **r))
     for k in line:
         k["bound_share"] = k["bound_ms"] / k["ms"]
         k["launches_x_gap_ms"] = k["launches"] * (k["ms"] - k["bound_ms"])

@@ -15,13 +15,25 @@ so the float64 paths avoid them:
 * ``scalar / tensor`` is evaluated as ``tensor.reciprocal() * scalar``,
   and on CUDA ``tensor / scalar`` as a multiply by the reciprocal; both
   round twice. Exact quotients are always tensor / tensor.
+
+One PyTorch habit breaks run-to-run equality on the host:
+
+* the first vectorized transcendental (``torch.tanh``, ``torch.exp``)
+  that an intra-op worker thread runs in a process can come out up to
+  about 5e-5 off in relative terms, over that thread's whole share of
+  the tensor, while every later call is exact to an ulp (torch 2.13
+  CPU builds with MKL; about one process in five). ``warm_host_math``
+  runs each such function once over enough elements to reach every
+  intra-op thread and throws the result away; the host paths of
+  ``models`` and the attention kernels' plain versions call it before
+  their first transcendental.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "sqrt_rn"]
+__all__ = ["resolve_device", "sqrt_rn", "warm_host_math"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -43,3 +55,25 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
         with np.errstate(invalid="ignore"):
             return torch.from_numpy(np.sqrt(x.numpy()))
     return torch.sqrt(x)
+
+
+# Intra-op thread count the host math was last warmed for (0: never).
+_warm_threads = 0
+
+
+def warm_host_math(x: torch.Tensor) -> None:
+    """Run the host's vectorized transcendentals once on every intra-op
+    thread before ``x``'s first use (see module note); a no-op on the
+    card and after the first call, unless the thread count grew."""
+    global _warm_threads
+    if x.device.type != "cpu":
+        return
+    threads = torch.get_num_threads()
+    if threads <= _warm_threads:
+        return
+    # Each thread's share must clear the unary kernels' grain of 2,048.
+    w = torch.linspace(-4.0, 4.0, max(1 << 21, threads << 16))
+    for f in (torch.tanh, torch.exp, torch.sin, torch.cos, torch.rsqrt, torch.erf,
+              torch.sigmoid):
+        f(w)
+    _warm_threads = threads

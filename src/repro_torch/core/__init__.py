@@ -1,7 +1,8 @@
-"""DIANA core, ported: the paper's placement path (§IV, §V, §VIII, §X).
+"""DIANA core, ported: the paper's scheduling algorithms (§IV–§X).
 
-Public API re-exports of what is ported. Migration (§IX), topology/hier
-placement and P2P are later slices (ROADMAP.md queue A).
+Public API re-exports of what is ported: placement, quotas and bulk
+groups, §IX migration, the RootGrid topology and two-level ("hier")
+placement. P2P is a later slice (ROADMAP.md queue A, step 9).
 """
 from .costs import (
     CostWeights,
@@ -36,11 +37,20 @@ from .bulk import (
     stable_user_peer,
     submitting_peer,
 )
+from .migration import (
+    MigrationDecision,
+    PeerView,
+    migrate_congested,
+    select_peer,
+    select_peers_batch,
+)
+from .topology import GridTopology, Node, RootGrid, SubGrid
 from .batch import (
     PACK_FIELDS,
     BatchPlacement,
     JobPack,
     SitePack,
+    TierPack,
     argmin_finite,
     batched_argmin,
     batched_cost_matrix,
@@ -48,6 +58,8 @@ from .batch import (
     comp_site_column,
     cost_components,
     fused_argmin,
+    hier_replay,
+    hier_select,
     replay_on_pack,
     replay_place,
 )
@@ -66,9 +78,13 @@ __all__ = [
     "BulkGroup", "BulkScheduler", "GroupPlacement",
     "allocate_proportional", "average_makespan",
     "route_groups", "stable_user_peer", "submitting_peer",
-    "PACK_FIELDS", "BatchPlacement", "JobPack", "SitePack", "argmin_finite",
+    "MigrationDecision", "PeerView", "migrate_congested", "select_peer",
+    "select_peers_batch",
+    "GridTopology", "Node", "RootGrid", "SubGrid",
+    "PACK_FIELDS", "BatchPlacement", "JobPack", "SitePack", "TierPack", "argmin_finite",
     "batched_argmin", "batched_cost_matrix", "class_total", "comp_site_column",
-    "cost_components", "fused_argmin", "replay_on_pack", "replay_place",
+    "cost_components", "fused_argmin", "hier_replay", "hier_select",
+    "replay_on_pack", "replay_place",
     "PlacementEngine",
     "ReferenceState", "state_from_reference",
 ]

@@ -3,10 +3,9 @@
 The algorithm — cost planes, per-class ranking, selection, sequential
 replay — owns no site state and runs against any ``SitePack`` view, on
 the view's device. ``DianaScheduler`` hands it packs built from its
-authoritative dicts. Results are a pure function of the view.
-
-Only the flat methods are ported; the two-level ("hier") variants are a
-later slice (ROADMAP.md queue A).
+authoritative dicts. Results are a pure function of the view. The
+two-level ("hier") variants resolve the same decisions through a
+``TierPack``'s tier bounds.
 """
 from __future__ import annotations
 
@@ -18,8 +17,11 @@ from .batch import (
     BatchPlacement,
     JobPack,
     SitePack,
+    TierPack,
     batched_cost_matrix,
     fused_argmin,
+    hier_replay,
+    hier_select,
     replay_on_pack,
 )
 from .costs import CostWeights
@@ -71,6 +73,17 @@ class PlacementEngine:
         """Sequential-equivalent placement with per-row queue feedback;
         mutates the pack's queue/work columns."""
         return replay_on_pack(jp, sp, self.weights)
+
+    # -- two-level ("hier") variants ------------------------------------------
+    def select_hier(self, jp: JobPack, sp: SitePack, tp: TierPack) -> BatchPlacement:
+        """``select`` through the tier bounds — bit-identical choices
+        and costs without materializing the (J, S) plane."""
+        return hier_select(jp, sp, tp, self.weights)
+
+    def replay_hier(self, jp: JobPack, sp: SitePack, tp: TierPack) -> BatchPlacement:
+        """``replay`` through the tier bounds — bit-identical, including
+        the pack's queue/work feedback."""
+        return hier_replay(jp, sp, tp, self.weights)
 
     # -- convenience ----------------------------------------------------------
     def pack_jobs(

@@ -66,13 +66,8 @@ class SiteDecision:
     job_class: JobClass
 
 
-def _require_flat(mode: str) -> None:
-    if mode == "hier":
-        raise NotImplementedError(
-            "mode='hier' (two-level tier placement) is not ported yet: "
-            "ROADMAP.md queue A, step 7 (core/topology.py + the hier half of core/batch.py)"
-        )
-    if mode != "flat":
+def _check_mode(mode: str) -> None:
+    if mode not in ("flat", "hier"):
         raise ValueError(f"mode must be 'flat' or 'hier', got {mode!r}")
 
 
@@ -81,6 +76,8 @@ class DianaScheduler:
 
     ``sites``: dynamic SiteState per peer (including the local site).
     ``links``: NetworkLink from *this* scheduler's site toward each peer.
+    ``topology``: optional ``GridTopology``, the default tier structure
+    of the two-level batch paths (``mode="hier"``); None = one tier.
     ``device``: where the batch paths run; None → the CUDA card, which
     raises when there is none.
     """
@@ -90,12 +87,14 @@ class DianaScheduler:
         sites: dict[str, SiteState],
         links: dict[str, NetworkLink],
         weights: CostWeights = CostWeights(),
+        topology=None,
         *,
         device=None,
     ):
         self.sites = sites
         self.links = links
         self.weights = weights
+        self.topology = topology
         self.device = resolve_device(device)
 
     @property
@@ -177,11 +176,22 @@ class DianaScheduler:
         job_classes: Optional[Sequence[Optional[JobClass]]] = None,
         *,
         mode: str = "flat",
+        tiers=None,
     ) -> "BatchPlacement":
         """Batched ``select_site`` with no state commit: every job sees
-        the same snapshot, like J independent ``select_site`` calls."""
-        _require_flat(mode)
+        the same snapshot, like J independent ``select_site`` calls.
+
+        ``mode="hier"`` routes through the two-level tier-bound path
+        (bit-identical decisions, no (J, S) plane); ``tiers`` overrides
+        the scheduler's ``topology`` as the tier structure.
+        """
+        from . import batch as _batch
+
+        _check_mode(mode)
         jp, sp = self._packs(jobs, job_classes)
+        if mode == "hier":
+            tp = _batch.TierPack.from_site_pack(sp, self.topology if tiers is None else tiers)
+            return self.engine.select_hier(jp, sp, tp)
         return self.engine.select(jp, sp)
 
     def place_batch(
@@ -190,14 +200,29 @@ class DianaScheduler:
         job_classes: Optional[Sequence[Optional[JobClass]]] = None,
         *,
         mode: str = "flat",
+        tiers=None,
     ) -> "BatchPlacement":
         """Batched ``place`` loop: the static §IV planes once, the
         per-placement queue feedback replayed between rows, so choices,
         costs and final site state are bit-identical to
-        ``[self.place(j) for j in jobs]``."""
+        ``[self.place(j) for j in jobs]``.
+
+        ``mode="hier"`` commits the same placements through the
+        two-level tier-bound path (see ``select_sites_batch``).
+        """
         from . import batch as _batch
 
-        _require_flat(mode)
+        _check_mode(mode)
+        if mode == "hier":
+            jp, sp = self._packs(jobs, job_classes)
+            tp = _batch.TierPack.from_site_pack(sp, self.topology if tiers is None else tiers)
+            placement = self.engine.replay_hier(jp, sp, tp)
+            for job, name in zip(jobs, placement.sites):
+                job.site = name
+            for name, qv, wv in zip(sp.names, sp.queue.tolist(), sp.work.tolist()):
+                self.sites[name].queue_length = qv
+                self.sites[name].waiting_work = wv
+            return placement
         return _batch.replay_place(
             jobs, self.sites, self.links, self.weights, job_classes,
             commit=True, device=self.device,

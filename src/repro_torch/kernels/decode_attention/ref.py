@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..._device import warm_host_math
+
 __all__ = ["NEG_INF", "decode_attention_ref"]
 
 NEG_INF = -2.0e38
@@ -23,6 +25,7 @@ def decode_attention_ref(q, k, v, pos: int, *, window=0, softcap=0.0):
     rep = H // KV
     qg = q.reshape(B, KV, rep, D)
     s = torch.einsum("bgrd,bkgd->bgrk", qg.float(), k.float()) * (D ** -0.5)
+    warm_host_math(s)
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
     idx = torch.arange(S, device=q.device)

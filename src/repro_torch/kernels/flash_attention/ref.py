@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from ..._device import warm_host_math
+
 __all__ = ["NEG_INF", "flash_attention_ref"]
 
 NEG_INF = -2.0e38
@@ -25,6 +27,7 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
     rep = H // KV
     qg = q.reshape(B, Sq, KV, rep, D)
     s = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(), k.float()) * (D ** -0.5)
+    warm_host_math(s)
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
     qp = torch.arange(Sq, device=q.device)[:, None]

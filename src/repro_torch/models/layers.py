@@ -14,6 +14,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .._device import warm_host_math
+
 __all__ = [
     "softcap", "rms_norm", "init_linear_", "init_embedding_", "linear", "embed",
     "rope", "mlp",
@@ -24,11 +26,13 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     """Gemma-2 style logit soft-capping: cap·tanh(x/cap)."""
     if cap <= 0:
         return x
+    warm_host_math(x)
     return cap * torch.tanh(x / cap)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
+    warm_host_math(x)
     x = x.float()
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
@@ -64,6 +68,7 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding. x: (..., S, H, D) or (..., S, D); positions (..., S)."""
+    warm_host_math(x)
     d = x.shape[-1]
     half = d // 2
     freq = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
@@ -80,6 +85,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 def mlp(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     """``params`` maps ``w_gate``/``w_up``/``w_down`` to (d, f)/(f, d)."""
+    warm_host_math(x)
     if kind == "swiglu":
         h = F.silu(linear(x, params["w_gate"])) * linear(x, params["w_up"])
     elif kind == "geglu":

@@ -452,3 +452,122 @@ def test_reduced_model_on_the_card_equals_the_host(dev):
         torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
     for name in ch:
         torch.testing.assert_close(cc[name].cpu(), ch[name], rtol=1e-4, atol=1e-4)
+
+
+# -- §IX migration, two-level placement and the simulator on the card ----------
+
+def _np_argmin_rows(rng, shape):
+    x = rng.choice([0.0, 1.0, -1.0, np.inf, -np.inf, np.nan], size=shape,
+                   p=[0.3, 0.2, 0.2, 0.1, 0.1, 0.1])
+    x[:, 0] = np.where(rng.uniform(size=shape[0]) < 0.2, np.inf, x[:, 0])
+    x[: shape[0] // 8] = np.inf                       # all-inf rows answer column 0
+    return x
+
+
+def test_reductions_on_the_card_are_numpys(dev):
+    """first index on ties, the first NaN wins a minimum, argmax of an
+    all-False row is 0; amin propagates NaN; stable argsort keeps ties
+    in index order — on CUDA tensors, not assumed from torch."""
+    from repro_torch.core import migration as PM
+
+    rng = np.random.default_rng(0)
+    for shape in ((257, 9), (64, 1030), (3, 1)):
+        x = _np_argmin_rows(rng, shape)
+        xt = torch.as_tensor(x, device=dev)
+        assert PM.first_min_index(xt).tolist() == np.argmin(x, axis=1).tolist()
+        m = rng.uniform(size=shape) < 0.1
+        assert PM.first_true_index(torch.as_tensor(m, device=dev)).tolist() == \
+            np.argmax(m, axis=1).tolist()
+        np.testing.assert_array_equal(xt.amin(dim=1).cpu().numpy(), x.min(axis=1))
+    b = np.repeat(rng.integers(0, 5, size=40).astype(float), 3)
+    b[::7] = -np.inf
+    got = torch.argsort(torch.as_tensor(b, device=dev), stable=True).tolist()
+    assert got == np.argsort(b, kind="stable").tolist()
+
+
+def test_select_peer_targets_on_the_card_equals_the_host(dev):
+    from repro_torch.core import migration as PM
+
+    rng = np.random.default_rng(1)
+    for J, S in ((1, 1), (37, 13), (500, 256)):
+        ja = rng.integers(0, 3, size=(J, S)).astype(float)
+        cost = rng.integers(0, 3, size=(J, S)).astype(float)
+        cost[rng.uniform(size=(J, S)) < 0.1] = np.inf
+        cost[rng.uniform(size=(J, S)) < 0.05] = np.nan
+        args = [rng.uniform(size=J) < 0.2, rng.integers(0, 4, size=J).astype(float),
+                rng.choice([0.0, 1.0, np.inf, np.nan], size=J), rng.uniform(size=S) < 0.3]
+        host = [torch.as_tensor(a) for a in args + [ja, cost]]
+        card = [t.to(dev) for t in host]
+        for a, b in zip(PM.select_peer_targets(*host), PM.select_peer_targets(*card)):
+            assert a.tolist() == b.tolist()
+        lazy_h = PM.select_peer_targets_lazy(*host[:5], lambda c: host[5][:, c])
+        lazy_c = PM.select_peer_targets_lazy(*card[:5], lambda c: card[5][:, c])
+        for a, b in zip(lazy_h, lazy_c):
+            np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+def test_hier_on_the_card_equals_the_host(dev):
+    rng = np.random.default_rng(2)
+    sites, links, jobs = _state(2, 90, 150, dead=0.2)
+    tiers = {n: f"t{int(rng.integers(0, 6))}" for n in sites}
+    out = {}
+    for d in ("cpu", dev):
+        sp = PB.SitePack.from_scheduler(sites, links, device=d)
+        tp = PB.TierPack.from_site_pack(sp, tiers)
+        assert tp.device.type == torch.device(d).type
+        jp = PB.JobPack.from_jobs(jobs, device=d)
+        sel = PB.hier_select(jp, sp, tp)
+        rep = PB.hier_replay(jp, sp, tp)
+        flat = PB.fused_argmin(jp, PB.SitePack.from_scheduler(sites, links, device=d))
+        out[str(d)] = (sel.sites, sel.costs.tolist(), rep.sites, rep.costs.tolist(),
+                       sp.queue.tolist(), sp.work.tolist(), flat.sites, flat.costs.tolist())
+    host, card = out["cpu"], out[str(dev)]
+    assert host == card
+    assert card[0] == card[6] and card[1] == card[7]          # hier select ≡ the fused argmin
+
+
+def _sim_grid(seed, n_sites):
+    from repro_torch.sim import SimJob
+
+    rng = np.random.default_rng(seed)
+    names = [f"s{i:02d}" for i in range(n_sites)]
+    spec = {n: int(rng.integers(1, 5)) for n in names}
+    links = {(a, b): P.NetworkLink(bandwidth_Bps=float(rng.uniform(1e6, 1e8)),
+                                   loss_rate=0.0 if a == b else float(rng.uniform(0.0, 0.02)),
+                                   rtt_s=float(rng.uniform(0.01, 0.3)))
+             for a in names for b in names}
+    topo = P.GridTopology()
+    for i, n in enumerate(names):
+        topo.join(f"root{i % 4}", P.Node(name=n))
+    jobs = [SimJob(user=("hog" if i % 5 == 0 else f"u{i % 7}"), arrival=float(i // 8) * 5.0,
+                   work=float(rng.integers(10, 600)), input_bytes=float(rng.choice([0.0, 1e6, 5e9])),
+                   output_bytes=float(rng.choice([0.0, 2e8])),
+                   data_site=(names[i % n_sites] if i % 3 else None),
+                   origin_site=names[(i * 7) % n_sites])
+            for i in range(300)]
+    return spec, links, topo, jobs
+
+
+def _overload_sim():
+    from repro_torch.sim import bench_inputs, paper_grid_spec
+
+    return paper_grid_spec(), None, None, bench_inputs.overload_workload()
+
+
+@pytest.mark.parametrize("placement", ["flat", "hier"])
+@pytest.mark.parametrize("workload", ["overload", "tiered"])
+def test_gridsim_on_the_card_equals_the_host(dev, workload, placement):
+    from repro_torch.sim import GridSim, SimConfig
+
+    spec, links, topo, jobs = _overload_sim() if workload == "overload" else _sim_grid(7, 24)
+    traces = []
+    for d in ("cpu", dev):
+        cfg = SimConfig(policy="diana", quotas={"hog": 10.0, "polite": 1000.0},
+                        migration_interval_s=30.0, congestion_window_s=120.0,
+                        placement=placement, topology=topo)
+        sim = GridSim(dict(spec), links=None if links is None else dict(links), config=cfg, device=d)
+        res = sim.run(copy.deepcopy(jobs))
+        traces.append(([(j.exec_site, j.start, j.finish, j.migrated) for j in res.jobs],
+                       res.timeline))
+    assert traces[0] == traces[1]
+    assert sum(m for *_, m in traces[1][0]) > 0

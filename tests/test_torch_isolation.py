@@ -33,6 +33,8 @@ def test_imports_with_jax_and_reference_blocked():
         "import repro_torch.kernels.cost_matrix.ops, repro_torch.kernels.priority_requeue.ops\n"
         "import repro_torch.kernels.flash_attention.ops, repro_torch.kernels.decode_attention.ops\n"
         "import repro_torch.configs, repro_torch.models, repro_torch.serving, repro_torch.launch.serve\n"
+        "import repro_torch.core.migration, repro_torch.core.topology, repro_torch.sim\n"
+        "import repro_torch.sim.grid, repro_torch.sim.interop\n"
         "repro_torch.configs.get_config('gemma2-9b')\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro') "
         "and sys.modules[m] is not None)\n"
@@ -70,10 +72,13 @@ def test_ops_import_and_build_nothing_without_nvcc():
 def _default_device_calls():
     from repro_torch.configs import get_config
     from repro_torch.core import (
-        DianaScheduler, JobPack, SitePack, replay_place, reprioritize, total_cost_matrix,
+        DianaScheduler, Job, JobPack, SitePack, TierPack, replay_place, reprioritize,
+        select_peers_batch, total_cost_matrix,
     )
+    from repro_torch.core.migration import select_peer_targets
     from repro_torch.launch import serve
     from repro_torch.models import LM
+    from repro_torch.sim import GridSim, paper_grid_spec
 
     one = np.ones(1)
     return {
@@ -83,6 +88,16 @@ def _default_device_calls():
             ["a"], cap=one, queue=one, work=one, load=one, bw=one, loss=one, rtt=one,
             mss=one, alive=[True]),
         "JobPack.from_jobs": lambda: JobPack.from_jobs([]),
+        "GridSim": lambda: GridSim(paper_grid_spec()),
+        # a TierPack lives on its SitePack's device; the pack's default is the card
+        "TierPack.from_site_pack": lambda: TierPack.from_site_pack(SitePack.from_arrays(
+            ["a"], cap=one, queue=one, work=one, load=one, bw=one, loss=one, rtt=one,
+            mss=one, alive=[True])),
+        # the migration passes follow tensor inputs and go to the card on NumPy ones
+        "select_peers_batch": lambda: select_peers_batch(
+            [Job(user="u")], "local", [9.0], [5.0], ["a", "b"], np.ones((1, 2)), np.ones((1, 2))),
+        "select_peer_targets": lambda: select_peer_targets(
+            [False], [9.0], [5.0], [False, False], np.ones((1, 2)), np.ones((1, 2))),
         "reprioritize": lambda: reprioritize([1.0], [1.0], [1.0], 1.0, 1.0),
         "replay_place": lambda: replay_place([], {}, {}),
         "total_cost_matrix": lambda: total_cost_matrix(

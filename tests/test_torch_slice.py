@@ -164,12 +164,27 @@ class TestRandomGrids:
         _assert_same_state(ref, port)
 
     def test_hier_mode_names_its_roadmap_item(self):
-        _, port, _, jp = _twins(*_grid(np.random.default_rng(0), 3), [R.Job(user="u")])
-        for call in (port.select_sites_batch, port.place_batch):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, step 7"):
-                call(jp, mode="hier")
-            with pytest.raises(ValueError):
-                call(jp, mode="tiers")
+        """mode="hier" (ROADMAP.md queue A, step 7) now runs and decides
+        what the reference decides; any other mode still raises."""
+        ref, port, jr, jp = _twins(*_grid(np.random.default_rng(0), 3), [R.Job(user="u")])
+        for call in ("select_sites_batch", "place_batch"):
+            with pytest.raises(ValueError, match="'flat' or 'hier'"):
+                getattr(port, call)(jp, mode="tiers")
+            _assert_same_placement(getattr(port, call)(jp, mode="hier"),
+                                   getattr(ref, call)(jr, mode="hier"))
+
+    @pytest.mark.parametrize("call", ["select_sites_batch", "place_batch"])
+    @pytest.mark.parametrize("seed", range(3))
+    def test_hier_mode_matches_reference(self, call, seed):
+        """mode="hier" through a dict of tiers: the reference's choices,
+        costs and (for place_batch) final site state."""
+        rng = np.random.default_rng(40 + seed)
+        sites, links = _grid(rng, 30)
+        tiers = {n: f"t{i % 4}" for i, n in enumerate(sites) if i % 7}
+        ref, port, jr, jp = _twins(sites, links, _jobs(rng, 60))
+        _assert_same_placement(getattr(port, call)(jp, mode="hier", tiers=tiers),
+                               getattr(ref, call)(jr, mode="hier", tiers=tiers))
+        _assert_same_state(ref, port)
 
 
 def _groups(seed, n=5):
