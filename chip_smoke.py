@@ -69,6 +69,21 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    f64 argmin kernel). The generators of ``benchmarks/`` are rebuilt
    over the port's classes (the same draws); each part prints its wall
    time on the card and on the CPU twin.
+7. Decentralized P2P scheduling and the scenario packs on the card,
+   every kernel counter set to 0 before and read after (``launches_p2p``):
+   the ``PeerScheduler`` API at 10,000 jobs × 256 sites (select through
+   the fused f64 argmin, rank through the f64 plane, place; the single
+   peer bit-identical to ``DianaScheduler`` and to the CPU twin); the
+   1-peer identity and chaos smokes of ``benchmarks/p2p_bench.py``
+   (16 sites × 3 peers × 200 jobs, whole traces against the CPU twin);
+   ``BENCH_p2p.json``'s configuration (256 sites × 8 peers × 4,000 jobs,
+   intervals 30/120/480 s, both wires: every field but ``run_s`` equal to
+   the committed file, the delta wire's ``bytes_sent`` plus 8 bytes an
+   ack'd packet for wire v2; the CPU twin at the 30 s interval); the six
+   scenario packs at bench scale (every metric equal to the committed
+   ``BENCH_<name>.json``, each verifier's invariants held); and the P2P
+   halves of the streaming (horizon ≡ per-event, 589 migrations) and
+   hier (hier ≡ flat at 256 sites / 16 tiers, 8 peers) benches.
 
 Prints the card, each phase's results and times, a ``{"kernels": …}``
 line and, last, ``{"ok": true, "device": …}``. Any failed check raises,
@@ -1258,6 +1273,287 @@ def phase_sim(torch, P) -> dict:
     return out
 
 
+# -- phase 7: decentralized P2P scheduling and the scenario packs on the card ----
+#
+# The benchmarks' generators again through ``repro_torch.sim.bench_inputs``;
+# every result held to the reference's committed BENCH_*.json as the
+# reference produces it today, and parts 1-2 and one interval of part 3
+# also to the port's CPU twin.
+
+P2P_INTERVALS = (30.0, 120.0, 480.0)          # benchmarks/p2p_bench.py's defaults
+
+
+def p2p_bench_record(S, BI, device, intervals, sites=256, peers=8, jobs=4000, latency=2.0):
+    """benchmarks/p2p_bench.py:bench over the port on ``device``: the
+    same record (``run_s`` per run on the host clock, ending in a
+    synchronize), plus each run's trace for the twin comparison."""
+    import torch
+
+    nodes = BI.p2p_grid(sites)
+    workload = BI.p2p_workload(sorted(nodes), jobs)
+    t0 = time.perf_counter()
+    base = S.GridSim(nodes, config=S.SimConfig(policy="diana"), device=device).run(
+        copy.deepcopy(workload))
+    base_s = time.perf_counter() - t0
+    rec = {"bench": "p2p", "sites": sites, "peers": peers, "jobs": len(workload),
+           "exchange_latency_s": latency,
+           "baseline": {"makespan": round(base.makespan, 1),
+                        "avg_turnaround": round(base.avg_turnaround, 1), "run_s": round(base_s, 2)},
+           "intervals": []}
+    traces = {"baseline": sim_trace(base)}
+    for iv in intervals:
+        row: dict = {"exchange_interval_s": iv}
+        for wire in ("full", "delta"):
+            sim = S.P2PGridSim(nodes, config=S.SimConfig(
+                num_peers=peers, exchange_interval_s=iv, exchange_latency_s=latency,
+                gossip_wire=wire), device=device)
+            t0 = time.perf_counter()
+            res = sim.run(copy.deepcopy(workload))
+            if device != "cpu":
+                torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            st = sim.exchange.stats
+            row[wire] = {
+                "makespan": round(res.makespan, 1),
+                "makespan_degradation": round(res.makespan / base.makespan, 4),
+                "avg_turnaround": round(res.avg_turnaround, 1),
+                "turnaround_degradation": round(res.avg_turnaround / base.avg_turnaround, 4),
+                "migrations": res.migrations(), "exchange_rounds": st.rounds,
+                "adverts_sent": st.adverts_sent, "bytes_sent": st.bytes_sent,
+                "heartbeats_sent": st.heartbeats_sent, "acks_sent": st.acks_sent,
+                "full_syncs": st.full_syncs, "run_s": round(run_s, 2),
+            }
+            traces[(iv, wire)] = (sim_trace(res), st.as_dict())
+        row["bytes_reduction"] = round(row["full"]["bytes_sent"] / max(1, row["delta"]["bytes_sent"]), 1)
+        row["delta_vs_full_makespan"] = round(row["delta"]["makespan"] / row["full"]["makespan"], 4)
+        rec["intervals"].append(row)
+    return rec, traces
+
+
+def without_run_s(rec):
+    if isinstance(rec, dict):
+        return {k: without_run_s(v) for k, v in rec.items() if k != "run_s"}
+    if isinstance(rec, list):
+        return [without_run_s(v) for v in rec]
+    return rec
+
+
+def phase_p2p(torch, P, counters: dict) -> dict:
+    """Phase 7: the peers' placement API, P2PGridSim and the six scenario
+    packs on the card; returns the part times and, under
+    ``peer_launches``, the kernel counts of the peer's own select, rank
+    and place on the card (``counters`` zeroed just before them)."""
+    import repro_torch.scenarios as Sc
+    import repro_torch.sim as S
+    from repro_torch.core import batch as B
+    from repro_torch.scenarios.common import check_all_reconverged
+    from repro_torch.sim import bench_inputs as BI
+
+    out: dict = {}
+
+    def report(part: str, t_card: float, t_cpu=None, extra: str = "") -> None:
+        out[part] = {"card_s": t_card, "cpu_s": t_cpu}
+        twin_s = "not run" if t_cpu is None else f"{t_cpu:.3f} s"
+        print(f"phase 7 {part}: card {t_card:.3f} s, CPU twin {twin_s}{extra}")
+
+    # 1. The PeerScheduler API at the bulk bench's 10,000 jobs x 256 sites.
+    site_d, link_d, jobs = bench_grid(P, BENCH_JOBS, BENCH_SITES, SEED)
+
+    def api(device):
+        times = {}
+        # The DianaScheduler twin runs first, so that the counts read
+        # below are the peer's own launches.
+        d = P.DianaScheduler(copy.deepcopy(site_d), dict(link_d), device=device)
+        dsel, drank = d.select_sites_batch(jobs), d.rank_sites_batch(jobs)
+        dpl = d.place_batch(copy.deepcopy(jobs))
+        peer = P.single_peer(copy.deepcopy(site_d), dict(link_d), device=device)
+        if device == "cuda":
+            for fn in counters.values():
+                fn.launches = 0
+        t0 = time.perf_counter()
+        sel = peer.select_sites_batch(jobs)
+        t1 = time.perf_counter()
+        rank = peer.rank_sites_batch(jobs)
+        t2 = time.perf_counter()
+        placed = copy.deepcopy(jobs)
+        pl = peer.place_batch(placed)
+        t3 = time.perf_counter()
+        if device == "cuda":
+            out["peer_launches"] = {name: fn.launches for name, fn in counters.items()}
+        times.update(select_s=t1 - t0, rank_s=t2 - t1, place_s=t3 - t2)
+        state = [(s.queue_length, s.waiting_work) for s in peer.authoritative.values()]
+        check(sel.sites == dsel.sites and sel.costs.tolist() == dsel.costs.tolist(),
+              f"peer select != DianaScheduler ({device})")
+        check(rank == drank, f"peer rank != DianaScheduler ({device})")
+        check(pl.sites == dpl.sites and pl.costs.tolist() == dpl.costs.tolist()
+              and state == [(s.queue_length, s.waiting_work) for s in d.sites.values()]
+              and [j.site for j in placed] == pl.sites, f"peer place != DianaScheduler ({device})")
+        return (sel.sites, sel.costs.tolist(), rank, pl.sites, pl.costs.tolist(), state), times
+
+    (card, times), (cpu, times_cpu), a, b = twin(torch, api)
+    check(card == cpu, "peer API at 10k x 256: card != CPU twin")
+    sp_h = B.SitePack.from_scheduler(site_d, link_d, device="cpu")
+    jp_h = B.JobPack.from_jobs(jobs, device="cpu")
+    check(card[0] == [sp_h.names[i] for i in np.argmin(numpy_plane(sp_h, jp_h), axis=1)],
+          "peer select != argmin of the independent NumPy plane")
+    out["api"] = {"card": times, "cpu": times_cpu}
+    peer_launches = out["peer_launches"]
+    for name in ("cost_argmin_f64", "cost_matrix_f64"):
+        check(peer_launches[name] > 0, f"the peer's select/rank/place never launched {name}")
+    report(f"PeerScheduler API at {BENCH_JOBS} x {BENCH_SITES} (select, rank, place; "
+           f"single peer == DianaScheduler)", a, b,
+           f"; card {json.dumps({k: round(v, 6) for k, v in times.items()})}, "
+           f"CPU {json.dumps({k: round(v, 6) for k, v in times_cpu.items()})}, "
+           f"the peer's own launches on the card {json.dumps(peer_launches)}")
+
+    # 2. The 1-peer identity and the chaos smoke (benchmarks/p2p_bench.py
+    #    smoke/chaos_smoke at 16 sites x 3 peers x 200 jobs, scripts/ci.sh).
+    nodes = BI.p2p_grid(16)
+    work = BI.p2p_workload(sorted(nodes), 200)
+
+    def smokes(device):
+        got = {}
+        base = S.GridSim(nodes, config=S.SimConfig(policy="diana"), device=device).run(
+            copy.deepcopy(work))
+        got["base"] = sim_trace(base)
+        for wire in ("full", "delta"):
+            one = S.P2PGridSim(nodes, config=S.SimConfig(num_peers=1, exchange_interval_s=60.0,
+                                                         gossip_wire=wire), device=device)
+            res = one.run(copy.deepcopy(work))
+            check([j.exec_site for j in res.jobs] == [j.exec_site for j in base.jobs]
+                  and [j.finish for j in res.jobs] == [j.finish for j in base.jobs],
+                  f"1-peer P2PGridSim ({wire} wire) != GridSim on {device}")
+            got[f"one_{wire}"] = sim_trace(res)
+        sim = S.P2PGridSim(nodes, config=S.SimConfig(num_peers=3, exchange_interval_s=120.0,
+                                                     exchange_latency_s=2.0), device=device)
+        res = sim.run(copy.deepcopy(work))
+        check(all(j.finish >= 0 for j in res.jobs), "3-peer run left unfinished jobs")
+        got["three"] = (sim_trace(res), sim.exchange.stats.as_dict())
+        for wire in ("full", "delta"):
+            runs = []
+            for tf in (None, S.TransportFaults(seed=7)):
+                sim = S.P2PGridSim(nodes, config=S.SimConfig(
+                    num_peers=3, exchange_interval_s=60.0, exchange_latency_s=2.0,
+                    gossip_wire=wire, transport_faults=tf), device=device)
+                runs.append(sim_trace(sim.run(copy.deepcopy(work))))
+            check(runs[0] == runs[1], f"zero-rate TransportFaults ({wire}) != no transport on {device}")
+        sim = S.P2PGridSim(nodes, config=S.SimConfig(
+            num_peers=3, exchange_interval_s=60.0, exchange_latency_s=2.0,
+            transport_faults=S.TransportFaults(seed=1, loss=0.10, duplicate=0.02,
+                                               reorder_jitter_s=3.0)), device=device)
+        res = sim.run(copy.deepcopy(work))
+        st = sim.exchange.stats
+        check(all(j.finish >= 0 for j in res.jobs), "lossy run left unfinished jobs")
+        check(st.dropped > 0 and st.retransmits > 0, "lossy run: no drops or retransmits")
+        rounds = check_all_reconverged(sim, res)
+        got["chaos"] = (sim_trace(res), st.as_dict(), rounds)
+        return got
+
+    card, cpu, a, b = twin(torch, smokes)
+    check(card == cpu, "p2p smoke / chaos smoke: card != CPU twin (whole traces)")
+    ch = card["chaos"][1]
+    report("p2p smoke + chaos smoke, 16 sites x 3 peers x 200 jobs", a, b,
+           f"; 1-peer == GridSim on both wires, zero-rate transport == none, lossy: dropped "
+           f"{ch['dropped']}, retransmits {ch['retransmits']}, reconverged in {card['chaos'][2]} rounds")
+
+    # 3. BENCH_p2p.json's configuration at full size: 256 sites x 8 peers x
+    #    4,000 jobs, latency 2 s, both wires at each interval.
+    expect = bench_json("BENCH_p2p.json")
+    t0 = time.perf_counter()
+    rec, traces = p2p_bench_record(S, BI, "cuda", P2P_INTERVALS)
+    t_card = time.perf_counter() - t0
+    # The committed file predates wire v2 (a 4-byte pair sequence number
+    # and a 4-byte CRC32 in every packet, core/p2p.py _HEADER/_CRC): the
+    # delta wire's bytes_sent is now larger by 8 bytes an ack'd packet.
+    want = json.loads(json.dumps(expect))
+    for row in want["intervals"]:
+        row["delta"]["bytes_sent"] += 8 * row["delta"]["acks_sent"]
+        row["bytes_reduction"] = round(row["full"]["bytes_sent"] / row["delta"]["bytes_sent"], 1)
+    check(without_run_s(rec) == without_run_s(want),
+          f"BENCH_p2p configuration: {json.dumps(without_run_s(rec))} != {json.dumps(without_run_s(want))}")
+    t0 = time.perf_counter()
+    rec_cpu, traces_cpu = p2p_bench_record(S, BI, "cpu", P2P_INTERVALS[:1])
+    t_cpu = time.perf_counter() - t0
+    check(without_run_s(rec_cpu["intervals"]) == without_run_s(rec["intervals"][:1]),
+          "BENCH_p2p 30 s interval: card != CPU twin")
+    check(all(traces[k] == traces_cpu[k] for k in traces_cpu), "BENCH_p2p 30 s interval: traces card != CPU twin")
+    out["p2p_bench"] = {"card": {str(r["exchange_interval_s"]): {w: r[w]["run_s"] for w in ("full", "delta")}
+                                 for r in rec["intervals"]} | {"baseline": rec["baseline"]["run_s"]},
+                        "cpu": {"30.0": {w: rec_cpu["intervals"][0][w]["run_s"] for w in ("full", "delta")},
+                                "baseline": rec_cpu["baseline"]["run_s"]}}
+    report("BENCH_p2p configuration, 256 sites x 8 peers x 4,000 jobs, intervals 30/120/480 s, both wires "
+           "(CPU twin: the baseline and the 30 s interval)", t_card, t_cpu,
+           f"; baseline makespan {rec['baseline']['makespan']}, turnaround {rec['baseline']['avg_turnaround']}; "
+           f"delta bytes_sent {[r['delta']['bytes_sent'] for r in rec['intervals']]}; "
+           f"run_s card {json.dumps(out['p2p_bench']['card'])}, CPU {json.dumps(out['p2p_bench']['cpu'])}")
+
+    # 4. The six scenario packs at --scale bench, seed 0, on the card.
+    times = {}
+    for name in Sc.SCENARIOS:
+        t0 = time.perf_counter()
+        _, _, _, metrics = Sc.run_scenario(name, scale="bench", seed=0, device="cuda")
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        committed = bench_json(f"BENCH_{name}.json")["metrics"]
+        check(set(metrics) == set(committed) and all(repr(metrics[k]) == repr(v) for k, v in committed.items()),
+              f"scenario {name}: {metrics} != BENCH_{name}.json {committed}")
+        keys = [k for k in metrics if "ratio" in k or "reconverge" in k or k in ("sync_escalations", "makespan")]
+        print(f"phase 7 scenario {name} (bench scale): {times[name]:.3f} s, every metric = BENCH_{name}.json; "
+              + ", ".join(f"{k} {metrics[k]!r}" for k in keys))
+    out["scenarios"] = times
+    report("six scenario packs at bench scale", sum(times.values()))
+
+    # 5. The P2P halves of the streaming and hier benches.
+    expect = bench_json("BENCH_streaming.json")["equivalence"]
+    snodes = BI.streaming_grid(expect["sites"])
+    w = BI.streaming_workload(sorted(snodes), expect["jobs"])
+    cfg = dict(migration_interval_s=60.0, congestion_window_s=120.0, num_peers=4,
+               exchange_interval_s=45.0, exchange_latency_s=2.0)
+    t0 = time.perf_counter()
+    ev, hz = (S.P2PGridSim(snodes, config=S.SimConfig(horizon=h, **cfg), device="cuda").run(
+        copy.deepcopy(w)) for h in (False, True))
+    t_stream = time.perf_counter() - t0
+    placements = lambda r: sorted((j.user, j.arrival, j.exec_site, j.start, j.finish, j.migrated)  # noqa: E731
+                                  for j in r.jobs)
+    check(placements(ev) == placements(hz), "P2P streaming: horizon loop != per-event loop")
+    check(hz.migrations() == expect["p2p"]["migrations"],
+          f"P2P streaming: {hz.migrations()} migrations != {expect['p2p']['migrations']}")
+    report(f"P2PGridSim horizon == per-event, {expect['sites']} sites x {expect['jobs']} jobs (2 runs)", t_stream,
+           extra=f", {hz.migrations()} migrations")
+    spec, links, topo, jobs_h = BI.hier_sim_grid(256, 16, 0)
+    t0 = time.perf_counter()
+    tr = {}
+    for placement in ("flat", "hier"):
+        c = S.SimConfig(policy="diana", placement=placement, topology=topo, migration_interval_s=30.0,
+                        congestion_window_s=120.0, num_peers=8, exchange_interval_s=60.0)
+        res = S.P2PGridSim(dict(spec), links=dict(links), config=c, device="cuda").run(copy.deepcopy(jobs_h))
+        tr[placement] = [(j.user, j.arrival, j.exec_site, j.finish, j.migrated) for j in res.jobs]
+    t_hier = time.perf_counter() - t0
+    check(tr["flat"] == tr["hier"], "P2PGridSim hier != flat at 256 sites / 16 tiers")
+    report("P2PGridSim hier == flat at 256 sites / 16 tiers, 8 peers (2 runs)", t_hier,
+           extra=f", {sum(m for *_, m in tr['hier'])} migrations")
+    # The bench's grid migrates nothing at 256 sites: the same generator at
+    # 48 sites / 8 tiers with its first 600 jobs does, so the
+    # staleness-gated migration under placement="hier" runs on the card,
+    # held to the CPU twin's trace.
+    spec, links, topo, jobs_h = BI.hier_sim_grid(48, 8, 9)
+    jobs_h = jobs_h[:600]
+
+    def hier_migrating(device):
+        c = S.SimConfig(policy="diana", placement="hier", topology=topo, migration_interval_s=30.0,
+                        congestion_window_s=120.0, num_peers=8, exchange_interval_s=60.0)
+        sim = S.P2PGridSim(dict(spec), links=dict(links), config=c, device=device)
+        return sim_trace(sim.run(copy.deepcopy(jobs_h))), sim.exchange.stats.as_dict()
+
+    card, cpu, a, b = twin(torch, hier_migrating)
+    moves = sum(m for *_, m in card[0])
+    check(card == cpu, "P2PGridSim hier at 48 sites / 8 tiers: card != CPU twin (whole traces)")
+    check(moves > 0, "P2PGridSim hier at 48 sites / 8 tiers made no migration")
+    report("P2PGridSim placement=hier with migration, 48 sites / 8 tiers x 600 jobs, 8 peers", a, b,
+           extra=f", {moves} migrations, trace == CPU twin")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1307,6 +1603,20 @@ def main() -> int:
     print(f"phase 6 in {time.perf_counter() - t0:.3f} s, launches {sim_launches}")
     check(sim_launches["cost_argmin_f64"] > 0, "phase 6 never launched cost_argmin_f64")
 
+    # Phase 7 is this slice's path: the counters at 0 before it, read after.
+    for fn in sim_counters.values():
+        fn.launches = 0
+    # Part 1 zeroes them again after its DianaScheduler twin, so the counts
+    # are the peer's select/rank/place and the simulators' (which launch
+    # none: their rows depend on each job's origin through the link matrices).
+    t0 = time.perf_counter()
+    p2p = phase_p2p(torch, P, sim_counters)
+    p2p_launches = {name: fn.launches for name, fn in sim_counters.items()}
+    print(f"phase 7 in {time.perf_counter() - t0:.3f} s, launches {p2p_launches} "
+          f"(the peer's select/rank/place: {p2p['peer_launches']})")
+    for name in ("cost_argmin_f64", "cost_matrix_f64"):
+        check(p2p_launches[name] > 0, f"phase 7 never launched {name}")
+
     meta = {
         "cost_matrix_f32": ("src/repro_torch/kernels/cost_matrix/csrc/cost_matrix.cu",
                             "src/repro/kernels/cost_matrix/cost_matrix.py:52"),
@@ -1331,12 +1641,13 @@ def main() -> int:
             launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, shape=r["shape"], launches_sim=sim_launches[name],
+            launches_p2p=p2p_launches[name],
             **({"wrapper_ms": r["wrapper_ms"]} if "wrapper_ms" in r else {}),
         ))
     for name, (source, replaces) in attn_meta.items():
         r = attn[name]
         line.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         launches=serving["launches"][name], launches_sim=0, **r))
+                         launches=serving["launches"][name], launches_sim=0, launches_p2p=0, **r))
     for k in line:
         k["bound_share"] = k["bound_ms"] / k["ms"]
         k["launches_x_gap_ms"] = k["launches"] * (k["ms"] - k["bound_ms"])

@@ -33,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "sqrt_rn", "warm_host_math"]
+__all__ = ["resolve_device", "sqrt_rn", "to_device", "to_host", "warm_host_math"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -47,6 +47,39 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def to_host(*cols: torch.Tensor) -> list[np.ndarray]:
+    """Several same-length device columns (float64, int64 or bool) in one
+    device → host copy: each rides as int64 bits and comes back as a
+    NumPy array of its own dtype, every value exact."""
+    block = torch.stack([
+        c.view(torch.int64) if c.dtype == torch.float64 else c.to(torch.int64) for c in cols
+    ]).cpu().numpy()
+    out = []
+    for c, row in zip(cols, block):
+        if c.dtype == torch.float64:
+            out.append(row.view(np.float64))
+        elif c.dtype == torch.bool:
+            out.append(row.astype(bool))
+        else:
+            out.append(row)
+    return out
+
+
+def to_device(dev, *arrays: np.ndarray) -> list[torch.Tensor]:
+    """Host arrays of any lengths (float64, int64 or bool) in one host →
+    device copy, each back in its own dtype, every value exact."""
+    parts = [np.asarray(a, np.float64).view(np.int64) if np.asarray(a).dtype.kind == "f"
+             else np.asarray(a, np.int64) for a in arrays]
+    flat = torch.from_numpy(np.concatenate(parts) if parts else np.zeros(0, np.int64)).to(dev)
+    out, off = [], 0
+    for a, part in zip(arrays, parts):
+        t = flat[off: off + len(part)]
+        kind = np.asarray(a).dtype.kind
+        out.append(t.view(torch.float64) if kind == "f" else t.to(torch.bool) if kind == "b" else t)
+        off += len(part)
+    return out
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """DIANA core, ported: the paper's scheduling algorithms (§IV–§X).
 
-Public API re-exports of what is ported: placement, quotas and bulk
-groups, §IX migration, the RootGrid topology and two-level ("hier")
-placement. P2P is a later slice (ROADMAP.md queue A, step 9).
+Public API re-exports: placement, quotas and bulk groups, §IX
+migration, the RootGrid topology and two-level ("hier") placement, and
+the decentralized P2P layer (peers, gossip exchange, delta-wire codec).
 """
 from .costs import (
     CostWeights,
@@ -60,10 +60,22 @@ from .batch import (
     fused_argmin,
     hier_replay,
     hier_select,
+    merge_packed_rows,
     replay_on_pack,
     replay_place,
 )
 from .engine import PlacementEngine
+from .p2p import (
+    ACK_WIRE_BYTES,
+    QUANT_FIELDS,
+    ExchangeStats,
+    GossipExchange,
+    PeerScheduler,
+    SiteAdvert,
+    decode_packet,
+    encode_packet,
+    single_peer,
+)
 from .interop import ReferenceState, state_from_reference
 
 __all__ = [
@@ -84,7 +96,10 @@ __all__ = [
     "PACK_FIELDS", "BatchPlacement", "JobPack", "SitePack", "TierPack", "argmin_finite",
     "batched_argmin", "batched_cost_matrix", "class_total", "comp_site_column",
     "cost_components", "fused_argmin", "hier_replay", "hier_select",
-    "replay_on_pack", "replay_place",
+    "merge_packed_rows", "replay_on_pack", "replay_place",
     "PlacementEngine",
+    "ExchangeStats", "GossipExchange", "PeerScheduler", "SiteAdvert",
+    "single_peer",
+    "ACK_WIRE_BYTES", "QUANT_FIELDS", "decode_packet", "encode_packet",
     "ReferenceState", "state_from_reference",
 ]

@@ -23,8 +23,10 @@ bit-identical to the per-job loop:
   bounds, an f32 shortlist inside the winning tiers and an exact f64
   refinement, with decisions and costs bit-identical to the flat path.
 
-``merge_packed_rows`` (P2P's only caller) is a later slice (ROADMAP.md
-queue A, step 9).
+* ``merge_packed_rows`` merges advertised (8, k) packed rows into a
+  ``SitePack`` world view, strictly-newer epoch by epoch, with the
+  view's version and stamp vectors on the view's device (the P2P layer's
+  receive path).
 """
 from __future__ import annotations
 
@@ -33,9 +35,10 @@ import warnings
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
-from .._device import resolve_device, sqrt_rn
+from .._device import resolve_device, sqrt_rn, to_device, to_host
 from ..kernels.cost_matrix.ops import cost_argmin_f64, cost_matrix_classed, cost_matrix_f64
 from .costs import CostWeights, NetworkLink, SiteState
 from .migration import first_min_index
@@ -57,6 +60,7 @@ __all__ = [
     "fused_argmin",
     "hier_replay",
     "hier_select",
+    "merge_packed_rows",
     "replay_on_pack",
     "replay_place",
 ]
@@ -466,6 +470,93 @@ def replay_place(
             sites[name].queue_length = qv
             sites[name].waiting_work = wv
     return placement
+
+
+# ---------------------------------------------------------------------------
+# Row-versioned merge of advertised columns (P2P world-view refresh).
+#
+# The merge decides on the host: the receiver's epoch, stamp and mask
+# entries at the advertised columns come back in one device → host copy,
+# NumPy takes the reference's decisions on them, and the applied values go
+# back in one host → device copy (a merge is a handful of launches and one
+# readback whatever its width).
+# ---------------------------------------------------------------------------
+
+def merge_packed_rows(
+    sp: SitePack,
+    version: torch.Tensor,
+    stamp: torch.Tensor,
+    cols,
+    rows,
+    new_version,
+    new_stamp,
+    alive=None,
+    protect: Optional[torch.Tensor] = None,
+    fields: Optional[Sequence[str]] = None,
+    reclaim: Optional[torch.Tensor] = None,
+) -> np.ndarray:
+    """Merge advertised (8, k) ``rows`` into pack columns ``cols``,
+    keeping only strictly newer epochs.
+
+    ``version`` (int64) and ``stamp`` (float64) are the receiver's (S,)
+    per-column epoch and owner-clock vectors on the view's device,
+    updated in place for the applied columns. ``protect`` marks columns
+    the receiver owns (hearsay never overwrites those); ``fields``
+    restricts which packed fields an applied column overwrites. The
+    advertised arrays are host arrays (NumPy or lists). Returns the (k,)
+    NumPy bool mask of applied columns.
+
+    * An advert carrying the *same* epoch with a strictly newer owner
+      stamp refreshes ``stamp`` in place without counting as applied.
+    * ``reclaim`` marks columns the receiver has speculatively modified:
+      an equal-epoch owner advert re-applies the canonical content there
+      and counts as applied.
+
+    Several adverts for one column in one batch keep the highest
+    (epoch, stamp); the losers report False.
+    """
+    cols = np.asarray(cols, np.int64)
+    rows = np.asarray(rows, np.float64)
+    new_version = np.asarray(new_version, np.int64)
+    new_stamp = np.asarray(new_stamp, np.float64)
+    alive = None if alive is None else np.asarray(alive, bool)
+    if len(np.unique(cols)) != len(cols):
+        # Keep the highest (epoch, stamp) advert per column (the stamp
+        # tie-break makes the merge independent of advert order).
+        winner: dict[int, int] = {}
+        nv, ns = new_version.tolist(), new_stamp.tolist()
+        for j, col in enumerate(cols.tolist()):
+            w = winner.get(col)
+            if w is None or (nv[j], ns[j]) > (nv[w], ns[w]):
+                winner[col] = j
+        keep = np.asarray(sorted(winner.values()), np.int64)
+        out = np.zeros(len(cols), bool)
+        out[keep] = merge_packed_rows(
+            sp, version, stamp, cols[keep], rows[:, keep], new_version[keep],
+            new_stamp[keep], None if alive is None else alive[keep], protect, fields, reclaim,
+        )
+        return out
+    dev = sp.device
+    c = torch.as_tensor(cols, device=dev)
+    flags = [f[c] for f in (protect, reclaim) if f is not None]
+    old_v, old_s, *got = to_host(version[c], stamp[c], *flags)
+    unprotected = ~got.pop(0) if protect is not None else np.ones(len(cols), bool)
+    newer = (new_version > old_v) & unprotected
+    equal = (new_version == old_v) & unprotected
+    apply = newer | (equal & got.pop(0)) if reclaim is not None else newer
+    new_s = old_s.copy()
+    new_s[apply] = np.maximum(old_s[apply], new_stamp[apply])
+    touch = equal & ~apply & (new_stamp > new_s)    # same epoch, fresher stamp
+    new_s[touch] = new_stamp[touch]
+    k = np.flatnonzero(apply)
+    stamp_t, take_t, ver_t, rows_t, alive_t = to_device(
+        dev, new_s, cols[k], new_version[k], rows[:, k].reshape(-1),
+        np.zeros(0, bool) if alive is None else alive[k])
+    stamp[c] = stamp_t
+    if k.size:
+        version[take_t] = ver_t
+        sp.set_columns(take_t, rows_t.view(8, len(k)), None if alive is None else alive_t, fields)
+    return apply
 
 
 # ---------------------------------------------------------------------------

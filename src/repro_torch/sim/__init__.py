@@ -1,9 +1,8 @@
 """Discrete-event grid simulator (MONARC analogue, paper §XI), ported.
 
-``GridSim`` runs on a device (the CUDA card unless ``device="cpu"``);
-workloads, streaming, faults and configuration are the reference's
-plain Python. The multi-scheduler ``P2PGridSim`` is a later slice
-(ROADMAP.md queue A, step 9).
+``GridSim`` and the multi-scheduler ``P2PGridSim`` run on a device (the
+CUDA card unless ``device="cpu"``); workloads, streaming, faults and
+configuration are the reference's plain Python.
 """
 from .config import SimConfig
 from .faults import (
@@ -14,6 +13,7 @@ from .faults import (
     TransportFaults,
 )
 from .grid import GridSim, SimResult, uniform_links
+from .p2p_grid import P2PGridSim
 from .streaming import ArrivalSource, ChunkSource, StreamingQuantiles, StreamStats
 from .workloads import (
     JobList,
@@ -28,7 +28,7 @@ from .workloads import (
 )
 
 __all__ = [
-    "GridSim", "SimResult", "SimConfig", "uniform_links",
+    "GridSim", "P2PGridSim", "SimResult", "SimConfig", "uniform_links",
     "FaultEvent", "FaultPlan", "FAULT_KINDS",
     "PartitionWindow", "TransportFaults",
     "ArrivalSource", "ChunkSource", "StreamStats", "StreamingQuantiles",

@@ -15,7 +15,7 @@ import numpy as np
 __all__ = [
     "QUOTAS", "fig78_workload", "overload_workload", "congested_sim",
     "migration_snapshot", "streaming_grid", "streaming_workload",
-    "hier_sim_grid", "hier_core_grid",
+    "hier_sim_grid", "hier_core_grid", "p2p_grid", "p2p_workload",
 ]
 
 #: The benchmarks' quotas: a low-quota flood behind a high-quota stream.
@@ -190,3 +190,24 @@ def hier_core_grid(sites_n: int, tiers_n: int, jobs_n: int, seed: int = 0, *, co
                   input_bytes=float(rng.uniform(0, 30e9)), output_bytes=float(rng.uniform(0, 2e9)))
             for i in range(jobs_n)]
     return sites, links, jobs, tiers
+
+
+def p2p_grid(sites: int) -> dict:
+    """benchmarks/p2p_bench.py:_grid: capacity-heterogeneous nodes
+    (2/4/8)."""
+    return {f"s{i:03d}": (2, 4, 8)[i % 3] for i in range(sites)}
+
+
+def p2p_workload(names: list, jobs: int, seed: int = 0, *, sim_mod=None) -> list:
+    """benchmarks/p2p_bench.py:_workload: compute-bound bursts of 4 from
+    random origins, no data gravity."""
+    S = _sim(sim_mod)
+    rng = np.random.default_rng(seed)
+    out = []
+    burst = 4
+    for i in range(max(1, jobs // burst)):
+        origin = names[int(rng.integers(len(names)))]
+        out.extend(S.bulk_burst(f"u{i % 16}", burst, at=float(i * 3), work=200.0,
+                                input_bytes=0.0, output_bytes=0.0, data_site=None,
+                                origin_site=origin, rng=rng, work_jitter=0.3))
+    return sorted(out, key=lambda j: j.arrival)

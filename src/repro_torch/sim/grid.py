@@ -1004,9 +1004,10 @@ class GridSim:
     def _on_deliver(self, now: float, events: list) -> None:
         """Latency-delayed advert delivery (P2PGridSim)."""
 
-    def _migration_staleness(self, name: str, now: float) -> Optional[np.ndarray]:
+    def _migration_staleness(self, name: str, now: float) -> Optional[torch.Tensor]:
         """Per-column (sorted-name order) age of the deciding
-        scheduler's world view; None = omniscient (zero staleness)."""
+        scheduler's world view, on the sim's device; None = omniscient
+        (zero staleness)."""
         return None
 
     # -- handlers ------------------------------------------------------------
@@ -1342,6 +1343,7 @@ class GridSim:
         stale = self._migration_staleness(name, now)
         trusted = None
         if stale is not None:
+            stale = stale.tolist()      # one readback for the per-peer walk
             trusted = {
                 n for n in self.sites
                 if stale[self._site_idx[n]] <= self.migration_max_staleness_s

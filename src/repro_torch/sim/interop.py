@@ -86,7 +86,11 @@ def _transport(tf) -> TransportFaults:
 
 def config_from_reference(cfg) -> SimConfig:
     """The port's ``SimConfig`` with every field of ``cfg``: weights,
-    topology, ``FaultPlan`` and ``TransportFaults`` carried across."""
+    topology, ``FaultPlan`` and ``TransportFaults`` (partition windows
+    included) carried across, and with them the multi-scheduler fields
+    (peers, exchange interval and latency, trust horizon, gossip wire,
+    quantization, fan-out, full-sync period, tier summaries) that a
+    ``P2PGridSim`` reads."""
     return _carry(
         SimConfig, cfg,
         quotas=None if cfg.quotas is None else dict(cfg.quotas),

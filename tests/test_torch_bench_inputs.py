@@ -19,7 +19,7 @@ from repro_torch.sim import interop
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from benchmarks import fig7_8_queue_exec, fig9_11_migration, hier_bench  # noqa: E402
-from benchmarks import migration_bench, streaming_bench  # noqa: E402
+from benchmarks import migration_bench, p2p_bench, streaming_bench  # noqa: E402
 
 
 def _fields(x, drop=("job_id",)):
@@ -93,3 +93,12 @@ def test_hier_core_grid_is_the_benchmarks():
     assert [_fields(s) for s in p_sites.values()] == [_fields(s) for s in sites.values()]
     assert [_fields(x) for x in p_links.values()] == [_fields(x) for x in links.values()]
     assert _jobs(p_jobs) == _jobs(jobs)
+
+
+@pytest.mark.parametrize("sites,jobs,seed", [(16, 200, 0), (32, 800, 3)])
+def test_p2p_workload_is_the_benchmarks(sites, jobs, seed):
+    assert BI.p2p_grid(sites) == p2p_bench._grid(sites)
+    names = sorted(p2p_bench._grid(sites))
+    ref = p2p_bench._workload(names, jobs, seed)
+    assert BI.p2p_workload(names, jobs, seed, sim_mod=RS) == ref
+    assert _jobs(BI.p2p_workload(names, jobs, seed)) == _jobs(interop.jobs_from_reference(ref))

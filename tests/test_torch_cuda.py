@@ -571,3 +571,49 @@ def test_gridsim_on_the_card_equals_the_host(dev, workload, placement):
                        res.timeline))
     assert traces[0] == traces[1]
     assert sum(m for *_, m in traces[1][0]) > 0
+
+
+def test_peer_api_on_the_card_equals_the_host(dev):
+    """PeerScheduler's select (the fused f64 argmin), rank (the f64
+    plane) and place on the card against the host, and single-peer ≡
+    DianaScheduler."""
+    sites, links, jobs = _state(17, 60, 300)
+    out = {}
+    for d in ("cpu", dev):
+        peer = P.single_peer(copy.deepcopy(sites), dict(links), device=d)
+        before = (cm_ops.cost_argmin_f64.launches, cm_ops.cost_matrix_f64.launches)
+        sel = peer.select_sites_batch(jobs)
+        rank = peer.rank_sites_batch(jobs[:50])
+        pl = peer.place_batch(copy.deepcopy(jobs))
+        if d != "cpu":
+            assert cm_ops.cost_argmin_f64.launches > before[0]
+            assert cm_ops.cost_matrix_f64.launches > before[1]
+        diana = P.DianaScheduler(copy.deepcopy(sites), dict(links), device=d)
+        dpl = diana.place_batch(copy.deepcopy(jobs))
+        assert (pl.sites, pl.costs.tolist()) == (dpl.sites, dpl.costs.tolist())
+        out[str(d)] = (sel.sites, sel.costs.tolist(), rank, pl.sites, pl.costs.tolist(),
+                       [(s.queue_length, s.waiting_work) for s in peer.authoritative.values()])
+    assert out["cpu"] == out[str(dev)]
+
+
+@pytest.mark.parametrize("wire,lossy", [("delta", False), ("full", False), ("delta", True)])
+def test_p2p_gridsim_on_the_card_equals_the_host(dev, wire, lossy):
+    from repro_torch.sim import P2PGridSim, SimConfig, TransportFaults, bench_inputs
+
+    nodes = bench_inputs.p2p_grid(24)
+    jobs = bench_inputs.p2p_workload(sorted(nodes), 400)
+    tf = TransportFaults(seed=3, loss=0.15, duplicate=0.05, reorder_jitter_s=8.0,
+                         corrupt=0.02) if lossy else None
+    runs = []
+    for d in ("cpu", dev):
+        cfg = SimConfig(policy="diana", num_peers=4, exchange_interval_s=30.0,
+                        exchange_latency_s=2.0, gossip_wire=wire, transport_faults=tf,
+                        quotas={"u0": 10.0}, migration_interval_s=30.0, congestion_window_s=120.0)
+        sim = P2PGridSim(nodes, config=cfg, device=d)
+        res = sim.run(copy.deepcopy(jobs))
+        runs.append(([(j.exec_site, j.start, j.finish, j.migrated) for j in res.jobs],
+                     res.timeline, sim.exchange.stats.as_dict(),
+                     [(p.version.tolist(), p.stamp.tolist(), p.view.queue.tolist())
+                      for p in sim.peers]))
+    assert runs[0] == runs[1]
+    assert runs[1][2]["rounds"] > 0

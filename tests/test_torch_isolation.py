@@ -35,6 +35,10 @@ def test_imports_with_jax_and_reference_blocked():
         "import repro_torch.configs, repro_torch.models, repro_torch.serving, repro_torch.launch.serve\n"
         "import repro_torch.core.migration, repro_torch.core.topology, repro_torch.sim\n"
         "import repro_torch.sim.grid, repro_torch.sim.interop\n"
+        "import repro_torch.core.p2p, repro_torch.sim.p2p_grid, repro_torch.sim.bench_inputs\n"
+        "import repro_torch.scenarios, repro_torch.scenarios.__main__\n"
+        "for n in repro_torch.scenarios.SCENARIOS:\n"
+        "    repro_torch.scenarios.get_generator(n), repro_torch.scenarios.get_verifier(n)\n"
         "repro_torch.configs.get_config('gemma2-9b')\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro') "
         "and sys.modules[m] is not None)\n"
@@ -78,10 +82,19 @@ def _default_device_calls():
     from repro_torch.core.migration import select_peer_targets
     from repro_torch.launch import serve
     from repro_torch.models import LM
-    from repro_torch.sim import GridSim, paper_grid_spec
+    from repro_torch.core import GossipExchange, NetworkLink, PeerScheduler, SiteState, single_peer
+    from repro_torch.scenarios import run_scenario
+    from repro_torch.sim import GridSim, P2PGridSim, paper_grid_spec
 
     one = np.ones(1)
+    site = lambda: ({"a": SiteState(name="a", capacity=1.0)},  # noqa: E731
+                    {"a": NetworkLink(bandwidth_Bps=1.0)})
     return {
+        "PeerScheduler": lambda: PeerScheduler("a", *site()),
+        "single_peer": lambda: single_peer(*site()),
+        "GossipExchange": lambda: GossipExchange([]),
+        "P2PGridSim": lambda: P2PGridSim(paper_grid_spec()),
+        "run_scenario": lambda: run_scenario("diurnal_flash"),
         "DianaScheduler": lambda: DianaScheduler({}, {}),
         "SitePack.from_scheduler": lambda: SitePack.from_scheduler({}, {}),
         "SitePack.from_arrays": lambda: SitePack.from_arrays(
