@@ -84,6 +84,28 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    ``BENCH_<name>.json``, each verifier's invariants held); and the P2P
    halves of the streaming (horizon ≡ per-event, 589 migrations) and
    hier (hier ≡ flat at 256 sites / 16 tiers, 8 peers) benches.
+8. The other single-card model families at their published width and
+   depth, weights from a seeded generator on the card (cross layers'
+   tanh gates set to 0.5: the reference initialises them to 0, which
+   would hide the cross layers), each freed before the next: every
+   kernel counter set to 0 before the phase and read after, and both
+   attention kernels' counters around each part. recurrentgemma-2b
+   (26 layers, rep 10 over one kv head, window 2048) and mamba2-780m (48
+   layers) serve launch/serve.py's 16 requests through ServingEngine
+   twice with identical tokens, prefill 8,192 and 4,096 tokens through
+   LM.forward and time a decode step against its weight-streaming
+   bound and its device share (profiler); llama-3.2-vision-11b (40
+   layers) prefills 2,048 tokens over 1,601 image tokens (Sq > Sk on its
+   8 cross layers) and decodes 32 steps over init_cache's image K/V;
+   whisper-base (6 + 6 layers) encodes 1,500 frames, runs a 448-token
+   decoder forward and decodes to 448. Each family in float32 holds
+   LM.forward against a decode_step loop (2e-3; recurrentgemma also
+   with local_window cut to 16, so that its ring wraps); the pod
+   runtime runs examples/grid_schedule.py's scenario through
+   ``repro_torch.grid`` against the reference's decisions pinned in
+   ``repro_torch.grid.example``. Phase 2 first holds both attention
+   kernels at every shape phase 8 gives them, and times flash at the
+   vision cross layer and whisper's encoder layer.
 
 Prints the card, each phase's results and times, a ``{"kernels": …}``
 line and, last, ``{"ok": true, "device": …}``. Any failed check raises,
@@ -710,6 +732,46 @@ DECODE_CASES += [
     (2, 8192, 16, 8, 256, 8191, 0, 50.0, "float32"),
     (1, 8192, 16, 8, 256, 6000, 4096, 50.0, "float32"),
 ]
+# Phase 8's shapes, each before the phase relies on it: recurrentgemma-2b's
+# local layers (rep 10 over one kv head, D 256, window 2048; the f32
+# checks' 16 and 24 tokens, the cut window of 16), llama-3.2-vision's self
+# layers (D 128, 32/8) and cross layers (non-causal, Sk 1,601 against a
+# longer prompt: Sq > Sk), whisper-base's encoder (non-causal 1,500 x
+# 1,500, D 64, 8/8), decoder self and cross layers (Sq 448, Sk 1,500); the
+# decode kernel at rep 10 over the engine's 64-slot ring and the 2,048
+# ring, and at the cross layers' last positions 1,600 and 1,499.
+ATTN_CASES += [
+    (1, 4096, 4096, 10, 1, 256, True, 2048, 0.0, "bfloat16"),
+    (2, 16, 16, 10, 1, 256, True, 2048, 0.0, "float32"),
+    (2, 24, 24, 10, 1, 256, True, 16, 0.0, "float32"),
+    (1, 2048, 2048, 32, 8, 128, True, 0, 0.0, "bfloat16"),
+    (1, 2048, 1601, 32, 8, 128, False, 0, 0.0, "bfloat16"),
+    (2, 16, 1601, 32, 8, 128, False, 0, 0.0, "float32"),
+    (1, 1500, 1500, 8, 8, 64, False, 0, 0.0, "bfloat16"),
+    (2, 1500, 1500, 8, 8, 64, False, 0, 0.0, "float32"),
+    (1, 448, 448, 8, 8, 64, True, 0, 0.0, "bfloat16"),
+    (1, 448, 1500, 8, 8, 64, False, 0, 0.0, "bfloat16"),
+    (2, 16, 1500, 8, 8, 64, False, 0, 0.0, "float32"),
+]
+DECODE_CASES += [
+    (4, 64, 10, 1, 256, 63, 0, 0.0, "bfloat16"),
+    (1, 2048, 10, 1, 256, 2047, 0, 0.0, "bfloat16"),
+    (2, 24, 10, 1, 256, 15, 0, 0.0, "float32"),
+    (2, 16, 10, 1, 256, 15, 0, 0.0, "float32"),
+    (1, 64, 32, 8, 128, 31, 0, 0.0, "bfloat16"),
+    (1, 1601, 32, 8, 128, 1600, 0, 0.0, "bfloat16"),
+    (2, 1601, 32, 8, 128, 1600, 0, 0.0, "float32"),
+    (1, 448, 8, 8, 64, 447, 0, 0.0, "bfloat16"),
+    (1, 1500, 8, 8, 64, 1499, 0, 0.0, "bfloat16"),
+    (2, 1500, 8, 8, 64, 1499, 0, 0.0, "float32"),
+]
+# Phase 8's two new flash shapes, timed beside their bound, plain version
+# and SDPA: llama-3.2-vision's cross layer (its 2,048-token prompt over
+# the 1,601 image tokens) and whisper-base's encoder layer.
+FLASH_ROWS = {
+    "vision_cross_d128": dict(B=1, Sq=2048, Sk=1601, H=32, KV=8, D=128, causal=False),
+    "whisper_encoder_d64": dict(B=1, Sq=1500, Sk=1500, H=8, KV=8, D=64, causal=False),
+}
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 QK_STD = 1.5          # q and k: scores of spread ~2.25 at any D
 REL_BOUND = 0.01      # mean |kernel − plain| ≤ REL_BOUND · mean |plain|
@@ -838,6 +900,30 @@ def phase_attention_kernels(torch):
     del q, k, v, o, qt, kt, vt, band
     torch.cuda.empty_cache()
 
+    # -- flash at phase 8's new shapes (non-causal, no soft-cap)
+    for name, c in FLASH_ROWS.items():
+        B_, Sq, Sk, H_, KV_, D_ = (c[k] for k in ("B", "Sq", "Sk", "H", "KV", "D"))
+        q = draw((B_, Sq, H_, D_), bf, QK_STD)
+        k, v = draw((B_, Sk, KV_, D_), bf, QK_STD), draw((B_, Sk, KV_, D_), bf)
+        kern = fa_ops.flash_attention(q, k, v, causal=c["causal"])
+        plain = fa_ref.flash_attention_ref(q, k, v, causal=c["causal"])
+        torch.cuda.synchronize()
+        err, rel = agree(torch, kern, plain, 2e-2, f"flash_attention {name}")
+        o = torch.empty_like(q)
+        pairs = attn_pairs(Sq, Sk, c["causal"], 0)
+        b_ms, b_by = bound((2 * B_ * Sq * H_ * D_ + 2 * B_ * Sk * KV_ * D_) * 2, 4 * B_ * H_ * D_ * pairs, "bf16")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = lambda qt=qt, kt=kt, vt=vt: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)  # noqa: E731
+        out["flash_attention"][name] = dict(
+            ms=kernel_ms(torch, fa_ops.launcher(q, k, v, o, causal=c["causal"])),
+            plain_ms=kernel_ms(torch, lambda: fa_ref.flash_attention_ref(q, k, v, causal=c["causal"]),
+                               reps=3, inner=2),
+            library_ms=kernel_ms(torch, sdpa), library_backend=sdpa_backend(torch, sdpa),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err, mean_rel_err=rel, shape=[B_, Sq, Sk, H_, KV_, D_])
+        out["flash_attention"][name]["bound_share"] = b_ms / out["flash_attention"][name]["ms"]
+        del q, k, v, o, kern, plain, qt, kt, vt
+    torch.cuda.empty_cache()
+
     # -- decode at serving scale: an 8192 linear cache (pos S−1) and a 4096 ring past its wrap
     B, S, H, KV, D, cap, W = (DECODE[k] for k in ("B", "S", "H", "KV", "D", "cap", "W"))
     q = draw((B, H, D), bf, QK_STD)
@@ -882,6 +968,8 @@ def phase_attention_kernels(torch):
               f"SDPA softcap 0 {r['library_ms']:.6f} ms ({r['library_backend']}), "
               f"max_abs_err {r['max_abs_err']!r} ({r['mean_rel_err']!r} mean error / mean |plain|)")
         print(f"  second shape: {json.dumps(extra)}")
+    for name in FLASH_ROWS:
+        print(f"phase 2 flash_attention {name}: {json.dumps(out['flash_attention'][name])}")
     return out
 
 
@@ -1554,6 +1642,282 @@ def phase_p2p(torch, P, counters: dict) -> dict:
     return out
 
 
+# -- phase 8: the pod runtime and the hybrid, ssm, vlm and encdec families ------
+
+# The reference's LM.init trees, counted (tests/test_torch_families.py
+# holds the port's full-width models to the same counts).
+FAMILY_PARAMS = {"recurrentgemma-2b": 2_894_481_920, "mamba2-780m": 780_382_464,
+                 "llama-3.2-vision-11b": 9_775_157_256, "whisper-base": 83_250_182}
+VISION_PROMPT = 2048          # Sq > Sk = 1,601 image tokens on every cross layer
+HYBRID_PREFILL = 8192         # 8 local layers at window 2048
+SSM_PREFILL = 4096            # 16 chunks of 256
+WHISPER_TOKENS = 448          # the decoder's max target length (configs/shapes.py)
+CROSS_GATE = 0.5              # tanh gates of the cross layers (the reference initialises 0)
+
+
+def attn_counters():
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    return {"flash_attention": fa_ops.flash_attention, "decode_attention": da_ops.decode_attention}
+
+
+def counted(torch, fn):
+    """``fn()`` with both attention kernels' counters set to 0 just before
+    and read just after: (result, wall seconds ending in a synchronize,
+    launches). The counts held before are added back after, so that the
+    counts around the whole phase keep every launch inside it."""
+    counters = attn_counters()
+    held = {n: c.launches for n, c in counters.items()}
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items()}
+    for n, c in counters.items():
+        c.launches += held[n]
+    return res, wall, launches
+
+
+def build_family(torch, arch: str, dtype: str = "bfloat16", **overrides):
+    """A family at its published width and depth on the card, weights from
+    a seeded generator; cross layers' tanh gates set to CROSS_GATE."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    cfg = get_config(arch).replace(param_dtype=dtype, compute_dtype=dtype, **overrides)
+    lm = LM(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(SEED))
+    for blocks in (getattr(lm, "cross_blocks", ()), getattr(lm, "dec_cross", ())):
+        for b in blocks:
+            b.xgate.fill_(CROSS_GATE)
+    return cfg, lm
+
+
+def family_inputs(torch, cfg, B: int):
+    """Seeded image or audio embeddings (B, N, d) on the card, or none."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    if cfg.family == "vlm":
+        n = cfg.num_image_tokens
+    elif cfg.family == "encdec":
+        n = cfg.encoder_seq_len
+    else:
+        return {}
+    x = (torch.randn((B, n, cfg.d_model), generator=gen, device="cuda") * 0.1).to(cfg.cdtype)
+    return {"image_embeds" if cfg.family == "vlm" else "audio_embeds": x}
+
+
+def prefill_equals_decode(torch, arch: str, T: int = 16, max_len: int = 24, **overrides) -> dict:
+    """The reference's own oracle at full width in float32: LM.forward's
+    logits (flash kernel) against a decode_step loop (decode kernel),
+    B 2, ``T`` tokens, rtol = atol = 2e-3."""
+    from repro_torch.models import decode
+
+    cfg, lm = build_family(torch, arch, "float32", **overrides)
+    B = 2
+    toks = torch.as_tensor(np.random.default_rng(SEED + 2).integers(0, cfg.vocab_size, (B, T)), device="cuda")
+    kw = family_inputs(torch, cfg, B)
+
+    def run():
+        full, _ = lm.forward(toks, **kw)
+        cache = decode.init_cache(lm, B, max_len, **kw)
+        steps = [decode.decode_step(lm, toks[:, t : t + 1], cache, t)[0][:, 0] for t in range(T)]
+        return full, torch.stack(steps, dim=1)
+
+    (full, dec), wall, launches = counted(torch, run)
+    err = float((dec - full).abs().max())
+    check(bool(torch.isfinite(full).all()), f"{arch} f32 logits not finite")
+    check(within(torch, dec, full, 2e-3), f"{arch}: f32 prefill logits != decode logits within 2e-3 ({err!r})")
+    del lm
+    return dict(max_abs_diff=err, max_logit=float(full.abs().max()), wall_s=wall, launches=launches,
+                tokens=T, overrides=overrides)
+
+
+def decode_step_profile(torch, lm, tok, cache, pos: int, arch: str) -> dict:
+    """Median of 20 decode steps (host clock around a synchronize) beside
+    the weight-streaming bound, and a profiled step's device time."""
+    from repro_torch.models import decode
+
+    times = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        decode.decode_step(lm, tok, cache, pos)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_ms = statistics.median(times[1:]) * 1e3
+    bound_ms = FAMILY_PARAMS[arch] * 2 / HBM_BYTES_PER_S * 1e3
+    trace = step_trace(torch, lambda: decode.decode_step(lm, tok, cache, pos), steps=3)
+    return dict(step_ms=step_ms, bound_ms=bound_ms, kernels=trace["kernels"], busy_ms=trace["busy_ms"],
+                device_share=trace["busy_ms"] / step_ms if trace["busy_ms"] else None, top=trace["top"])
+
+
+def serve_family(torch, arch: str) -> dict:
+    """A recurrent family at full width in bf16: launch/serve.py's 16
+    requests through ServingEngine twice with the same seed (identical
+    tokens), one long prefill through LM.forward, and a decode step's
+    median time and device share."""
+    cfg, lm = build_family(torch, arch)
+    n_params = sum(p.numel() for p in lm.parameters())
+    check(n_params == FAMILY_PARAMS[arch], f"{arch} has {n_params} parameters")
+    (engine, reqs, stats, _), wall, launches = counted(torch, lambda: serve_once(torch, lm, SEED))
+    tokens = sum(len(r.generated) for r in reqs)
+    check(stats.served == 16 and stats.batches == 4 and stats.decode_steps == 28 and tokens == 128,
+          f"{arch} serving stats {stats}, {tokens} tokens")
+    check(all(r.done and len(r.generated) == 8 and all(0 <= t < cfg.vocab_size for t in r.generated)
+              for r in reqs), f"{arch}: a request did not get 8 tokens in the vocabulary")
+    n_attn = cfg.num_layers // 3 if cfg.family == "hybrid" else 0
+    check(launches == {"flash_attention": 0, "decode_attention": 4 * (8 + 7) * n_attn},
+          f"{arch} serving launches {launches}")
+    first = [list(r.generated) for r in reqs]
+    lm.init(torch.Generator(device="cuda").manual_seed(SEED))
+    _, reqs2, _, wall2 = serve_once(torch, lm, SEED)
+    check([r.generated for r in reqs2] == first, f"{arch}: a second run with the same seed gave other tokens")
+    S = HYBRID_PREFILL if cfg.family == "hybrid" else SSM_PREFILL
+    prompt = torch.as_tensor(np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size, (1, S)), device="cuda")
+    (logits, _), prefill_s, prefill_launches = counted(torch, lambda: lm.forward(prompt, last_only=True))
+    check(tuple(logits.shape) == (1, 1, cfg.padded_vocab) and bool(torch.isfinite(logits).all()),
+          f"{arch} prefill logits not finite of shape (1, 1, V)")
+    check(prefill_launches == {"flash_attention": n_attn, "decode_attention": 0},
+          f"{arch} prefill launches {prefill_launches}")
+    tok = torch.zeros((SERVE["slots"], 1), dtype=torch.int64, device="cuda")
+    prof = decode_step_profile(torch, lm, tok, engine.cache, 32, arch)
+    del engine, lm, logits
+    return dict(params=n_params, serve_s=wall, serve_s_second=wall2, tokens_per_s=tokens / wall,
+                serve_launches=launches, prefill_tokens=S, prefill_s=prefill_s,
+                prefill_launches=prefill_launches, first_request=first[0], **prof)
+
+
+def vision_family(torch) -> dict:
+    """llama-3.2-vision-11b at full width in bf16: a 2,048-token prompt
+    over 1,601 image tokens through LM.forward, then init_cache over the
+    image and 32 decode steps (B 1)."""
+    from repro_torch.models import decode
+
+    arch = "llama-3.2-vision-11b"
+    cfg, lm = build_family(torch, arch)
+    n_params = sum(p.numel() for p in lm.parameters())
+    check(n_params == FAMILY_PARAMS[arch], f"{arch} has {n_params} parameters")
+    kw = family_inputs(torch, cfg, 1)
+    n_cross = cfg.num_layers // cfg.cross_attn_every
+    prompt = torch.as_tensor(np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size, (1, VISION_PROMPT)),
+                             device="cuda")
+    (logits, _), prefill_s, prefill_launches = counted(torch, lambda: lm.forward(prompt, last_only=True, **kw))
+    check(tuple(logits.shape) == (1, 1, cfg.padded_vocab) and bool(torch.isfinite(logits).all()),
+          f"{arch} prefill logits not finite of shape (1, 1, V)")
+    check(prefill_launches == {"flash_attention": cfg.num_layers, "decode_attention": 0},
+          f"{arch} prefill launches {prefill_launches}")
+
+    def run_decode():
+        cache = decode.init_cache(lm, 1, 64, **kw)
+        tok, outs = prompt[:, :1], []
+        for t in range(32):
+            lt, cache = decode.decode_step(lm, tok, cache, t)
+            tok = lt[:, 0].argmax(dim=-1, keepdim=True)
+            outs.append(lt)
+        return cache, torch.cat(outs, dim=1)
+
+    (cache, dec), decode_s, decode_launches = counted(torch, run_decode)
+    check(bool(torch.isfinite(dec).all()), f"{arch} decode logits not finite")
+    check(tuple(cache["cross_k"].shape) == (n_cross, 1, cfg.num_image_tokens, cfg.num_kv_heads, cfg.head_dim_),
+          f"{arch} cross cache {tuple(cache['cross_k'].shape)}")
+    check(decode_launches == {"flash_attention": 0, "decode_attention": 32 * cfg.num_layers},
+          f"{arch} decode launches {decode_launches}")
+    prof = decode_step_profile(torch, lm, prompt[:, :1], cache, 32, arch)
+    del lm, cache, logits, dec
+    return dict(params=n_params, prefill_tokens=VISION_PROMPT, prefill_s=prefill_s,
+                prefill_launches=prefill_launches, decode_steps=32, decode_s=decode_s,
+                decode_launches=decode_launches, **prof)
+
+
+def whisper_family(torch) -> dict:
+    """whisper-base at full width in bf16: an encoder pass over 1,500
+    frames, a 448-token decoder forward, init_cache over the frames and
+    greedy decode to 448 (B 1)."""
+    from repro_torch.models import decode
+
+    arch = "whisper-base"
+    cfg, lm = build_family(torch, arch)
+    n_params = sum(p.numel() for p in lm.parameters())
+    check(n_params == FAMILY_PARAMS[arch], f"{arch} has {n_params} parameters")
+    kw = family_inputs(torch, cfg, 1)
+    L, E = cfg.num_layers, cfg.num_encoder_layers
+    enc, enc_s, enc_launches = counted(torch, lambda: lm.encode(kw["audio_embeds"]))
+    check(tuple(enc.shape) == (1, cfg.encoder_seq_len, cfg.d_model) and bool(torch.isfinite(enc).all()),
+          f"{arch} encoder output not finite of shape (1, 1500, d)")
+    check(enc_launches == {"flash_attention": E, "decode_attention": 0}, f"{arch} encoder launches {enc_launches}")
+    toks = torch.as_tensor(np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size, (1, WHISPER_TOKENS)),
+                           device="cuda")
+    (logits, _), fwd_s, fwd_launches = counted(torch, lambda: lm.forward(toks, **kw))
+    check(tuple(logits.shape) == (1, WHISPER_TOKENS, cfg.padded_vocab) and bool(torch.isfinite(logits).all()),
+          f"{arch} decoder logits not finite of shape (1, 448, V)")
+    check(fwd_launches == {"flash_attention": E + 2 * L, "decode_attention": 0},
+          f"{arch} forward launches {fwd_launches}")
+
+    def run_decode():
+        cache = decode.init_cache(lm, 1, WHISPER_TOKENS, **kw)
+        tok, n = toks[:, :1], 0
+        for t in range(WHISPER_TOKENS):
+            lt, cache = decode.decode_step(lm, tok, cache, t)
+            tok = lt[:, 0].argmax(dim=-1, keepdim=True)
+            n += 1
+        return cache, lt, n
+
+    (cache, last, n), decode_s, decode_launches = counted(torch, run_decode)
+    check(n == WHISPER_TOKENS and bool(torch.isfinite(last).all()), f"{arch} decode to 448 not finite")
+    check(decode_launches == {"flash_attention": E, "decode_attention": WHISPER_TOKENS * 2 * L},
+          f"{arch} decode launches {decode_launches}")
+    prof = decode_step_profile(torch, lm, toks[:, :1], cache, WHISPER_TOKENS - 1, arch)
+    del lm, cache, logits, enc
+    return dict(params=n_params, encoder_s=enc_s, encoder_launches=enc_launches, forward_tokens=WHISPER_TOKENS,
+                forward_s=fwd_s, forward_launches=fwd_launches, decode_steps=n, decode_s=decode_s,
+                decode_launches=decode_launches, **prof)
+
+
+def phase_families(torch) -> dict:
+    """Phase 8: each family at its published width and depth, freed before
+    the next one starts, and the pod runtime's example scenario."""
+    import repro_torch.grid as G
+    from repro_torch.grid.example import PINNED, run_example
+
+    out = {}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        gc.collect()
+        torch.cuda.empty_cache()
+        r["part_s"] = time.perf_counter() - t0
+        out[name] = r
+        print(f"phase 8 {name}: {json.dumps(r)}")
+
+    part("recurrentgemma-2b serving (bf16)", lambda: serve_family(torch, "recurrentgemma-2b"))
+    part("recurrentgemma-2b f32 prefill == decode",
+         lambda: prefill_equals_decode(torch, "recurrentgemma-2b"))
+    # cut: local_window 16 so that the decode ring wraps within 24 tokens
+    part("recurrentgemma-2b f32 prefill == decode, local_window cut to 16",
+         lambda: prefill_equals_decode(torch, "recurrentgemma-2b", T=24, max_len=32, local_window=16))
+    part("mamba2-780m serving (bf16)", lambda: serve_family(torch, "mamba2-780m"))
+    part("mamba2-780m f32 prefill == decode", lambda: prefill_equals_decode(torch, "mamba2-780m"))
+    print("phase 8 mamba2-780m: this path launches no kernel (the SSD scan and the recurrence are "
+          "stock PyTorch operations; the reference has no Pallas kernel for them)")
+    part("llama-3.2-vision-11b (bf16)", lambda: vision_family(torch))
+    part("llama-3.2-vision-11b f32 prefill == decode",
+         lambda: prefill_equals_decode(torch, "llama-3.2-vision-11b"))
+    part("whisper-base (bf16)", lambda: whisper_family(torch))
+    part("whisper-base f32 prefill == decode", lambda: prefill_equals_decode(torch, "whisper-base"))
+
+    t0 = time.perf_counter()
+    got = run_example(G)
+    check(got == PINNED, f"grid example scenario {got} != the reference's pinned decisions {PINNED}")
+    out["grid"] = {"wall_s": time.perf_counter() - t0, "moved": len(got["moved"]), "orphans": len(got["orphans"])}
+    print(f"phase 8 grid: examples/grid_schedule.py's scenario through repro_torch.grid == the reference's "
+          f"pinned decisions (bulk split {json.dumps({p: len(v) for p, v in got['bulk'].items()})}, prod on "
+          f"{got['prod']}, {len(got['moved'])} moved, {len(got['orphans'])} orphans re-placed) in "
+          f"{out['grid']['wall_s']:.6f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1616,6 +1980,20 @@ def main() -> int:
           f"(the peer's select/rank/place: {p2p['peer_launches']})")
     for name in ("cost_argmin_f64", "cost_matrix_f64"):
         check(p2p_launches[name] > 0, f"phase 7 never launched {name}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phase 8 is this slice's path: every kernel counter at 0 before it,
+    # read after (each part also counts the attention kernels around itself).
+    ph8_counters = dict(sim_counters, **attn_counters())
+    for fn in ph8_counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    phase_families(torch)
+    ph8_launches = {name: fn.launches for name, fn in ph8_counters.items()}
+    print(f"phase 8 in {time.perf_counter() - t0:.3f} s, launches {ph8_launches}")
+    for name in attn_counters():
+        check(ph8_launches[name] > 0, f"phase 8 never launched {name}")
 
     meta = {
         "cost_matrix_f32": ("src/repro_torch/kernels/cost_matrix/csrc/cost_matrix.cu",
@@ -1641,13 +2019,14 @@ def main() -> int:
             launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, shape=r["shape"], launches_sim=sim_launches[name],
-            launches_p2p=p2p_launches[name],
+            launches_p2p=p2p_launches[name], launches_ph8=ph8_launches[name],
             **({"wrapper_ms": r["wrapper_ms"]} if "wrapper_ms" in r else {}),
         ))
     for name, (source, replaces) in attn_meta.items():
         r = attn[name]
         line.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         launches=serving["launches"][name], launches_sim=0, launches_p2p=0, **r))
+                         launches=serving["launches"][name], launches_sim=0, launches_p2p=0,
+                         launches_ph8=ph8_launches[name], **r))
     for k in line:
         k["bound_share"] = k["bound_ms"] / k["ms"]
         k["launches_x_gap_ms"] = k["launches"] * (k["ms"] - k["bound_ms"])
@@ -1655,6 +2034,7 @@ def main() -> int:
     print(f"priority_requeue f64 instance (not on the main path): ms {f64['ms']!r} plain_ms "
           f"{f64['plain_ms']!r} bound_ms {f64['bound_ms']!r}, bit-equal to reprioritize_np")
     check(all(math.isfinite(k["ms"]) for k in line), "a kernel time is not finite")
+    print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

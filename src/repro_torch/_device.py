@@ -25,8 +25,9 @@ One PyTorch habit breaks run-to-run equality on the host:
   CPU builds with MKL; about one process in five). ``warm_host_math``
   runs each such function once over enough elements to reach every
   intra-op thread and throws the result away; the host paths of
-  ``models`` and the attention kernels' plain versions call it before
-  their first transcendental.
+  ``models`` (attention, the MLPs, the RG-LRU and Mamba-2 blocks) and
+  the attention kernels' plain versions call it before their first
+  transcendental.
 """
 from __future__ import annotations
 
@@ -106,7 +107,19 @@ def warm_host_math(x: torch.Tensor) -> None:
         return
     # Each thread's share must clear the unary kernels' grain of 2,048.
     w = torch.linspace(-4.0, 4.0, max(1 << 21, threads << 16))
-    for f in (torch.tanh, torch.exp, torch.sin, torch.cos, torch.rsqrt, torch.erf,
-              torch.sigmoid):
+    for f in _WARM:
         f(w)
     _warm_threads = threads
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+# Every vectorized transcendental a host path calls: attention and the
+# MLPs (tanh, exp, sin, cos, rsqrt, erf, sigmoid, tanh-GeLU, SiLU), the
+# RG-LRU gates (sigmoid, softplus, exp, sqrt) and the Mamba-2 block
+# (softplus, exp, SiLU, log1p inside softplus).
+_WARM = (torch.tanh, torch.exp, torch.sin, torch.cos, torch.rsqrt, torch.erf, torch.sigmoid,
+         torch.sqrt, torch.log1p, torch.nn.functional.softplus, torch.nn.functional.silu,
+         _gelu_tanh)

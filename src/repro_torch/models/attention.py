@@ -1,36 +1,52 @@
-"""Attention: GQA with causal/local/global masks, soft-capping, and
-KV-cache decode (the non-sharded half of ``repro.models.attention``).
+"""Attention: GQA with causal/local/global masks, soft-capping, cross
+attention, the chunked online-softmax host path, and KV-cache decode
+(the single-device half of ``repro.models.attention``).
 
-``attention`` (prefill) runs the flash-attention kernel and
-``decode_attention`` the decode-attention kernel on a CUDA tensor, and
-their plain PyTorch versions on a host tensor, for every layer and
-length (the reference's own model path runs jnp attention and reaches
-its Pallas kernels only from tests). The decode path writes the new
-token's key and value into the cache in place and returns the cache.
+On a CUDA tensor ``attention`` (prefill, self or cross, causal or not)
+runs the flash-attention kernel and ``decode_attention``/``cross_decode``
+the decode-attention kernel, for every layer and length (the reference's
+own model path runs jnp attention and reaches its Pallas kernels only
+from tests). On a host tensor they run the plain versions, and
+``attention`` takes the reference's route between them: the
+double-blocked ``_chunked`` path (banded for a local layer whose window
+is at most an eighth of the keys, or whenever a side is longer than
+``CHUNKED_THRESHOLD``), else the full-score plain version. Query and key
+positions are 0…Sq−1 and 0…Sk−1 throughout, as every model path of the
+reference passes them. The decode path writes the new token's key and
+value into the cache in place and returns the cache.
 
-Left for later slices (ROADMAP.md): ``_chunked``/banded attention on the
-host, cross-attention (vlm, encdec) and the sharded decode paths.
+Left for later slices (ROADMAP.md): the sharded decode paths.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from .._device import warm_host_math
 from ..kernels.decode_attention.ops import decode_attention as decode_attention_kernel
 from ..kernels.flash_attention.ops import flash_attention
 from .common import ModelConfig
-from .layers import init_linear_, linear, rope
+from .layers import init_linear_, linear, rope, softcap
 
 __all__ = [
-    "init_attention", "init_attention_", "attention", "decode_attention", "init_kv_cache",
-    "rope_theta",
+    "init_attention", "init_attention_", "attention", "decode_attention", "cross_decode",
+    "cross_kv", "init_kv_cache", "rope_theta", "CHUNKED_THRESHOLD",
 ]
+
+NEG_INF = -2.0e38
+# Above this length (of either side) the host path streams key blocks
+# through the online softmax instead of materializing the scores
+# (repro.models.attention.CHUNKED_THRESHOLD).
+CHUNKED_THRESHOLD = 8192
+Q_BLOCK = 512
+KV_BLOCK = 1024
 
 
 def init_attention(cfg: ModelConfig, device) -> nn.ParameterDict:
     """Uninitialised projections (``init_attention_`` fills them):
     wq (d, H, D), wk/wv (d, KV, D), wo (H, D, d); q_norm/k_norm (D,)
-    float32 with QK-norm."""
+    float32 with QK-norm. Cross layers have the same parameters (their
+    tanh gate belongs to the block)."""
     dt = cfg.pdtype
     H, KV, D, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, cfg.d_model
     shapes = {"wq": (d, H, D), "wk": (d, KV, D), "wv": (d, KV, D), "wo": (H, D, d)}
@@ -64,13 +80,20 @@ def rope_theta(cfg: ModelConfig, is_global: bool) -> float:
     return cfg.rope_theta_global if (cfg.rope_theta_global and is_global) else cfg.rope_theta
 
 
-def _project(params, x, cfg: ModelConfig):
-    """x (B, S, d) → q (B, S, H, D), k, v (B, S, KV, D)."""
+def _heads(x, w, n: int, D: int):
+    """x (B, S, d) · w (d, n, D) → (B, S, n, D)."""
     B, S, d = x.shape
+    return linear(x, w.reshape(d, n * D)).view(B, S, n, D)
+
+
+def _project(params, x, cfg: ModelConfig, src=None):
+    """x (B, S, d), src (B, Sk, d) (x itself for self-attention) →
+    q (B, S, H, D), k, v (B, Sk, KV, D)."""
+    src = x if src is None else src
     H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    q = linear(x, params["wq"].reshape(d, H * D)).view(B, S, H, D)
-    k = linear(x, params["wk"].reshape(d, KV * D)).view(B, S, KV, D)
-    v = linear(x, params["wv"].reshape(d, KV * D)).view(B, S, KV, D)
+    q = _heads(x, params["wq"], H, D)
+    k = _heads(src, params["wk"], KV, D)
+    v = _heads(src, params["wv"], KV, D)
     if cfg.qk_norm:
         q = _qk_norm(q, params["q_norm"])
         k = _qk_norm(k, params["k_norm"])
@@ -83,18 +106,107 @@ def _out(params, o, cfg: ModelConfig):
     return linear(o.reshape(B, S, H * D), params["wo"].reshape(H * D, cfg.d_model))
 
 
-def attention(params, x: torch.Tensor, cfg: ModelConfig, *, is_global: bool = True) -> torch.Tensor:
-    """Causal self-attention (train / prefill) over positions 0…S−1:
-    x (B, S, d) → (B, S, d). Local layers (``is_global`` False) see the
-    last ``cfg.local_window`` keys."""
+# -- the chunked online-softmax host path ------------------------------------------
+
+def _divisor_block(n: int, target: int) -> int:
+    """Largest divisor of n that is ≤ target (a ragged length such as
+    1601 image tokens falls back to its largest small factor)."""
+    for b in range(min(target, n), 0, -1):
+        if n % b == 0:
+            return b
+    return n
+
+
+def _chunked(q, k, v, *, causal: bool, window: int, cap: float, scale: float,
+             q_block: int = Q_BLOCK, kv_block: int = KV_BLOCK, banded: bool = False):
+    """Double-blocked online-softmax attention, the reference's
+    ``_chunked``: query blocks in turn, each streaming key blocks with a
+    running max, sum and float32 accumulator; probabilities cast to the
+    value type before their product. ``banded`` (a local layer) streams
+    only the ≤ nw key blocks that can meet a query block's window.
+    ``window`` > 0 masks keys at or past it (the caller passes 0 for a
+    global layer). q (B, Sq, H, D); k (B, Sk, KV, D); v (B, Sk, KV, Dv)."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    rep = H // KV
+    q_block = _divisor_block(Sq, q_block)
+    kv_block = _divisor_block(Sk, kv_block)
+    nq, nk = Sq // q_block, Sk // kv_block
+    nw = min(nk, (window + q_block - 1 + kv_block - 1) // kv_block + 1) \
+        if banded and window > 0 else nk
+    warm_host_math(q)
+    dev = q.device
+    outs = []
+    for i in range(nq):
+        q_i = q[:, i * q_block:(i + 1) * q_block].reshape(B, q_block, KV, rep, D).float()
+        qp = torch.arange(i * q_block, (i + 1) * q_block, device=dev)[:, None]
+        s0 = 0
+        if nw < nk:
+            end_b = ((i + 1) * q_block - 1) // kv_block
+            s0 = min(max(end_b - nw + 1, 0), nk - nw)
+        m_run = torch.full((B, H, q_block), NEG_INF, dtype=torch.float32, device=dev)
+        l_run = torch.zeros((B, H, q_block), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, H, q_block, Dv), dtype=torch.float32, device=dev)
+        for j in range(s0, s0 + nw):
+            sl = slice(j * kv_block, (j + 1) * kv_block)
+            s = torch.einsum("bqgrd,bkgd->bgrqk", q_i, k[:, sl].float()).reshape(
+                B, H, q_block, kv_block) * scale
+            s = softcap(s, cap)
+            kp = torch.arange(sl.start, sl.stop, device=dev)[None, :]
+            msk = torch.ones((q_block, kv_block), dtype=torch.bool, device=dev)
+            if causal:
+                msk = msk & (kp <= qp)
+            if window > 0:
+                msk = msk & ((qp - kp) < window)
+            s = torch.where(msk, s, torch.tensor(NEG_INF, dtype=s.dtype, device=dev))
+            m_new = torch.maximum(m_run, s.amax(dim=-1))
+            corr = torch.exp(m_run - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l_run = l_run * corr + p.sum(dim=-1)
+            pv = torch.einsum("bgrqk,bkgd->bgrqd", p.to(q.dtype).reshape(B, KV, rep, q_block, kv_block),
+                              v[:, sl]).reshape(B, H, q_block, Dv)
+            acc = acc * corr[..., None] + pv.float()
+            m_run = m_new
+        out = (acc / torch.clamp(l_run, min=1e-37)[..., None]).to(q.dtype)
+        outs.append(out.transpose(1, 2))             # (B, q_block, H, Dv)
+    return torch.cat(outs, dim=1)
+
+
+def _attend(q, k, v, cfg: ModelConfig, *, causal: bool, window: int):
+    """Softmax attention of q (B, Sq, H, D) over k, v (B, Sk, KV, D):
+    the flash kernel on the card; the reference's route on the host."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    cap = cfg.attn_logit_softcap
+    if q.device.type == "cpu":
+        # a window marks a local layer: only worth banding when ≥ ¾ of the
+        # key blocks drop out (the reference's rule)
+        banded = 0 < window and window * 8 <= Sk
+        if banded or max(Sq, Sk) > CHUNKED_THRESHOLD:
+            return _chunked(q, k, v, causal=causal, window=window, cap=cap,
+                            scale=cfg.head_dim_ ** -0.5, banded=banded)
+    return flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+
+
+def attention(params, x: torch.Tensor, cfg: ModelConfig, *, is_global: bool = True,
+              causal: bool = True, kv_x: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence attention (train / prefill): x (B, S, d) → (B, S, d).
+
+    Self-attention (``kv_x`` None) takes rotary embeddings, causal or not
+    (whisper's encoder is not); a local layer (``is_global`` False) sees
+    the last ``cfg.local_window`` keys. Cross-attention over ``kv_x``
+    (B, Sk, d) takes neither rotary embeddings nor a window, but does
+    take ``cfg.attn_logit_softcap``, as the reference's prefill does (its
+    cross decode does not: ``cross_decode``)."""
     B, S, _ = x.shape
-    q, k, v = _project(params, x, cfg)
-    theta = rope_theta(cfg, is_global)
-    positions = torch.arange(S, device=x.device).expand(B, S)
-    q = rope(q, positions, theta)
-    k = rope(k, positions, theta)
-    window = 0 if is_global else cfg.local_window
-    o = flash_attention(q, k, v, causal=True, window=window, softcap=cfg.attn_logit_softcap)
+    q, k, v = _project(params, x, cfg, kv_x)
+    if causal or kv_x is None:          # self-attention → rotary
+        theta = rope_theta(cfg, is_global)
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        q = rope(q, positions, theta)
+        k = rope(k, positions, theta)
+    window = 0 if (is_global or kv_x is not None) else cfg.local_window
+    o = _attend(q, k, v, cfg, causal=causal, window=window)
     return _out(params, o, cfg)
 
 
@@ -133,3 +245,23 @@ def decode_attention(params, x_t: torch.Tensor, cache_k: torch.Tensor, cache_v: 
     o = decode_attention_kernel(q, cache_k, cache_v, read, window=window,
                                 softcap=cfg.attn_logit_softcap)
     return _out(params, o[:, None], cfg), cache_k, cache_v
+
+
+def cross_kv(params, src: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """A cross layer's fixed keys and values from its source (image
+    embeddings or the encoder's output) src (B, N, d) → (B, N, KV, D)
+    each: no rotary embedding, no QK-norm (the reference's cache does
+    neither)."""
+    KV, D = cfg.num_kv_heads, cfg.head_dim_
+    return _heads(src, params["wk"], KV, D), _heads(src, params["wv"], KV, D)
+
+
+def cross_decode(params, x_t: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """One token over a cross layer's fixed keys and values (B, N, KV, D)
+    → (B, 1, d): every key visible (position N − 1, no window). As in the
+    reference's ``_cross_attend``, the query takes no rotary embedding and
+    no QK-norm, and the scores no soft-cap."""
+    q = _heads(x_t, params["wq"], cfg.num_heads, cfg.head_dim_)[:, 0]
+    o = decode_attention_kernel(q, ck, cv, ck.shape[1] - 1, window=0, softcap=0.0)
+    return _out(params, o[:, None], cfg)

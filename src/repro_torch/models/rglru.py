@@ -1,0 +1,123 @@
+"""RG-LRU recurrent block (RecurrentGemma / Griffin), the port of
+``repro.models.rglru``.
+
+The gated linear recurrence  h_t = a_t·h_{t−1} + √(1−a_t²)·(i_t⊙x_t)
+with a_t = exp(−c·softplus(Λ)·r_t) is elementwise over the width. The
+reference runs it as ``jax.lax.associative_scan`` over S; here the same
+combine, (a1·a2, b1·a2 + b2), runs as a log-depth doubling scan over S
+(⌈log2 S⌉ rounds of a few whole-tensor operations, no loop over tokens).
+Gates and state are float32, products in the compute type, as in the
+reference. Decode is one fused step against an (h, conv) cache that it
+updates in place.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .._device import warm_host_math
+from .common import ModelConfig
+from .layers import init_linear_
+
+__all__ = ["init_rglru", "init_rglru_", "rglru_forward", "rglru_decode", "init_rglru_state",
+           "linear_scan"]
+
+_C = 8.0  # Griffin's fixed recurrence sharpness
+
+
+def init_rglru(cfg: ModelConfig, device) -> nn.ParameterDict:
+    """Uninitialised parameters (``init_rglru_`` fills them), in the
+    reference's layouts: w_x, w_gate (d, w); conv_w (4, w); conv_b (w,)
+    float32; w_r, w_i (w, w); lam (w,) float32; out (w, d)."""
+    d, w, dt = cfg.d_model, cfg.lru_width_, cfg.pdtype
+    shapes = {"w_x": ((d, w), dt), "w_gate": ((d, w), dt), "conv_w": ((4, w), dt),
+              "conv_b": ((w,), torch.float32), "w_r": ((w, w), dt), "w_i": ((w, w), dt),
+              "lam": ((w,), torch.float32), "out": ((w, d), dt)}
+    return nn.ParameterDict({
+        n: nn.Parameter(torch.empty(s, dtype=t, device=device), requires_grad=False)
+        for n, (s, t) in shapes.items()})
+
+
+@torch.no_grad()
+def init_rglru_(p: nn.ParameterDict, cfg: ModelConfig, generator: torch.Generator) -> None:
+    d, w = cfg.d_model, cfg.lru_width_
+    init_linear_(p["w_x"], d, generator)
+    init_linear_(p["w_gate"], d, generator)
+    init_linear_(p["conv_w"], 1, generator, scale=0.02)
+    p["conv_b"].zero_()
+    init_linear_(p["w_r"], w, generator)
+    init_linear_(p["w_i"], w, generator)
+    p["lam"].copy_(torch.linspace(0.7, 2.5, w, dtype=torch.float32))
+    init_linear_(p["out"], w, generator)
+
+
+def _conv(x, w, b):
+    """Depthwise causal conv over the sequence, rounded to x's type once:
+    the reference's taps and bias are x's type, and XLA computes the
+    chain in float32 under ``jit`` (it keeps the excess precision of a
+    fused chain), where rounding after each tap would lose a few bits."""
+    W, S = w.shape[0], x.shape[1]
+    pad = F.pad(x.float(), (0, 0, W - 1, 0))
+    w = w.to(x.dtype).float()
+    out = sum(pad[:, i : i + S, :] * w[i][None, None, :] for i in range(W))
+    return (out + b[None, None, :].to(x.dtype).float()).to(x.dtype)
+
+
+def _gates(params, xw):
+    warm_host_math(xw)
+    r = torch.sigmoid((xw @ params["w_r"]).float())
+    i = torch.sigmoid((xw @ params["w_i"]).float())
+    log_a = -_C * F.softplus(params["lam"])[None, None, :] * r
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-8))
+    gated = beta * i * xw.float()
+    return a, gated
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t·h_{t−1} + b_t over dim 1 from h_{−1} = 0, by doubling:
+    after the round of stride d every element holds the combine of the
+    2d elements ending at it, (a1·a2, b1·a2 + b2) with 1 the earlier."""
+    S, d = a.shape[1], 1
+    while d < S:
+        a_prev, b_prev = a[:, :-d], b[:, :-d]
+        b = torch.cat([b[:, :d], b_prev * a[:, d:] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a_prev * a[:, d:]], dim=1)
+        d *= 2
+    return b
+
+
+def rglru_forward(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, S, d) → (B, S, d) via the scan over S."""
+    xw = _conv(x @ params["w_x"], params["conv_w"], params["conv_b"])
+    a, gated = _gates(params, xw)                    # (B, S, w) float32
+    h = linear_scan(a, gated)
+    gate = F.gelu((x @ params["w_gate"]).float(), approximate="tanh")
+    y = (h * gate).to(x.dtype)
+    return y @ params["out"]
+
+
+def init_rglru_state(cfg: ModelConfig, batch: int, layers: int, device=None) -> dict:
+    w = cfg.lru_width_
+    return {
+        "h": torch.zeros((layers, batch, w), dtype=torch.float32, device=device),
+        "conv": torch.zeros((layers, batch, 3, w), dtype=cfg.cdtype, device=device),
+    }
+
+
+def rglru_decode(params, x_t: torch.Tensor, h: torch.Tensor, conv_cache: torch.Tensor,
+                 cfg: ModelConfig):
+    """One-step recurrence. x_t (B, 1, d); h (B, w); conv_cache (B, 3, w).
+    Returns (y (B, 1, d), h, conv_cache), the caches updated in place."""
+    xw_t = x_t @ params["w_x"]                        # (B, 1, w)
+    hist = torch.cat([conv_cache, xw_t.to(conv_cache.dtype)], dim=1)
+    w = params["conv_w"]
+    xw = (torch.einsum("bwc,wc->bc", hist.float(), w.float()) + params["conv_b"]
+          )[:, None, :].to(x_t.dtype)
+    conv_cache.copy_(hist[:, 1:, :])
+    a, gated = _gates(params, xw)                     # (B, 1, w)
+    h.copy_(a[:, 0] * h + gated[:, 0])
+    gate = F.gelu((x_t @ params["w_gate"]).float(), approximate="tanh")
+    y = (h[:, None, :] * gate).to(x_t.dtype)
+    return y @ params["out"], h, conv_cache

@@ -1,0 +1,197 @@
+"""Mamba-2 (SSD — state-space duality) block, the port of
+``repro.models.ssm``.
+
+Prefill uses the chunked SSD algorithm: within-chunk terms are a masked
+(decay-weighted) attention-like quadratic over the chunk, and
+cross-chunk terms flow through a linear recurrence over chunk states
+(the reference's ``lax.scan`` over chunks is a loop over the S/Q chunks
+here). Decode is the pure recurrence with an (H, P, N) state and a small
+causal-conv cache, updated in place. The state, the step sizes and the
+decays are float32 and the products in the compute type, with the
+reference's casts in the reference's order. No kernel: every operation
+is a stock PyTorch one.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .._device import warm_host_math
+from .common import ModelConfig
+from .layers import init_linear_, rms_norm
+
+__all__ = ["init_mamba", "init_mamba_", "mamba_forward", "mamba_decode", "init_mamba_cache"]
+
+
+def init_mamba(cfg: ModelConfig, device) -> nn.ParameterDict:
+    """Uninitialised parameters (``init_mamba_`` fills them), in the
+    reference's layouts: in_proj (d, 2·din + 2·G·N + H); conv_w (W, conv_dim);
+    conv_b (conv_dim,), A_log, D, dt_bias (H,) and norm (din,) float32;
+    out_proj (din, d)."""
+    d, din, H, N, G = cfg.d_model, cfg.d_inner, cfg.ssm_nheads, cfg.ssm_state, cfg.ssm_ngroups
+    conv_dim = din + 2 * G * N
+    dt, f32 = cfg.pdtype, torch.float32
+    shapes = {"in_proj": ((d, 2 * din + 2 * G * N + H), dt),
+              "conv_w": ((cfg.ssm_conv_width, conv_dim), dt), "conv_b": ((conv_dim,), f32),
+              "A_log": ((H,), f32), "D": ((H,), f32), "dt_bias": ((H,), f32),
+              "norm": ((din,), f32), "out_proj": ((din, d), dt)}
+    return nn.ParameterDict({
+        n: nn.Parameter(torch.empty(s, dtype=t, device=device), requires_grad=False)
+        for n, (s, t) in shapes.items()})
+
+
+@torch.no_grad()
+def init_mamba_(p: nn.ParameterDict, cfg: ModelConfig, generator: torch.Generator) -> None:
+    H = cfg.ssm_nheads
+    init_linear_(p["in_proj"], cfg.d_model, generator)
+    init_linear_(p["conv_w"], 1, generator, scale=0.02)
+    p["conv_b"].zero_()
+    p["A_log"].copy_(torch.log(torch.linspace(1.0, 16.0, H, dtype=torch.float32)))
+    p["D"].fill_(1.0)
+    p["dt_bias"].zero_()
+    p["norm"].zero_()
+    init_linear_(p["out_proj"], cfg.d_inner, generator)
+
+
+def _split(cfg: ModelConfig, zxbcdt: torch.Tensor):
+    din, N, G = cfg.d_inner, cfg.ssm_state, cfg.ssm_ngroups
+    c = 2 * din + 2 * G * N
+    return zxbcdt[..., :din], zxbcdt[..., din:c], zxbcdt[..., c:]
+
+
+def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over the sequence and its SiLU, rounded to
+    xBC's type once (as ``rglru._conv``: XLA keeps the fused chain in
+    float32 under ``jit``). xBC (B, S, Cd); w (W, Cd)."""
+    W, S = w.shape[0], xBC.shape[1]
+    pad = F.pad(xBC.float(), (0, 0, W - 1, 0))
+    w = w.to(xBC.dtype).float()
+    out = sum(pad[:, i : i + S, :] * w[i][None, None, :] for i in range(W))
+    return F.silu(out + b[None, None, :].to(xBC.dtype).float()).to(xBC.dtype)
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular cumulative sums: out[..., i, j] = Σ_{j<k≤i} x[k],
+    −inf above the diagonal (so that exp gives 0 there)."""
+    Q = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    return torch.where(mask, seg, torch.tensor(-math.inf, dtype=seg.dtype, device=x.device))
+
+
+def _rep(x: torch.Tensor, rep: int, dim: int) -> torch.Tensor:
+    """``jnp.repeat(x, rep, axis=dim)``: group g feeds heads g·rep … g·rep + rep − 1."""
+    return x if rep == 1 else torch.repeat_interleave(x, rep, dim=dim)
+
+
+def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Chunked SSD. x (B, S, d) → (B, S, d). S must divide by the chunk
+    min(ssm_chunk, S)."""
+    Bsz, S, _ = x.shape
+    din, H, P, N, G = cfg.d_inner, cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_ngroups
+    Q = min(cfg.ssm_chunk, S)
+    if S % Q:                       # the reference's assertion, kept under -O
+        raise ValueError(f"mamba_forward: S {S} is not a multiple of the chunk {Q}")
+    nc = S // Q
+    dt_x = x.dtype
+    warm_host_math(x)
+
+    zxbcdt = x @ params["in_proj"]
+    z, xBC, dt_raw = _split(cfg, zxbcdt)
+    xBC = _causal_conv(xBC, params["conv_w"], params["conv_b"])
+    xs, Bmat, Cmat = xBC[..., :din], xBC[..., din:din + G * N], xBC[..., din + G * N:]
+    xs = xs.reshape(Bsz, S, H, P)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])                       # (B, S, H)
+    A = -torch.exp(params["A_log"])                                          # (H,)
+    dA = dt * A[None, None, :]                                               # (B, S, H)
+
+    # chunk everything: (B, nc, Q, ...)
+    xs_c = xs.reshape(Bsz, nc, Q, H, P)
+    B_c = Bmat.reshape(Bsz, nc, Q, G, N)
+    C_c = Cmat.reshape(Bsz, nc, Q, G, N)
+    dt_c = dt.reshape(Bsz, nc, Q, H)
+    dA_c = dA.reshape(Bsz, nc, Q, H)
+
+    # ---- intra-chunk (diagonal blocks): decay-masked attention ----
+    L = torch.exp(_segsum(dA_c.permute(0, 1, 3, 2)))               # (B, nc, H, Q, Q)
+    scores = torch.einsum("bcqgn,bckgn->bcgqk", C_c, B_c)          # (B, nc, G, Q, Q)
+    rep = H // G
+    scores = _rep(scores, rep, 2)                                  # (B, nc, H, Q, Q)
+    att = (scores * L).to(dt_x)
+    xdt = xs_c * dt_c[..., None].to(dt_x)                          # (B, nc, Q, H, P)
+    y_diag = torch.einsum("bchqk,bckhp->bcqhp", att, xdt)
+
+    # ---- chunk states & inter-chunk recurrence ----
+    seg_end = torch.cumsum(dA_c, dim=2)                            # (B, nc, Q, H)
+    decay_to_end = torch.exp(seg_end[:, :, -1:, :] - seg_end)      # (B, nc, Q, H)
+    B_rep = _rep(B_c, rep, 3)                                      # (B, nc, Q, H, N)
+    states = torch.einsum("bcqhn,bcqhp->bchpn", B_rep,
+                          xdt * decay_to_end[..., None].to(dt_x))  # (B, nc, H, P, N)
+    chunk_decay = torch.exp(seg_end[:, :, -1, :])                  # (B, nc, H)
+
+    carry = torch.zeros((Bsz, H, P, N), dtype=dt_x, device=x.device)
+    prev = []
+    for c in range(nc):                                            # the state BEFORE chunk c
+        prev.append(carry)
+        carry = carry * chunk_decay[:, c, :, None, None].to(carry.dtype) + states[:, c]
+    prev_states = torch.stack(prev, dim=1)                         # (B, nc, H, P, N)
+
+    # ---- off-diagonal contribution: C · decayed previous state ----
+    decay_from_start = torch.exp(seg_end)                          # (B, nc, Q, H)
+    C_rep = _rep(C_c, rep, 3)                                      # (B, nc, Q, H, N)
+    y_off = torch.einsum("bcqhn,bchpn->bcqhp", C_rep, prev_states)
+    y_off = y_off * decay_from_start[..., None].to(dt_x)
+
+    y = (y_diag + y_off).reshape(Bsz, S, H, P)
+    y = y + xs * params["D"][None, None, :, None].to(dt_x)
+    y = y.reshape(Bsz, S, din)
+    y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["norm"])
+    return y @ params["out_proj"]
+
+
+def init_mamba_cache(cfg: ModelConfig, batch: int, layers: int, dtype=None, device=None) -> dict:
+    dt = dtype or cfg.cdtype
+    din, H, P, N, G = cfg.d_inner, cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_ngroups
+    conv_dim = din + 2 * G * N
+    return {
+        "conv": torch.zeros((layers, batch, cfg.ssm_conv_width - 1, conv_dim), dtype=dt, device=device),
+        "state": torch.zeros((layers, batch, H, P, N), dtype=torch.float32, device=device),
+    }
+
+
+def mamba_decode(params, x_t: torch.Tensor, conv_cache: torch.Tensor, state: torch.Tensor,
+                 cfg: ModelConfig):
+    """One-token recurrence. x_t (B, 1, d); conv_cache (B, W − 1, conv_dim);
+    state (B, H, P, N) float32. Returns (y, conv_cache, state), the caches
+    updated in place."""
+    Bsz = x_t.shape[0]
+    din, H, P, N, G = cfg.d_inner, cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_ngroups
+    warm_host_math(x_t)
+    zxbcdt = x_t @ params["in_proj"]
+    z, xBC_t, dt_raw = _split(cfg, zxbcdt)                         # (B, 1, ·)
+    # causal conv via the cache of the last W − 1 inputs
+    hist = torch.cat([conv_cache, xBC_t.to(conv_cache.dtype)], dim=1)
+    w = params["conv_w"]
+    xBC = F.silu(torch.einsum("bwc,wc->bc", hist.float(), w.float()) + params["conv_b"]
+                 )[:, None, :].to(x_t.dtype)
+    conv_cache.copy_(hist[:, 1:, :])
+
+    xs, Bmat, Cmat = xBC[..., :din], xBC[..., din:din + G * N], xBC[..., din + G * N:]
+    xs = xs.reshape(Bsz, H, P)
+    rep = H // G
+    Bv = _rep(Bmat.reshape(Bsz, G, N), rep, 1)                     # (B, H, N)
+    Cv = _rep(Cmat.reshape(Bsz, G, N), rep, 1)
+    dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"])      # (B, H)
+    A = -torch.exp(params["A_log"])
+    decay = torch.exp(dt * A[None, :])                             # (B, H)
+    upd = torch.einsum("bhp,bhn->bhpn", xs.float() * dt[..., None], Bv.float())
+    state.copy_(state * decay[..., None, None] + upd)
+    y = torch.einsum("bhn,bhpn->bhp", Cv.float(), state)
+    y = y + xs.float() * params["D"][None, :, None]
+    y = y.reshape(Bsz, 1, din).to(x_t.dtype)
+    y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["norm"])
+    return y @ params["out_proj"], conv_cache, state

@@ -14,7 +14,11 @@ batch share a prompt length (bulk jobs "have similar characteristics",
 §VII). The prefill is a lockstep decode over the prompt, as in the
 reference (``repro.serving.engine``); empty slots decode zeros. The
 step runs eagerly on the engine's device and updates the KV cache in
-place.
+place. As in the reference, a batch starts from the cache the last one
+left: stale attention rows are masked by position, while the hybrid's
+RG-LRU state and the ssm's Mamba-2 state carry over (the reference's
+engine resets neither). Its caches are built without image or audio
+embeddings, so vlm and encdec models raise here, as they do there.
 
 Data locality: prompts seen before are prefix-cache hits with zero
 data-transfer cost — the term the grid layer feeds into DIANA's DTC.

@@ -246,6 +246,21 @@ FLASH_CASES = [
     (1, 300, 300, 8, 4, 128, True, 0, 0.0, torch.bfloat16),
     (1, 1024, 1024, 4, 2, 128, True, 0, 50.0, torch.float32),
     (1, 1024, 1024, 8, 4, 256, True, 300, 50.0, torch.float32),
+    # the hybrid, vision and whisper families' shapes (chip_smoke.py phase 8):
+    # rep 10 over one kv head at D 256 (window 2048; the f32 checks' 16 and
+    # 24 tokens, the cut window of 16), D 128 causal and non-causal with
+    # Sq > Sk = 1,601, D 64 non-causal 1,500 x 1,500 and 448 x 1,500
+    (1, 4096, 4096, 10, 1, 256, True, 2048, 0.0, torch.bfloat16),
+    (2, 16, 16, 10, 1, 256, True, 2048, 0.0, torch.float32),
+    (2, 24, 24, 10, 1, 256, True, 16, 0.0, torch.float32),
+    (1, 2048, 2048, 32, 8, 128, True, 0, 0.0, torch.bfloat16),
+    (1, 2048, 1601, 32, 8, 128, False, 0, 0.0, torch.bfloat16),
+    (2, 16, 1601, 32, 8, 128, False, 0, 0.0, torch.float32),
+    (1, 1500, 1500, 8, 8, 64, False, 0, 0.0, torch.bfloat16),
+    (2, 1500, 1500, 8, 8, 64, False, 0, 0.0, torch.float32),
+    (1, 448, 448, 8, 8, 64, True, 0, 0.0, torch.bfloat16),
+    (1, 448, 1500, 8, 8, 64, False, 0, 0.0, torch.bfloat16),
+    (2, 16, 1500, 8, 8, 64, False, 0, 0.0, torch.float32),
 ]
 DECODE_CASES = [
     # (B, S, H, KV, D, pos, window, softcap, dtype)
@@ -259,6 +274,19 @@ DECODE_CASES = [
     (2, 8192, 16, 8, 256, 8191, 0, 50.0, torch.float32),
     (1, 8192, 16, 8, 256, 6000, 4096, 50.0, torch.float32),
     (1, 3000, 8, 2, 128, 2500, 0, 0.0, torch.float32),
+    # phase 8's: rep 10 over the 64-slot and 2,048 rings (and the f32
+    # checks' rings of 24 and 16), the vision and whisper self caches and
+    # their cross layers read to the last image token or frame
+    (4, 64, 10, 1, 256, 63, 0, 0.0, torch.bfloat16),
+    (1, 2048, 10, 1, 256, 2047, 0, 0.0, torch.bfloat16),
+    (2, 24, 10, 1, 256, 15, 0, 0.0, torch.float32),
+    (2, 16, 10, 1, 256, 15, 0, 0.0, torch.float32),
+    (1, 64, 32, 8, 128, 31, 0, 0.0, torch.bfloat16),
+    (1, 1601, 32, 8, 128, 1600, 0, 0.0, torch.bfloat16),
+    (2, 1601, 32, 8, 128, 1600, 0, 0.0, torch.float32),
+    (1, 448, 8, 8, 64, 447, 0, 0.0, torch.bfloat16),
+    (1, 1500, 8, 8, 64, 1499, 0, 0.0, torch.bfloat16),
+    (2, 1500, 8, 8, 64, 1499, 0, 0.0, torch.float32),
 ]
 
 
@@ -617,3 +645,48 @@ def test_p2p_gridsim_on_the_card_equals_the_host(dev, wire, lossy):
                       for p in sim.peers]))
     assert runs[0] == runs[1]
     assert runs[1][2]["rounds"] > 0
+
+
+# -- the hybrid, ssm, vlm and encdec families on the card ------------------------
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mamba2-780m", "llama-3.2-vision-11b", "whisper-base"])
+def test_reduced_family_on_the_card_equals_the_host(dev, arch):
+    """Each family reduced, in float32 (window 8 and chunk 8 as the
+    reference's oracle sets them; vision at two periods of five layers,
+    cross gates 0.5): prefill and 16 decode steps on the card against the
+    same weights on the host, and every cache after them."""
+    kw = dict(param_dtype="float32", compute_dtype="float32", local_window=8, ssm_chunk=8)
+    if arch.startswith("llama"):
+        kw["num_layers"] = 10
+    cfg = get_config(arch, reduced=True).replace(**kw)
+    host = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    for blocks in (getattr(host, "cross_blocks", ()), getattr(host, "dec_cross", ())):
+        for b in blocks:
+            b.xgate.fill_(0.5)
+    card = LM(cfg, device=dev)
+    card.load_state_dict(host.state_dict())
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 16)))
+    extra = {}
+    if cfg.family == "vlm":
+        extra["image_embeds"] = torch.as_tensor(rng.standard_normal((2, 16, cfg.d_model)) * 0.1, dtype=torch.float32)
+    if cfg.family == "encdec":
+        extra["audio_embeds"] = torch.as_tensor(rng.standard_normal((2, 64, cfg.d_model)) * 0.1, dtype=torch.float32)
+    on_card = {k: v.to(dev) for k, v in extra.items()}
+    before = (fa_ops.flash_attention.launches, da_ops.decode_attention.launches)
+    lh, _ = host.forward(toks, **extra)
+    lc, _ = card.forward(toks.to(dev), **on_card)
+    torch.testing.assert_close(lc.cpu(), lh, rtol=1e-4, atol=1e-4)
+    ch, cc = decode.init_cache(host, 2, 24, **extra), decode.init_cache(card, 2, 24, **on_card)
+    for pos in range(16):
+        a, ch = decode.decode_step(host, toks[:, pos : pos + 1], ch, pos)
+        b, cc = decode.decode_step(card, toks[:, pos : pos + 1].to(dev), cc, pos)
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
+    for name in ch:
+        torch.testing.assert_close(cc[name].cpu(), ch[name], rtol=1e-4, atol=1e-4)
+    launched = (fa_ops.flash_attention.launches - before[0], da_ops.decode_attention.launches - before[1])
+    if cfg.family == "ssm":
+        assert launched == (0, 0)          # the SSD path has no kernel
+    else:
+        assert min(launched) > 0

@@ -23,8 +23,8 @@ from repro_torch.kernels.decode_attention.ref import NEG_INF
 LOG2E = 1.4426950408889634
 
 
-@pytest.mark.parametrize("B,KV", [(1, 1), (4, 8), (2, 16)])
-@pytest.mark.parametrize("S", [1, 63, 64, 4096, 8192, 8193])
+@pytest.mark.parametrize("B,KV", [(1, 1), (4, 8), (2, 16), (4, 1)])
+@pytest.mark.parametrize("S", [1, 63, 64, 1500, 1601, 2048, 4096, 8192, 8193])
 def test_every_key_lies_in_exactly_one_split(S, B, KV):
     split = da_ops.split_size(B, KV, S)
     assert split >= da_ops.CHUNK and split % da_ops.CHUNK == 0
@@ -87,6 +87,10 @@ SPLIT_CASES = [
     (1, 1152, 8, 4, 128, 700, 300, 0.0),
     (3, 77, 16, 1, 32, 40, 0, 50.0),
     (1, 640, 4, 4, 256, 5, 0, 0.0),
+    # recurrentgemma's rep 10 over one kv head, a vision cross layer read
+    # to its last image token
+    (2, 1536, 10, 1, 256, 1499, 0, 0.0),
+    (1, 1664, 32, 8, 128, 1600, 0, 0.0),
 ]
 
 

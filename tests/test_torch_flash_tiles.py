@@ -42,6 +42,8 @@ def visible_tiles(Sq, causal, window, qw0, kb, nt):
     (77, 77, True, 0), (200, 200, True, 100), (1000, 1000, True, 333), (77, 200, False, 0),
     (200, 1000, False, 0), (2304, 2304, True, 1000), (8192, 8192, True, 4096), (130, 130, True, 64),
     (1000, 1000, True, 1), (256, 256, True, 64),
+    # the hybrid, vision and whisper families' (chip_smoke.py phase 8)
+    (4096, 4096, True, 2048), (2048, 1601, False, 0), (1500, 1500, False, 0), (448, 1500, False, 0),
 ])
 def test_hidden_and_interior_tiles_agree_with_the_mask(Sq, Sk, causal, window):
     seen = np.zeros((Sq, Sk), bool)

@@ -37,6 +37,10 @@ def test_imports_with_jax_and_reference_blocked():
         "import repro_torch.sim.grid, repro_torch.sim.interop\n"
         "import repro_torch.core.p2p, repro_torch.sim.p2p_grid, repro_torch.sim.bench_inputs\n"
         "import repro_torch.scenarios, repro_torch.scenarios.__main__\n"
+        "import repro_torch.grid, repro_torch.grid.capacity, repro_torch.grid.runtime\n"
+        "import repro_torch.grid.example\n"
+        "import repro_torch.models.rglru, repro_torch.models.ssm, repro_torch.models.lm\n"
+        "import repro_torch.models.decode, repro_torch.models.attention, repro_torch.models.interop\n"
         "for n in repro_torch.scenarios.SCENARIOS:\n"
         "    repro_torch.scenarios.get_generator(n), repro_torch.scenarios.get_verifier(n)\n"
         "repro_torch.configs.get_config('gemma2-9b')\n"
@@ -117,7 +121,12 @@ def _default_device_calls():
             one, one, one, one, one, one, one, one, [True]),
         # ServingEngine runs on its model's device; the CLI builds both
         "LM": lambda: LM(get_config("gemma2-9b", reduced=True)),
+        "LM (hybrid)": lambda: LM(get_config("recurrentgemma-2b", reduced=True)),
+        "LM (ssm)": lambda: LM(get_config("mamba2-780m", reduced=True)),
+        "LM (vlm)": lambda: LM(get_config("llama-3.2-vision-11b", reduced=True)),
+        "LM (encdec)": lambda: LM(get_config("whisper-base", reduced=True)),
         "ServingEngine (launch.serve)": lambda: serve.main(["--requests", "1"]),
+        "ServingEngine (launch.serve, ssm)": lambda: serve.main(["--arch", "mamba2-780m", "--requests", "1"]),
     }
 
 

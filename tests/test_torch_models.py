@@ -124,8 +124,10 @@ def test_full_width_parameter_shapes_equal_the_reference(arch):
 
 
 def test_non_dense_family_raises_naming_the_roadmap():
+    """Only the moe family is still to port (the others are held in
+    test_torch_families.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        LM(get_config("mamba2-780m", reduced=True), device="cpu")
+        LM(get_config("deepseek-v2-236b", reduced=True), device="cpu")
 
 
 def test_layers_match_the_reference():
@@ -258,3 +260,31 @@ def test_init_is_seeded_and_default_device_is_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LM(cfg)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-12b", "nemotron-4-15b", "mistral-large-123b"])
+def test_dense_configurations_forward_and_decode(arch):
+    """Every dense configuration, reduced, in float32, weights carried
+    across: LM.forward over 80 tokens and 72 decode steps from position 0
+    (past the local layers' rings of 64 where the pattern has them) within
+    1e-4 of the reference. The paths only some of them take: QK-norm and a
+    second rope theta on global layers (gemma3), squared ReLU (nemotron),
+    rope_theta 1e6 and an untied head (mistral)."""
+    kw = dict(remat=False, param_dtype="float32", compute_dtype="float32")
+    ref_cfg = ref_get_config(arch, reduced=True).replace(**kw)
+    cfg = get_config(arch, reduced=True).replace(**kw)
+    ref_lm = RefLM(ref_cfg)
+    params = ref_lm.init(jax.random.PRNGKey(1))
+    lm = LM(cfg, device="cpu")
+    lm.load_state_dict(params_from_reference(cfg, jax.tree.map(np.asarray, params)))
+    toks = _tokens(cfg, 2, 80, seed=7)
+    ref, _ = ref_lm.forward(params, jnp.asarray(toks))
+    out, _ = lm.forward(torch.from_numpy(toks))
+    _close(out, ref, 1e-4)
+    ref_cache = ref_decode.init_cache(ref_lm, 2, 80)
+    cache = decode.init_cache(lm, 2, 80)
+    step = jax.jit(lambda p, t, c, pos: ref_decode.decode_step(ref_lm, p, t, c, pos))
+    for pos in range(72):
+        r, ref_cache = step(params, jnp.asarray(toks[:, pos : pos + 1]), ref_cache, jnp.int32(pos))
+        o, cache = decode.decode_step(lm, torch.from_numpy(toks[:, pos : pos + 1]), cache, pos)
+        _close(o, r, 1e-4)
