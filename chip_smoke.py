@@ -105,7 +105,32 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    ``repro_torch.grid`` against the reference's decisions pinned in
    ``repro_torch.grid.example``. Phase 2 first holds both attention
    kernels at every shape phase 8 gives them, and times flash at the
-   vision cross layer and whisper's encoder layer.
+   vision cross layer and whisper's encoder layer and the decode kernel
+   at recurrentgemma's ring and the two cross layers.
+9. The moe family at its published width, depth cut to fit one card,
+   weights from a seeded generator, every kernel counter set to 0
+   before the phase and read after, each model freed before the next:
+   deepseek-v2-236b in bf16 with 6 of its 60 layers (1 dense + 5 MoE,
+   42.5 GB) serves launch/serve.py's 16 requests twice with identical
+   tokens, prefills 4,096 tokens through LM.forward (6 launches of the
+   flash kernel's (192, 128) instance) and times a decode step beside
+   two weight-streaming bounds (every expert; the experts the step's
+   routing hit) and its device share; in float32 with 3 layers and a
+   dropless capacity factor (37.3 GB) it holds LM.forward against a
+   decode_step loop (absorbed MLA decode), 2e-3; deepseek-v3-671b
+   (sigmoid router) in bf16 with 4 of its 61 layers (3 dense + 1 MoE,
+   30.2 GB) prefills 1,024 tokens and decodes 16 greedy steps, twice
+   with identical tokens. Phase 2 first holds the (192, 128) instance
+   against its plain version at lengths 77 to 4,096, causal and not,
+   in both types, and times it at deepseek-v2's prefill layer (B 1,
+   S 4,096, 128 heads) beside its bound, plain version and SDPA.
+
+The flash wrapper also counts its launches per (D, Dv) instance
+(``flash_attention.by_pair``): the kernels line splits them into a row
+for the instances with v as wide as q and k and one for (192, 128), each
+with every phase's measured counts (``launches_by_pair``); the (192, 128)
+row's ``launches_x_gap_ms`` counts only its launches at the timed shape
+(``gap_launches``, deepseek-v2's 4,096-token prefill).
 
 Prints the card, each phase's results and times, a ``{"kernels": …}``
 line and, last, ``{"ok": true, "device": …}``. Any failed check raises,
@@ -772,6 +797,31 @@ FLASH_ROWS = {
     "vision_cross_d128": dict(B=1, Sq=2048, Sk=1601, H=32, KV=8, D=128, causal=False),
     "whisper_encoder_d64": dict(B=1, Sq=1500, Sk=1500, H=8, KV=8, D=64, causal=False),
 }
+# Phase 9's flash instance, MLA's (DQK 192, DV 128), before the phase relies
+# on it: ragged lengths 77, 200, 1,000 and 4,096, causal and not, both
+# types, k and v two column ranges of one (B, S, KV, 320) buffer as
+# models.mla builds them; then phase 9's own shapes: the f32 oracle (B 2,
+# 16 tokens, 128 heads) and deepseek-v3's 1,024-token prefill.
+MLA_CASES = [
+    # (B, Sq, Sk, H, KV, causal, dtype)
+    *((1, S, S, 4, 4, c, "bfloat16") for S in (77, 200, 1000, 4096) for c in (True, False)),
+    *((2, S, S, 2, 2, c, "float32") for S in (77, 200, 1000, 4096) for c in (True, False)),
+    (2, 16, 16, 128, 128, True, "float32"),
+    (1, 1024, 1024, 128, 128, True, "bfloat16"),
+]
+# deepseek-v2's 4,096-token prefill layer, timed beside its bound (B 1,
+# 128 heads, causal: 8,390,656 pairs x 128 heads x 2 x (192 + 128)
+# operations), its plain version and SDPA.
+MLA_ROW = dict(B=1, S=4096, H=128, DQK=192, DV=128)
+# The decode kernel at phase 8's shapes, timed (DECODE_CASES holds them):
+# recurrentgemma's ring (rep 10 over one kv head, read to its last slot)
+# and the vision and whisper cross layers read to the last image token or
+# frame, all at the engine's 4 slots.
+DECODE_ROWS = {
+    "recurrentgemma_ring_rep10": dict(B=4, S=2048, H=10, KV=1, D=256, pos=2047),
+    "vision_cross_d128": dict(B=4, S=1601, H=32, KV=8, D=128, pos=1600),
+    "whisper_cross_d64": dict(B=4, S=1500, H=8, KV=8, D=64, pos=1499),
+}
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 QK_STD = 1.5          # q and k: scores of spread ~2.25 at any D
 REL_BOUND = 0.01      # mean |kernel − plain| ≤ REL_BOUND · mean |plain|
@@ -827,6 +877,15 @@ def attn_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     return total
 
 
+def mla_qkv(draw, B: int, Sq: int, Sk: int, H: int, KV: int, dtype):
+    """q (B, Sq, H, 192) and k (B, Sk, KV, 192), v (B, Sk, KV, 128) as two
+    column ranges of one buffer, as models.mla builds them."""
+    import torch
+
+    kv = torch.cat([draw((B, Sk, KV, 192), dtype, QK_STD), draw((B, Sk, KV, 128), dtype)], dim=-1)
+    return draw((B, Sq, H, 192), dtype, QK_STD), kv[..., :192], kv[..., 192:]
+
+
 def phase_attention_kernels(torch):
     """Flash and decode kernels against their plain versions on the card:
     the JAX kernel tests' cases, then gemma2-9b's shapes (timed)."""
@@ -860,6 +919,15 @@ def phase_attention_kernels(torch):
         torch.cuda.synchronize()
         err, rel = agree(torch, out, ref, ATTN_TOL[name], f"decode_attention {case}")
         print(f"phase 2 decode_attention {case}: max_abs_err {err!r} ({rel!r} mean error / mean |plain|)")
+    for case in MLA_CASES:
+        B, Sq, Sk, H, KV, causal, name = case
+        q, k, v = mla_qkv(draw, B, Sq, Sk, H, KV, dt[name])
+        out = fa_ops.flash_attention(q, k, v, causal=causal)
+        ref = fa_ref.flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err, rel = agree(torch, out, ref, ATTN_TOL[name], f"flash_attention (192, 128) {case}")
+        print(f"phase 2 flash_attention (192, 128) {case}: max_abs_err {err!r} ({rel!r} mean error / mean |plain|)")
+        del q, k, v, out, ref
     torch.cuda.empty_cache()
 
     bf = torch.bfloat16
@@ -924,6 +992,31 @@ def phase_attention_kernels(torch):
         del q, k, v, o, kern, plain, qt, kt, vt
     torch.cuda.empty_cache()
 
+    # -- flash's (192, 128) instance at deepseek-v2's prefill layer
+    B, S, H, DQK, DV = (MLA_ROW[k] for k in ("B", "S", "H", "DQK", "DV"))
+    q, k, v = mla_qkv(draw, B, S, S, H, H, bf)
+    kern = fa_ops.flash_attention(q, k, v)
+    plain = fa_ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    err, rel = agree(torch, kern, plain, 2e-2, "flash_attention (192, 128) at deepseek-v2's prefill")
+    del kern, plain
+    torch.cuda.empty_cache()
+    pairs = attn_pairs(S, S, True, 0)
+    b_ms, b_by = bound(2 * B * S * H * (DQK + DV) * 2, 2 * B * H * pairs * (DQK + DV), "bf16")
+    o = q.new_empty((B, S, H, DV))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+    mla = dict(ms=kernel_ms(torch, fa_ops.launcher(q, k, v, o)),
+               plain_ms=kernel_ms(torch, lambda: fa_ref.flash_attention_ref(q, k, v), reps=3, inner=1),
+               library_ms=kernel_ms(torch, sdpa), library_backend=sdpa_backend(torch, sdpa),
+               bound_ms=b_ms, bound_by=b_by, max_abs_err=err, mean_rel_err=rel, pairs=pairs,
+               shape=[B, S, H, H, DQK, DV])
+    mla["bound_share"] = b_ms / mla["ms"]
+    out["flash_attention_mla"] = mla
+    print(f"phase 2 flash_attention (192, 128) {mla['shape']}: {json.dumps(mla)}")
+    del q, k, v, o, qt, kt, vt
+    torch.cuda.empty_cache()
+
     # -- decode at serving scale: an 8192 linear cache (pos S−1) and a 4096 ring past its wrap
     B, S, H, KV, D, cap, W = (DECODE[k] for k in ("B", "S", "H", "KV", "D", "cap", "W"))
     q = draw((B, H, D), bf, QK_STD)
@@ -958,10 +1051,37 @@ def phase_attention_kernels(torch):
     out["decode_attention"] = dict(rows["linear"], shape=[B, S, H, KV, D], ring_4096=rows["ring"])
     torch.cuda.empty_cache()
 
+    # -- decode at phase 8's shapes (no soft-cap)
+    for name, c in DECODE_ROWS.items():
+        B_, S_, H_, KV_, D_, pos = (c[k] for k in ("B", "S", "H", "KV", "D", "pos"))
+        q = draw((B_, H_, D_), bf, QK_STD)
+        k, v = draw((B_, S_, KV_, D_), bf, QK_STD), draw((B_, S_, KV_, D_), bf)
+        kern = da_ops.decode_attention(q, k, v, pos)
+        plain = da_ref.decode_attention_ref(q, k, v, pos)
+        torch.cuda.synchronize()
+        err, rel = agree(torch, kern, plain, 2e-2, f"decode_attention {name}")
+        o = torch.empty_like(q)
+        visible = pos + 1
+        b_ms, b_by = bound(2 * B_ * visible * KV_ * D_ * 2 + 2 * B_ * H_ * D_ * 2,
+                           4 * B_ * H_ * D_ * visible, "bf16")
+        qs, ks, vs = q[:, :, None], k[:, :visible].transpose(1, 2), v[:, :visible].transpose(1, 2)
+        sdpa = lambda qs=qs, ks=ks, vs=vs: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True)  # noqa: E731
+        r = dict(ms=kernel_ms(torch, da_ops.launcher(q, k, v, o, pos)), split=da_ops.split_size(B_, KV_, S_),
+                 plain_ms=kernel_ms(torch, lambda: da_ref.decode_attention_ref(q, k, v, pos), reps=3, inner=2),
+                 library_ms=kernel_ms(torch, sdpa), library_backend=sdpa_backend(torch, sdpa),
+                 bound_ms=b_ms, bound_by=b_by, max_abs_err=err, mean_rel_err=rel, shape=[B_, S_, H_, KV_, D_],
+                 pos=pos)
+        r["bound_share"] = b_ms / r["ms"]
+        out["decode_attention"][name] = r
+        print(f"phase 2 decode_attention {name}: {json.dumps(r)}")
+        del q, k, v, o, kern, plain, qs, ks, vs
+    torch.cuda.empty_cache()
+
     for r in (out["flash_attention"], out["flash_attention"]["window_4096"], out["decode_attention"],
               out["decode_attention"]["ring_4096"]):
         r["bound_share"] = r["bound_ms"] / r["ms"]
-    for name, r in out.items():
+    for name in ("flash_attention", "decode_attention"):
+        r = out[name]
         extra = r.get("window_4096") or r.get("ring_4096")
         print(f"phase 2 {name} {r['shape']}: kernel {r['ms']:.6f} ms (softcap 0: {r['ms_softcap0']:.6f} ms), "
               f"plain {r['plain_ms']:.6f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
@@ -1032,8 +1152,7 @@ def phase_serving(torch):
     check(n_params == GEMMA2_PARAMS, f"gemma2-9b has {n_params} parameters")
 
     counters = {"flash_attention": fa_ops.flash_attention, "decode_attention": da_ops.decode_attention}
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts(counters)
     engine, reqs, stats, wall = serve_once(torch, lm, SEED)
     prompt = torch.as_tensor(np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size, (1, PREFILL["S"])),
                              device=dev)
@@ -1042,6 +1161,7 @@ def phase_serving(torch):
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
+    pairs = flash_pairs()
     tokens = sum(len(r.generated) for r in reqs)
     print(f"phase 4 served {stats.served}/{len(reqs)} in {stats.batches} batches, {stats.decode_steps} decode "
           f"steps, {tokens} tokens in {wall:.6f} s ({tokens / wall:.3f} tokens/s); prefill of "
@@ -1057,6 +1177,7 @@ def phase_serving(torch):
     check(launches["decode_attention"] == 4 * (8 + 7) * cfg.num_layers,
           f"decode kernel launched {launches['decode_attention']} times")
     check(launches["flash_attention"] == cfg.num_layers, f"flash kernel launched {launches['flash_attention']} times")
+    check(pairs == {"256x256": cfg.num_layers}, f"phase 4 flash launches by instance {pairs}")
 
     # Median decode step (one token for the 4 slots at pos 32 of the 64
     # cache), host clock around a synchronize, after the run.
@@ -1084,7 +1205,7 @@ def phase_serving(torch):
     check([r.generated for r in reqs2] == first, "a second run with the same seed gave other tokens")
     print(f"phase 4 second run, same seed: identical tokens ({wall2:.6f} s); first request {first[0]}")
     del engine, lm, logits
-    return dict(launches=launches, tokens_per_s=tokens / wall, step_ms=step_ms, step_bound_ms=bound_ms,
+    return dict(launches=launches, pairs=pairs, tokens_per_s=tokens / wall, step_ms=step_ms, step_bound_ms=bound_ms,
                 prefill_s=prefill_s, wall_s=wall, step_busy_ms=busy_ms, step_idle_share=idle)
 
 
@@ -1102,8 +1223,7 @@ def phase_prefill_equals_decode(torch):
     lm = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
     B, T = 2, 16
     toks = torch.as_tensor(np.random.default_rng(SEED + 2).integers(0, cfg.vocab_size, (B, T)), device=dev)
-    for fn in (fa_ops.flash_attention, da_ops.decode_attention):
-        fn.launches = 0
+    zero_counts({"flash_attention": fa_ops.flash_attention, "decode_attention": da_ops.decode_attention})
     full, _ = lm.forward(toks)
     cache = decode.init_cache(lm, B, T + 8)
     steps = []
@@ -1662,22 +1782,51 @@ def attn_counters():
     return {"flash_attention": fa_ops.flash_attention, "decode_attention": da_ops.decode_attention}
 
 
-def counted(torch, fn):
+def zero_counts(counters: dict) -> None:
+    """Every counter of ``counters`` to 0, the flash wrapper's per-instance
+    counts (``by_pair``) with its total."""
+    for fn in counters.values():
+        fn.launches = 0
+        if hasattr(fn, "by_pair"):
+            fn.by_pair = {}
+
+
+def flash_pairs() -> dict:
+    """The flash wrapper's launches since its counts were last zeroed, by
+    instance: {"DxDv": count}."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    return {f"{d}x{dv}": n for (d, dv), n in sorted(fa_ops.flash_attention.by_pair.items())}
+
+
+def pair_sum(pairs: dict, mla: bool) -> int:
+    """Launches in ``pairs`` of the (192, 128) instance (``mla``) or of
+    every instance with v as wide as q and k."""
+    return sum(n for key, n in pairs.items() if (key == MLA_PAIR) == mla)
+
+
+def counted(torch, fn, pairs: dict | None = None):
     """``fn()`` with both attention kernels' counters set to 0 just before
     and read just after: (result, wall seconds ending in a synchronize,
-    launches). The counts held before are added back after, so that the
+    launches); ``pairs``, when given, receives the flash launches by
+    instance. The counts held before are added back after, so that the
     counts around the whole phase keep every launch inside it."""
     counters = attn_counters()
+    flash = counters["flash_attention"]
     held = {n: c.launches for n, c in counters.items()}
-    for c in counters.values():
-        c.launches = 0
+    held_pairs = dict(flash.by_pair)
+    zero_counts(counters)
     t0 = time.perf_counter()
     res = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {n: c.launches for n, c in counters.items()}
+    if pairs is not None:
+        pairs.update(flash_pairs())
     for n, c in counters.items():
         c.launches += held[n]
+    for key, n in held_pairs.items():
+        flash.by_pair[key] = flash.by_pair.get(key, 0) + n
     return res, wall, launches
 
 
@@ -1734,9 +1883,10 @@ def prefill_equals_decode(torch, arch: str, T: int = 16, max_len: int = 24, **ov
                 tokens=T, overrides=overrides)
 
 
-def decode_step_profile(torch, lm, tok, cache, pos: int, arch: str) -> dict:
+def decode_step_profile(torch, lm, tok, cache, pos: int, arch: str, weight_bytes: float | None = None) -> dict:
     """Median of 20 decode steps (host clock around a synchronize) beside
-    the weight-streaming bound, and a profiled step's device time."""
+    the weight-streaming bound (``weight_bytes``, by default every
+    parameter in bf16), and a profiled step's device time."""
     from repro_torch.models import decode
 
     times = []
@@ -1746,7 +1896,7 @@ def decode_step_profile(torch, lm, tok, cache, pos: int, arch: str) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     step_ms = statistics.median(times[1:]) * 1e3
-    bound_ms = FAMILY_PARAMS[arch] * 2 / HBM_BYTES_PER_S * 1e3
+    bound_ms = (weight_bytes or FAMILY_PARAMS[arch] * 2) / HBM_BYTES_PER_S * 1e3
     trace = step_trace(torch, lambda: decode.decode_step(lm, tok, cache, pos), steps=3)
     return dict(step_ms=step_ms, bound_ms=bound_ms, kernels=trace["kernels"], busy_ms=trace["busy_ms"],
                 device_share=trace["busy_ms"] / step_ms if trace["busy_ms"] else None, top=trace["top"])
@@ -1918,6 +2068,178 @@ def phase_families(torch) -> dict:
     return out
 
 
+# -- phase 9: the moe family (MLA attention, routed experts) ----------------------
+
+# Both deepseek configurations at their published width, depth cut so that
+# the model fits one 80 GB card; the reference's LM.init trees at these
+# depths, counted. deepseek-v2 in bf16: 6 of 60 layers (1 dense + 5 MoE,
+# 42.5 GB); in float32: 3 layers (1 dense + 2 MoE, 37.3 GB); deepseek-v3
+# in bf16: 4 of 61 layers (3 dense + 1 MoE, 30.2 GB).
+MOE_CUTS = {"deepseek-v2-236b": dict(num_layers=6), "deepseek-v2-236b f32": dict(num_layers=3),
+            "deepseek-v3-671b": dict(num_layers=4)}
+MOE_PARAMS = {"deepseek-v2-236b": 21_247_144_960, "deepseek-v2-236b f32": 9_330_795_520,
+              "deepseek-v3-671b": 15_111_101_696}
+MOE_PREFILL = {"deepseek-v2-236b": 4096, "deepseek-v3-671b": 1024}
+DROPLESS = 64.0       # the f32 oracle's capacity_factor (tests/models/test_smoke_archs.py:87-90)
+MLA_PAIR = "192x128"  # the flash instance of MLA's prefill, DQK 192 / DV 128, as flash_pairs() names it
+
+
+def moe_cut(cfg) -> str:
+    from repro_torch.configs import get_config
+
+    return (f"depth cut to {cfg.num_layers} layers ({cfg.first_k_dense} dense + "
+            f"{cfg.num_layers - cfg.first_k_dense} MoE) of the published {get_config(cfg.name).num_layers}")
+
+
+def expert_hits(torch, fn) -> list:
+    """``fn()`` with the router spied on: the number of distinct routed
+    experts each MoE layer's routing picked, in call order."""
+    from repro_torch.models import moe
+
+    hits, real = [], moe._route
+
+    def spy(params, xt, cfg):
+        gates, idx, probs = real(params, xt, cfg)
+        hits.append(int(idx.unique().numel()))
+        return gates, idx, probs
+
+    moe._route = spy
+    try:
+        fn()
+    finally:
+        moe._route = real
+    return hits
+
+
+def moe_serving(torch) -> dict:
+    """deepseek-v2-236b at full width in bf16, depth cut to 6 layers:
+    launch/serve.py's 16 requests through ServingEngine twice with the same
+    seed (identical tokens), a 4,096-token prefill through LM.forward, and
+    a decode step's median time beside two weight-streaming bounds and its
+    device share."""
+    arch = "deepseek-v2-236b"
+    cfg, lm = build_family(torch, arch, **MOE_CUTS[arch])
+    n_params = sum(p.numel() for p in lm.parameters())
+    check(n_params == MOE_PARAMS[arch], f"{arch} (6 layers) has {n_params} parameters")
+    print(f"phase 9 {arch}: {moe_cut(cfg)}, d {cfg.d_model}, {cfg.num_heads} heads, {cfg.num_experts} experts "
+          f"top-{cfg.top_k} + {cfg.num_shared_experts} shared, {n_params} parameters ({n_params * 2 / 1e9:.2f} GB bf16)")
+    (engine, reqs, stats, _), wall, launches = counted(torch, lambda: serve_once(torch, lm, SEED))
+    tokens = sum(len(r.generated) for r in reqs)
+    check(stats.served == 16 and stats.batches == 4 and stats.decode_steps == 28 and tokens == 128,
+          f"{arch} serving stats {stats}, {tokens} tokens")
+    check(all(r.done and len(r.generated) == 8 and all(0 <= t < cfg.vocab_size for t in r.generated)
+              for r in reqs), f"{arch}: a request did not get 8 tokens in the vocabulary")
+    check(launches == {"flash_attention": 0, "decode_attention": 0}, f"{arch} serving launches {launches}")
+    first = [list(r.generated) for r in reqs]
+    lm.init(torch.Generator(device="cuda").manual_seed(SEED))
+    _, reqs2, _, wall2 = serve_once(torch, lm, SEED)
+    check([r.generated for r in reqs2] == first, f"{arch}: a second run with the same seed gave other tokens")
+    S = MOE_PREFILL[arch]
+    prompt = torch.as_tensor(np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size, (1, S)), device="cuda")
+    prefill_pairs: dict = {}
+    (logits, aux), prefill_s, prefill_launches = counted(torch, lambda: lm.forward(prompt, last_only=True),
+                                                         prefill_pairs)
+    check(tuple(logits.shape) == (1, 1, cfg.padded_vocab) and bool(torch.isfinite(logits).all()),
+          f"{arch} prefill logits not finite of shape (1, 1, V)")
+    check(bool(torch.isfinite(aux)) and float(aux) > 0, f"{arch} prefill aux loss {float(aux)}")
+    check(prefill_launches == {"flash_attention": cfg.num_layers, "decode_attention": 0}
+          and prefill_pairs == {MLA_PAIR: cfg.num_layers},
+          f"{arch} prefill launches {prefill_launches}, by instance {prefill_pairs}")
+    del logits
+    # Bounds of one decode step (4 slots at pos 32): (a) every weight but
+    # the embedding table (4 rows of it are read), as the dense dispatch
+    # reads every expert of every layer; (b) the same with only the routed
+    # experts this step's routing hit.
+    tok = torch.zeros((SERVE["slots"], 1), dtype=torch.int64, device="cuda")
+    from repro_torch.models import decode
+
+    hits = expert_hits(torch, lambda: decode.decode_step(lm, tok, engine.cache, 32))
+    expert_bytes = 3 * cfg.d_model * cfg.moe_d_ff * 2
+    bytes_a = (n_params - cfg.padded_vocab * cfg.d_model) * 2
+    bytes_b = bytes_a - sum(cfg.num_experts - h for h in hits) * expert_bytes
+    prof = decode_step_profile(torch, lm, tok, engine.cache, 32, arch, weight_bytes=bytes_a)
+    prof.update(bound_hit_ms=bytes_b / HBM_BYTES_PER_S * 1e3, bytes_all=bytes_a, bytes_hit=bytes_b,
+                experts_hit=hits)
+    print(f"phase 9 {arch} decode step (4 slots, pos 32, {moe_cut(cfg)}): median {prof['step_ms']:.6f} ms of 20; "
+          f"bound (a) every expert {prof['bound_ms']:.6f} ms ({bytes_a / 1e9:.3f} GB / 3.35 TB/s), (b) the experts "
+          f"hit {prof['bound_hit_ms']:.6f} ms ({bytes_b / 1e9:.3f} GB; experts hit per layer {hits} of "
+          f"{cfg.num_experts}); {prof['kernels']:.1f} CUDA kernels and {prof['busy_ms']:.6f} ms of device time a "
+          f"step (share {prof['device_share']}); top kernels {json.dumps(prof['top'])}")
+    del engine, lm
+    return dict(params=n_params, cuts=moe_cut(cfg), serve_s=wall, serve_s_second=wall2,
+                tokens_per_s=tokens / wall, serve_launches=launches, prefill_tokens=S, prefill_s=prefill_s,
+                prefill_launches=prefill_launches, prefill_pairs=prefill_pairs, prefill_aux=float(aux),
+                first_request=first[0], **prof)
+
+
+def moe_oracle(torch) -> dict:
+    """deepseek-v2-236b at full width in float32, depth cut to 3 layers and
+    capacity_factor to dropless: LM.forward (flash (192, 128) in f32)
+    against a decode_step loop (absorbed MLA decode), B 2, 16 tokens."""
+    arch = "deepseek-v2-236b"
+    r = prefill_equals_decode(torch, arch, capacity_factor=DROPLESS, **MOE_CUTS[arch + " f32"])
+    check(r["launches"] == {"flash_attention": 3, "decode_attention": 0}, f"{arch} f32 launches {r['launches']}")
+    r["cuts"] = f"3 layers (1 dense + 2 MoE) of 60, capacity_factor {DROPLESS} (dropless)"
+    return r
+
+
+def moe_v3(torch) -> dict:
+    """deepseek-v3-671b at full width in bf16 (sigmoid router with
+    router_bias), depth cut to 4 layers: a 1,024-token prefill and 16
+    greedy decode steps from a fresh cache, twice from the same seed."""
+    from repro_torch.models import decode
+
+    arch = "deepseek-v3-671b"
+    cfg, lm = build_family(torch, arch, **MOE_CUTS[arch])
+    n_params = sum(p.numel() for p in lm.parameters())
+    check(n_params == MOE_PARAMS[arch], f"{arch} (4 layers) has {n_params} parameters")
+    S = MOE_PREFILL[arch]
+    prompt = torch.as_tensor(np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size, (1, S)), device="cuda")
+
+    def run():
+        logits, _ = lm.forward(prompt, last_only=True)
+        cache = decode.init_cache(lm, 1, 64)
+        tok, toks, outs = prompt[:, :1], [], []
+        for t in range(16):
+            lt, cache = decode.decode_step(lm, tok, cache, t)
+            tok = lt[:, 0].argmax(dim=-1, keepdim=True)
+            toks.append(int(tok))
+            outs.append(lt)
+        return logits, torch.cat(outs, dim=1), toks
+
+    (logits, dec, toks), wall, launches = counted(torch, run)
+    check(tuple(logits.shape) == (1, 1, cfg.padded_vocab) and bool(torch.isfinite(logits).all())
+          and bool(torch.isfinite(dec).all()), f"{arch} logits not finite")
+    check(launches == {"flash_attention": cfg.num_layers, "decode_attention": 0}, f"{arch} launches {launches}")
+    lm.init(torch.Generator(device="cuda").manual_seed(SEED))
+    (logits2, dec2, toks2), wall2, _ = counted(torch, run)
+    check(toks2 == toks, f"{arch}: a second run with the same seed gave other tokens")
+    diff = max(float((logits2 - logits).abs().max()), float((dec2 - dec).abs().max()))
+    print(f"phase 9 {arch} ({moe_cut(cfg)}, {n_params} parameters): prefill {S} + 16 decode steps {wall:.6f} s, "
+          f"again {wall2:.6f} s, same tokens {toks}; max |logit difference| between the runs {diff!r}")
+    del lm
+    return dict(params=n_params, cuts=moe_cut(cfg), prefill_tokens=S, wall_s=wall, wall_s_second=wall2,
+                launches=launches, tokens=toks, max_run_diff=diff)
+
+
+def phase_moe(torch) -> dict:
+    """Phase 9: deepseek-v2-236b in bf16 (served, prefilled, a decode step
+    profiled) and in float32 (prefill ≡ decode), then deepseek-v3-671b,
+    each at full width with its depth cut, freed before the next."""
+    out = {}
+    for name, fn in (("deepseek-v2-236b (bf16)", moe_serving),
+                     ("deepseek-v2-236b f32 prefill == decode", moe_oracle),
+                     ("deepseek-v3-671b (bf16)", moe_v3)):
+        t0 = time.perf_counter()
+        r = fn(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        r["part_s"] = time.perf_counter() - t0
+        out[name] = r
+        print(f"phase 9 {name}: {json.dumps(r)}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1952,48 +2274,59 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # Phase 6 is this slice's path: every kernel counter at 0 before it,
-    # read after (the CPU twin's calls run the plain versions, uncounted).
+    # Phases 6-9 are each a slice's path: every kernel counter, the flash
+    # wrapper's per-instance counts too, at 0 before it and read after (the
+    # CPU twins' calls run the plain versions, uncounted).
     from repro_torch.kernels.cost_matrix import ops as cm_ops
     from repro_torch.kernels.priority_requeue import ops as pr_ops
 
     sim_counters = {"cost_matrix_f32": cm_ops.cost_matrix_classed, "cost_matrix_f64": cm_ops.cost_matrix_f64,
                     "cost_argmin_f64": cm_ops.cost_argmin_f64, "priority_requeue": pr_ops.priority_requeue}
-    for fn in sim_counters.values():
-        fn.launches = 0
+    all_counters = dict(sim_counters, **attn_counters())
+    zero_counts(all_counters)
     t0 = time.perf_counter()
     phase_sim(torch, P)
-    sim_launches = {name: fn.launches for name, fn in sim_counters.items()}
-    print(f"phase 6 in {time.perf_counter() - t0:.3f} s, launches {sim_launches}")
+    sim_launches = {name: fn.launches for name, fn in all_counters.items()}
+    sim_pairs = flash_pairs()
+    print(f"phase 6 in {time.perf_counter() - t0:.3f} s, launches {sim_launches}, flash by instance {sim_pairs}")
     check(sim_launches["cost_argmin_f64"] > 0, "phase 6 never launched cost_argmin_f64")
 
-    # Phase 7 is this slice's path: the counters at 0 before it, read after.
-    for fn in sim_counters.values():
-        fn.launches = 0
-    # Part 1 zeroes them again after its DianaScheduler twin, so the counts
-    # are the peer's select/rank/place and the simulators' (which launch
-    # none: their rows depend on each job's origin through the link matrices).
+    zero_counts(all_counters)
+    # Part 1 zeroes the scheduler counters again after its DianaScheduler
+    # twin, so their counts are the peer's select/rank/place and the
+    # simulators' (which launch none: their rows depend on each job's origin
+    # through the link matrices).
     t0 = time.perf_counter()
     p2p = phase_p2p(torch, P, sim_counters)
-    p2p_launches = {name: fn.launches for name, fn in sim_counters.items()}
-    print(f"phase 7 in {time.perf_counter() - t0:.3f} s, launches {p2p_launches} "
+    p2p_launches = {name: fn.launches for name, fn in all_counters.items()}
+    p2p_pairs = flash_pairs()
+    print(f"phase 7 in {time.perf_counter() - t0:.3f} s, launches {p2p_launches}, flash by instance {p2p_pairs} "
           f"(the peer's select/rank/place: {p2p['peer_launches']})")
     for name in ("cost_argmin_f64", "cost_matrix_f64"):
         check(p2p_launches[name] > 0, f"phase 7 never launched {name}")
     gc.collect()
     torch.cuda.empty_cache()
 
-    # Phase 8 is this slice's path: every kernel counter at 0 before it,
-    # read after (each part also counts the attention kernels around itself).
-    ph8_counters = dict(sim_counters, **attn_counters())
-    for fn in ph8_counters.values():
-        fn.launches = 0
+    # Each part of phase 8 also counts the attention kernels around itself.
+    zero_counts(all_counters)
     t0 = time.perf_counter()
     phase_families(torch)
-    ph8_launches = {name: fn.launches for name, fn in ph8_counters.items()}
-    print(f"phase 8 in {time.perf_counter() - t0:.3f} s, launches {ph8_launches}")
+    ph8_launches = {name: fn.launches for name, fn in all_counters.items()}
+    ph8_pairs = flash_pairs()
+    print(f"phase 8 in {time.perf_counter() - t0:.3f} s, launches {ph8_launches}, flash by instance {ph8_pairs}")
     for name in attn_counters():
         check(ph8_launches[name] > 0, f"phase 8 never launched {name}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    zero_counts(all_counters)
+    t0 = time.perf_counter()
+    moe = phase_moe(torch)
+    ph9_launches = {name: fn.launches for name, fn in all_counters.items()}
+    ph9_pairs = flash_pairs()
+    print(f"phase 9 in {time.perf_counter() - t0:.3f} s, launches {ph9_launches}, flash by instance {ph9_pairs}")
+    check(ph9_pairs.get(MLA_PAIR, 0) > 0, "phase 9 never launched flash_attention (192, 128)")
+    check(set(ph9_pairs) == {MLA_PAIR}, f"phase 9 launched other flash instances {ph9_pairs}")
 
     meta = {
         "cost_matrix_f32": ("src/repro_torch/kernels/cost_matrix/csrc/cost_matrix.cu",
@@ -2020,16 +2353,36 @@ def main() -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, shape=r["shape"], launches_sim=sim_launches[name],
             launches_p2p=p2p_launches[name], launches_ph8=ph8_launches[name],
+            launches_ph9=ph9_launches[name],
             **({"wrapper_ms": r["wrapper_ms"]} if "wrapper_ms" in r else {}),
         ))
-    for name, (source, replaces) in attn_meta.items():
-        r = attn[name]
-        line.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         launches=serving["launches"][name], launches_sim=0, launches_p2p=0,
-                         launches_ph8=ph8_launches[name], **r))
+    # The flash rows split the wrapper's counts by instance: "flash_attention"
+    # counts the instances with v as wide as q and k, "flash_attention
+    # (192, 128)" MLA's, each per phase as measured (``launches_by_pair``).
+    phase_pairs = {"main": serving["pairs"], "sim": sim_pairs, "p2p": p2p_pairs, "ph8": ph8_pairs, "ph9": ph9_pairs}
+    source, replaces = attn_meta["flash_attention"]
+    for name, mla, r in (("flash_attention", False, attn["flash_attention"]),
+                         ("flash_attention (192, 128)", True, attn["flash_attention_mla"])):
+        counts = {ph: pair_sum(pairs, mla) for ph, pairs in phase_pairs.items()}
+        line.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, launches=counts["ph9" if mla else "main"],
+            launches_sim=counts["sim"], launches_p2p=counts["p2p"], launches_ph8=counts["ph8"],
+            launches_ph9=counts["ph9"],
+            launches_by_pair={ph: {key: n for key, n in pairs.items() if (key == MLA_PAIR) == mla}
+                              for ph, pairs in phase_pairs.items()}, **r))
+    source, replaces = attn_meta["decode_attention"]
+    line.append(dict(name="decode_attention", route="cuda", source=source, replaces=replaces,
+                     launches=serving["launches"]["decode_attention"], launches_sim=sim_launches["decode_attention"],
+                     launches_p2p=p2p_launches["decode_attention"], launches_ph8=ph8_launches["decode_attention"],
+                     launches_ph9=ph9_launches["decode_attention"], **attn["decode_attention"]))
     for k in line:
         k["bound_share"] = k["bound_ms"] / k["ms"]
         k["launches_x_gap_ms"] = k["launches"] * (k["ms"] - k["bound_ms"])
+    # MLA's row: only the launches at the timed shape, deepseek-v2's
+    # 4,096-token bf16 prefill; phase 9's others run at 16 and 1,024 tokens.
+    k = next(k for k in line if k["name"] == "flash_attention (192, 128)")
+    k["gap_launches"] = moe["deepseek-v2-236b (bf16)"]["prefill_pairs"][MLA_PAIR]
+    k["launches_x_gap_ms"] = k["gap_launches"] * (k["ms"] - k["bound_ms"])
     f64 = kernels["priority_requeue_f64"]
     print(f"priority_requeue f64 instance (not on the main path): ms {f64['ms']!r} plain_ms "
           f"{f64['plain_ms']!r} bound_ms {f64['bound_ms']!r}, bit-equal to reprioritize_np")

@@ -3,8 +3,7 @@
 The same ten configurations as ``repro.configs``, as data:
 ``get_config(arch_id)`` returns the exact published configuration;
 ``get_config(arch_id, reduced=True)`` returns the smoke-test reduction
-of the same family. Only the dense family runs in the port so far
-(``repro_torch.models.LM`` raises for the others; see ROADMAP.md).
+of the same family. ``repro_torch.models.LM`` builds every one of them.
 """
 from __future__ import annotations
 

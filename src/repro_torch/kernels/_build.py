@@ -59,9 +59,9 @@ _SIGNATURES = {
                                    _P, _P, _I64, _P),
     "repro_priority_requeue_f64": (_P, _P, _P, _c.c_double, _c.c_double,
                                    _P, _P, _I64, _P),
-    # q, k, v, o; B, H, KV, Sq, Sk, D; q strides; k/v strides; causal,
-    # window, softcap; stream
-    **{f"repro_flash_attention_{t}": (_P, _P, _P, _P, *(_I64,) * 6, *(_I64,) * 6,
+    # q, k, v, o; B, H, KV, Sq, Sk, D (q and k), Dv (v and o); q strides;
+    # k/v strides; causal, window, softcap; stream
+    **{f"repro_flash_attention_{t}": (_P, _P, _P, _P, *(_I64,) * 7, *(_I64,) * 6,
                                       _c.c_int, _I64, _c.c_float, _P)
        for t in ("f32", "bf16")},
     # q, k, v, o, ws_m, ws_l, ws_acc; B, KV, rep, S, D, pos; k/v strides;

@@ -10,7 +10,12 @@
 // Layout: q (B, Sq, H, D) and k, v (B, Sk, KV, D) are read through their
 // strides (batch, sequence, head; the head dimension D contiguous), so
 // the model's projections go in without a transpose; o is a contiguous
-// (B, Sq, H, D). A block walks the key tiles of one (batch, head, query
+// (B, Sq, H, D). Every body is templated on <DQK, DV>: q and k are DQK
+// wide and v and o DV wide, the scale is DQK^-0.5. The <D, D> instances
+// (D 32, 64, 128, 256) serve the GQA families; <192, 128> serves MLA's
+// prefill (src/repro/models/mla.py:63, nope 128 + rope 64 against values
+// of 128), where k and v are two column ranges of one (B, S, H, 320)
+// buffer and so share their strides. A block walks the key tiles of one (batch, head, query
 // tile) in a loop (the TPU kernel's sequential innermost grid axis).
 // Key tiles that the causal or window mask hides from every row are
 // skipped; inside a visited tile masked scores are NEG_INF = -2e38, a
@@ -61,7 +66,8 @@
 //    Budget at D 256: Q 64 KB + 2 x (32 + 32) KB ring = 192 KB of shared
 //    memory, one block an SM; ptxas (CUDA 12.9): 168 registers a thread
 //    at launch for every D (the consumers then raise theirs to 240),
-//    0 bytes of spills.
+//    0 bytes of spills. At <192, 128>: Q 48 KB + 2 x (24 + 16) KB = 128 KB;
+//    three boxes a q/k row, two a v/o row.
 //  * float32: 32 x 32 tiles on the CUDA cores (explicit fmaf), each
 //    thread owning a row slice of the accumulator in registers. It
 //    serves the float32 model, not the bf16 serving path.
@@ -246,34 +252,38 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int D>
+template <int DQK, int DV>
 struct HopTiles {
+  // One box width for q, k and v; the epilogue stages O in the query
+  // tile's own boxes, so DV ≤ DQK.
+  static_assert(DQK == DV || (DQK % 64 == 0 && DV % 64 == 0 && DV < DQK), "unsupported (DQK, DV)");
   static constexpr int BQ = 128, BK = 64, STAGES = 2, THREADS = 384;
-  static constexpr int BW = D < 64 ? D : 64;           // columns of one TMA box (one swizzled row)
-  static constexpr int NB = D / BW;                    // boxes a row
+  static constexpr int BW = DQK < 64 ? DQK : 64;       // columns of one TMA box (one swizzled row)
+  static constexpr int NBQ = DQK / BW, NBV = DV / BW;  // boxes a q/k row, a v/o row
   static constexpr int RB = BW * 2;                    // bytes of a box row
   static constexpr uint32_t SWIZZLE = RB == 128 ? 1 : 2;  // wgmma layout: 128- or 64-byte swizzle
   static constexpr int ATOM = 8 * RB;                  // bytes of eight swizzled rows
-  static constexpr int Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
-  static constexpr int Q_OFF = 0, K_OFF = Q_BYTES, V_OFF = K_OFF + STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int Q_BYTES = BQ * DQK * 2, K_BYTES = BK * DQK * 2, V_BYTES = BK * DV * 2;
+  static constexpr int Q_OFF = 0, K_OFF = Q_BYTES, V_OFF = K_OFF + STAGES * K_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * V_BYTES;
   // + the barriers (q_full, k_full[STAGES], v_full[STAGES], empty[STAGES])
   // + slack to align the base to the 1024-byte swizzle period
   static constexpr size_t bytes() { return (size_t)BAR_OFF + 8 * (1 + 3 * STAGES) + 1024; }
 };
 
 struct TmaParams {
-  CUtensorMap tq, tk, tv;  // rank 4: (D, S, heads, B), innermost first
+  CUtensorMap tq, tk, tv;  // rank 4: (DQK or DV, S, heads, B), innermost first
   void* o;
   int H, rep, Sq, Sk, causal, window;
-  float qk_scale;  // D^-0.5 · log2 e, or D^-0.5 / softcap with a soft-cap
+  float qk_scale;  // DQK^-0.5 · log2 e, or DQK^-0.5 / softcap with a soft-cap
   float cap_log2;  // softcap · log2 e, or 0 without one
 };
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(384, 1) flash_bf16_kernel(const __grid_constant__ TmaParams p) {
-  using T = HopTiles<D>;
-  constexpr int BQ = T::BQ, BK = T::BK, ST = T::STAGES, BW = T::BW, NB = T::NB, RB = T::RB;
+  using T = HopTiles<DQK, DV>;
+  constexpr int BQ = T::BQ, BK = T::BK, ST = T::STAGES, BW = T::BW, RB = T::RB;
+  constexpr int NBQ = T::NBQ, NBV = T::NBV;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -307,16 +317,16 @@ __global__ void __launch_bounds__(384, 1) flash_bf16_kernel(const __grid_constan
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, T::Q_BYTES);
-      for (int j = 0; j < NB; ++j) tma_load_4d(sQ + j * BQ * RB, &p.tq, q_full, j * BW, q0, h, b);
+      for (int j = 0; j < NBQ; ++j) tma_load_4d(sQ + j * BQ * RB, &p.tq, q_full, j * BW, q0, h, b);
       for (int t = 0; t < nt; ++t) {
         const int s = t % ST, k0 = kb + t * BK;
         mbar_wait(empty(s), ((t / ST) & 1) ^ 1);  // the first pass over the ring finds it free
-        mbar_expect_tx(k_full(s), T::KV_BYTES);
-        for (int j = 0; j < NB; ++j)
-          tma_load_4d(sK + s * T::KV_BYTES + j * BK * RB, &p.tk, k_full(s), j * BW, k0, g, b);
-        mbar_expect_tx(v_full(s), T::KV_BYTES);
-        for (int j = 0; j < NB; ++j)
-          tma_load_4d(sV + s * T::KV_BYTES + j * BK * RB, &p.tv, v_full(s), j * BW, k0, g, b);
+        mbar_expect_tx(k_full(s), T::K_BYTES);
+        for (int j = 0; j < NBQ; ++j)
+          tma_load_4d(sK + s * T::K_BYTES + j * BK * RB, &p.tk, k_full(s), j * BW, k0, g, b);
+        mbar_expect_tx(v_full(s), T::V_BYTES);
+        for (int j = 0; j < NBV; ++j)
+          tma_load_4d(sV + s * T::V_BYTES + j * BK * RB, &p.tv, v_full(s), j * BW, k0, g, b);
       }
     }
   } else {
@@ -324,8 +334,8 @@ __global__ void __launch_bounds__(384, 1) flash_bf16_kernel(const __grid_constan
     // lane) holds rows row0 and row0 + 8 and, in each 8-column block of
     // an accumulator, columns col and col + 1 (the wgmma m64nN layout).
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    constexpr int NO = D < 64 ? 1 : D / 64;  // output chunks of 64 columns (one of 32 at D 32)
-    constexpr int OW = D < 64 ? 16 : 32;     // accumulator registers a chunk
+    constexpr int NO = DV < 64 ? 1 : DV / 64;  // output chunks of 64 columns (one of 32 at DV 32)
+    constexpr int OW = DV < 64 ? 16 : 32;      // accumulator registers a chunk
     const int c = threadIdx.x / 128 - 1;
     const int tw = threadIdx.x % 128, warp = tw / 32, lane = tw % 32;
     const int qw0 = q0 + 64 * c;
@@ -344,10 +354,10 @@ __global__ void __launch_bounds__(384, 1) flash_bf16_kernel(const __grid_constan
     // S = Q K^T (64 x 64) of the tile in stage st, both operands K-major
     // in shared memory; one wgmma group.
     auto qk_issue = [&](float (&sc)[32], int st) {
-      const uint32_t ks = sK + st * T::KV_BYTES;
+      const uint32_t ks = sK + st * T::K_BYTES;
       wg_fence();
 #pragma unroll
-      for (int j = 0; j < NB; ++j)
+      for (int j = 0; j < NBQ; ++j)
 #pragma unroll
         for (int kk = 0; kk < BW / 16; ++kk)
           wgmma_ss_n64(sc, gmma_desc(qa + j * BQ * RB + kk * 32, 16, T::ATOM, T::SWIZZLE),
@@ -357,7 +367,7 @@ __global__ void __launch_bounds__(384, 1) flash_bf16_kernel(const __grid_constan
     // O += P V of the tile in stage st: P from registers, V's tile
     // MN-major in shared memory; one wgmma group.
     auto pv_issue = [&](uint32_t (&pa)[BK / 16][4], int st) {
-      const uint32_t vs = sV + st * T::KV_BYTES;
+      const uint32_t vs = sV + st * T::V_BYTES;
 #pragma unroll
       for (int n = 0; n < NO; ++n) fence_regs(o[n]);
       wg_fence();
@@ -366,7 +376,7 @@ __global__ void __launch_bounds__(384, 1) flash_bf16_kernel(const __grid_constan
 #pragma unroll
         for (int n = 0; n < NO; ++n) {
           const uint64_t dv = gmma_desc(vs + n * BK * RB + kk * 16 * RB, BK * RB, T::ATOM, T::SWIZZLE);
-          if constexpr (D < 64) {
+          if constexpr (DV < 64) {
             wgmma_rs_n32(o[n], pa[kk], dv);
           } else {
             wgmma_rs_n64(o[n], pa[kk], dv);
@@ -485,7 +495,8 @@ __global__ void __launch_bounds__(384, 1) flash_bf16_kernel(const __grid_constan
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       den[r] = fmaxf(sum, 1e-30f);
     }
-    constexpr int CPB = BW / 8;  // 16-byte chunks a box row
+    constexpr int CPB = BW / 8;  // 16-byte chunks a box row (O takes NBV ≤ NBQ boxes)
+    static_assert(NBV <= NBQ, "O is staged in the query tile");
     auto stage_at = [&](int rr, int ch) -> unsigned char* {
       const int j = ch / CPB, ic = ch % CPB;
       return sgen + T::Q_OFF + j * BQ * RB + (64 * c + rr) * RB + ((ic ^ (rr % CPB)) * 16);
@@ -503,11 +514,11 @@ __global__ void __launch_bounds__(384, 1) flash_bf16_kernel(const __grid_constan
       }
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
     bf16* og = static_cast<bf16*>(p.o);
-    for (int idx = tw; idx < 64 * (D / 8); idx += 128) {
-      const int rr = idx / (D / 8), ch = idx % (D / 8);
+    for (int idx = tw; idx < 64 * (DV / 8); idx += 128) {
+      const int rr = idx / (DV / 8), ch = idx % (DV / 8);
       const int qp = qw0 + rr;
       if (qp < p.Sq)
-        *reinterpret_cast<uint4*>(og + (((int64_t)b * p.Sq + qp) * p.H + h) * D + ch * 8) =
+        *reinterpret_cast<uint4*>(og + (((int64_t)b * p.Sq + qp) * p.H + h) * DV + ch * 8) =
             *reinterpret_cast<const uint4*>(stage_at(rr, ch));
     }
   }
@@ -517,24 +528,26 @@ __global__ void __launch_bounds__(384, 1) flash_bf16_kernel(const __grid_constan
 // float32: CUDA cores
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int DQK, int DV>
 struct F32Tiles {
   static constexpr int BQ = 32, BK = 32;
-  static constexpr int LD = D + 1;   // q/k/v rows, padded against bank conflicts
+  static constexpr int LD = DQK + 1, LDV = DV + 1;  // q/k and v rows, padded against bank conflicts
   static constexpr int LDP = BK + 1;
-  static constexpr size_t bytes() { return ((size_t)(BQ + 2 * BK) * LD + (size_t)BQ * LDP) * 4; }
+  static constexpr size_t bytes() {
+    return ((size_t)(BQ + BK) * LD + (size_t)BK * LDV + (size_t)BQ * LDP) * 4;
+  }
 };
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads) flash_f32_kernel(Params p) {
-  using T = F32Tiles<D>;
-  constexpr int BQ = T::BQ, BK = T::BK, LD = T::LD, LDP = T::LDP;
-  constexpr int NC = D / 8;  // accumulator columns a thread owns
+  using T = F32Tiles<DQK, DV>;
+  constexpr int BQ = T::BQ, BK = T::BK, LD = T::LD, LDV = T::LDV, LDP = T::LDP;
+  constexpr int NC = DV / 8;  // accumulator columns a thread owns
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
   float* Ks = Qs + BQ * LD;
   float* Vs = Ks + BK * LD;
-  float* Ps = Vs + BK * LD;
+  float* Ps = Vs + BK * LDV;
 
   const int tid = threadIdx.x;
   const int n_qt = (p.Sq + BQ - 1) / BQ;
@@ -545,8 +558,8 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(Params p) {
   const float* kg = static_cast<const float*>(p.k) + b * p.kv_sb + g * p.kv_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.kv_sb + g * p.kv_sh;
 
-  for (int idx = tid; idx < BQ * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
+  for (int idx = tid; idx < BQ * DQK; idx += kThreads) {
+    const int r = idx / DQK, c = idx % DQK;
     Qs[r * LD + c] = q0 + r < p.Sq ? qg[(int64_t)(q0 + r) * p.q_ss + c] : 0.f;
   }
 
@@ -563,12 +576,13 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(Params p) {
   key_range(p.Sq, p.Sk, p.causal, p.window, q0, BQ, BK, &k_begin, &k_end);
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();
-    for (int idx = tid; idx < BK * D; idx += kThreads) {
-      const int r = idx / D, c = idx % D;
-      const bool in = k0 + r < p.Sk;
-      const int64_t off = (int64_t)(k0 + r) * p.kv_ss + c;
-      Ks[r * LD + c] = in ? kg[off] : 0.f;
-      Vs[r * LD + c] = in ? vg[off] : 0.f;
+    for (int idx = tid; idx < BK * DQK; idx += kThreads) {
+      const int r = idx / DQK, c = idx % DQK;
+      Ks[r * LD + c] = k0 + r < p.Sk ? kg[(int64_t)(k0 + r) * p.kv_ss + c] : 0.f;
+    }
+    for (int idx = tid; idx < BK * DV; idx += kThreads) {
+      const int r = idx / DV, c = idx % DV;
+      Vs[r * LDV + c] = k0 + r < p.Sk ? vg[(int64_t)(k0 + r) * p.kv_ss + c] : 0.f;
     }
     __syncthreads();
 
@@ -579,7 +593,7 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(Params p) {
       const int j = lane8 + 8 * c;
       float dot = 0.f;
 #pragma unroll 8
-      for (int d = 0; d < D; ++d) dot = fmaf(Qs[i * LD + d], Ks[j * LD + d], dot);
+      for (int d = 0; d < DQK; ++d) dot = fmaf(Qs[i * LD + d], Ks[j * LD + d], dot);
       sv[c] = score(dot, qp, k0 + j, p);
       mx = fmaxf(mx, sv[c]);
     }
@@ -606,12 +620,12 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(Params p) {
     for (int j = 0; j < BK; ++j) {
       const float pj = Ps[i * LDP + j];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) o[c] = fmaf(pj, Vs[j * LD + lane8 + 8 * c], o[c]);
+      for (int c = 0; c < NC; ++c) o[c] = fmaf(pj, Vs[j * LDV + lane8 + 8 * c], o[c]);
     }
   }
 
   if (qp < p.Sq) {
-    float* og = static_cast<float*>(p.o) + (((int64_t)b * p.Sq + qp) * p.H + h) * D;
+    float* og = static_cast<float*>(p.o) + (((int64_t)b * p.Sq + qp) * p.H + h) * DV;
     const float den = fmaxf(l_i, 1e-30f);
 #pragma unroll
     for (int c = 0; c < NC; ++c) og[lane8 + 8 * c] = o[c] / den;
@@ -664,15 +678,15 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int64_t D, int64_
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_bf16(const Params& p, void* stream) {
-  using T = HopTiles<D>;
+  using T = HopTiles<DQK, DV>;
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   TmaParams t;
-  if (!encode(fn, &t.tq, p.q, D, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, T::BW, T::BQ) ||
-      !encode(fn, &t.tk, p.k, D, p.Sk, p.KV, p.B, p.kv_ss, p.kv_sh, p.kv_sb, T::BW, T::BK) ||
-      !encode(fn, &t.tv, p.v, D, p.Sk, p.KV, p.B, p.kv_ss, p.kv_sh, p.kv_sb, T::BW, T::BK))
+  if (!encode(fn, &t.tq, p.q, DQK, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, T::BW, T::BQ) ||
+      !encode(fn, &t.tk, p.k, DQK, p.Sk, p.KV, p.B, p.kv_ss, p.kv_sh, p.kv_sb, T::BW, T::BK) ||
+      !encode(fn, &t.tv, p.v, DV, p.Sk, p.KV, p.B, p.kv_ss, p.kv_sh, p.kv_sb, T::BW, T::BK))
     return (int)cudaErrorInvalidValue;
   t.o = p.o;
   t.H = p.H; t.rep = p.H / p.KV; t.Sq = p.Sq; t.Sk = p.Sk;
@@ -680,11 +694,11 @@ int launch_bf16(const Params& p, void* stream) {
   t.qk_scale = p.softcap > 0.f ? p.scale / p.softcap : p.scale * kLog2e;
   t.cap_log2 = p.softcap > 0.f ? p.softcap * kLog2e : 0.f;
   const size_t smem = T::bytes();
-  cudaError_t err = cudaFuncSetAttribute(flash_bf16_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bf16_kernel<DQK, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((p.Sq + T::BQ - 1) / T::BQ), (unsigned)p.H, (unsigned)p.B);
-  flash_bf16_kernel<D><<<grid, T::THREADS, smem, (cudaStream_t)stream>>>(t);
+  flash_bf16_kernel<DQK, DV><<<grid, T::THREADS, smem, (cudaStream_t)stream>>>(t);
   return (int)cudaGetLastError();
 }
 
@@ -699,7 +713,7 @@ Params make_params(const void* q, const void* k, const void* v, void* o, int64_t
   p.kv_sb = kv_sb; p.kv_ss = kv_ss; p.kv_sh = kv_sh;
   p.causal = causal; p.window = (int)window;
   p.softcap = softcap;
-  p.scale = (float)(1.0 / sqrt((double)D));
+  p.scale = (float)(1.0 / sqrt((double)D));  // D = DQK
   return p;
 }
 
@@ -707,20 +721,24 @@ Params make_params(const void* q, const void* k, const void* v, void* o, int64_t
 
 extern "C" {
 
-// Returns cudaErrorInvalidValue for a head dimension other than 32, 64,
-// 128 or 256 (the wrapper checks it first).
+// D is q's and k's width (DQK), Dv v's and o's. Returns
+// cudaErrorInvalidValue for a pair other than (32, 32), (64, 64),
+// (128, 128), (256, 256) and (192, 128) (the wrapper checks it first).
 int repro_flash_attention_f32(const void* q, const void* k, const void* v, void* o, int64_t B,
-                              int64_t H, int64_t KV, int64_t Sq, int64_t Sk, int64_t D,
+                              int64_t H, int64_t KV, int64_t Sq, int64_t Sk, int64_t D, int64_t Dv,
                               int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t kv_sb,
                               int64_t kv_ss, int64_t kv_sh, int causal, int64_t window,
                               float softcap, void* stream) {
   const Params p = make_params(q, k, v, o, B, H, KV, Sq, Sk, D, q_sb, q_ss, q_sh, kv_sb, kv_ss,
                                kv_sh, causal, window, softcap);
+  if (D == 192 && Dv == 128)
+    return launch(flash_f32_kernel<192, 128>, F32Tiles<192, 128>::bytes(), p, 32, stream);
+  if (D != Dv) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 32: return launch(flash_f32_kernel<32>, F32Tiles<32>::bytes(), p, 32, stream);
-    case 64: return launch(flash_f32_kernel<64>, F32Tiles<64>::bytes(), p, 32, stream);
-    case 128: return launch(flash_f32_kernel<128>, F32Tiles<128>::bytes(), p, 32, stream);
-    case 256: return launch(flash_f32_kernel<256>, F32Tiles<256>::bytes(), p, 32, stream);
+    case 32: return launch(flash_f32_kernel<32, 32>, F32Tiles<32, 32>::bytes(), p, 32, stream);
+    case 64: return launch(flash_f32_kernel<64, 64>, F32Tiles<64, 64>::bytes(), p, 32, stream);
+    case 128: return launch(flash_f32_kernel<128, 128>, F32Tiles<128, 128>::bytes(), p, 32, stream);
+    case 256: return launch(flash_f32_kernel<256, 256>, F32Tiles<256, 256>::bytes(), p, 32, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -728,17 +746,19 @@ int repro_flash_attention_f32(const void* q, const void* k, const void* v, void*
 // Also returns cudaErrorInvalidValue when a tensor map cannot describe
 // the views (cuTensorMapEncodeTiled refused them).
 int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int64_t B,
-                               int64_t H, int64_t KV, int64_t Sq, int64_t Sk, int64_t D,
+                               int64_t H, int64_t KV, int64_t Sq, int64_t Sk, int64_t D, int64_t Dv,
                                int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t kv_sb,
                                int64_t kv_ss, int64_t kv_sh, int causal, int64_t window,
                                float softcap, void* stream) {
   const Params p = make_params(q, k, v, o, B, H, KV, Sq, Sk, D, q_sb, q_ss, q_sh, kv_sb, kv_ss,
                                kv_sh, causal, window, softcap);
+  if (D == 192 && Dv == 128) return launch_bf16<192, 128>(p, stream);
+  if (D != Dv) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 32: return launch_bf16<32>(p, stream);
-    case 64: return launch_bf16<64>(p, stream);
-    case 128: return launch_bf16<128>(p, stream);
-    case 256: return launch_bf16<256>(p, stream);
+    case 32: return launch_bf16<32, 32>(p, stream);
+    case 64: return launch_bf16<64, 64>(p, stream);
+    case 128: return launch_bf16<128, 128>(p, stream);
+    case 256: return launch_bf16<256, 256>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -21,7 +21,8 @@ NEG_INF = -2.0e38
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
-    """q: (B, Sq, H, D); k, v: (B, Sk, KV, D) → (B, Sq, H, D)."""
+    """q, k: (B, Sq, H, D), (B, Sk, KV, D); v: (B, Sk, KV, Dv) → (B, Sq, H, Dv),
+    scaled by D^-0.5 (MLA: D = nope + rope = 192 against Dv = 128)."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     rep = H // KV
@@ -40,4 +41,4 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
     s = torch.where(m, s, torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
     p = torch.softmax(s, dim=-1).to(q.dtype)
     out = torch.einsum("bgrqk,bkgd->bqgrd", p, v)
-    return out.reshape(B, Sq, H, D)
+    return out.reshape(B, Sq, H, v.shape[-1])

@@ -3,16 +3,17 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b --requests 16 --slots 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b --device cpu
 
 The reference's flags, plus ``--device`` (default: the CUDA card; the
 run raises without one). As in the reference, ``--reduced`` is on by
 default and cannot be switched off here, so the CLI always serves the
 reduced configuration; ``chip_smoke.py`` drives the full width through
 the library. Weights are random, drawn from a seeded generator on the
-device. The dense, hybrid (recurrentgemma-2b) and ssm (mamba2-780m)
-families serve; vlm and encdec need image or audio embeddings that the
-engine does not take, and raise, as the reference's engine does; moe is
-not ported yet.
+device. The dense, moe (deepseek-v2-236b, deepseek-v3-671b), hybrid
+(recurrentgemma-2b) and ssm (mamba2-780m) families serve; vlm and encdec
+need image or audio embeddings that the engine does not take, and raise,
+as the reference's engine does.
 """
 import argparse
 import time

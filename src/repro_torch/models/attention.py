@@ -174,8 +174,10 @@ def _chunked(q, k, v, *, causal: bool, window: int, cap: float, scale: float,
 
 
 def _attend(q, k, v, cfg: ModelConfig, *, causal: bool, window: int):
-    """Softmax attention of q (B, Sq, H, D) over k, v (B, Sk, KV, D):
-    the flash kernel on the card; the reference's route on the host."""
+    """Softmax attention of q (B, Sq, H, D) over k (B, Sk, KV, D) and
+    v (B, Sk, KV, Dv), scaled by D^-0.5 (D = head_dim, or MLA's nope +
+    rope width): the flash kernel on the card; the reference's route on
+    the host."""
     Sq, Sk = q.shape[1], k.shape[1]
     cap = cfg.attn_logit_softcap
     if q.device.type == "cpu":
@@ -184,7 +186,7 @@ def _attend(q, k, v, cfg: ModelConfig, *, causal: bool, window: int):
         banded = 0 < window and window * 8 <= Sk
         if banded or max(Sq, Sk) > CHUNKED_THRESHOLD:
             return _chunked(q, k, v, causal=causal, window=window, cap=cap,
-                            scale=cfg.head_dim_ ** -0.5, banded=banded)
+                            scale=q.shape[-1] ** -0.5, banded=banded)
     return flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
 
 

@@ -1,5 +1,5 @@
-"""Single-token decode for the dense, vlm, ssm, hybrid and encdec
-families, with their caches (the port of ``repro.models.decode``).
+"""Single-token decode for every family, with its caches (the port of
+``repro.models.decode``).
 
 The caches keep the reference's layouts (``repro.models.decode.init_cache``)
 and are updated in place: a decode step writes one row (or one state) per
@@ -9,14 +9,18 @@ layer and copies nothing else.
           (slot = pos mod W, keys stored pre-rotated); global layers a
           linear cache of ``max_len``
   vlm     self K/V (n_p, k − 1, …) + the image's cross K/V per cross layer
+  moe     MLA's compressed latents only: ``{"moe": {"c_kv", "k_rope"}}``
+          over the routed layers, ``"dense"`` the same over the first
+          ``first_k_dense`` layers
   ssm     Mamba-2 conv tail and (H, P, N) float32 state per layer
   hybrid  RG-LRU ``h`` (float32) and conv tail per recurrent layer +
           a ring of ``min(local_window, max_len)`` per attention layer
   encdec  decoder self K/V + the encoder output's cross K/V per layer
 
 Ring, linear and cross layers all go through the decode-attention kernel
-(``attention.decode_attention``, ``attention.cross_decode``). The moe
-family is the next slice; the sharded decode paths come after it.
+(``attention.decode_attention``, ``attention.cross_decode``); MLA layers
+take the absorbed form in stock products (``mla.mla_decode``). The
+sharded decode paths are a later slice.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from .attention import cross_decode, cross_kv, decode_attention, init_kv_cache
 from .common import ModelConfig
 from .layers import mlp, rms_norm
 from .lm import hybrid_periods
+from .mla import init_mla_cache, mla_decode
 from .rglru import init_rglru_state, rglru_decode
 from .ssm import init_mamba_cache, mamba_decode
 
@@ -47,6 +52,12 @@ def _cross_block(p, x_t, ck, cv, cfg: ModelConfig):
         h = h * torch.tanh(p.xgate).to(h.dtype)
     x = x_t + h
     return x + mlp(p.mlp, rms_norm(x, p.ln2), cfg.mlp)
+
+
+def _mla_block(p, x_t, c_kv, k_rope, pos: int, cfg: ModelConfig):
+    a, _, _ = mla_decode(p.attn, rms_norm(x_t, p.ln1), c_kv, k_rope, pos, cfg)
+    x = x_t + a
+    return x + p.ffn(rms_norm(x, p.ln2), cfg)[0]
 
 
 def _rec_block(p, x_t, h, conv, cfg: ModelConfig):
@@ -110,6 +121,12 @@ def init_cache(lm, batch: int, max_len: int, *, image_embeds: torch.Tensor | Non
         cache = {"k": z(n_p, k_every - 1, batch, max_len, KV, D),
                  "v": z(n_p, k_every - 1, batch, max_len, KV, D)}
         return cache | _cross_cache(lm.cross_blocks, image_embeds.to(cfg.cdtype), cfg)
+    if fam == "moe":
+        k = cfg.first_k_dense
+        cache = {"moe": init_mla_cache(cfg, batch, max_len, cfg.num_layers - k, device=dev)}
+        if k:
+            cache["dense"] = init_mla_cache(cfg, batch, max_len, k, device=dev)
+        return cache
     if fam == "ssm":
         return init_mamba_cache(cfg, batch, cfg.num_layers, device=dev)
     if fam == "hybrid":
@@ -130,8 +147,7 @@ def init_cache(lm, batch: int, max_len: int, *, image_embeds: torch.Tensor | Non
             raise ValueError(f"{cfg.name}: encdec caches need audio_embeds (the encoder's input)")
         cache = init_kv_cache(cfg, batch, max_len, cfg.num_layers, device=dev)
         return cache | _cross_cache(lm.dec_cross, lm.encode(audio_embeds), cfg)
-    raise NotImplementedError(f"decode caches for the {fam} family are not ported yet: it is "
-                              "the next slice of the port (ROADMAP.md, queue A12)")
+    raise ValueError(fam)
 
 
 # ---------------------------------------------------------------------------
@@ -144,8 +160,9 @@ def decode_step(lm, tokens_t: torch.Tensor, cache: dict, pos: int):
     cache), the cache updated in place. Layers run in the reference's
     order: with local dense layers period by period, locals before
     globals within a period (the natural order for the contiguous L…G
-    patterns of the dense configs); the hybrid's two recurrent blocks
-    before its attention block in each period, then the trailing ones."""
+    patterns of the dense configs); the moe family's dense layers before
+    its routed ones; the hybrid's two recurrent blocks before its
+    attention block in each period, then the trailing ones."""
     cfg: ModelConfig = lm.cfg
     fam = cfg.family
     pos = int(pos)
@@ -176,6 +193,10 @@ def decode_step(lm, tokens_t: torch.Tensor, cache: dict, pos: int):
                 x, _, _ = _attn_decode_block(blk, x, cache["k"][p, j], cache["v"][p, j], pos, cfg,
                                              is_global=True, ring=False)
             x = _cross_block(cross, x, cache["cross_k"][p], cache["cross_v"][p], cfg)
+    elif fam == "moe":
+        for part, blocks in (("dense", getattr(lm, "dense_blocks", ())), ("moe", lm.moe_blocks)):
+            for i, blk in enumerate(blocks):
+                x = _mla_block(blk, x, cache[part]["c_kv"][i], cache[part]["k_rope"][i], pos, cfg)
     elif fam == "ssm":
         for i, blk in enumerate(lm.blocks):
             y, _, _ = mamba_decode(blk.mix, rms_norm(x, blk.ln), cache["conv"][i], cache["state"][i], cfg)
@@ -194,6 +215,5 @@ def decode_step(lm, tokens_t: torch.Tensor, cache: dict, pos: int):
                                          is_global=True, ring=False)
             x = _cross_block(cross, x, cache["cross_k"][i], cache["cross_v"][i], cfg)
     else:
-        raise NotImplementedError(f"decode for the {fam} family is not ported yet: it is the "
-                                  "next slice of the port (ROADMAP.md, queue A12)")
+        raise ValueError(fam)
     return lm._logits(x), cache

@@ -26,8 +26,9 @@ from .common import ModelConfig
 __all__ = ["params_from_reference", "tensor_from_numpy"]
 
 # The reference's stacked subtrees and how many leading axes each stacks.
-STACKED = {"blocks": 1, "self_blocks": 2, "cross_blocks": 1, "rec_blocks": 2, "attn_blocks": 1,
-           "extra_rec": 1, "enc_blocks": 1, "dec_self": 1, "dec_cross": 1}
+STACKED = {"blocks": 1, "self_blocks": 2, "cross_blocks": 1, "dense_blocks": 1, "moe_blocks": 1,
+           "rec_blocks": 2, "attn_blocks": 1, "extra_rec": 1, "enc_blocks": 1, "dec_self": 1,
+           "dec_cross": 1}
 
 
 def tensor_from_numpy(a) -> torch.Tensor:
@@ -47,13 +48,11 @@ def _leaves(tree, prefix=()):
 
 
 def params_from_reference(cfg: ModelConfig, tree: dict) -> dict[str, torch.Tensor]:
-    """The port's state dict from the reference's parameter tree of a
-    dense, vlm, ssm, hybrid or encdec model: top-level leaves (``embed``,
-    ``final_norm``, ``unembed``, ``enc_norm``) as they are, and every leaf
-    of a stacked subtree (``STACKED``) split along its stacking axes."""
-    if cfg.family == "moe":
-        raise NotImplementedError("interop for the moe family is not ported yet: it is the next "
-                                  "slice of the port (ROADMAP.md, queue A12)")
+    """The port's state dict from the reference's parameter tree of any
+    family: top-level leaves (``embed``, ``final_norm``, ``unembed``,
+    ``enc_norm``) as they are, and every leaf of a stacked subtree
+    (``STACKED``) split along its stacking axes (the moe family's nested
+    ``moe.shared`` leaves keep their path: ``moe_blocks.2.moe.shared.w_up``)."""
     out = {}
     for path, leaf in _leaves(tree):
         n = STACKED.get(path[0], 0)

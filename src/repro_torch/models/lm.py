@@ -1,5 +1,5 @@
-"""The language model of the dense, vlm, ssm, hybrid and encdec families
-as an ``nn.Module`` (the port of ``repro.models.lm``).
+"""The language model of the dense, vlm, moe, ssm, hybrid and encdec
+families as an ``nn.Module`` (the port of ``repro.models.lm``).
 
 ``LM(cfg, device=None)`` allocates the parameters on the CUDA card (or
 on ``device``) uninitialised; ``init(generator)`` fills them from an
@@ -13,15 +13,18 @@ carries a reference tree across by name:
 
   dense   ``blocks.i``
   vlm     ``self_blocks.p.j`` (k − 1 a period), ``cross_blocks.p`` (tanh-gated)
+  moe     ``dense_blocks.i`` (the first ``first_k_dense`` layers: MLA and a
+          dense MLP), ``moe_blocks.i`` (MLA and routed experts)
   ssm     ``blocks.i`` (norm ``ln``, Mamba-2 mixer ``mix``)
   hybrid  ``rec_blocks.p.j`` (two RG-LRU blocks a period), ``attn_blocks.p``
           (a local attention block), ``extra_rec.i`` (the layers past the
           last whole period)
   encdec  ``enc_blocks.i``, ``enc_norm``, ``dec_self.i``, ``dec_cross.i``
 
+``forward`` returns the moe family's summed aux load-balance loss beside
+the logits, and zero for the other families, as the reference does.
 Nothing here builds an autograd graph: training is a later slice
-(ROADMAP.md). The moe family (MLA attention, routed experts) is the
-next slice and raises ``NotImplementedError``.
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -34,10 +37,12 @@ from .._device import resolve_device
 from .attention import attention, init_attention, init_attention_
 from .common import ModelConfig, layer_flags
 from .layers import embed, init_embedding_, init_linear_, mlp, rms_norm, softcap
+from .mla import init_mla, init_mla_, mla_attention
+from .moe import MoEParams, init_moe_, moe_layer
 from .rglru import init_rglru, init_rglru_, rglru_forward
 from .ssm import init_mamba, init_mamba_, mamba_forward
 
-__all__ = ["LM", "Block", "MambaBlock", "RGLRUBlock"]
+__all__ = ["LM", "Block", "MLABlock", "MambaBlock", "RGLRUBlock"]
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -88,6 +93,41 @@ class Block(nn.Module):
             h = h * torch.tanh(self.xgate).to(h.dtype)
         x = x + h
         return x + mlp(self.mlp, rms_norm(x, self.ln2), cfg.mlp)
+
+
+class MLABlock(nn.Module):
+    """Pre-norm block of the moe family: ln1, attn (MLA), ln2, and either
+    the dense MLP ``mlp`` (the first ``first_k_dense`` layers) or the
+    routed and shared experts ``moe``."""
+
+    def __init__(self, cfg: ModelConfig, device, use_moe: bool):
+        super().__init__()
+        self.ln1 = _param(cfg.d_model, torch.float32, device)
+        self.attn = init_mla(cfg, device)
+        self.ln2 = _param(cfg.d_model, torch.float32, device)
+        self.mlp = None if use_moe else _init_mlp(cfg, device)
+        self.moe = MoEParams(cfg, device) if use_moe else None
+
+    @torch.no_grad()
+    def init(self, cfg: ModelConfig, generator: torch.Generator) -> None:
+        self.ln1.zero_()
+        self.ln2.zero_()
+        init_mla_(self.attn, cfg, generator)
+        if self.moe is not None:
+            init_moe_(self.moe, cfg, generator)
+        else:
+            _init_mlp_(self.mlp, generator)
+
+    def ffn(self, h: torch.Tensor, cfg: ModelConfig):
+        """The block's second half on its normed input: (y, aux or None)."""
+        if self.moe is not None:
+            return moe_layer(self.moe, h, cfg)
+        return mlp(self.mlp, h, cfg.mlp), None
+
+    def forward(self, x: torch.Tensor, cfg: ModelConfig):
+        x = x + mla_attention(self.attn, rms_norm(x, self.ln1), cfg)
+        y, aux = self.ffn(rms_norm(x, self.ln2), cfg)
+        return x + y, aux
 
 
 class MambaBlock(nn.Module):
@@ -146,11 +186,7 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         fam = cfg.family
-        if fam == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: the moe family (MLA attention, routed experts) is not ported yet; "
-                "it is the next slice of the port (ROADMAP.md, queue A12)")
-        if fam not in ("dense", "vlm", "ssm", "hybrid", "encdec"):
+        if fam not in ("dense", "vlm", "moe", "ssm", "hybrid", "encdec"):
             raise ValueError(fam)
         dev = resolve_device(device)
         self.cfg = cfg
@@ -168,6 +204,11 @@ class LM(nn.Module):
             n_p = cfg.num_layers // k
             self.self_blocks = _stack(lambda: _stack(block(), k - 1), n_p)
             self.cross_blocks = _stack(block(cross=True), n_p)
+        elif fam == "moe":
+            k = cfg.first_k_dense
+            if k:
+                self.dense_blocks = _stack(lambda: MLABlock(cfg, dev, use_moe=False), k)
+            self.moe_blocks = _stack(lambda: MLABlock(cfg, dev, use_moe=True), cfg.num_layers - k)
         elif fam == "ssm":
             self.blocks = _stack(lambda: MambaBlock(cfg, dev), cfg.num_layers)
         elif fam == "hybrid":
@@ -198,7 +239,7 @@ class LM(nn.Module):
         if hasattr(self, "enc_norm"):
             self.enc_norm.zero_()
         for m in self.modules():
-            if isinstance(m, (Block, MambaBlock, RGLRUBlock)):
+            if isinstance(m, (Block, MLABlock, MambaBlock, RGLRUBlock)):
                 m.init(self.cfg, generator)
         return self
 
@@ -223,20 +264,22 @@ class LM(nn.Module):
         """tokens (B, S) → (logits, aux_loss); vlm takes ``image_embeds``
         (B, N, d), encdec ``audio_embeds`` (B, frames, d). ``last_only``
         (serving prefill) emits the final position's logits only, so the
-        (B, S, V) tensor never exists."""
-        x = self._backbone(tokens, image_embeds=image_embeds, audio_embeds=audio_embeds)
+        (B, S, V) tensor never exists. aux_loss is the float32 sum of the
+        moe layers' load-balance losses (zero for the other families)."""
+        x, aux = self._backbone(tokens, image_embeds=image_embeds, audio_embeds=audio_embeds)
         if last_only:
             x = x[:, -1:]
-        return self._logits(x), torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._logits(x), aux
 
-    def _backbone(self, tokens: torch.Tensor, *, image_embeds=None, audio_embeds=None) -> torch.Tensor:
-        """tokens (B, S) → final hidden states (B, S, d), before the final
-        norm, the layers in the reference's order. Dense layers run in
-        order with their per-layer global flag (the reference's
+    def _backbone(self, tokens: torch.Tensor, *, image_embeds=None, audio_embeds=None):
+        """tokens (B, S) → (final hidden states (B, S, d) before the final
+        norm, aux loss), the layers in the reference's order. Dense layers
+        run in order with their per-layer global flag (the reference's
         period-grouped L…G scan and its flag scan both reduce to this)."""
         cfg = self.cfg
         fam = cfg.family
         x = self._embed(tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if fam == "dense":
             for blk, is_global in zip(self.blocks, self.flags["is_global"]):
                 x = blk(x, cfg, bool(is_global))
@@ -248,6 +291,12 @@ class LM(nn.Module):
                 for blk in selfs:
                     x = blk(x, cfg)
                 x = cross(x, cfg, causal=False, kv_x=img)
+        elif fam == "moe":
+            for blk in getattr(self, "dense_blocks", ()):
+                x, _ = blk(x, cfg)
+            for blk in self.moe_blocks:
+                x, a = blk(x, cfg)
+                aux = aux + a
         elif fam == "ssm":
             for blk in self.blocks:
                 x = blk(x, cfg)
@@ -262,7 +311,7 @@ class LM(nn.Module):
             enc = self.encode(audio_embeds)
             for self_blk, cross in zip(self.dec_self, self.dec_cross):
                 x = cross(self_blk(x, cfg), cfg, causal=False, kv_x=enc)
-        return x
+        return x, aux
 
     @torch.no_grad()
     def encode(self, audio_embeds: torch.Tensor) -> torch.Tensor:

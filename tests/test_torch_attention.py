@@ -20,7 +20,7 @@ from repro.configs import get_config as ref_get_config
 from repro.kernels.decode_attention.decode_attention import decode_attention_pallas
 from repro.kernels.flash_attention.flash_attention import flash_attention_pallas
 from repro.models import LM as RefLM
-from repro.models.attention import _chunked
+from repro.models.attention import _chunked, _sdpa
 from repro.models.decode import _ring_decode as ref_ring_decode
 from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attention import ops as da_ops
@@ -112,6 +112,32 @@ def test_flash_plain_version_matches_models_chunked_path(window, cap):
     _close(out_p, out_c, 2e-5)
 
 
+# MLA's prefill widths (src/repro/models/mla.py:63): queries and keys of
+# nope 128 + rope 64 = 192 against values of 128, scale 192^-0.5. The
+# Pallas kernel takes one D, so the reference to hold is the model's own
+# full-score path, _sdpa (src/repro/models/attention.py:72).
+MLA_CASES = [
+    # (B, Sq, Sk, H, KV, causal, dtype)
+    (1, 77, 77, 4, 4, True, "float32"),
+    (2, 130, 130, 4, 2, True, "float32"),
+    (1, 64, 200, 2, 2, False, "float32"),
+    (1, 200, 200, 4, 4, True, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("case", MLA_CASES, ids=str)
+def test_flash_plain_version_at_mla_widths_matches_sdpa(case):
+    B, Sq, Sk, H, KV, causal, dt = case
+    (qj, qt), (kj, kt), (vj, vt) = _draw(Sq + Sk, (B, Sq, H, 192), (B, Sk, KV, 192), (B, Sk, KV, 128),
+                                         dtype=dt, scales=(1.5, 1.5, 1.0))
+    qp = jnp.broadcast_to(jnp.arange(Sq)[None], (B, Sq))
+    kp = jnp.broadcast_to(jnp.arange(Sk)[None], (B, Sk))
+    ref = _sdpa(qj, kj, vj, qp, kp, causal=causal, is_global=True, window=0, cap=0.0, scale=192 ** -0.5)
+    out = fa_ops.flash_attention(qt, kt, vt, causal=causal)
+    assert out.dtype == qt.dtype and out.shape == (B, Sq, H, 128)
+    _close(out, ref, TOL[dt])
+
+
 @pytest.mark.parametrize("case", DECODE_CASES + SPREAD_DECODE_CASES, ids=str)
 def test_decode_plain_version_matches_pallas_kernel(case):
     B, S, H, KV, D, pos, window, cap, dt = case
@@ -191,6 +217,13 @@ class TestWrapperChecks:
         with pytest.raises(ValueError, match="no kernel or plain version"):
             m = q.to("meta")
             fa_ops.flash_attention(m, m, m)
+
+    def test_flash_k_and_v_share_all_but_their_width(self):
+        q = torch.zeros((1, 8, 2, 192))
+        with pytest.raises(ValueError, match="v \\(B,Sk,KV,Dv\\)"):
+            fa_ops.flash_attention(q, torch.zeros((1, 8, 2, 192)), torch.zeros((1, 9, 2, 128)))
+        with pytest.raises(ValueError, match="v \\(B,Sk,KV,Dv\\)"):
+            fa_ops.flash_attention(q, torch.zeros((1, 8, 2, 192)), torch.zeros((1, 8, 1, 128)))
 
     def test_flash_gqa_shape(self):
         q = torch.zeros((1, 8, 3, 32))

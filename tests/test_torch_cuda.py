@@ -407,6 +407,49 @@ def test_flash_attention_bf16_fused_qkv_slices(dev, D):
     _agree(out, ref, torch.bfloat16)
 
 
+# MLA's (DQK 192, DV 128) instance: k and v two column ranges of one
+# (B, S, KV, 320) buffer, as models.mla builds them; ragged lengths,
+# causal and not, both types, and deepseek's 128 heads at 1,000 tokens.
+FLASH_MLA_CASES = [
+    # (B, Sq, Sk, H, KV, causal, dtype)
+    (1, 77, 77, 4, 4, True, torch.bfloat16),
+    (2, 200, 200, 4, 4, True, torch.bfloat16),
+    (1, 1000, 1000, 128, 128, True, torch.bfloat16),
+    (1, 4096, 4096, 2, 2, True, torch.bfloat16),
+    (1, 200, 1000, 4, 2, False, torch.bfloat16),
+    (1, 77, 77, 4, 4, False, torch.float32),
+    (2, 200, 200, 4, 4, True, torch.float32),
+    (1, 1000, 1000, 4, 2, True, torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_MLA_CASES, ids=str)
+def test_flash_attention_mla_instance(dev, case):
+    B, Sq, Sk, H, KV, causal, dt = case
+    rng = np.random.default_rng(Sq + Sk + H)
+    q = _randn(rng, (B, Sq, H, 192), dt, dev, 1.5)
+    kv = torch.cat([_randn(rng, (B, Sk, KV, 192), dt, dev, 1.5), _randn(rng, (B, Sk, KV, 128), dt, dev)], -1)
+    k, v = kv[..., :192], kv[..., 192:]
+    before = fa_ops.flash_attention.launches, fa_ops.flash_attention.by_pair.get((192, 128), 0)
+    out = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before[0] + 1 and out.shape == (B, Sq, H, 128)
+    assert fa_ops.flash_attention.by_pair[(192, 128)] == before[1] + 1
+    _agree(out, fa_ref.flash_attention_ref(q, k, v, causal=causal), dt)
+
+
+def test_flash_attention_refuses_pairs_without_an_instance(dev):
+    q = torch.ones((1, 8, 2, 192), device=dev)
+    kv = torch.ones((1, 8, 2, 256), device=dev)
+    with pytest.raises(ValueError, match="takes D"):
+        fa_ops.flash_attention(q, kv[..., :192], kv[..., 192:])       # (192, 64)
+    with pytest.raises(ValueError, match="same strides"):
+        fa_ops.flash_attention(q, kv[..., :192].contiguous(), kv[..., :128].contiguous())
+    small = torch.ones((1, 8, 2, 80), device=dev)
+    with pytest.raises(ValueError, match="takes D"):
+        fa_ops.flash_attention(small[..., :48], small[..., :48], small[..., 48:])   # reduced MLA (48, 32)
+
+
 # The split pass's edges: rep 1-16, S not a multiple of the 32-key chunk,
 # pos inside the first chunk, a window edge inside a chunk; both types.
 DECODE_EDGES = [
@@ -690,3 +733,65 @@ def test_reduced_family_on_the_card_equals_the_host(dev, arch):
         assert launched == (0, 0)          # the SSD path has no kernel
     else:
         assert min(launched) > 0
+
+
+# -- the moe family on the card ---------------------------------------------------
+
+
+def _moe_pair(dev, arch, dtype="float32", **kw):
+    cfg = get_config(arch, reduced=True).replace(param_dtype=dtype, compute_dtype=dtype, **kw)
+    host = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    if cfg.router == "sigmoid":
+        for b in host.moe_blocks:
+            b.moe.router_bias.copy_(torch.linspace(-0.05, 0.05, cfg.num_experts))
+    card = LM(cfg, device=dev)
+    card.load_state_dict(host.state_dict())
+    return cfg, host, card
+
+
+@pytest.mark.parametrize("cf", [1.25, 0.3])
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-v3-671b"])
+def test_moe_layer_and_mla_decode_on_the_card_equal_the_host(dev, arch, cf):
+    """One MoE layer (dropping tokens at cf 0.3) and 12 absorbed-form MLA
+    decode steps with their latent caches, float32, card against host."""
+    from repro_torch.models.mla import init_mla_cache, mla_decode
+    from repro_torch.models.moe import moe_layer
+
+    cfg, host, card = _moe_pair(dev, arch, capacity_factor=cf)
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal((2, 40, cfg.d_model)), dtype=torch.float32)
+    yh, ah = moe_layer(host.moe_blocks[0].moe, x, cfg)
+    yc, ac = moe_layer(card.moe_blocks[0].moe, x.to(dev), cfg)
+    torch.testing.assert_close(yc.cpu(), yh, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ac.cpu(), ah, rtol=1e-5, atol=1e-7)
+    ch = {k: v[0] for k, v in init_mla_cache(cfg, 2, 16, 1).items()}
+    cc = {k: v[0] for k, v in init_mla_cache(cfg, 2, 16, 1, device=dev).items()}
+    for pos in range(12):
+        xt = x[:, pos : pos + 1]
+        oh, _, _ = mla_decode(host.moe_blocks[1].attn, xt, ch["c_kv"], ch["k_rope"], pos, cfg)
+        oc, _, _ = mla_decode(card.moe_blocks[1].attn, xt.to(dev), cc["c_kv"], cc["k_rope"], pos, cfg)
+        torch.testing.assert_close(oc.cpu(), oh, rtol=1e-4, atol=1e-4)
+        for k in ch:
+            torch.testing.assert_close(cc[k].cpu(), ch[k], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-v3-671b"])
+def test_reduced_moe_model_on_the_card_equals_the_host(dev, arch):
+    """Reduced deepseek with the published MLA head widths (nope 128, rope
+    64, v 128: the flash kernel's (192, 128) instance; the reduced widths
+    48 / 32 have none), float32: prefill (flash kernel) and 12 decode
+    steps on the card against the host, and both latent caches."""
+    cfg, host, card = _moe_pair(dev, arch, qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 12)))
+    before = fa_ops.flash_attention.launches
+    (lh, ah), (lc, ac) = host.forward(toks), card.forward(toks.to(dev))
+    assert fa_ops.flash_attention.launches == before + cfg.num_layers
+    torch.testing.assert_close(lc.cpu(), lh, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ac.cpu(), ah, rtol=1e-5, atol=1e-7)
+    ch, cc = decode.init_cache(host, 2, 16), decode.init_cache(card, 2, 16)
+    for pos in range(12):
+        a, ch = decode.decode_step(host, toks[:, pos : pos + 1], ch, pos)
+        b, cc = decode.decode_step(card, toks[:, pos : pos + 1].to(dev), cc, pos)
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
+    for g in ch:
+        for k in ch[g]:
+            torch.testing.assert_close(cc[g][k].cpu(), ch[g][k], rtol=1e-4, atol=1e-4)

@@ -123,13 +123,6 @@ def test_full_width_parameter_shapes_equal_the_reference(arch):
         assert sum(int(np.prod(s)) for s in shapes.values()) == 9_241_404_928
 
 
-def test_non_dense_family_raises_naming_the_roadmap():
-    """Only the moe family is still to port (the others are held in
-    test_torch_families.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        LM(get_config("deepseek-v2-236b", reduced=True), device="cpu")
-
-
 def test_layers_match_the_reference():
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, 5, 4, 64)).astype(np.float32)
