@@ -125,12 +125,44 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    in both types, and times it at deepseek-v2's prefill layer (B 1,
    S 4,096, 128 heads) beside its bound, plain version and SDPA.
 
+2c. Hold flash attention's backward kernel (csrc/flash_attention_bwd.cu)
+   against its plain version before phase 10 relies on it: every
+   (D, Dv) instance in float32 and bf16, causal and not, window edges
+   inside a 32-row tile, soft-cap 0 and 50, GQA rep 1, 2, 3, 10 and 16,
+   ragged lengths 77, 200 and 1,000, Sq < Sk non-causal, k and v two
+   column ranges of one buffer; each of dq, dk and dv within 1e-4 (f32)
+   or 2e-2 (bf16, and the mean error under 1%) of max |plain|. Then time
+   it at gemma2-9b's two training layers (B 1, S 8,192, H 16/8, D 256,
+   bf16, cap 50; causal, and a 4,096 window) beside its bound, its plain
+   version and the backward alone of SDPA at cap 0.
+10. Train gemma2-9b at its published width on the card, every kernel
+   counter set to 0 before the phase and read after, each model freed
+   before the next: 8 of its 42 layers (4 local + 4 global; all 42 with
+   f32 AdamW moments need about 111 GB) in bf16, ``build_train_step``
+   with ``TrainConfig`` defaults and remat, B 1 × S 8,192 from
+   ``SyntheticLMDataset(256000, 8192, seed=1)`` for 20 steps: every loss
+   finite and the last five's mean below the first five's by more than
+   0.1, 16 flash forward launches (8 and 8 remat recomputes) and 8
+   backward a step, the median step beside its FLOP bound (6·P·tokens
+   plus attention's forward and backward at 989 TFLOP/s), tokens/s, a
+   step's device time and idle share (profiler) and the peak memory.
+   Then in float32 with one local and one global layer (B 1 × S 512) the
+   loss and every gradient through the kernels against the same with
+   attention through the plain version (loss 1e-5 relative, each leaf
+   1e-3 of its max |g|); in bf16 with 2 layers, 6 steps with
+   ``CheckpointManager`` saving at step 3, restored and run on to step
+   6, parameters and moments bit-equal to the unbroken run; and
+   launch/train.py's ``main`` on the card (reduced, 20 steps, with a
+   checkpoint directory).
+
 The flash wrapper also counts its launches per (D, Dv) instance
 (``flash_attention.by_pair``): the kernels line splits them into a row
 for the instances with v as wide as q and k and one for (192, 128), each
 with every phase's measured counts (``launches_by_pair``); the (192, 128)
 row's ``launches_x_gap_ms`` counts only its launches at the timed shape
-(``gap_launches``, deepseek-v2's 4,096-token prefill).
+(``gap_launches``, deepseek-v2's 4,096-token prefill). The backward
+kernel's row carries every phase's count (``launches`` is phase 10's)
+and its lost time over phase 10's 20 steps at the two timed layers.
 
 Prints the card, each phase's results and times, a ``{"kernels": …}``
 line and, last, ``{"ok": true, "device": …}``. Any failed check raises,
@@ -1782,6 +1814,13 @@ def attn_counters():
     return {"flash_attention": fa_ops.flash_attention, "decode_attention": da_ops.decode_attention}
 
 
+def train_counters():
+    """The attention counters and the flash backward's (phase 10)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    return dict(attn_counters(), flash_attention_bwd=fa_ops.flash_attention_bwd)
+
+
 def zero_counts(counters: dict) -> None:
     """Every counter of ``counters`` to 0, the flash wrapper's per-instance
     counts (``by_pair``) with its total."""
@@ -1805,16 +1844,15 @@ def pair_sum(pairs: dict, mla: bool) -> int:
     return sum(n for key, n in pairs.items() if (key == MLA_PAIR) == mla)
 
 
-def counted(torch, fn, pairs: dict | None = None):
-    """``fn()`` with both attention kernels' counters set to 0 just before
-    and read just after: (result, wall seconds ending in a synchronize,
-    launches); ``pairs``, when given, receives the flash launches by
-    instance. The counts held before are added back after, so that the
-    counts around the whole phase keep every launch inside it."""
-    counters = attn_counters()
+def counted(torch, fn, pairs: dict | None = None, counters: dict | None = None):
+    """``fn()`` with the attention kernels' counters (or ``counters``) set
+    to 0 just before and read just after: (result, wall seconds ending in
+    a synchronize, launches); ``pairs``, when given, receives the flash
+    launches by instance. The counts held before are added back after, so
+    that the counts around the whole phase keep every launch inside it."""
+    counters = counters or attn_counters()
     flash = counters["flash_attention"]
-    held = {n: c.launches for n, c in counters.items()}
-    held_pairs = dict(flash.by_pair)
+    held = {n: (c.launches, dict(getattr(c, "by_pair", {}))) for n, c in counters.items()}
     zero_counts(counters)
     t0 = time.perf_counter()
     res = fn()
@@ -1822,11 +1860,11 @@ def counted(torch, fn, pairs: dict | None = None):
     wall = time.perf_counter() - t0
     launches = {n: c.launches for n, c in counters.items()}
     if pairs is not None:
-        pairs.update(flash_pairs())
+        pairs.update({f"{d}x{dv}": n for (d, dv), n in sorted(flash.by_pair.items())})
     for n, c in counters.items():
-        c.launches += held[n]
-    for key, n in held_pairs.items():
-        flash.by_pair[key] = flash.by_pair.get(key, 0) + n
+        c.launches += held[n][0]
+        for key, k in held[n][1].items():
+            c.by_pair[key] = c.by_pair.get(key, 0) + k
     return res, wall, launches
 
 
@@ -2240,6 +2278,388 @@ def phase_moe(torch) -> dict:
     return out
 
 
+# -- phase 2c / 10: flash attention's backward kernel and training -----------------
+
+# The backward kernel (csrc/flash_attention_bwd.cu) against its plain
+# version, before phase 10 relies on it: every (D, Dv) instance in both
+# types, causal and not, window edges inside a 32-row tile, soft-cap 0
+# and 50, GQA rep 1, 2, 3, 10 and 16, ragged lengths 77, 200 and 1,000,
+# Sq < Sk non-causal; k and v always two column ranges of one buffer (as
+# MLA's), q and k drawn with a standard deviation of 1.5.
+BWD_CASES = [
+    # (B, Sq, Sk, H, KV, D, Dv, causal, window, softcap)
+    (1, 77, 77, 4, 2, 32, 32, True, 0, 0.0),
+    (2, 200, 200, 6, 2, 64, 64, True, 50, 50.0),
+    (1, 77, 200, 8, 8, 64, 64, False, 0, 50.0),
+    (1, 1000, 1000, 10, 1, 256, 256, True, 333, 50.0),
+    (1, 200, 200, 16, 1, 256, 256, False, 0, 0.0),
+    (1, 77, 200, 16, 1, 128, 128, False, 0, 0.0),
+    (2, 130, 130, 3, 1, 128, 128, True, 45, 30.0),
+    (1, 1000, 1000, 16, 8, 256, 256, True, 0, 50.0),
+    (1, 200, 200, 8, 8, 192, 128, True, 0, 0.0),
+    (1, 1000, 1000, 16, 16, 192, 128, False, 0, 0.0),
+    (1, 77, 200, 4, 4, 192, 128, False, 0, 0.0),
+    (2, 64, 64, 2, 2, 32, 32, True, 2, 50.0),
+]
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # of max |plain|, for each of dq, dk, dv
+# gemma2-9b's training layer: B 1, S 8,192 (max_seq_len), H 16 / KV 8,
+# D 256, bf16, soft-cap 50; global (causal) and local (window 4,096).
+BWD_ROW = dict(B=1, S=8192, H=16, KV=8, D=256, cap=50.0)
+
+
+def bwd_ops(H: int, D: int, Dv: int, pairs: int) -> float:
+    """Operations of the backward: five products a (query, key) pair and
+    head (S, dP, dV, dQ, dK), 2·(3·D + 2·Dv)."""
+    return 2 * (3 * D + 2 * Dv) * H * pairs
+
+
+def grads_agree(torch, got, want, name: str, what: str) -> tuple[float, float]:
+    """Each of dq, dk, dv within BWD_TOL[name] of max |plain|, and in bf16
+    the mean error under 1% of the mean |plain|; returns the largest
+    (max_abs_err, max |diff| / max |plain|)."""
+    worst, worst_rel = 0.0, 0.0
+    for g, a, b in zip(("dq", "dk", "dv"), got, want):
+        err = max_abs_err(torch, a, b)
+        big = float(b.float().abs().max())
+        check(err <= BWD_TOL[name] * big, f"{what} {g}: max |diff| {err!r} > {BWD_TOL[name]} · {big!r}")
+        if name == "bfloat16":
+            rel = float((a.float() - b.float()).abs().mean() / b.float().abs().mean())
+            check(rel < REL_BOUND, f"{what} {g}: mean error {rel!r} of mean |plain|")
+        worst, worst_rel = max(worst, err), max(worst_rel, err / big)
+    return worst, worst_rel
+
+
+def phase_flash_backward(torch):
+    """Phase 2c: the backward kernel against its plain version on
+    BWD_CASES, then timed at gemma2-9b's two training layers beside its
+    bound, its plain version and the backward alone of SDPA at cap 0."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def draw(shape, dtype, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    for case in BWD_CASES:
+        B, Sq, Sk, H, KV, D, Dv, causal, window, cap = case
+        for name, dtype in dt.items():
+            q = draw((B, Sq, H, D), dtype, QK_STD)
+            kv = torch.cat([draw((B, Sk, KV, D), dtype, QK_STD), draw((B, Sk, KV, Dv), dtype)], dim=-1)
+            k, v = kv[..., :D], kv[..., D:]
+            do = draw((B, Sq, H, Dv), dtype)
+            o = fa_ops.flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+            got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, softcap=cap)
+            want = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window, softcap=cap)
+            torch.cuda.synchronize()
+            err, rel = grads_agree(torch, got, want, name, f"flash_attention_bwd {case} {name}")
+            print(f"phase 2 flash_attention_bwd {case} {name}: max_abs_err {err!r} ({rel!r} of max |plain|)")
+    torch.cuda.empty_cache()
+
+    bf = torch.bfloat16
+    B, S, H, KV, D, cap = (BWD_ROW[k] for k in ("B", "S", "H", "KV", "D", "cap"))
+    q, k, v = draw((B, S, H, D), bf, QK_STD), draw((B, S, KV, D), bf, QK_STD), draw((B, S, KV, D), bf)
+    do = draw((B, S, H, D), bf)
+    rows = {}
+    for window in (0, 4096):
+        o = fa_ops.flash_attention(q, k, v, window=window, softcap=cap)
+        got = fa_ops.flash_attention_bwd(q, k, v, o, do, window=window, softcap=cap)
+        want = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, window=window, softcap=cap)
+        torch.cuda.synchronize()
+        err, rel = grads_agree(torch, got, want, "bfloat16", f"flash_attention_bwd at gemma2's training layer "
+                                                            f"(window {window})")
+        del got, want
+        torch.cuda.empty_cache()
+        pairs = attn_pairs(S, S, True, window)
+        nbytes = (4 * B * S * H * D + 4 * B * S * KV * D) * 2     # q, o, dO, dq; k, v, dk, dv
+        b_ms, b_by = bound(nbytes, bwd_ops(H, D, D, pairs) * B, "bf16")
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        rows[window] = dict(
+            ms=kernel_ms(torch, fa_ops.bwd_launcher(q, k, v, o, do, dq, dk, dv, window=window, softcap=cap),
+                         reps=3, inner=2),
+            ms_softcap0=kernel_ms(torch, fa_ops.bwd_launcher(q, k, v, fa_ops.flash_attention(q, k, v, window=window),
+                                                             do, dq, dk, dv, window=window), reps=3, inner=2),
+            plain_ms=kernel_ms(torch, lambda: fa_ref.flash_attention_bwd_ref(q, k, v, o, do, window=window,
+                                                                             softcap=cap), reps=2, inner=1),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err, max_rel_err=rel, pairs=pairs)
+        rows[window]["bound_share"] = b_ms / rows[window]["ms"]
+        del dq, dk, dv, o
+        torch.cuda.empty_cache()
+    # The yardstick: the backward alone of SDPA at cap 0 (the band mask for
+    # the local layer), timed around autograd.grad of one forward.
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    pos = torch.arange(S, device=dev)
+    band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < 4096)
+    for window, kw in ((0, dict(is_causal=True)), (4096, dict(attn_mask=band))):
+        fwd = lambda kw=kw: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **kw)  # noqa: E731
+        out = fwd()
+        rows[window]["library_ms"] = kernel_ms(
+            torch, lambda out=out: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), reps=3, inner=2)
+        rows[window]["library_backend"] = sdpa_backend(torch, fwd)
+        del out
+    del q, k, v, do, qt, kt, vt, band
+    torch.cuda.empty_cache()
+    row = dict(rows[0], shape=[B, S, H, KV, D], window_4096=rows[4096])
+    for r in (row, rows[4096]):
+        print(f"phase 2 flash_attention_bwd {row['shape']} window {4096 if r is rows[4096] else 0}: "
+              f"kernel {r['ms']:.6f} ms (softcap 0: {r['ms_softcap0']:.6f} ms), plain {r['plain_ms']:.6f} ms, "
+              f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}, share {r['bound_share']:.4f}), SDPA backward "
+              f"softcap 0 {r['library_ms']:.6f} ms ({r['library_backend']}), max_abs_err {r['max_abs_err']!r}")
+    return row
+
+
+# Phase 10: gemma2-9b training at its published width, depth cut: 8 of 42
+# layers (4 local + 4 global) in bf16 with f32 AdamW moments: 2.503 B
+# parameters, 5.0 GB of weights, 5.0 GB of gradients and 20.0 GB of
+# moments, beside the 8,192 x 256,000 cross-entropy chunk (8.4 GB in
+# float32) and its gradient; all 42 layers would need about 111 GB.
+TRAIN = dict(layers=8, B=1, S=8192, steps=20, data_seed=1)
+TRAIN_ORACLE = dict(layers=2, B=1, S=512)        # f32: the kernels against the plain route
+TRAIN_RESTART = dict(layers=2, B=1, S=1024, steps=6, save_at=3)
+
+
+def gemma2_train(torch, layers: int, dtype: str = "bfloat16"):
+    """gemma2-9b at its published width with ``layers`` layers (L, G
+    alternating), weights from a seeded generator on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    cfg = get_config("gemma2-9b").replace(num_layers=layers, param_dtype=dtype, compute_dtype=dtype)
+    return cfg, LM(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(SEED))
+
+
+def train_bound_ops(cfg, n_params: int, B: int, S: int) -> float:
+    """6·P·tokens (forward and backward of every weight, the tied head
+    once) plus attention's products: forward 4·D and backward
+    2·(3·D + 2·D) a pair and head, global layers causal, local ones
+    within the window."""
+    from repro_torch.models.common import layer_flags
+
+    attn = 0.0
+    for g in layer_flags(cfg)["is_global"]:
+        pairs = attn_pairs(S, S, True, 0 if g else cfg.local_window)
+        attn += (4 * cfg.head_dim_ + bwd_ops(1, cfg.head_dim_, cfg.head_dim_, 1)) * cfg.num_heads * pairs * B
+    return 6.0 * n_params * B * S + attn
+
+
+def train_main(torch) -> dict:
+    """Phase 10.1: 20 steps of build_train_step (TrainConfig defaults,
+    remat on) at B 1 x S 8,192 from SyntheticLMDataset(256000, 8192,
+    seed=1): losses finite and falling, 16 flash forwards and 8 backwards
+    a step, the step beside its bound, its device share, peak memory."""
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.runtime import TrainConfig, build_train_step, init_opt_state
+
+    B, S, steps = TRAIN["B"], TRAIN["S"], TRAIN["steps"]
+    cfg, lm = gemma2_train(torch, TRAIN["layers"])
+    check(cfg.remat and cfg.max_seq_len == S, "phase 10 trains with remat at max_seq_len")
+    n_params = sum(p.numel() for p in lm.parameters())
+    step = build_train_step(lm, TrainConfig())
+    opt = init_opt_state(lm)
+    ds = SyntheticLMDataset(cfg.vocab_size, S, seed=TRAIN["data_seed"])
+    losses, times = [], []
+    counters = train_counters()
+
+    def run():
+        for s in range(steps):
+            batch = ds.batch(s, B)
+            t0 = time.perf_counter()
+            m = step(opt, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        # the instances launched, read before counted() restores the phase's counts
+        return {n: {f"{d}x{dv}": k for (d, dv), k in sorted(c.by_pair.items())}
+                for n, c in counters.items() if hasattr(c, "by_pair")}
+
+    pairs, _, launches = counted(torch, run, counters=counters)
+    check(all(math.isfinite(x) for x in losses), f"phase 10 loss not finite: {losses}")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    check(last < first - 0.1, f"phase 10 loss did not fall: first five {first!r}, last five {last!r}")
+    L = cfg.num_layers
+    check(launches["flash_attention"] == 2 * L * steps,
+          f"phase 10 flash forward launches {launches['flash_attention']} != {2 * L} a step x {steps}")
+    check(launches["flash_attention_bwd"] == L * steps,
+          f"phase 10 flash backward launches {launches['flash_attention_bwd']} != {L} a step x {steps}")
+    check(launches["decode_attention"] == 0, "phase 10 launched decode_attention")
+    check(set(pairs["flash_attention"]) == {"256x256"} and set(pairs["flash_attention_bwd"]) == {"256x256"},
+          f"phase 10 flash instances {pairs}")
+    step_s = statistics.median(times)
+    ops = train_bound_ops(cfg, n_params, B, S)
+    bound_s = ops / PEAK_OPS["bf16"]
+    batch = ds.batch(steps, B)
+    trace = step_trace(torch, lambda: step(opt, batch), 1)
+    out = dict(layers=L, cut=f"depth cut to {L} of {42} layers (4 local + 4 global)", params=n_params,
+               weight_gb=n_params * 2 / 1e9, moment_gb=n_params * 8 / 1e9, losses=losses,
+               first5=first, last5=last, step_s=step_s, step_times_s=times, bound_ops=ops, bound_s=bound_s,
+               bound_share=bound_s / step_s, tokens_per_s=B * S / step_s, device_ms=trace["busy_ms"],
+               device_share=trace["busy_ms"] / 1e3 / step_s, idle_share=1 - trace["busy_ms"] / 1e3 / step_s,
+               kernels_a_step=trace["kernels"], top=trace["top"], launches_20_steps=launches,
+               launches_by_pair=pairs, max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"phase 10 gemma2-9b bf16 {L} layers ({n_params} parameters), B {B} x S {S}: losses {losses}")
+    print(f"phase 10 step median {step_s:.6f} s against its bound {bound_s:.6f} s ({ops:.6e} operations at "
+          f"989 TFLOP/s; share {bound_s / step_s:.4f}), {B * S / step_s:.3f} tokens/s; device "
+          f"{trace['busy_ms']:.3f} ms a step in {trace['kernels']:.0f} kernels (idle share "
+          f"{out['idle_share']:.4f}); top {trace['top']}; peak memory {out['max_memory_gb']:.3f} GB; "
+          f"launches over {steps} steps {launches}")
+    del lm, opt, step
+    return out
+
+
+class plain_attention:
+    """Inside the block, models.attention sends the card's attention to
+    the plain version (``flash_attention_ref``), which autograd
+    differentiates: the reference route for phase 10.2's oracle."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ref as fa_ref
+        from repro_torch.models import attention
+
+        self.mod, self.saved = attention, attention.flash_attention
+        attention.flash_attention = fa_ref.flash_attention_ref
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.flash_attention = self.saved
+
+
+def train_oracle(torch) -> dict:
+    """Phase 10.2: float32, one local and one global layer, B 1 x S 512:
+    the loss and every gradient with attention through the kernels
+    (forward and backward) against the same with attention through the
+    plain version, on the card."""
+    from repro_torch.data import SyntheticLMDataset
+
+    B, S = TRAIN_ORACLE["B"], TRAIN_ORACLE["S"]
+    cfg, lm = gemma2_train(torch, TRAIN_ORACLE["layers"], "float32")
+    lm.requires_grad_(True)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in SyntheticLMDataset(cfg.vocab_size, S, seed=TRAIN["data_seed"]).batch(0, B).items()}
+
+    def loss_and_grads():
+        lm.zero_grad(set_to_none=True)
+        total, _ = lm.loss(batch)
+        total.backward()
+        return total.detach(), {k: p.grad.clone() for k, p in lm.named_parameters()}
+
+    (k_loss, k_grads), _, k_launches = counted(torch, loss_and_grads, counters=train_counters())
+    with plain_attention():
+        (p_loss, p_grads), _, p_launches = counted(torch, loss_and_grads, counters=train_counters())
+    L = cfg.num_layers
+    check(k_launches["flash_attention"] == 2 * L and k_launches["flash_attention_bwd"] == L,
+          f"phase 10 oracle kernel launches {k_launches}")
+    check(not any(p_launches.values()), f"phase 10 oracle's plain route launched {p_launches}")
+    loss_rel = abs(float(k_loss) - float(p_loss)) / abs(float(p_loss))
+    check(loss_rel <= 1e-5, f"phase 10 f32 loss {float(k_loss)!r} vs plain {float(p_loss)!r}")
+    worst = 0.0
+    for name, g in p_grads.items():
+        big = float(g.abs().max())
+        err = float((k_grads[name] - g).abs().max())
+        check(err <= 1e-3 * big, f"phase 10 f32 gradient {name}: {err!r} > 1e-3 · {big!r}")
+        worst = max(worst, err / big if big else 0.0)
+    out = dict(layers=L, B=B, S=S, loss=float(k_loss), plain_loss=float(p_loss), loss_rel_err=loss_rel,
+               worst_grad_rel_err=worst, launches=k_launches)
+    print(f"phase 10 f32 oracle ({L} layers, B {B} x S {S}): loss {float(k_loss)!r} vs plain {float(p_loss)!r} "
+          f"(rel {loss_rel!r}); worst gradient leaf max |diff| / max |g| {worst!r}; launches {k_launches}")
+    del lm, k_grads, p_grads
+    return out
+
+
+def train_restart(torch) -> dict:
+    """Phase 10.3: bf16, 2 layers, 6 steps with CheckpointManager saving at
+    step 3; restored from it and run on to step 6, parameters and
+    moments bit-equal to the unbroken run."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.runtime import TrainConfig, build_train_step, init_opt_state
+
+    B, S, steps, save_at = (TRAIN_RESTART[k] for k in ("B", "S", "steps", "save_at"))
+    cfg, lm_a = gemma2_train(torch, TRAIN_RESTART["layers"])
+    ds = SyntheticLMDataset(cfg.vocab_size, S, seed=TRAIN["data_seed"])
+
+    def run(lm, opt, start, mgr=None):
+        step = build_train_step(lm, TrainConfig())
+        for s in range(start, steps):
+            step(opt, ds.batch(s, B))
+            if mgr is not None and s + 1 == save_at:
+                mgr.save_async(save_at, (dict(lm.named_parameters()), opt))
+        torch.cuda.synchronize()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, keep=1)
+        opt_a = init_opt_state(lm_a)
+        t0 = time.perf_counter()
+        run(lm_a, opt_a, 0, mgr)
+        mgr.wait()
+        run_s = time.perf_counter() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in Path(tmp).rglob("*") if f.is_file())
+        from repro_torch.models import LM
+
+        lm_b = LM(cfg, device="cuda")
+        t0 = time.perf_counter()
+        (params, opt_b), step = mgr.restore((dict(lm_b.named_parameters()), init_opt_state(lm_b)), device="cuda")
+        restore_s = time.perf_counter() - t0
+        check(step == save_at, f"phase 10 restored step {step}, saved {save_at}")
+        with torch.no_grad():
+            for k, p in lm_b.named_parameters():
+                p.copy_(params[k])
+        del params
+        run(lm_b, opt_b, save_at)
+    for (k, a), (_, b) in zip(lm_a.named_parameters(), lm_b.named_parameters()):
+        check(torch.equal(a, b), f"phase 10 restart: parameter {k} differs")
+    for mom in ("m", "v"):
+        for k in opt_a[mom]:
+            check(torch.equal(opt_a[mom][k], opt_b[mom][k]), f"phase 10 restart: {mom} of {k} differs")
+    check(int(opt_a["step"]) == int(opt_b["step"]) == steps, "phase 10 restart: step counts differ")
+    out = dict(layers=cfg.num_layers, B=B, S=S, steps=steps, save_at=save_at, checkpoint_bytes=ckpt_bytes,
+               run_s=run_s, restore_s=restore_s, bit_equal=True)
+    print(f"phase 10 restart ({cfg.num_layers} layers, B {B} x S {S}): saved at step {save_at} "
+          f"({ckpt_bytes} bytes), restored in {restore_s:.3f} s, run on to step {steps}: parameters and "
+          f"moments bit-equal to the unbroken run")
+    del lm_a, lm_b, opt_a, opt_b
+    return out
+
+
+def train_cli(torch) -> dict:
+    """Phase 10.4: launch/train.py's main on the card (reduced gemma2, 20
+    steps, a checkpoint directory)."""
+    import tempfile
+
+    from repro_torch.launch import train
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _, opt = train.main(["--arch", "gemma2-9b", "--reduced", "--steps", "20", "--ckpt-dir", tmp,
+                             "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        saved = sorted(p.name for p in Path(tmp).iterdir())
+    check(int(opt["step"]) == 20 and saved[-1] == "step_00000020", f"phase 10 CLI: step {int(opt['step'])}, {saved}")
+    print(f"phase 10 launch/train.py --reduced --steps 20 on the card: {wall:.3f} s, checkpoints {saved}")
+    return dict(wall_s=wall, checkpoints=saved)
+
+
+def phase_train(torch) -> dict:
+    """Phase 10: gemma2-9b training on the card, each model freed before
+    the next."""
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    for name, fn in (("bf16 main", train_main), ("f32 oracle", train_oracle), ("restart", train_restart),
+                     ("cli", train_cli)):
+        t0 = time.perf_counter()
+        r = fn(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        r["part_s"] = time.perf_counter() - t0
+        out[name] = r
+        print(f"phase 10 {name} in {r['part_s']:.3f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2267,12 +2687,20 @@ def main() -> int:
     phase_fig6(P)
     launches, _ = phase_main_path(torch, P)
     attn = phase_attention_kernels(torch)
+    bwd_row = phase_flash_backward(torch)
+    # The backward kernel's count on the main path (phases 4-5, serving):
+    # zeroed after phase 2's comparisons and read after phase 5.
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    zero_counts({"flash_attention_bwd": fa_ops.flash_attention_bwd})
     serving = phase_serving(torch)
     gc.collect()
     torch.cuda.empty_cache()
     phase_prefill_equals_decode(torch)
     gc.collect()
     torch.cuda.empty_cache()
+    main_bwd = fa_ops.flash_attention_bwd.launches
+    check(main_bwd == 0, f"serving launched the flash backward {main_bwd} times")
 
     # Phases 6-9 are each a slice's path: every kernel counter, the flash
     # wrapper's per-instance counts too, at 0 before it and read after (the
@@ -2282,7 +2710,7 @@ def main() -> int:
 
     sim_counters = {"cost_matrix_f32": cm_ops.cost_matrix_classed, "cost_matrix_f64": cm_ops.cost_matrix_f64,
                     "cost_argmin_f64": cm_ops.cost_argmin_f64, "priority_requeue": pr_ops.priority_requeue}
-    all_counters = dict(sim_counters, **attn_counters())
+    all_counters = dict(sim_counters, **train_counters())
     zero_counts(all_counters)
     t0 = time.perf_counter()
     phase_sim(torch, P)
@@ -2327,6 +2755,18 @@ def main() -> int:
     print(f"phase 9 in {time.perf_counter() - t0:.3f} s, launches {ph9_launches}, flash by instance {ph9_pairs}")
     check(ph9_pairs.get(MLA_PAIR, 0) > 0, "phase 9 never launched flash_attention (192, 128)")
     check(set(ph9_pairs) == {MLA_PAIR}, f"phase 9 launched other flash instances {ph9_pairs}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    zero_counts(all_counters)
+    t0 = time.perf_counter()
+    train = phase_train(torch)
+    ph10_launches = {name: fn.launches for name, fn in all_counters.items()}
+    ph10_pairs = flash_pairs()
+    ph10_bwd_pairs = {f"{d}x{dv}": n for (d, dv), n in sorted(fa_ops.flash_attention_bwd.by_pair.items())}
+    print(f"phase 10 in {time.perf_counter() - t0:.3f} s, launches {ph10_launches}, flash by instance "
+          f"{ph10_pairs}, flash backward by instance {ph10_bwd_pairs}")
+    check(ph10_launches["flash_attention_bwd"] > 0, "phase 10 never launched flash_attention_bwd")
 
     meta = {
         "cost_matrix_f32": ("src/repro_torch/kernels/cost_matrix/csrc/cost_matrix.cu",
@@ -2353,13 +2793,14 @@ def main() -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, shape=r["shape"], launches_sim=sim_launches[name],
             launches_p2p=p2p_launches[name], launches_ph8=ph8_launches[name],
-            launches_ph9=ph9_launches[name],
+            launches_ph9=ph9_launches[name], launches_ph10=ph10_launches[name],
             **({"wrapper_ms": r["wrapper_ms"]} if "wrapper_ms" in r else {}),
         ))
     # The flash rows split the wrapper's counts by instance: "flash_attention"
     # counts the instances with v as wide as q and k, "flash_attention
     # (192, 128)" MLA's, each per phase as measured (``launches_by_pair``).
-    phase_pairs = {"main": serving["pairs"], "sim": sim_pairs, "p2p": p2p_pairs, "ph8": ph8_pairs, "ph9": ph9_pairs}
+    phase_pairs = {"main": serving["pairs"], "sim": sim_pairs, "p2p": p2p_pairs, "ph8": ph8_pairs, "ph9": ph9_pairs,
+                   "ph10": ph10_pairs}
     source, replaces = attn_meta["flash_attention"]
     for name, mla, r in (("flash_attention", False, attn["flash_attention"]),
                          ("flash_attention (192, 128)", True, attn["flash_attention_mla"])):
@@ -2367,14 +2808,26 @@ def main() -> int:
         line.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, launches=counts["ph9" if mla else "main"],
             launches_sim=counts["sim"], launches_p2p=counts["p2p"], launches_ph8=counts["ph8"],
-            launches_ph9=counts["ph9"],
+            launches_ph9=counts["ph9"], launches_ph10=counts["ph10"],
             launches_by_pair={ph: {key: n for key, n in pairs.items() if (key == MLA_PAIR) == mla}
                               for ph, pairs in phase_pairs.items()}, **r))
     source, replaces = attn_meta["decode_attention"]
     line.append(dict(name="decode_attention", route="cuda", source=source, replaces=replaces,
                      launches=serving["launches"]["decode_attention"], launches_sim=sim_launches["decode_attention"],
                      launches_p2p=p2p_launches["decode_attention"], launches_ph8=ph8_launches["decode_attention"],
-                     launches_ph9=ph9_launches["decode_attention"], **attn["decode_attention"]))
+                     launches_ph9=ph9_launches["decode_attention"], launches_ph10=ph10_launches["decode_attention"],
+                     **attn["decode_attention"]))
+    # The backward has no Pallas twin (the reference differentiates jnp
+    # attention); it is the gradient of the forward TPU kernel's function.
+    line.append(dict(name="flash_attention_bwd", route="cuda",
+                     source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+                     replaces="src/repro/kernels/flash_attention/flash_attention.py:72",
+                     replaces_note="no Pallas backward: the gradient of flash_attention_pallas's function",
+                     launches=ph10_launches["flash_attention_bwd"], launches_main=main_bwd,
+                     launches_sim=sim_launches["flash_attention_bwd"], launches_p2p=p2p_launches["flash_attention_bwd"],
+                     launches_ph8=ph8_launches["flash_attention_bwd"], launches_ph9=ph9_launches["flash_attention_bwd"],
+                     launches_ph10=ph10_launches["flash_attention_bwd"], launches_by_pair={"ph10": ph10_bwd_pairs},
+                     **bwd_row))
     for k in line:
         k["bound_share"] = k["bound_ms"] / k["ms"]
         k["launches_x_gap_ms"] = k["launches"] * (k["ms"] - k["bound_ms"])
@@ -2383,6 +2836,13 @@ def main() -> int:
     k = next(k for k in line if k["name"] == "flash_attention (192, 128)")
     k["gap_launches"] = moe["deepseek-v2-236b (bf16)"]["prefill_pairs"][MLA_PAIR]
     k["launches_x_gap_ms"] = k["gap_launches"] * (k["ms"] - k["bound_ms"])
+    # The backward's row: its lost time over phase 10's 20 training steps at
+    # the timed shape, 4 global and 4 local layers a step.
+    k = next(k for k in line if k["name"] == "flash_attention_bwd")
+    per_kind = train["bf16 main"]["launches_20_steps"]["flash_attention_bwd"] // 2
+    k["gap_launches"] = 2 * per_kind
+    k["launches_x_gap_ms"] = per_kind * ((k["ms"] - k["bound_ms"]) +
+                                         (k["window_4096"]["ms"] - k["window_4096"]["bound_ms"]))
     f64 = kernels["priority_requeue_f64"]
     print(f"priority_requeue f64 instance (not on the main path): ms {f64['ms']!r} plain_ms "
           f"{f64['plain_ms']!r} bound_ms {f64['bound_ms']!r}, bit-equal to reprioritize_np")

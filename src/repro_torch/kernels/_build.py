@@ -64,6 +64,11 @@ _SIGNATURES = {
     **{f"repro_flash_attention_{t}": (_P, _P, _P, _P, *(_I64,) * 7, *(_I64,) * 6,
                                       _c.c_int, _I64, _c.c_float, _P)
        for t in ("f32", "bf16")},
+    # q, k, v, o, dO, dq, dk, dv, lse, delta; B, H, KV, Sq, Sk, D, Dv; q strides;
+    # k/v strides; causal, window, softcap; stream
+    **{f"repro_flash_attention_bwd_{t}": (*(_P,) * 10, *(_I64,) * 7, *(_I64,) * 6,
+                                          _c.c_int, _I64, _c.c_float, _P)
+       for t in ("f32", "bf16")},
     # q, k, v, o, ws_m, ws_l, ws_acc; B, KV, rep, S, D, pos; k/v strides;
     # window, softcap, split; stream
     **{f"repro_decode_attention_{t}": (*(_P,) * 7, *(_I64,) * 6, *(_I64,) * 3,

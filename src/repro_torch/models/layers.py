@@ -61,7 +61,11 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    """table[tokens], through ``F.embedding``: its backward sums repeated
+    tokens' gradients in a fixed order (the backward of ``table[tokens]``,
+    an accumulating ``index_put_``, adds them in thread order on the host
+    and differs from run to run)."""
+    return F.embedding(tokens, table)
 
 
 # -- RoPE -------------------------------------------------------------------

@@ -23,19 +23,31 @@ carries a reference tree across by name:
 
 ``forward`` returns the moe family's summed aux load-balance loss beside
 the logits, and zero for the other families, as the reference does.
-Nothing here builds an autograd graph: training is a later slice
-(ROADMAP.md).
+
+Parameters are created with ``requires_grad`` off, and ``forward``,
+``encode`` and the decode path (``models.decode``) run under
+``torch.no_grad()``: serving builds no autograd graph. Training
+(``runtime.train``) turns grads on with ``lm.requires_grad_(True)`` and
+differentiates ``loss``, the reference's sequence-chunked cross entropy
+with each chunk recomputed in backward. With ``cfg.remat`` every block
+of the backbone is recomputed in backward too
+(``torch.utils.checkpoint``; ``remat_policy="dots"`` keeps the blocks'
+matrix-product outputs, as the reference's
+``dots_with_no_batch_dims_saveable``), so on the card the flash kernel
+runs once more a layer.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from .._device import resolve_device
 from .attention import attention, init_attention, init_attention_
-from .common import ModelConfig, layer_flags
+from .common import ModelConfig, layer_flags, torch_dtype
 from .layers import embed, init_embedding_, init_linear_, mlp, rms_norm, softcap
 from .mla import init_mla, init_mla_, mla_attention
 from .moe import MoEParams, init_moe_, moe_layer
@@ -169,6 +181,22 @@ class RGLRUBlock(nn.Module):
         return x + mlp(self.mlp, rms_norm(x, self.ln2), cfg.mlp)
 
 
+# Matrix products without batch dimensions, the outputs remat_policy="dots"
+# keeps (a 3-D activation times a 2-D weight reaches aten.mm).
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def ce_chunks(B: int, S: int, V: int, budget: int, max_chunks: int) -> int:
+    """The reference's cross-entropy chunk count: the largest divisor of
+    S at most max(1, min(B·S·V // budget, max_chunks, S))."""
+    target = max(1, min((B * S * V) // budget, max_chunks, S))
+    return next(c for c in range(target, 0, -1) if S % c == 0)
+
+
 def _stack(make, n: int) -> nn.ModuleList:
     return nn.ModuleList(make() for _ in range(n))
 
@@ -282,36 +310,47 @@ class LM(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if fam == "dense":
             for blk, is_global in zip(self.blocks, self.flags["is_global"]):
-                x = blk(x, cfg, bool(is_global))
+                x = self._block(blk, x, cfg, bool(is_global))
         elif fam == "vlm":
             if image_embeds is None:
                 raise ValueError(f"{cfg.name}: the vlm family needs image_embeds")
             img = image_embeds.to(cfg.cdtype)
             for selfs, cross in zip(self.self_blocks, self.cross_blocks):
                 for blk in selfs:
-                    x = blk(x, cfg)
-                x = cross(x, cfg, causal=False, kv_x=img)
+                    x = self._block(blk, x, cfg)
+                x = self._block(cross, x, cfg, causal=False, kv_x=img)
         elif fam == "moe":
             for blk in getattr(self, "dense_blocks", ()):
-                x, _ = blk(x, cfg)
+                x, _ = self._block(blk, x, cfg)
             for blk in self.moe_blocks:
-                x, a = blk(x, cfg)
+                x, a = self._block(blk, x, cfg)
                 aux = aux + a
         elif fam == "ssm":
             for blk in self.blocks:
-                x = blk(x, cfg)
+                x = self._block(blk, x, cfg)
         elif fam == "hybrid":
             for recs, attn in zip(self.rec_blocks, self.attn_blocks):
                 for blk in recs:
-                    x = blk(x, cfg)
-                x = attn(x, cfg, is_global=False)
+                    x = self._block(blk, x, cfg)
+                x = self._block(attn, x, cfg, is_global=False)
             for blk in getattr(self, "extra_rec", ()):
-                x = blk(x, cfg)
+                x = self._block(blk, x, cfg)
         else:                                                   # encdec
-            enc = self.encode(audio_embeds)
+            enc = self._encode(audio_embeds)
             for self_blk, cross in zip(self.dec_self, self.dec_cross):
-                x = cross(self_blk(x, cfg), cfg, causal=False, kv_x=enc)
+                # one body a decoder layer, as the reference's remat groups them
+                x = self._block(lambda h, s=self_blk, c=cross: c(s(h, cfg), cfg, causal=False, kv_x=enc), x)
         return x, aux
+
+    def _block(self, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)``, recomputed in backward under ``cfg.remat``
+        (the reference's ``_maybe_remat``) when grads are on."""
+        cfg = self.cfg
+        if not (cfg.remat and torch.is_grad_enabled()):
+            return fn(*args, **kwargs)
+        if cfg.remat_policy == "dots":
+            kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
 
     @torch.no_grad()
     def encode(self, audio_embeds: torch.Tensor) -> torch.Tensor:
@@ -319,10 +358,60 @@ class LM(nn.Module):
         (B, frames, d): non-causal self-attention with rotary embeddings,
         no window. Any number of frames: the reference's trainer feeds
         max(encoder_seq_len, 64) of them (launch/train.py), its serving
-        paths encoder_seq_len; training is a later slice here."""
+        paths encoder_seq_len."""
+        return self._encode(audio_embeds)
+
+    def _encode(self, audio_embeds: torch.Tensor) -> torch.Tensor:
         if audio_embeds is None:
             raise ValueError(f"{self.cfg.name}: the encdec family needs audio_embeds")
         x = audio_embeds.to(self.cfg.cdtype)
         for blk in self.enc_blocks:
-            x = blk(x, self.cfg, causal=False)
+            x = self._block(blk, x, self.cfg, causal=False)
         return rms_norm(x, self.enc_norm)
+
+    # ---------------- loss ----------------
+    # target live-logit footprint per CE chunk, in float32 elements
+    _CE_CHUNK_BUDGET = 2 ** 31
+    _CE_MAX_CHUNKS = 512
+
+    def loss(self, batch: dict):
+        """Sequence-chunked cross entropy (+ z-loss, + the moe family's aux):
+        (total, {"ce", "z_loss", "aux"}), float32 scalars. ``batch`` holds
+        ``tokens`` and ``labels`` (B, S) (and ``image_embeds`` /
+        ``audio_embeds`` for vlm / encdec). The (B, S, V) logits never
+        exist whole: each chunk of positions is normed, projected,
+        soft-capped and reduced, and recomputed in backward
+        (``torch.utils.checkpoint``). Labels outside [0, vocab_size) are
+        masked out."""
+        cfg = self.cfg
+        x, aux = self._backbone(batch["tokens"], image_embeds=batch.get("image_embeds"),
+                                audio_embeds=batch.get("audio_embeds"))
+        labels = batch["labels"]
+        B, S, _ = x.shape
+        n = ce_chunks(B, S, cfg.padded_vocab, self._CE_CHUNK_BUDGET, self._CE_MAX_CHUNKS)
+        C = S // n
+        nll = zsq = torch.zeros((), dtype=torch.float32, device=x.device)
+        cnt = 0
+        for i in range(n):
+            a, b, c = checkpoint(self._chunk_ce, x[:, i * C:(i + 1) * C], labels[:, i * C:(i + 1) * C],
+                                 use_reentrant=False)
+            nll, zsq, cnt = nll + a, zsq + b, cnt + c
+        denom = torch.clamp(torch.as_tensor(cnt, device=x.device), min=1)
+        ce = nll / denom
+        zloss = cfg.z_loss * (zsq / denom)
+        return ce + zloss + aux, {"ce": ce, "z_loss": zloss, "aux": aux}
+
+    def _chunk_ce(self, x_c: torch.Tensor, labels_c: torch.Tensor):
+        """One chunk's (Σ nll, Σ lse², count of unmasked labels)."""
+        cfg = self.cfg
+        h = rms_norm(x_c, self.final_norm)
+        table = self.embed if cfg.tie_embeddings else self.unembed
+        logits = torch.matmul(h, table.t()).to(torch_dtype(cfg.logits_dtype))
+        logits = softcap(logits, cfg.final_logit_softcap)
+        mask = (labels_c >= 0) & (labels_c < cfg.vocab_size)
+        safe = torch.where(mask, labels_c, 0).long()
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, safe[..., None])[..., 0]
+        nll = torch.where(mask, lse - picked, 0.0)
+        zsq = torch.where(mask, torch.square(lse), 0.0)
+        return nll.sum(), zsq.sum(), mask.sum()

@@ -795,3 +795,106 @@ def test_reduced_moe_model_on_the_card_equals_the_host(dev, arch):
     for g in ch:
         for k in ch[g]:
             torch.testing.assert_close(cc[g][k].cpu(), ch[g][k], rtol=1e-4, atol=1e-4)
+
+
+# -- flash attention's backward kernel and training on the card -----------------
+
+# (B, Sq, Sk, H, KV, D, Dv, causal, window, softcap): every (D, Dv)
+# instance, GQA rep 1/2/3/10/16, ragged lengths, window edges inside a
+# 32-row tile, Sq < Sk non-causal, soft-cap 0 and 50.
+FLASH_BWD_CASES = [
+    (1, 77, 77, 4, 2, 32, 32, True, 0, 0.0),
+    (2, 200, 200, 6, 2, 64, 64, True, 50, 50.0),
+    (1, 1000, 1000, 10, 1, 256, 256, True, 333, 50.0),
+    (1, 77, 200, 16, 1, 128, 128, False, 0, 0.0),
+    (2, 130, 130, 3, 1, 256, 256, True, 45, 30.0),
+    (1, 200, 200, 8, 8, 192, 128, True, 0, 0.0),
+    (1, 1000, 1000, 16, 16, 192, 128, False, 0, 0.0),
+    (2, 64, 64, 2, 2, 128, 128, True, 2, 50.0),
+]
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _grads_agree(got, want, dtype):
+    """Each of dq, dk, dv: max |diff| ≤ tol · max |plain| (f32 1e-4, bf16
+    2e-2), and in bf16 the mean error under 1% of the mean |plain|."""
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape, name
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= BWD_TOL[dtype] * float(b.float().abs().max()), f"{name}: {err}"
+        if dtype == torch.bfloat16:
+            assert float((a.float() - b.float()).abs().mean()) < 0.01 * float(b.float().abs().mean()), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=str)
+def test_flash_attention_backward_kernel(dev, case, dtype):
+    B, Sq, Sk, H, KV, D, Dv, causal, window, cap = case
+    rng = np.random.default_rng(Sq * 3 + D + H)
+    q = _randn(rng, (B, Sq, H, D), dtype, dev, 1.5)
+    kv = torch.cat([_randn(rng, (B, Sk, KV, D), dtype, dev, 1.5), _randn(rng, (B, Sk, KV, Dv), dtype, dev)], -1)
+    k, v = kv[..., :D], kv[..., D:]          # one buffer, as MLA's (and the strides the kernel reads)
+    do = _randn(rng, (B, Sq, H, Dv), dtype, dev)
+    o = fa_ops.flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+    before = fa_ops.flash_attention_bwd.launches, fa_ops.flash_attention_bwd.by_pair.get((D, Dv), 0)
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention_bwd.launches == before[0] + 1
+    assert fa_ops.flash_attention_bwd.by_pair[(D, Dv)] == before[1] + 1
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window, softcap=cap)
+    _grads_agree(got, want, dtype)
+    again = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, softcap=cap)
+    for a, b in zip(got, again):          # no atomics: the same bits every run
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_autograd_launches_both_kernels(dev):
+    rng = np.random.default_rng(5)
+    q, k, v = (t.requires_grad_() for t in _qkv(rng, (1, 300, 8, 128), (1, 300, 4, 128), torch.bfloat16, dev))
+    do = _randn(rng, (1, 300, 8, 128), torch.bfloat16, dev)
+    before = fa_ops.flash_attention.launches, fa_ops.flash_attention_bwd.launches
+    o = fa_ops.flash_attention(q, k, v, window=100, softcap=50.0)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert (fa_ops.flash_attention.launches, fa_ops.flash_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want = fa_ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), o.detach(), do, window=100,
+                                          softcap=50.0)
+    _grads_agree((q.grad, k.grad, v.grad), want, torch.bfloat16)
+
+
+def test_flash_attention_backward_refuses_what_it_cannot_take(dev):
+    q = torch.ones((1, 8, 2, 80), device=dev)
+    o = torch.ones((1, 8, 2, 80), device=dev)
+    with pytest.raises(ValueError, match="takes D"):
+        fa_ops.flash_attention_bwd(q, q, q, o, o)
+    with pytest.raises(ValueError, match="do must be"):
+        fa_ops.flash_attention_bwd(q[..., :64], q[..., :64], q[..., :64], o[..., :64], o[..., :32])
+
+
+def test_reduced_training_on_the_card_equals_the_host(dev):
+    """Reduced gemma2 (D 32, GQA 4/2, the window cut to 8) in float32, 3
+    train steps with remat on: the card (flash forward and backward
+    kernels) against the same steps on the host."""
+    from repro_torch.runtime import TrainConfig, build_train_step, init_opt_state
+    from repro_torch.data import SyntheticLMDataset
+
+    cfg = get_config("gemma2-9b", reduced=True).replace(
+        num_kv_heads=2, local_window=8, remat=True, param_dtype="float32", compute_dtype="float32")
+    host = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = LM(cfg, device=dev)
+    card.load_state_dict(host.state_dict())
+    tcfg = TrainConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    steps = {m: build_train_step(m, tcfg) for m in (host, card)}
+    opts = {m: init_opt_state(m) for m in (host, card)}
+    ds = SyntheticLMDataset(cfg.vocab_size, 48, seed=1)
+    before = fa_ops.flash_attention.launches, fa_ops.flash_attention_bwd.launches
+    for s in range(3):
+        b = ds.batch(s, 2)
+        mh, mc = steps[host](opts[host], b), steps[card](opts[card], b)
+        torch.testing.assert_close(mc["loss"].cpu(), mh["loss"], rtol=1e-5, atol=1e-5)
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    assert fa_ops.flash_attention.launches - before[0] == 3 * 2 * L      # forward + remat recompute
+    assert fa_ops.flash_attention_bwd.launches - before[1] == 3 * L
+    for (name, a), (_, b) in zip(card.named_parameters(), host.named_parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0, atol=1e-4 * float(b.abs().max()), msg=name)

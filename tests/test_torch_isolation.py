@@ -14,7 +14,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-_FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:[.\s]|$)", re.M)
+_FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro|ml_dtypes)(?:[.\s]|$)", re.M)
 
 
 def _run(code: str, **env) -> subprocess.CompletedProcess:
@@ -29,6 +29,7 @@ def test_imports_with_jax_and_reference_blocked():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         "import repro_torch, repro_torch.core\n"
         "import repro_torch.kernels.cost_matrix.ops, repro_torch.kernels.priority_requeue.ops\n"
         "import repro_torch.kernels.flash_attention.ops, repro_torch.kernels.decode_attention.ops\n"
@@ -41,10 +42,12 @@ def test_imports_with_jax_and_reference_blocked():
         "import repro_torch.grid.example\n"
         "import repro_torch.models.rglru, repro_torch.models.ssm, repro_torch.models.lm\n"
         "import repro_torch.models.decode, repro_torch.models.attention, repro_torch.models.interop\n"
+        "import repro_torch.optim, repro_torch.optim.adamw8, repro_torch.optim.compress, repro_torch.data\n"
+        "import repro_torch.checkpoint, repro_torch.runtime, repro_torch.runtime.train, repro_torch.launch.train\n"
         "for n in repro_torch.scenarios.SCENARIOS:\n"
         "    repro_torch.scenarios.get_generator(n), repro_torch.scenarios.get_verifier(n)\n"
         "repro_torch.configs.get_config('gemma2-9b')\n"
-        "loaded = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro') "
+        "loaded = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes') "
         "and sys.modules[m] is not None)\n"
         "print('LOADED', loaded)\n"
     )
@@ -55,8 +58,8 @@ def test_imports_with_jax_and_reference_blocked():
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     text = path.read_text()
-    assert not _FORBIDDEN.search(text), f"{path} imports jax or the reference package"
-    assert "import jax" not in text
+    assert not _FORBIDDEN.search(text), f"{path} imports jax, ml_dtypes or the reference package"
+    assert "import jax" not in text and "import ml_dtypes" not in text
 
 
 def test_ops_import_and_build_nothing_without_nvcc():
@@ -84,7 +87,7 @@ def _default_device_calls():
         select_peers_batch, total_cost_matrix,
     )
     from repro_torch.core.migration import select_peer_targets
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import LM
     from repro_torch.core import GossipExchange, NetworkLink, PeerScheduler, SiteState, single_peer
     from repro_torch.scenarios import run_scenario
@@ -127,6 +130,8 @@ def _default_device_calls():
         "LM (encdec)": lambda: LM(get_config("whisper-base", reduced=True)),
         "ServingEngine (launch.serve)": lambda: serve.main(["--requests", "1"]),
         "ServingEngine (launch.serve, ssm)": lambda: serve.main(["--arch", "mamba2-780m", "--requests", "1"]),
+        # the trainer runs on its model's device; the CLI builds it
+        "launch.train": lambda: train.main(["--reduced", "--steps", "1"]),
     }
 
 
@@ -206,6 +211,8 @@ class TestWrapperValidation:
         ("kernels/priority_requeue/csrc/priority_requeue.cu",
          "src/repro/kernels/priority_requeue/priority_requeue.py"),
         ("kernels/flash_attention/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention/flash_attention.py"),
+        ("kernels/flash_attention/csrc/flash_attention_bwd.cu",
          "src/repro/kernels/flash_attention/flash_attention.py"),
         ("kernels/decode_attention/csrc/decode_attention.cu",
          "src/repro/kernels/decode_attention/decode_attention.py"),
