@@ -123,18 +123,30 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    with identical tokens. Phase 2 first holds the (192, 128) instance
    against its plain version at lengths 77 to 4,096, causal and not,
    in both types, and times it at deepseek-v2's prefill layer (B 1,
-   S 4,096, 128 heads) beside its bound, plain version and SDPA.
+   S 4,096, 128 heads) beside its bound, plain version and SDPA. Last,
+   launch/serve.py --arch deepseek-v2-236b serves its reduced
+   configuration (MLA's absorbed decode: no attention kernel), and that
+   configuration prefills 128 tokens through LM.forward, its MLA widths
+   (48, 32) on the padded route to the (64, 64) instance.
 
-2c. Hold flash attention's backward kernel (csrc/flash_attention_bwd.cu)
-   against its plain version before phase 10 relies on it: every
-   (D, Dv) instance in float32 and bf16, causal and not, window edges
-   inside a 32-row tile, soft-cap 0 and 50, GQA rep 1, 2, 3, 10 and 16,
-   ragged lengths 77, 200 and 1,000, Sq < Sk non-causal, k and v two
-   column ranges of one buffer; each of dq, dk and dv within 1e-4 (f32)
-   or 2e-2 (bf16, and the mean error under 1%) of max |plain|. Then time
-   it at gemma2-9b's two training layers (B 1, S 8,192, H 16/8, D 256,
-   bf16, cap 50; causal, and a 4,096 window) beside its bound, its plain
-   version and the backward alone of SDPA at cap 0.
+2c. Hold flash attention's backward kernels (csrc/flash_attention_bwd.cu)
+   against their plain version before phase 10 relies on them, fed the
+   forward kernel's row log-sum-exp (held to the plain version's within
+   1e-4 of its largest magnitude): every (D, Dv) instance in float32 and
+   bf16, causal and not, window edges inside a tile, a window of 1,
+   soft-cap 0 and 50, GQA rep 1, 2, 3, 4, 10 and 16, ragged lengths 77,
+   200 and 1,000, Sq < Sk and Sq > Sk non-causal, k and v two column
+   ranges of one buffer; each of dq, dk and dv within 1e-4 (f32) or 2e-2 (bf16, and
+   the mean error under 1%) of max |plain| (for a window of 1, of a
+   tenth of the call's largest gradient where that is larger), and the
+   same bits on a second call. The padded route for widths without an
+   instance ((48, 32), (80, 80), (192, 64); the decode kernel at D 48 and
+   80) against the plain version at the inputs' own widths. Then time
+   the backward at gemma2-9b's two training layers (B 1, S 8,192,
+   H 16/8, D 256, bf16, cap 50; causal, and a 4,096 window) beside its
+   bound, its plain version, the backward alone of SDPA at cap 0 and its
+   device time by kernel (profiler), and the forward with and without
+   its lse write.
 10. Train gemma2-9b at its published width on the card, every kernel
    counter set to 0 before the phase and read after, each model freed
    before the next: 8 of its 42 layers (4 local + 4 global; all 42 with
@@ -151,9 +163,15 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    attention through the plain version (loss 1e-5 relative, each leaf
    1e-3 of its max |g|); in bf16 with 2 layers, 6 steps with
    ``CheckpointManager`` saving at step 3, restored and run on to step
-   6, parameters and moments bit-equal to the unbroken run; and
+   6, parameters and moments bit-equal to the unbroken run;
    launch/train.py's ``main`` on the card (reduced, 20 steps, with a
-   checkpoint directory).
+   checkpoint directory); and launch/train.py --arch deepseek-v2-236b
+   --reduced for 3 steps, its MLA widths (48, 32) padded forward and
+   backward.
+
+The attention wrappers count their padded calls too (``padded``): the
+flash and backward rows carry them for phases 9 and 10
+(``launches_padded``).
 
 The flash wrapper also counts its launches per (D, Dv) instance
 (``flash_attention.by_pair``): the kernels line splits them into a row
@@ -1823,11 +1841,20 @@ def train_counters():
 
 def zero_counts(counters: dict) -> None:
     """Every counter of ``counters`` to 0, the flash wrapper's per-instance
-    counts (``by_pair``) with its total."""
+    counts (``by_pair``) and the padded route's (``padded``) with its
+    total."""
     for fn in counters.values():
         fn.launches = 0
         if hasattr(fn, "by_pair"):
             fn.by_pair = {}
+        if hasattr(fn, "padded"):
+            fn.padded = 0
+
+
+def padded_counts(counters: dict) -> dict:
+    """Calls of each attention wrapper that took the padded route since its
+    counts were last zeroed."""
+    return {name: fn.padded for name, fn in counters.items() if hasattr(fn, "padded")}
 
 
 def flash_pairs() -> dict:
@@ -1852,7 +1879,7 @@ def counted(torch, fn, pairs: dict | None = None, counters: dict | None = None):
     that the counts around the whole phase keep every launch inside it."""
     counters = counters or attn_counters()
     flash = counters["flash_attention"]
-    held = {n: (c.launches, dict(getattr(c, "by_pair", {}))) for n, c in counters.items()}
+    held = {n: (c.launches, dict(getattr(c, "by_pair", {})), getattr(c, "padded", 0)) for n, c in counters.items()}
     zero_counts(counters)
     t0 = time.perf_counter()
     res = fn()
@@ -1865,6 +1892,8 @@ def counted(torch, fn, pairs: dict | None = None, counters: dict | None = None):
         c.launches += held[n][0]
         for key, k in held[n][1].items():
             c.by_pair[key] = c.by_pair.get(key, 0) + k
+        if hasattr(c, "padded"):
+            c.padded += held[n][2]
     return res, wall, launches
 
 
@@ -2260,14 +2289,55 @@ def moe_v3(torch) -> dict:
                 launches=launches, tokens=toks, max_run_diff=diff)
 
 
+REDUCED_MLA_PAIR = "64x64"   # the instance the reduced MLA widths (48, 32) are padded to (C6)
+
+
+def moe_cli(torch) -> dict:
+    """launch/serve.py --arch deepseek-v2-236b on the card (the CLI's
+    reduced configuration: the engine's prefill is a lockstep decode, so
+    MLA's absorbed decode runs it and no attention kernel), then that
+    configuration's 128-token prefill through LM.forward, whose MLA
+    widths (48, 32) have no flash instance and take the padded route to
+    (64, 64)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+
+    (stats, reqs), wall, launches = counted(torch, lambda: serve.main(["--arch", "deepseek-v2-236b",
+                                                                       "--device", "cuda"]))
+    tokens = sum(len(r.generated) for r in reqs)
+    check(stats.served == 16 and tokens == 128, f"serve.py deepseek-v2-236b: {stats}, {tokens} tokens")
+    check(launches == {"flash_attention": 0, "decode_attention": 0}, f"serve.py deepseek-v2-236b launches {launches}")
+    cfg = get_config("deepseek-v2-236b", reduced=True).replace(remat=False)
+    lm = LM(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(SEED))
+    prompt = torch.as_tensor(np.random.default_rng(SEED + 2).integers(0, cfg.vocab_size, (2, 128)), device="cuda")
+    pairs: dict = {}
+    before = fa_ops.flash_attention.padded
+    (logits, _), prefill_s, prefill_launches = counted(torch, lambda: lm.forward(prompt), pairs)
+    padded = fa_ops.flash_attention.padded - before
+    check(bool(torch.isfinite(logits).all()), "reduced deepseek-v2 prefill logits not finite")
+    check(prefill_launches["flash_attention"] == cfg.num_layers and padded == cfg.num_layers
+          and pairs == {REDUCED_MLA_PAIR: cfg.num_layers},
+          f"reduced deepseek-v2 prefill: launches {prefill_launches}, by instance {pairs}, padded {padded}")
+    print(f"phase 9 launch/serve.py --arch deepseek-v2-236b (reduced) on the card: {wall:.3f} s, {stats.served} "
+          f"served, {tokens} tokens, attention launches {launches}; its 128-token prefill through LM.forward: "
+          f"{prefill_s:.3f} s, flash launches {pairs}, all {padded} padded (MLA widths 48 / 32 on 64 / 64)")
+    del lm, logits
+    return dict(wall_s=wall, served=stats.served, tokens=tokens, launches=launches, prefill_s=prefill_s,
+                prefill_pairs=pairs, padded=padded)
+
+
 def phase_moe(torch) -> dict:
     """Phase 9: deepseek-v2-236b in bf16 (served, prefilled, a decode step
     profiled) and in float32 (prefill ≡ decode), then deepseek-v3-671b,
-    each at full width with its depth cut, freed before the next."""
+    each at full width with its depth cut, freed before the next; then the
+    serving CLI's reduced deepseek-v2 through the padded route."""
     out = {}
     for name, fn in (("deepseek-v2-236b (bf16)", moe_serving),
                      ("deepseek-v2-236b f32 prefill == decode", moe_oracle),
-                     ("deepseek-v3-671b (bf16)", moe_v3)):
+                     ("deepseek-v3-671b (bf16)", moe_v3),
+                     ("launch/serve.py deepseek-v2-236b", moe_cli)):
         t0 = time.perf_counter()
         r = fn(torch)
         gc.collect()
@@ -2280,12 +2350,17 @@ def phase_moe(torch) -> dict:
 
 # -- phase 2c / 10: flash attention's backward kernel and training -----------------
 
-# The backward kernel (csrc/flash_attention_bwd.cu) against its plain
-# version, before phase 10 relies on it: every (D, Dv) instance in both
-# types, causal and not, window edges inside a 32-row tile, soft-cap 0
-# and 50, GQA rep 1, 2, 3, 10 and 16, ragged lengths 77, 200 and 1,000,
-# Sq < Sk non-causal; k and v always two column ranges of one buffer (as
-# MLA's), q and k drawn with a standard deviation of 1.5.
+# The backward kernels (csrc/flash_attention_bwd.cu) against their plain
+# version, before phase 10 relies on them, each fed the forward kernel's
+# log-sum-exp (itself held to the plain version's): every (D, Dv)
+# instance in both types, causal and not, window edges inside a tile,
+# soft-cap 0 and 50, GQA rep 1, 2, 3, 4, 10 and 16, ragged lengths 77,
+# 200 and 1,000, Sq < Sk and Sq > Sk non-causal (a cross layer's
+# shapes), a window of 1 (each row sees only itself: P is one-hot, so dq
+# and dk are zero but for rounding and are held against a floor of a
+# tenth of the call's largest gradient, as tests/test_torch_flash_bwd.py
+# holds them); k and v always two column ranges of one buffer (as MLA's),
+# q and k drawn with a standard deviation of 1.5.
 BWD_CASES = [
     # (B, Sq, Sk, H, KV, D, Dv, causal, window, softcap)
     (1, 77, 77, 4, 2, 32, 32, True, 0, 0.0),
@@ -2300,8 +2375,26 @@ BWD_CASES = [
     (1, 1000, 1000, 16, 16, 192, 128, False, 0, 0.0),
     (1, 77, 200, 4, 4, 192, 128, False, 0, 0.0),
     (2, 64, 64, 2, 2, 32, 32, True, 2, 50.0),
+    (2, 64, 64, 2, 2, 32, 32, True, 1, 50.0),
+    (2, 200, 77, 8, 2, 128, 128, False, 0, 0.0),
 ]
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # of max |plain|, for each of dq, dk, dv
+LSE_TOL = 1e-4                                   # the forward's lse, of max |plain lse|
+# The padded route (C6): widths with no instance run the smallest one
+# that covers them on zero-padded inputs at the true width's scale:
+# MLA's reduced (48, 32), the 100m preset's head_dim 80, and (192, 64);
+# forward and backward in both types; the decode kernel at D 48 and 80.
+PADDED_CASES = [
+    # (B, Sq, Sk, H, KV, D, Dv, causal, window, softcap)
+    (1, 200, 200, 4, 2, 48, 32, True, 0, 0.0),
+    (2, 130, 130, 8, 4, 80, 80, True, 50, 50.0),
+    (1, 77, 200, 4, 4, 192, 64, False, 0, 0.0),
+]
+PADDED_DECODE = [
+    # (B, S, H, KV, D, pos, window, softcap)
+    (4, 300, 8, 2, 48, 250, 0, 50.0),
+    (4, 300, 8, 4, 80, 299, 100, 0.0),
+]
 # gemma2-9b's training layer: B 1, S 8,192 (max_seq_len), H 16 / KV 8,
 # D 256, bf16, soft-cap 50; global (causal) and local (window 4,096).
 BWD_ROW = dict(B=1, S=8192, H=16, KV=8, D=256, cap=50.0)
@@ -2313,27 +2406,34 @@ def bwd_ops(H: int, D: int, Dv: int, pairs: int) -> float:
     return 2 * (3 * D + 2 * Dv) * H * pairs
 
 
-def grads_agree(torch, got, want, name: str, what: str) -> tuple[float, float]:
-    """Each of dq, dk, dv within BWD_TOL[name] of max |plain|, and in bf16
-    the mean error under 1% of the mean |plain|; returns the largest
-    (max_abs_err, max |diff| / max |plain|)."""
+def grads_agree(torch, got, want, name: str, what: str, floor: float = 0.0) -> tuple[float, float]:
+    """Each of dq, dk, dv within BWD_TOL[name] of max(max |plain|, floor)
+    (``floor``: a tenth of the call's largest gradient where a window of 1
+    makes dq and dk zero but for rounding, else 0), and in bf16, where the
+    floor does not bind, the mean error under 1% of the mean |plain|;
+    returns the largest (max_abs_err, max |diff| / that reference)."""
     worst, worst_rel = 0.0, 0.0
     for g, a, b in zip(("dq", "dk", "dv"), got, want):
         err = max_abs_err(torch, a, b)
         big = float(b.float().abs().max())
-        check(err <= BWD_TOL[name] * big, f"{what} {g}: max |diff| {err!r} > {BWD_TOL[name]} · {big!r}")
-        if name == "bfloat16":
+        ref = max(big, floor)
+        check(err <= BWD_TOL[name] * ref, f"{what} {g}: max |diff| {err!r} > {BWD_TOL[name]} · {ref!r}")
+        if name == "bfloat16" and big >= floor:
             rel = float((a.float() - b.float()).abs().mean() / b.float().abs().mean())
             check(rel < REL_BOUND, f"{what} {g}: mean error {rel!r} of mean |plain|")
-        worst, worst_rel = max(worst, err), max(worst_rel, err / big)
+        worst, worst_rel = max(worst, err), max(worst_rel, err / ref)
     return worst, worst_rel
 
 
 def phase_flash_backward(torch):
-    """Phase 2c: the backward kernel against its plain version on
-    BWD_CASES, then timed at gemma2-9b's two training layers beside its
-    bound, its plain version and the backward alone of SDPA at cap 0."""
+    """Phase 2c: the backward kernels against their plain version on
+    BWD_CASES (the forward's lse against the plain version's; the same
+    bits on a second call), the padded route on PADDED_CASES and
+    PADDED_DECODE, then the backward timed at gemma2-9b's two training
+    layers beside its bound, its plain version and the backward alone of
+    SDPA at cap 0, and the forward with and without its lse write."""
     import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as da_ops, ref as da_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
 
     dev = torch.device("cuda")
@@ -2343,19 +2443,58 @@ def phase_flash_backward(torch):
     def draw(shape, dtype, std=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
 
-    for case in BWD_CASES:
+    def one_case(case, name, dtype):
+        """The forward with its lse and the backward from it, against the
+        plain versions; returns (max_abs_err, relative, lse error)."""
         B, Sq, Sk, H, KV, D, Dv, causal, window, cap = case
+        opts = dict(causal=causal, window=window, softcap=cap)
+        q = draw((B, Sq, H, D), dtype, QK_STD)
+        kv = torch.cat([draw((B, Sk, KV, D), dtype, QK_STD), draw((B, Sk, KV, Dv), dtype)], dim=-1)
+        k, v = kv[..., :D], kv[..., D:]
+        do = draw((B, Sq, H, Dv), dtype)
+        o, lse = fa_ops.flash_attention(q, k, v, return_lse=True, **opts)
+        plain_o, plain_lse = fa_ref.flash_attention_ref(q, k, v, return_lse=True, **opts)
+        agree(torch, o, plain_o, ATTN_TOL[name], f"flash_attention {case} {name}")
+        lse_err = max_abs_err(torch, lse, plain_lse)
+        check(lse_err <= LSE_TOL * float(plain_lse.abs().max()), f"flash_attention {case} {name}: lse {lse_err!r}")
+        got = fa_ops.flash_attention_bwd(q, k, v, o, do, lse=lse, **opts)
+        again = fa_ops.flash_attention_bwd(q, k, v, o, do, lse=lse, **opts)
+        want = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, **opts)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)), f"flash_attention_bwd {case} {name}: "
+              "a second call gave other bits")
+        floor = 0.1 * max(float(w.float().abs().max()) for w in want) if window == 1 else 0.0
+        err, rel = grads_agree(torch, got, want, name, f"flash_attention_bwd {case} {name}", floor)
+        return err, rel, lse_err
+
+    for case in BWD_CASES:
         for name, dtype in dt.items():
-            q = draw((B, Sq, H, D), dtype, QK_STD)
-            kv = torch.cat([draw((B, Sk, KV, D), dtype, QK_STD), draw((B, Sk, KV, Dv), dtype)], dim=-1)
-            k, v = kv[..., :D], kv[..., D:]
-            do = draw((B, Sq, H, Dv), dtype)
-            o = fa_ops.flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
-            got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, softcap=cap)
-            want = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window, softcap=cap)
-            torch.cuda.synchronize()
-            err, rel = grads_agree(torch, got, want, name, f"flash_attention_bwd {case} {name}")
-            print(f"phase 2 flash_attention_bwd {case} {name}: max_abs_err {err!r} ({rel!r} of max |plain|)")
+            err, rel, lse_err = one_case(case, name, dtype)
+            print(f"phase 2 flash_attention_bwd {case} {name}: max_abs_err {err!r} ({rel!r} of max |plain|); "
+                  f"forward lse max_abs_err {lse_err!r}; the same bits twice")
+    for case in PADDED_CASES:
+        for name, dtype in dt.items():
+            pair = fa_ops.instance(case[5], case[6])
+            before = (fa_ops.flash_attention.padded, fa_ops.flash_attention_bwd.padded,
+                      fa_ops.flash_attention_bwd.by_pair.get(pair, 0))
+            err, rel, lse_err = one_case(case, name, dtype)
+            after = (fa_ops.flash_attention.padded, fa_ops.flash_attention_bwd.padded,
+                     fa_ops.flash_attention_bwd.by_pair.get(pair, 0))
+            check(after[0] - before[0] >= 1 and after[1] - before[1] == 2 and after[2] - before[2] == 2,
+                  f"padded {case} {name}: the padded route did not run ({before} -> {after})")
+            print(f"phase 2 padded flash_attention {case[5:7]} on instance {pair} {case} {name}: backward "
+                  f"max_abs_err {err!r} ({rel!r} of max |plain|), forward lse max_abs_err {lse_err!r}")
+    for case in PADDED_DECODE:
+        B, S, H, KV, D, pos, window, cap = case
+        for name, dtype in dt.items():
+            q, k, v = draw((B, H, D), dtype, QK_STD), draw((B, S, KV, D), dtype, QK_STD), draw((B, S, KV, D), dtype)
+            before = da_ops.decode_attention.padded
+            out = da_ops.decode_attention(q, k, v, pos, window=window, softcap=cap)
+            check(da_ops.decode_attention.padded == before + 1, f"padded decode {case}: the route did not run")
+            err, rel = agree(torch, out, da_ref.decode_attention_ref(q, k, v, pos, window=window, softcap=cap),
+                             ATTN_TOL[name], f"padded decode_attention {case} {name}")
+            print(f"phase 2 padded decode_attention D {D} on instance {da_ops.instance(D)} {case} {name}: "
+                  f"max_abs_err {err!r} ({rel!r} mean error / mean |plain|)")
     torch.cuda.empty_cache()
 
     bf = torch.bfloat16
@@ -2364,8 +2503,8 @@ def phase_flash_backward(torch):
     do = draw((B, S, H, D), bf)
     rows = {}
     for window in (0, 4096):
-        o = fa_ops.flash_attention(q, k, v, window=window, softcap=cap)
-        got = fa_ops.flash_attention_bwd(q, k, v, o, do, window=window, softcap=cap)
+        o, lse = fa_ops.flash_attention(q, k, v, window=window, softcap=cap, return_lse=True)
+        got = fa_ops.flash_attention_bwd(q, k, v, o, do, window=window, softcap=cap, lse=lse)
         want = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, window=window, softcap=cap)
         torch.cuda.synchronize()
         err, rel = grads_agree(torch, got, want, "bfloat16", f"flash_attention_bwd at gemma2's training layer "
@@ -2376,16 +2515,25 @@ def phase_flash_backward(torch):
         nbytes = (4 * B * S * H * D + 4 * B * S * KV * D) * 2     # q, o, dO, dq; k, v, dk, dv
         b_ms, b_by = bound(nbytes, bwd_ops(H, D, D, pairs) * B, "bf16")
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        run = fa_ops.bwd_launcher(q, k, v, o, do, dq, dk, dv, lse=lse, window=window, softcap=cap)
+        o0, lse0 = fa_ops.flash_attention(q, k, v, window=window, return_lse=True)
+        o2 = torch.empty_like(o)
         rows[window] = dict(
-            ms=kernel_ms(torch, fa_ops.bwd_launcher(q, k, v, o, do, dq, dk, dv, window=window, softcap=cap),
-                         reps=3, inner=2),
-            ms_softcap0=kernel_ms(torch, fa_ops.bwd_launcher(q, k, v, fa_ops.flash_attention(q, k, v, window=window),
-                                                             do, dq, dk, dv, window=window), reps=3, inner=2),
+            ms=kernel_ms(torch, run, reps=5, inner=4),
+            ms_softcap0=kernel_ms(torch, fa_ops.bwd_launcher(q, k, v, o0, do, dq, dk, dv, lse=lse0, window=window),
+                                  reps=5, inner=4),
             plain_ms=kernel_ms(torch, lambda: fa_ref.flash_attention_bwd_ref(q, k, v, o, do, window=window,
                                                                              softcap=cap), reps=2, inner=1),
+            # the forward's own time without and with its lse write (the
+            # serving path passes none; training writes it)
+            fwd_ms=kernel_ms(torch, fa_ops.launcher(q, k, v, o2, window=window, softcap=cap)),
+            fwd_lse_ms=kernel_ms(torch, fa_ops.launcher(q, k, v, o2, lse=torch.empty_like(lse0), window=window,
+                                                        softcap=cap)),
+            # device time by kernel of one backward call (Δ, kernel A, kernel B)
+            kernels=step_trace(torch, run, 2)["top"],
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err, max_rel_err=rel, pairs=pairs)
         rows[window]["bound_share"] = b_ms / rows[window]["ms"]
-        del dq, dk, dv, o
+        del dq, dk, dv, o, o0, o2, lse, lse0
         torch.cuda.empty_cache()
     # The yardstick: the backward alone of SDPA at cap 0 (the band mask for
     # the local layer), timed around autograd.grad of one forward.
@@ -2407,7 +2555,9 @@ def phase_flash_backward(torch):
         print(f"phase 2 flash_attention_bwd {row['shape']} window {4096 if r is rows[4096] else 0}: "
               f"kernel {r['ms']:.6f} ms (softcap 0: {r['ms_softcap0']:.6f} ms), plain {r['plain_ms']:.6f} ms, "
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}, share {r['bound_share']:.4f}), SDPA backward "
-              f"softcap 0 {r['library_ms']:.6f} ms ({r['library_backend']}), max_abs_err {r['max_abs_err']!r}")
+              f"softcap 0 {r['library_ms']:.6f} ms ({r['library_backend']}), max_abs_err {r['max_abs_err']!r}; "
+              f"by kernel {json.dumps(r['kernels'])}; the forward {r['fwd_ms']:.6f} ms, with its lse write "
+              f"{r['fwd_lse_ms']:.6f} ms")
     return row
 
 
@@ -2643,13 +2793,38 @@ def train_cli(torch) -> dict:
     return dict(wall_s=wall, checkpoints=saved)
 
 
+def train_cli_moe(torch) -> dict:
+    """Phase 10.5: launch/train.py --arch deepseek-v2-236b --reduced on the
+    card, 3 steps: MLA's reduced widths (48, 32) through the padded route,
+    forward and backward."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import train
+
+    counters = train_counters()
+    held = padded_counts(counters)
+    (_, opt), wall, launches = counted(torch, lambda: train.main(["--arch", "deepseek-v2-236b", "--reduced",
+                                                                   "--steps", "3", "--device", "cuda"]),
+                                       counters=counters)
+    padded = {n: c - held[n] for n, c in padded_counts(counters).items()}
+    check(int(opt["step"]) == 3, f"train.py deepseek-v2-236b: step {int(opt['step'])}")
+    check(launches["flash_attention_bwd"] > 0 and padded["flash_attention_bwd"] == launches["flash_attention_bwd"]
+          and padded["flash_attention"] == launches["flash_attention"],
+          f"train.py deepseek-v2-236b: launches {launches}, padded {padded}")
+    bad = [k for k, m in opt["m"].items() if not bool(torch.isfinite(m).all())]
+    check(not bad, f"train.py deepseek-v2-236b: moments not finite in {bad[:4]}")
+    print(f"phase 10 launch/train.py --arch deepseek-v2-236b --reduced --steps 3 on the card: {wall:.3f} s, "
+          f"launches {launches}, padded {padded} (MLA's 48 / 32 on the {fa_ops.instance(48, 32)} instance)")
+    return dict(wall_s=wall, launches=launches, padded=padded)
+
+
 def phase_train(torch) -> dict:
     """Phase 10: gemma2-9b training on the card, each model freed before
-    the next."""
+    the next; then the training CLI's reduced deepseek-v2 through the
+    padded route."""
     torch.cuda.reset_peak_memory_stats()
     out = {}
     for name, fn in (("bf16 main", train_main), ("f32 oracle", train_oracle), ("restart", train_restart),
-                     ("cli", train_cli)):
+                     ("cli", train_cli), ("cli deepseek-v2-236b", train_cli_moe)):
         t0 = time.perf_counter()
         r = fn(torch)
         gc.collect()
@@ -2753,8 +2928,10 @@ def main() -> int:
     ph9_launches = {name: fn.launches for name, fn in all_counters.items()}
     ph9_pairs = flash_pairs()
     print(f"phase 9 in {time.perf_counter() - t0:.3f} s, launches {ph9_launches}, flash by instance {ph9_pairs}")
+    ph9_padded = padded_counts(all_counters)
     check(ph9_pairs.get(MLA_PAIR, 0) > 0, "phase 9 never launched flash_attention (192, 128)")
-    check(set(ph9_pairs) == {MLA_PAIR}, f"phase 9 launched other flash instances {ph9_pairs}")
+    check(set(ph9_pairs) == {MLA_PAIR, REDUCED_MLA_PAIR} and ph9_padded["flash_attention"] == ph9_pairs[REDUCED_MLA_PAIR],
+          f"phase 9 launched other flash instances {ph9_pairs} (padded {ph9_padded})")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2764,8 +2941,9 @@ def main() -> int:
     ph10_launches = {name: fn.launches for name, fn in all_counters.items()}
     ph10_pairs = flash_pairs()
     ph10_bwd_pairs = {f"{d}x{dv}": n for (d, dv), n in sorted(fa_ops.flash_attention_bwd.by_pair.items())}
+    ph10_padded = padded_counts(all_counters)
     print(f"phase 10 in {time.perf_counter() - t0:.3f} s, launches {ph10_launches}, flash by instance "
-          f"{ph10_pairs}, flash backward by instance {ph10_bwd_pairs}")
+          f"{ph10_pairs}, flash backward by instance {ph10_bwd_pairs}, padded {ph10_padded}")
     check(ph10_launches["flash_attention_bwd"] > 0, "phase 10 never launched flash_attention_bwd")
 
     meta = {
@@ -2810,7 +2988,9 @@ def main() -> int:
             launches_sim=counts["sim"], launches_p2p=counts["p2p"], launches_ph8=counts["ph8"],
             launches_ph9=counts["ph9"], launches_ph10=counts["ph10"],
             launches_by_pair={ph: {key: n for key, n in pairs.items() if (key == MLA_PAIR) == mla}
-                              for ph, pairs in phase_pairs.items()}, **r))
+                              for ph, pairs in phase_pairs.items()},
+            launches_padded={} if mla else {"ph9": ph9_padded["flash_attention"],
+                                            "ph10": ph10_padded["flash_attention"]}, **r))
     source, replaces = attn_meta["decode_attention"]
     line.append(dict(name="decode_attention", route="cuda", source=source, replaces=replaces,
                      launches=serving["launches"]["decode_attention"], launches_sim=sim_launches["decode_attention"],
@@ -2827,7 +3007,7 @@ def main() -> int:
                      launches_sim=sim_launches["flash_attention_bwd"], launches_p2p=p2p_launches["flash_attention_bwd"],
                      launches_ph8=ph8_launches["flash_attention_bwd"], launches_ph9=ph9_launches["flash_attention_bwd"],
                      launches_ph10=ph10_launches["flash_attention_bwd"], launches_by_pair={"ph10": ph10_bwd_pairs},
-                     **bwd_row))
+                     launches_padded={"ph10": ph10_padded["flash_attention_bwd"]}, **bwd_row))
     for k in line:
         k["bound_share"] = k["bound_ms"] / k["ms"]
         k["launches_x_gap_ms"] = k["launches"] * (k["ms"] - k["bound_ms"])

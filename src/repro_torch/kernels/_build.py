@@ -32,6 +32,7 @@ __all__ = [
 
 _KERNELS = Path(__file__).resolve().parent
 SOURCES = tuple(sorted(_KERNELS.glob("*/csrc/*.cu")))
+HEADERS = tuple(sorted(_KERNELS.glob("*/csrc/*.cuh")))   # included by the sources; in the build key
 BUILD_ROOT = _KERNELS.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -59,20 +60,20 @@ _SIGNATURES = {
                                    _P, _P, _I64, _P),
     "repro_priority_requeue_f64": (_P, _P, _P, _c.c_double, _c.c_double,
                                    _P, _P, _I64, _P),
-    # q, k, v, o; B, H, KV, Sq, Sk, D (q and k), Dv (v and o); q strides;
-    # k/v strides; causal, window, softcap; stream
-    **{f"repro_flash_attention_{t}": (_P, _P, _P, _P, *(_I64,) * 7, *(_I64,) * 6,
-                                      _c.c_int, _I64, _c.c_float, _P)
+    # q, k, v, o, lse (or null); B, H, KV, Sq, Sk, D (q and k), Dv (v and o);
+    # q strides; k/v strides; causal, window, softcap, scale; stream
+    **{f"repro_flash_attention_{t}": (_P, _P, _P, _P, _P, *(_I64,) * 7, *(_I64,) * 6,
+                                      _c.c_int, _I64, _c.c_float, _c.c_float, _P)
        for t in ("f32", "bf16")},
     # q, k, v, o, dO, dq, dk, dv, lse, delta; B, H, KV, Sq, Sk, D, Dv; q strides;
-    # k/v strides; causal, window, softcap; stream
+    # k/v strides; causal, window, softcap, scale; stream
     **{f"repro_flash_attention_bwd_{t}": (*(_P,) * 10, *(_I64,) * 7, *(_I64,) * 6,
-                                          _c.c_int, _I64, _c.c_float, _P)
+                                          _c.c_int, _I64, _c.c_float, _c.c_float, _P)
        for t in ("f32", "bf16")},
     # q, k, v, o, ws_m, ws_l, ws_acc; B, KV, rep, S, D, pos; k/v strides;
-    # window, softcap, split; stream
+    # window, softcap, scale, split; stream
     **{f"repro_decode_attention_{t}": (*(_P,) * 7, *(_I64,) * 6, *(_I64,) * 3,
-                                       _I64, _c.c_float, _I64, _P)
+                                       _I64, _c.c_float, _c.c_float, _I64, _P)
        for t in ("f32", "bf16")},
 }
 
@@ -90,7 +91,7 @@ def _nvcc() -> str:
 
 def _key() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -4,7 +4,8 @@
 // src/repro/kernels/decode_attention/decode_attention.py:65
 // (decode_attention_pallas, _kernel): the rep = H / KV query heads of
 // one kv group against the group's cache, keys masked by kp <= pos and,
-// with a window, pos - kp < window; scale D^-0.5, tanh soft-cap, online
+// with a window, pos - kp < window; the caller's scale (D^-0.5 of the
+// true head width), tanh soft-cap, online
 // softmax in float32, p rounded to the value type before the PV product,
 // output acc / max(l, 1e-30).
 //
@@ -72,7 +73,7 @@ struct Params {
   float* ws_acc;  // (B, KV, nsplit, rep, D)
   int B, KV, rep, S, pos, window, split, nsplit;
   int64_t kv_sb, kv_ss, kv_sh;  // k and v strides (elements): batch, sequence, head
-  float qk_scale;  // D^-0.5 · log2 e, or D^-0.5 / softcap with a soft-cap
+  float qk_scale;  // scale · log2 e, or scale / softcap with a soft-cap
   float cap_log2;  // softcap · log2 e, or 0 without one
 };
 
@@ -424,7 +425,7 @@ template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, float* ws_m, float* ws_l,
              float* ws_acc, int64_t B, int64_t KV, int64_t rep, int64_t S, int64_t D, int64_t pos,
              int64_t kv_sb, int64_t kv_ss, int64_t kv_sh, int64_t window, float softcap,
-             int64_t split, void* stream) {
+             float scale, int64_t split, void* stream) {
   if (rep < 1 || rep > kMaxRep || split < 1 || pos < 0 || pos >= S) return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
@@ -433,7 +434,6 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* ws_m, 
   p.window = (int)window; p.split = (int)split;
   p.nsplit = (int)((S + split - 1) / split);
   p.kv_sb = kv_sb; p.kv_ss = kv_ss; p.kv_sh = kv_sh;
-  const float scale = (float)(1.0 / sqrt((double)D));
   p.qk_scale = softcap > 0.f ? scale / softcap : scale * kLog2e;
   p.cap_log2 = softcap > 0.f ? softcap * kLog2e : 0.f;
   switch (D) {
@@ -450,23 +450,25 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* ws_m, 
 extern "C" {
 
 // The workspace holds B·KV·ceil(S/split)·rep floats for m and for l, and
-// D times that for acc; the wrapper allocates it.
+// D times that for acc; the wrapper allocates it. scale multiplies q·k:
+// the wrapper passes the true head width's D^-0.5, which differs from
+// this instance's where it pads q and the cache with zero columns.
 int repro_decode_attention_f32(const void* q, const void* k, const void* v, void* o, float* ws_m,
                                float* ws_l, float* ws_acc, int64_t B, int64_t KV, int64_t rep,
                                int64_t S, int64_t D, int64_t pos, int64_t kv_sb, int64_t kv_ss,
-                               int64_t kv_sh, int64_t window, float softcap, int64_t split,
-                               void* stream) {
+                               int64_t kv_sh, int64_t window, float softcap, float scale,
+                               int64_t split, void* stream) {
   return dispatch<float>(q, k, v, o, ws_m, ws_l, ws_acc, B, KV, rep, S, D, pos, kv_sb, kv_ss,
-                         kv_sh, window, softcap, split, stream);
+                         kv_sh, window, softcap, scale, split, stream);
 }
 
 int repro_decode_attention_bf16(const void* q, const void* k, const void* v, void* o, float* ws_m,
                                 float* ws_l, float* ws_acc, int64_t B, int64_t KV, int64_t rep,
                                 int64_t S, int64_t D, int64_t pos, int64_t kv_sb, int64_t kv_ss,
-                                int64_t kv_sh, int64_t window, float softcap, int64_t split,
-                                void* stream) {
+                                int64_t kv_sh, int64_t window, float softcap, float scale,
+                                int64_t split, void* stream) {
   return dispatch<bf16>(q, k, v, o, ws_m, ws_l, ws_acc, B, KV, rep, S, D, pos, kv_sb, kv_ss,
-                        kv_sh, window, softcap, split, stream);
+                        kv_sh, window, softcap, scale, split, stream);
 }
 
 }  // extern "C"

@@ -12,18 +12,27 @@ on checked CUDA tensors, workspace included, for the wrapper and for
 timing it alone. ``split_size`` chooses the keys a block of the split
 pass takes from (B, KV, S) alone, and ``workspace_floats`` sizes the
 workspace from it, so the launch and its workspace cannot disagree.
+
+A head width without an instance takes the padded route on the card:
+the smallest of ``HEAD_DIMS`` at least as wide runs on q and a copy of
+the cache with zero columns appended (k and v two column ranges of one
+new buffer ``[k | 0 | v | 0]``) at the true width's scale D^-0.5, and the
+output's zero columns are sliced off; ``decode_attention.padded`` counts
+those calls. D > 256 raises.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
 from .. import _build
+from ..flash_attention.ops import pad_qkv
 from .ref import decode_attention_ref
 
-__all__ = ["decode_attention", "launcher", "split_size", "workspace_floats", "HEAD_DIMS", "MAX_REP",
-           "CHUNK", "WAVE", "BLOCK_COST"]
+__all__ = ["decode_attention", "launcher", "split_size", "workspace_floats", "instance", "HEAD_DIMS",
+           "MAX_REP", "CHUNK", "WAVE", "BLOCK_COST"]
 
 _ENTRY = {torch.float32: "repro_decode_attention_f32", torch.bfloat16: "repro_decode_attention_bf16"}
 HEAD_DIMS = (32, 64, 128, 256)   # the kernel's instances
@@ -49,6 +58,12 @@ def split_size(B: int, KV: int, S: int) -> int:
             best_n, best = n, cost
     per = -(-S // best_n)
     return -(-per // CHUNK) * CHUNK
+
+
+def instance(D: int) -> int | None:
+    """The kernel instance that runs head width D: the smallest of
+    ``HEAD_DIMS`` ≥ D, or None."""
+    return min((d for d in HEAD_DIMS if d >= D), default=None)
 
 
 def workspace_floats(B: int, KV: int, rep: int, S: int, D: int, split: int) -> int:
@@ -79,31 +94,40 @@ def decode_attention(q, k, v, pos: int, *, window: int = 0, softcap: float = 0.0
     if dev.type == "cpu":
         return decode_attention_ref(q, k, v, pos, window=window, softcap=softcap)
     rep = H // KV
-    if D not in HEAD_DIMS or rep > MAX_REP:
-        raise ValueError(f"decode_attention: the kernel takes D in {HEAD_DIMS} and at most "
-                         f"{MAX_REP} query heads a kv group, got D {D}, {rep}")
+    Dk = instance(D)
+    if Dk is None or rep > MAX_REP:
+        raise ValueError(f"decode_attention: the kernel takes D up to an instance of {HEAD_DIMS} (padded "
+                         f"to the smallest that covers it) and at most {MAX_REP} query heads a kv group, "
+                         f"got D {D}, {rep}")
+    padded = Dk != D
+    if padded:
+        q, k, v = pad_qkv(q, k, v, (Dk, Dk))
     if not q.is_contiguous():
         raise ValueError("decode_attention: q must be contiguous")
     if k.stride() != v.stride():
         raise ValueError("decode_attention: k and v must have the same strides")
     _build.check_rows("decode_attention", dict(q=q, k=k, v=v))
-    o = torch.empty((B, H, D), dtype=dtype, device=dev)
+    o = torch.empty((B, H, Dk), dtype=dtype, device=dev)
     if B == 0:
-        return o
-    run = launcher(q, k, v, o, pos, window=window, softcap=softcap)
+        return o[..., :D]
+    run = launcher(q, k, v, o, pos, window=window, softcap=softcap, scale=1.0 / math.sqrt(D))
     decode_attention.launches += 1
+    decode_attention.padded += int(padded)
     run()
-    return o
+    return o[..., :D].contiguous() if padded else o
 
 
-def launcher(q, k, v, o, pos: int, *, window: int = 0, softcap: float = 0.0, split: int | None = None):
+def launcher(q, k, v, o, pos: int, *, window: int = 0, softcap: float = 0.0, split: int | None = None,
+             scale: float | None = None):
     """The kernel's launch into ``o`` (B, H, D) as a closure, on CUDA
-    tensors that ``decode_attention`` has checked; the closure holds the
-    split pass's float32 workspace (m, l, then acc per split and head).
-    ``split`` overrides ``split_size`` (for measuring the choice)."""
+    tensors that ``decode_attention`` has checked, at q's width; the
+    closure holds the split pass's float32 workspace (m, l, then acc per
+    split and head). ``split`` overrides ``split_size`` (for measuring the
+    choice); ``scale`` defaults to D^-0.5."""
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     rep = H // KV
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     split = split_size(B, KV, S) if split is None else split
     ws = torch.empty(workspace_floats(B, KV, rep, S, D, split), dtype=torch.float32, device=q.device)
     n = ws.numel() // (D + 2)
@@ -111,7 +135,7 @@ def launcher(q, k, v, o, pos: int, *, window: int = 0, softcap: float = 0.0, spl
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             ws.data_ptr(), ws[n:].data_ptr(), ws[2 * n:].data_ptr(),
             B, KV, rep, S, D, int(pos), k.stride(0), k.stride(1), k.stride(2),
-            int(window), float(softcap), split, _build.stream_of(q.device))
+            int(window), float(softcap), float(scale), split, _build.stream_of(q.device))
 
     def run(_hold=(q, k, v, o, ws)):
         _build.check(fn(*args), "decode_attention")
@@ -119,3 +143,4 @@ def launcher(q, k, v, o, pos: int, *, window: int = 0, softcap: float = 0.0, spl
 
 
 decode_attention.launches = 0
+decode_attention.padded = 0

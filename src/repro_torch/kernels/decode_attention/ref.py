@@ -18,13 +18,15 @@ __all__ = ["NEG_INF", "decode_attention_ref"]
 NEG_INF = -2.0e38
 
 
-def decode_attention_ref(q, k, v, pos: int, *, window=0, softcap=0.0):
-    """q: (B, H, D); k, v: (B, S, KV, D); pos an int → (B, H, D)."""
+def decode_attention_ref(q, k, v, pos: int, *, window=0, softcap=0.0, scale=None):
+    """q: (B, H, D); k, v: (B, S, KV, D); pos an int → (B, H, D), scores
+    scaled by ``scale`` (default D^-0.5; the kernel's padded route runs a
+    wider instance at the true width's scale)."""
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     rep = H // KV
     qg = q.reshape(B, KV, rep, D)
-    s = torch.einsum("bgrd,bkgd->bgrk", qg.float(), k.float()) * (D ** -0.5)
+    s = torch.einsum("bgrd,bkgd->bgrk", qg.float(), k.float()) * (D ** -0.5 if scale is None else scale)
     warm_host_math(s)
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)

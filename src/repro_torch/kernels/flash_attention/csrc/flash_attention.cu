@@ -11,7 +11,8 @@
 // strides (batch, sequence, head; the head dimension D contiguous), so
 // the model's projections go in without a transpose; o is a contiguous
 // (B, Sq, H, D). Every body is templated on <DQK, DV>: q and k are DQK
-// wide and v and o DV wide, the scale is DQK^-0.5. The <D, D> instances
+// wide and v and o DV wide; the scale is the caller's (D^-0.5 of the
+// true head width, which the wrapper may have padded). The <D, D> instances
 // (D 32, 64, 128, 256) serve the GQA families; <192, 128> serves MLA's
 // prefill (src/repro/models/mla.py:63, nope 128 + rope 64 against values
 // of 128), where k and v are two column ranges of one (B, S, H, 320)
@@ -22,7 +23,10 @@
 // finite value, so a row whose first visited tile is fully masked gets
 // p = 1 there and the first unmasked tile wipes it (corr = 0), exactly
 // as in the TPU kernel. The wrapper rejects inputs where a query row has
-// no visible key at all.
+// no visible key at all. Given an lse buffer, each body also writes every
+// row's log-sum-exp of its scaled, capped, masked scores (float32, natural
+// units, from the row max and sum it already keeps) for the backward
+// (flash_attention_bwd.cu); the serving path passes none.
 //
 // Bound on an H100: operations. Causal prefill of gemma2-9b (B 1,
 // S 8192, H 16, D 256, bf16) needs 2·2·B·H·S²·D/2 = 5.5e11 FLOP, 0.56 ms
@@ -72,17 +76,10 @@
 //    thread owning a row slice of the accumulator in registers. It
 //    serves the float32 model, not the bf16 serving path.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr float kNegInf = -2.0e38f;
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kThreads = 256;  // the float32 body
 
 struct Params {
@@ -90,6 +87,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, lse_stride(Sq)) row log-sum-exp, or null
   int B, H, KV, Sq, Sk;
   int64_t q_sb, q_ss, q_sh;     // q strides (elements): batch, sequence, head
   int64_t kv_sb, kv_ss, kv_sh;  // k and v strides (the same for both)
@@ -122,136 +120,6 @@ __device__ __forceinline__ void key_range(int Sq, int Sk, int causal, int window
 // bfloat16: warp-specialised wgmma with a TMA ring
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Spin until the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (16-byte units), swizzle (1: 128 B, 2: 64 B).
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint32_t swizzle) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | ((uint64_t)swizzle << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of an accumulator
-// across the asynchronous wgmma that owns it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// The same for a register A operand: its registers must hold their
-// values until the wgmma that reads them has completed.
-__device__ __forceinline__ void fence_frags(uint32_t (&a)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
-}
-
-#define ACC8(i)                                                                               \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// D(64 x 64, f32) (+)= A(64 x 16, smem, K-major) · B(16 x 64, smem, K-major).
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16"
-      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// D(64 x 64, f32) += A(64 x 16, registers) · B(16 x 64, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16"
-      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
-      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D(64 x 32, f32) += A(64 x 16, registers) · B(16 x 32, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16"
-      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
-      " {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : ACC8(0), ACC8(8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef ACC8
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// tanh on the SFU (max relative error about 2^-11); the soft-cap's
-// score error is softcap · |tanh| · 2^-11.
-__device__ __forceinline__ float tanh_approx(float x) {
-  float y;
-  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 template <int DQK, int DV>
 struct HopTiles {
   // One box width for q, k and v; the epilogue stages O in the query
@@ -274,8 +142,9 @@ struct HopTiles {
 struct TmaParams {
   CUtensorMap tq, tk, tv;  // rank 4: (DQK or DV, S, heads, B), innermost first
   void* o;
+  float* lse;  // (B, H, lse_stride(Sq)) row log-sum-exp, or null
   int H, rep, Sq, Sk, causal, window;
-  float qk_scale;  // DQK^-0.5 · log2 e, or DQK^-0.5 / softcap with a soft-cap
+  float qk_scale;  // scale · log2 e, or scale / softcap with a soft-cap
   float cap_log2;  // softcap · log2 e, or 0 without one
 };
 
@@ -494,6 +363,11 @@ __global__ void __launch_bounds__(384, 1) flash_bf16_kernel(const __grid_constan
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       den[r] = fmaxf(sum, 1e-30f);
+      // The row's log-sum-exp of the scores t (natural units): m and the
+      // sum live in the exp2 domain.
+      const int qp = row0 + 8 * r;
+      if (p.lse != nullptr && (lane & 3) == 0 && qp < p.Sq)
+        p.lse[((int64_t)b * p.H + h) * lse_stride(p.Sq) + qp] = (m[r] + log2f(sum)) * kLn2;
     }
     constexpr int CPB = BW / 8;  // 16-byte chunks a box row (O takes NBV ≤ NBQ boxes)
     static_assert(NBV <= NBQ, "O is staged in the query tile");
@@ -626,6 +500,8 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(Params p) {
 
   if (qp < p.Sq) {
     float* og = static_cast<float*>(p.o) + (((int64_t)b * p.Sq + qp) * p.H + h) * DV;
+    if (p.lse != nullptr && lane8 == 0)
+      p.lse[((int64_t)b * p.H + h) * lse_stride(p.Sq) + qp] = m_i + logf(l_i);
     const float den = fmaxf(l_i, 1e-30f);
 #pragma unroll
     for (int c = 0; c < NC; ++c) og[lane8 + 8 * c] = o[c] / den;
@@ -642,45 +518,16 @@ int launch(Kernel kernel, size_t smem, const Params& p, int bq, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, fetched from the driver through the runtime
-// (so the library needs no -lcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return (EncodeTiled) nullptr;
-    return reinterpret_cast<EncodeTiled>(ptr);
-  }();
-  return fn;
-}
-
-// A rank-4 map over a strided (B, S, heads, D) bf16 view, boxes of
-// bw columns x rows rows of one head; rows past S read as zeros.
-bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int64_t D, int64_t S,
-            int64_t heads, int64_t B, int64_t s_seq, int64_t s_head, int64_t s_batch, int bw,
-            int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)s_seq * 2, (cuuint64_t)s_head * 2,
-                                 (cuuint64_t)s_batch * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)bw, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-            unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            bw * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int DQK, int DV>
 int launch_bf16(const Params& p, void* stream) {
   using T = HopTiles<DQK, DV>;
+  const size_t smem = T::bytes();
+  // A runtime call first: it makes the device's primary context current in
+  // a host thread that has made none yet (an autograd worker whose first
+  // operation this is), which the driver's tensor-map encoder needs.
+  cudaError_t err = cudaFuncSetAttribute(flash_bf16_kernel<DQK, DV>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   TmaParams t;
@@ -689,31 +536,29 @@ int launch_bf16(const Params& p, void* stream) {
       !encode(fn, &t.tv, p.v, DV, p.Sk, p.KV, p.B, p.kv_ss, p.kv_sh, p.kv_sb, T::BW, T::BK))
     return (int)cudaErrorInvalidValue;
   t.o = p.o;
+  t.lse = p.lse;
   t.H = p.H; t.rep = p.H / p.KV; t.Sq = p.Sq; t.Sk = p.Sk;
   t.causal = p.causal; t.window = p.window;
   t.qk_scale = p.softcap > 0.f ? p.scale / p.softcap : p.scale * kLog2e;
   t.cap_log2 = p.softcap > 0.f ? p.softcap * kLog2e : 0.f;
-  const size_t smem = T::bytes();
-  cudaError_t err = cudaFuncSetAttribute(flash_bf16_kernel<DQK, DV>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((p.Sq + T::BQ - 1) / T::BQ), (unsigned)p.H, (unsigned)p.B);
   flash_bf16_kernel<DQK, DV><<<grid, T::THREADS, smem, (cudaStream_t)stream>>>(t);
   return (int)cudaGetLastError();
 }
 
-Params make_params(const void* q, const void* k, const void* v, void* o, int64_t B, int64_t H,
-                   int64_t KV, int64_t Sq, int64_t Sk, int64_t D, int64_t q_sb, int64_t q_ss,
+Params make_params(const void* q, const void* k, const void* v, void* o, void* lse, int64_t B,
+                   int64_t H, int64_t KV, int64_t Sq, int64_t Sk, int64_t q_sb, int64_t q_ss,
                    int64_t q_sh, int64_t kv_sb, int64_t kv_ss, int64_t kv_sh, int causal,
-                   int64_t window, float softcap) {
+                   int64_t window, float softcap, float scale) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
+  p.lse = static_cast<float*>(lse);
   p.B = (int)B; p.H = (int)H; p.KV = (int)KV; p.Sq = (int)Sq; p.Sk = (int)Sk;
   p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
   p.kv_sb = kv_sb; p.kv_ss = kv_ss; p.kv_sh = kv_sh;
   p.causal = causal; p.window = (int)window;
   p.softcap = softcap;
-  p.scale = (float)(1.0 / sqrt((double)D));  // D = DQK
+  p.scale = scale;
   return p;
 }
 
@@ -721,16 +566,21 @@ Params make_params(const void* q, const void* k, const void* v, void* o, int64_t
 
 extern "C" {
 
-// D is q's and k's width (DQK), Dv v's and o's. Returns
+// D is q's and k's width (DQK), Dv v's and o's. scale multiplies q·k
+// (the wrapper passes the true head width's D^-0.5, which differs from
+// DQK^-0.5 where it pads q and k with zero columns). lse, when not null,
+// receives each row's log-sum-exp of its scaled, capped, masked scores
+// (float32, (B, H, Sq) with row stride Sq rounded up to 4). Returns
 // cudaErrorInvalidValue for a pair other than (32, 32), (64, 64),
 // (128, 128), (256, 256) and (192, 128) (the wrapper checks it first).
-int repro_flash_attention_f32(const void* q, const void* k, const void* v, void* o, int64_t B,
+int repro_flash_attention_f32(const void* q, const void* k, const void* v, void* o, void* lse,
+                              int64_t B,
                               int64_t H, int64_t KV, int64_t Sq, int64_t Sk, int64_t D, int64_t Dv,
                               int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t kv_sb,
                               int64_t kv_ss, int64_t kv_sh, int causal, int64_t window,
-                              float softcap, void* stream) {
-  const Params p = make_params(q, k, v, o, B, H, KV, Sq, Sk, D, q_sb, q_ss, q_sh, kv_sb, kv_ss,
-                               kv_sh, causal, window, softcap);
+                              float softcap, float scale, void* stream) {
+  const Params p = make_params(q, k, v, o, lse, B, H, KV, Sq, Sk, q_sb, q_ss, q_sh, kv_sb, kv_ss,
+                               kv_sh, causal, window, softcap, scale);
   if (D == 192 && Dv == 128)
     return launch(flash_f32_kernel<192, 128>, F32Tiles<192, 128>::bytes(), p, 32, stream);
   if (D != Dv) return (int)cudaErrorInvalidValue;
@@ -745,13 +595,14 @@ int repro_flash_attention_f32(const void* q, const void* k, const void* v, void*
 
 // Also returns cudaErrorInvalidValue when a tensor map cannot describe
 // the views (cuTensorMapEncodeTiled refused them).
-int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int64_t B,
+int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
+                               int64_t B,
                                int64_t H, int64_t KV, int64_t Sq, int64_t Sk, int64_t D, int64_t Dv,
                                int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t kv_sb,
                                int64_t kv_ss, int64_t kv_sh, int causal, int64_t window,
-                               float softcap, void* stream) {
-  const Params p = make_params(q, k, v, o, B, H, KV, Sq, Sk, D, q_sb, q_ss, q_sh, kv_sb, kv_ss,
-                               kv_sh, causal, window, softcap);
+                               float softcap, float scale, void* stream) {
+  const Params p = make_params(q, k, v, o, lse, B, H, KV, Sq, Sk, q_sb, q_ss, q_sh, kv_sb, kv_ss,
+                               kv_sh, causal, window, softcap, scale);
   if (D == 192 && Dv == 128) return launch_bf16<192, 128>(p, stream);
   if (D != Dv) return (int)cudaErrorInvalidValue;
   switch (D) {

@@ -13,18 +13,31 @@ or raises. The wrapper counts its kernel launches in
 ``flash_attention.by_pair[(D, Dv)]``. ``launcher`` builds the kernel's call on
 checked CUDA tensors, for the wrapper and for timing it alone.
 
+Head widths without an instance take the padded route on the card
+(``instance``, ``pad_qkv``): the smallest instance of ``PAIRS`` at least
+as wide on both sides runs on q, k and v with zero columns appended (k
+and v two column ranges of one new buffer ``[k | 0 | v | 0]``) at the
+true width's scale D^-0.5; zero columns add nothing to q·kᵀ and give
+zero columns of o, dv, which are sliced off. ``by_pair`` keys the
+instance launched, and ``flash_attention.padded`` counts the padded
+calls. A width no instance covers (D > 256, or Dv wider than every
+instance as wide as D) raises ``ValueError``.
+
 With grad enabled and an input that requires grad, ``flash_attention``
 goes through ``FlashAttentionFn``: its forward is the same launch (or
-plain version), it saves q, k, v and o, and its backward is
-``flash_attention_bwd`` — on a CUDA tensor the backward kernel
-(``csrc/flash_attention_bwd.cu``, which rebuilds the row statistics
-itself: the forward keeps none), on a host tensor its plain version
-``ref.flash_attention_bwd_ref``. A failed build or launch raises in
-either direction. The backward counts its launches in
-``flash_attention_bwd.launches`` and ``flash_attention_bwd.by_pair``;
+plain version), with the kernel also writing each row's log-sum-exp;
+it saves q, k, v, o and that lse, and its backward is
+``flash_attention_bwd`` — on a CUDA tensor the backward kernels
+(``csrc/flash_attention_bwd.cu``, which take P from the forward's lse),
+on a host tensor its plain version ``ref.flash_attention_bwd_ref``. A
+failed build or launch raises in either direction. The backward counts
+its launches in ``flash_attention_bwd.launches``,
+``flash_attention_bwd.by_pair`` and ``flash_attention_bwd.padded``;
 ``bwd_launcher`` is its timing handle.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -32,12 +45,49 @@ from .. import _build
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_bwd", "FlashAttentionFn", "launcher", "bwd_launcher",
-           "HEAD_DIMS", "PAIRS"]
+           "instance", "pad_qkv", "HEAD_DIMS", "PAIRS"]
 
 _ENTRY = {torch.float32: "repro_flash_attention_f32", torch.bfloat16: "repro_flash_attention_bf16"}
 _BWD_ENTRY = {torch.float32: "repro_flash_attention_bwd_f32", torch.bfloat16: "repro_flash_attention_bwd_bf16"}
 HEAD_DIMS = (32, 64, 128, 256)   # the kernel's instances with v as wide as q and k
 PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)   # every (D, Dv) instance
+
+
+def instance(D: int, Dv: int) -> tuple[int, int] | None:
+    """The kernel instance (DQK, DV) that runs widths (D, Dv): the
+    smallest of ``PAIRS`` with DQK ≥ D and DV ≥ Dv, or None."""
+    fits = [p for p in PAIRS if p[0] >= D and p[1] >= Dv]
+    return min(fits) if fits else None
+
+
+def pad_qkv(q, k, v, pair: tuple[int, int]):
+    """q, k, v with zero columns appended to the instance's widths
+    (DQK, DV): q a new (B, Sq, H, DQK) tensor; k and v the two column
+    ranges of one new (B, Sk, KV, DQK + DV) buffer ``[k | 0 | v | 0]``, so
+    that they share their strides as the kernel requires."""
+    DQK, DV = pair
+    D, Dv = q.shape[-1], v.shape[-1]
+    qp = q.new_zeros(q.shape[:-1] + (DQK,))
+    qp[..., :D] = q
+    buf = k.new_zeros(k.shape[:-1] + (DQK + DV,))
+    buf[..., :D] = k
+    buf[..., DQK:DQK + Dv] = v
+    return qp, buf[..., :DQK], buf[..., DQK:]
+
+
+def _pad_cols(t, width: int):
+    """t with zero columns appended to ``width`` (t itself when as wide)."""
+    if t.shape[-1] == width:
+        return t
+    out = t.new_zeros(t.shape[:-1] + (width,))
+    out[..., :t.shape[-1]] = t
+    return out
+
+
+def lse_stride(Sq: int) -> int:
+    """Row stride of the kernels' (B, H, Sq) log-sum-exp and Δ buffers: Sq
+    rounded up to 4 (``lse_stride`` in ``csrc/hopper.cuh``)."""
+    return -(-Sq // 4) * 4
 
 
 def _checked(q, k, v, window: int, softcap: float):
@@ -56,17 +106,22 @@ def _checked(q, k, v, window: int, softcap: float):
     if Sk < 1 or (window > 0 and Sq > Sk + window - 1):
         raise ValueError(f"flash_attention: a query row sees no key (Sq {Sq}, Sk {Sk}, window {window})")
     if dev.type == "cuda":
-        if (D, Dv) not in PAIRS:
-            raise ValueError(f"flash_attention: the kernel takes D, Dv in {PAIRS}, got {D}, {Dv}")
-        if k.stride() != v.stride():
-            raise ValueError("flash_attention: k and v must have the same strides")
-        _build.check_rows("flash_attention", dict(q=q, k=k, v=v))
+        pair = instance(D, Dv)
+        if pair is None:
+            raise ValueError(f"flash_attention: the kernel takes D, Dv up to an instance of {PAIRS} "
+                             f"(padded to the smallest that covers them), got {D}, {Dv}")
+        if pair == (D, Dv):
+            if k.stride() != v.stride():
+                raise ValueError("flash_attention: k and v must have the same strides")
+            _build.check_rows("flash_attention", dict(q=q, k=k, v=v))
     return dev, dtype
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: float = 0.0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: float = 0.0,
+                    return_lse: bool = False):
     """q: (B, Sq, H, D); k: (B, Sk, KV, D); v: (B, Sk, KV, Dv) → (B, Sq, H, Dv),
-    scores scaled by D^-0.5.
+    scores scaled by D^-0.5; with ``return_lse`` also each row's log-sum-exp
+    (B, H, Sq) float32 of its scaled, capped, masked scores (no graph).
 
     Query and key positions are 0…Sq−1 and 0…Sk−1. Every query row must
     see at least one key (Sk ≥ 1, and Sq ≤ Sk + window − 1 with a
@@ -75,100 +130,146 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: f
     enabled and an input that requires it, the call goes through
     ``FlashAttentionFn``."""
     _checked(q, k, v, window, softcap)
+    if return_lse:
+        return _forward(q, k, v, causal, window, softcap, lse=True)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, bool(causal), int(window), float(softcap))
-    return _forward(q, k, v, causal, window, softcap)
+    return _forward(q, k, v, causal, window, softcap)[0]
 
 
-def _forward(q, k, v, causal, window, softcap):
+def _forward(q, k, v, causal, window, softcap, lse: bool = False):
     """The forward on checked tensors: the plain version on the host, the
-    kernel (counted) on the card."""
+    kernel (counted) on the card; returns (o, lse or None), lse (B, H, Sq)
+    float32 when asked for (on the card a view of a (B, H, lse_stride(Sq))
+    buffer)."""
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+        out = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap, return_lse=lse)
+        return out if lse else (out, None)
     B, Sq, H, D = q.shape
     Dv = v.shape[3]
-    o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
-    if B * Sq * H == 0:
-        return o
-    run = launcher(q, k, v, o, causal=causal, window=window, softcap=softcap)
-    flash_attention.launches += 1
-    flash_attention.by_pair[(D, Dv)] = flash_attention.by_pair.get((D, Dv), 0) + 1
-    run()
-    return o
+    pair = instance(D, Dv)
+    scale = 1.0 / math.sqrt(D)
+    padded = pair != (D, Dv)
+    if padded:
+        q, k, v = pad_qkv(q, k, v, pair)
+    o = torch.empty((B, Sq, H, pair[1]), dtype=q.dtype, device=q.device)
+    lse_t = torch.empty((B, H, lse_stride(Sq)), dtype=torch.float32, device=q.device) if lse else None
+    if B * Sq * H:
+        run = launcher(q, k, v, o, lse=lse_t, causal=causal, window=window, softcap=softcap, scale=scale)
+        flash_attention.launches += 1
+        flash_attention.by_pair[pair] = flash_attention.by_pair.get(pair, 0) + 1
+        flash_attention.padded += int(padded)
+        run()
+    if padded:
+        o = o[..., :Dv].contiguous()
+    return o, (lse_t[..., :Sq] if lse else None)
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention with its backward: the forward kernel (or plain
-    version) one way, ``flash_attention_bwd`` the other."""
+    version) one way, ``flash_attention_bwd`` the other (on the card with
+    the forward's log-sum-exp; the host rebuilds P with a softmax)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
-        o = _forward(q, k, v, causal, window, softcap)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = _forward(q, k, v, causal, window, softcap, lse=q.device.type != "cpu")
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.opts = dict(causal=causal, window=window, softcap=softcap)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, **ctx.opts)
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse=lse, **ctx.opts)
         return dq, dk, dv, None, None, None
 
 
-def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window: int = 0, softcap: float = 0.0):
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window: int = 0, softcap: float = 0.0,
+                        lse=None):
     """Gradients (dq, dk, dv) of ``flash_attention(q, k, v, ...)`` = o at
     the output gradient do (B, Sq, H, Dv), in q's, k's and v's shapes and
-    type: the backward kernel on the card, its plain version on the host."""
+    type: the backward kernels on the card, its plain version on the host.
+
+    ``lse`` is the forward's row log-sum-exp (B, H, Sq) float32
+    (``flash_attention(..., return_lse=True)``): the card's kernels take P
+    from it, so it is required there; the host's plain version rebuilds P
+    without it."""
     dev, dtype = _checked(q, k, v, window, softcap)
     B, Sq, H, D = q.shape
     Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
     for name, t in (("o", o), ("do", do)):
         if not isinstance(t, torch.Tensor) or t.shape != (B, Sq, H, Dv) or t.device != dev:
             raise ValueError(f"flash_attention_bwd: {name} must be a ({B}, {Sq}, {H}, {Dv}) tensor on {dev}")
+    if (lse is not None or dev.type == "cuda") and (not isinstance(lse, torch.Tensor) or lse.shape != (B, H, Sq)
+                                                    or lse.device != dev):
+        raise ValueError(f"flash_attention_bwd: lse must be a ({B}, {H}, {Sq}) tensor on {dev}")
     if dev.type == "cpu":
-        return flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window, softcap=softcap)
+        return flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window, softcap=softcap, lse=lse)
+    ld = lse_stride(Sq)
+    if lse.dtype != torch.float32 or lse.stride() != (H * ld, ld, 1):
+        buf = torch.empty((B, H, ld), dtype=torch.float32, device=dev)
+        buf[..., :Sq] = lse
+        lse = buf[..., :Sq]
+    pair = instance(D, Dv)
+    padded = pair != (D, Dv)
     o, do = o.to(dtype).contiguous(), do.to(dtype).contiguous()
-    dq = torch.empty((B, Sq, H, D), dtype=dtype, device=dev)
-    dk = torch.empty((B, Sk, KV, D), dtype=dtype, device=dev)
-    dv = torch.empty((B, Sk, KV, Dv), dtype=dtype, device=dev)
+    if padded:
+        q, k, v = pad_qkv(q, k, v, pair)
+        o, do = _pad_cols(o, pair[1]), _pad_cols(do, pair[1])
+    dq = torch.empty((B, Sq, H, pair[0]), dtype=dtype, device=dev)
+    dk = torch.empty((B, Sk, KV, pair[0]), dtype=dtype, device=dev)
+    dv = torch.empty((B, Sk, KV, pair[1]), dtype=dtype, device=dev)
     if B * Sq * H == 0:
-        return dq, dk.zero_(), dv.zero_()
-    run = bwd_launcher(q, k, v, o, do, dq, dk, dv, causal=causal, window=window, softcap=softcap)
-    flash_attention_bwd.launches += 1
-    flash_attention_bwd.by_pair[(D, Dv)] = flash_attention_bwd.by_pair.get((D, Dv), 0) + 1
-    run()
+        dk.zero_(), dv.zero_()
+    else:
+        run = bwd_launcher(q, k, v, o, do, dq, dk, dv, lse=lse, causal=causal, window=window, softcap=softcap,
+                           scale=1.0 / math.sqrt(D))
+        flash_attention_bwd.launches += 1
+        flash_attention_bwd.by_pair[pair] = flash_attention_bwd.by_pair.get(pair, 0) + 1
+        flash_attention_bwd.padded += int(padded)
+        run()
+    if padded:
+        return dq[..., :D].contiguous(), dk[..., :D].contiguous(), dv[..., :Dv].contiguous()
     return dq, dk, dv
 
 
-def launcher(q, k, v, o, *, causal: bool = True, window: int = 0, softcap: float = 0.0):
+def launcher(q, k, v, o, *, lse=None, causal: bool = True, window: int = 0, softcap: float = 0.0,
+             scale: float | None = None):
     """The kernel's launch into ``o`` (B, Sq, H, Dv) as a closure, on CUDA
-    tensors that ``flash_attention`` has checked."""
+    tensors that ``flash_attention`` has checked, at q's width (no
+    padding); ``lse``, a float32 (B, H, lse_stride(Sq)) buffer or a view of
+    its first Sq columns, also receives the rows' log-sum-exp. ``scale``
+    defaults to D^-0.5 of q's width."""
     B, Sq, H, D = q.shape
     Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     fn = getattr(_build.library(), _ENTRY[q.dtype])
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, KV, Sq, Sk, D, Dv,
-            q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
-            int(bool(causal)), int(window), float(softcap), _build.stream_of(q.device))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 0 if lse is None else lse.data_ptr(),
+            B, H, KV, Sq, Sk, D, Dv, q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
+            k.stride(2), int(bool(causal)), int(window), float(softcap), float(scale),
+            _build.stream_of(q.device))
 
-    def run(_hold=(q, k, v, o)):
+    def run(_hold=(q, k, v, o, lse)):
         _build.check(fn(*args), "flash_attention")
     return run
 
 
-def bwd_launcher(q, k, v, o, do, dq, dk, dv, *, causal: bool = True, window: int = 0,
-                 softcap: float = 0.0):
-    """The backward kernels' launch (kernel A: lse, Δ and dq; kernel B: dk
-    and dv) into dq, dk, dv as a closure, on CUDA tensors that
-    ``flash_attention_bwd`` has checked (o, do contiguous)."""
+def bwd_launcher(q, k, v, o, do, dq, dk, dv, *, lse, causal: bool = True, window: int = 0,
+                 softcap: float = 0.0, scale: float | None = None):
+    """The backward kernels' launch (bf16: Δ, then kernel A: dq, kernel B:
+    dk and dv; float32: kernel A: Δ and dq, kernel B) into dq, dk, dv as a
+    closure, on CUDA tensors that ``flash_attention_bwd`` has checked, at
+    q's width (o, do contiguous; lse the forward's, laid out as
+    ``launcher`` writes it). ``scale`` defaults to D^-0.5 of q's width."""
     B, Sq, H, D = q.shape
     Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     fn = getattr(_build.library(), _BWD_ENTRY[q.dtype])
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    delta = torch.empty((B, H, lse_stride(Sq)), dtype=torch.float32, device=q.device)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), B, H, KV, Sq, Sk, D, Dv,
             q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
-            int(bool(causal)), int(window), float(softcap), _build.stream_of(q.device))
+            int(bool(causal)), int(window), float(softcap), float(scale), _build.stream_of(q.device))
 
     def run(_hold=(q, k, v, o, do, dq, dk, dv, lse, delta)):
         _build.check(fn(*args), "flash_attention_bwd")
@@ -177,5 +278,7 @@ def bwd_launcher(q, k, v, o, do, dq, dk, dv, *, causal: bool = True, window: int
 
 flash_attention.launches = 0
 flash_attention.by_pair = {}
+flash_attention.padded = 0
 flash_attention_bwd.launches = 0
 flash_attention_bwd.by_pair = {}
+flash_attention_bwd.padded = 0

@@ -83,10 +83,9 @@ def opt_state_from_reference(cfg: ModelConfig, opt_tree: dict, optimizer: str = 
     adamw8's codes tile each leaf's last axis, so a stacked leaf's codes
     split along the stacking axes like the leaf. A stacked scalar (a
     cross block's ``xgate``: one value a layer, the stack its only axis)
-    is quantized across its layers in the reference and alone in the
-    port: its moments are dequantized and requantized per layer."""
-    from ..optim.adamw8 import _quantize
-
+    is quantized across its layers in both packages
+    (``optim.adamw8.stacked_scalars``): each layer's parameter gets its own
+    code and its block's scale, unchanged."""
     if optimizer not in ("adamw", "adamw8"):
         raise ValueError(f"optimizer must be 'adamw' or 'adamw8', got {optimizer!r}")
     out = {"step": torch.tensor(int(np.asarray(opt_tree["step"])), dtype=torch.int64)}
@@ -99,11 +98,13 @@ def opt_state_from_reference(cfg: ModelConfig, opt_tree: dict, optimizer: str = 
             q, scale = np.asarray(leaf["q"]), np.asarray(leaf["scale"])
             n = STACKED.get(path[0], 0)
             if n and q.ndim == n + 1:                   # a stacked scalar: codes (..., nb, b)
-                values = (q.astype(np.float32) * scale[..., None]).reshape(-1)
-                stack = q.shape[:-2] + (q.shape[-2] * q.shape[-1],)
-                for flat, idx in enumerate(itertools.product(*(range(s) for s in stack))):
+                b = q.shape[-1]
+                stack = q.shape[:-2] + (q.shape[-2] * b,)
+                for idx in itertools.product(*(range(s) for s in stack)):
                     name = ".".join([path[0], *map(str, idx), *path[1:]])
-                    state[name] = _quantize(torch.from_numpy(values[flat: flat + 1]))
+                    lead, last = idx[:-1], idx[-1]
+                    state[name] = {"q": tensor_from_numpy(np.reshape(q[lead + (last // b, last % b)], (1, 1))),
+                                   "scale": tensor_from_numpy(np.reshape(scale[lead + (last // b,)], (1,)))}
                 continue
             for idx in itertools.product(*(range(s) for s in q.shape[:n])):
                 name = ".".join([path[0], *map(str, idx), *path[1:]])

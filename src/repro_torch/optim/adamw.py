@@ -1,12 +1,20 @@
 """AdamW with float32 moments over a name → tensor dict of parameters
-(``repro.optim.adamw``), updated in place."""
+(``repro.optim.adamw``), updated in place.
+
+The reference decays every leaf of two or more dimensions, and its
+leaves stack a family's layers (``models.interop.STACKED``): a layer's
+norm scale is a row of a stacked (L, d) leaf there, and decays. The port
+keeps one parameter a layer, so ``decays`` counts the stacking axes of
+a ``<stack>.<i>….<rest>`` name with the parameter's own."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "bias_corrections"]
+from ..models.interop import STACKED
+
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "bias_corrections", "decays", "stack_position"]
 
 
 @dataclass(frozen=True)
@@ -15,6 +23,24 @@ class AdamWConfig:
     b2: float = 0.95
     eps: float = 1e-8
     weight_decay: float = 0.1
+
+
+def stack_position(name: str) -> tuple[tuple[str, ...], tuple[int, ...]] | None:
+    """Where parameter ``<stack>.<i>[.<j>].<rest>`` sits in the reference's
+    stacked leaf: ((<stack>, *<rest>), (i[, j])), or None for a leaf the
+    reference does not stack."""
+    parts = name.split(".")
+    n = STACKED.get(parts[0], 0)
+    if not n or len(parts) <= n + 1 or not all(x.isdigit() for x in parts[1:n + 1]):
+        return None
+    return (parts[0], *parts[n + 1:]), tuple(map(int, parts[1:n + 1]))
+
+
+def decays(name: str, p: torch.Tensor) -> bool:
+    """Whether weight decay applies to parameter ``name``: its leaf in the
+    reference has two or more dimensions (the stacking axes included)."""
+    pos = stack_position(name)
+    return p.dim() + (len(pos[1]) if pos else 0) >= 2
 
 
 def _step_device(params: dict) -> torch.device:
@@ -41,9 +67,9 @@ def bias_corrections(step: torch.Tensor, cfg: AdamWConfig) -> tuple[torch.Tensor
 
 @torch.no_grad()
 def adamw_update(grads: dict, state: dict, params: dict, lr, cfg: AdamWConfig = AdamWConfig()) -> dict:
-    """One AdamW step in place: the moments in float32, decay on ≥ 2-D
-    leaves only, each parameter rewritten as (p.f32 − lr·delta) in its
-    type. Returns ``state`` (its step advanced)."""
+    """One AdamW step in place: the moments in float32, decay where the
+    reference's leaf is ≥ 2-D (``decays``), each parameter rewritten as
+    (p.f32 − lr·delta) in its type. Returns ``state`` (its step advanced)."""
     state["step"] += 1
     b1c, b2c = bias_corrections(state["step"], cfg)
     for name, p in params.items():
@@ -53,7 +79,7 @@ def adamw_update(grads: dict, state: dict, params: dict, lr, cfg: AdamWConfig = 
         v.mul_(cfg.b2).add_(torch.square(g32) * (1 - cfg.b2))
         del g32
         delta = (m / b1c).div_(torch.sqrt(v / b2c).add_(cfg.eps))
-        if p.dim() >= 2:
+        if decays(name, p):
             delta.add_(cfg.weight_decay * p.float())
         p.copy_(p.float() - lr * delta)
     return state

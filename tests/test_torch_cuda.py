@@ -439,15 +439,88 @@ def test_flash_attention_mla_instance(dev, case):
 
 
 def test_flash_attention_refuses_pairs_without_an_instance(dev):
+    """A width no instance covers (D 320; Dv wider than any instance as
+    wide as D) raises; an instance's own widths still need k and v to
+    share their strides (the padded route builds its own buffer)."""
+    q = torch.ones((1, 8, 2, 320), device=dev)
+    with pytest.raises(ValueError, match="takes D"):
+        fa_ops.flash_attention(q, q, q)                                    # (320, 320)
+    with pytest.raises(ValueError, match="takes D"):
+        fa_ops.flash_attention(q[..., :64], q[..., :64], q[..., :300])     # (64, 300)
     q = torch.ones((1, 8, 2, 192), device=dev)
     kv = torch.ones((1, 8, 2, 256), device=dev)
-    with pytest.raises(ValueError, match="takes D"):
-        fa_ops.flash_attention(q, kv[..., :192], kv[..., 192:])       # (192, 64)
     with pytest.raises(ValueError, match="same strides"):
         fa_ops.flash_attention(q, kv[..., :192].contiguous(), kv[..., :128].contiguous())
-    small = torch.ones((1, 8, 2, 80), device=dev)
-    with pytest.raises(ValueError, match="takes D"):
-        fa_ops.flash_attention(small[..., :48], small[..., :48], small[..., 48:])   # reduced MLA (48, 32)
+
+
+# The padded route (C6): widths with no instance run the smallest one that
+# covers them, on zero-padded q, k and v at the true width's scale; MLA's
+# reduced (48, 32), the 100m preset's head_dim 80 and (192, 64), forward
+# and backward, both types; k and v as column ranges of one buffer and,
+# for (80, 80), as separate tensors with their own strides.
+FLASH_PADDED_CASES = [
+    # (B, Sq, Sk, H, KV, D, Dv, causal, window, softcap)
+    (1, 200, 200, 4, 2, 48, 32, True, 0, 0.0),
+    (2, 130, 130, 8, 4, 80, 80, True, 50, 50.0),
+    (1, 77, 200, 4, 4, 192, 64, False, 0, 0.0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", FLASH_PADDED_CASES, ids=str)
+def test_flash_attention_padded_route(dev, case, dtype):
+    B, Sq, Sk, H, KV, D, Dv, causal, window, cap = case
+    rng = np.random.default_rng(Sq + D + Dv)
+    q = _randn(rng, (B, Sq, H, D), dtype, dev, 1.5)
+    if D == Dv:
+        k, v = _randn(rng, (B, Sk, KV, D), dtype, dev, 1.5), _randn(rng, (B, Sk, KV, Dv), dtype, dev)
+    else:
+        kv = torch.cat([_randn(rng, (B, Sk, KV, D), dtype, dev, 1.5), _randn(rng, (B, Sk, KV, Dv), dtype, dev)], -1)
+        k, v = kv[..., :D], kv[..., D:]
+    do = _randn(rng, (B, Sq, H, Dv), dtype, dev)
+    pair = fa_ops.instance(D, Dv)
+    opts = dict(causal=causal, window=window, softcap=cap)
+    before = (fa_ops.flash_attention.padded, fa_ops.flash_attention.by_pair.get(pair, 0),
+              fa_ops.flash_attention_bwd.padded, fa_ops.flash_attention_bwd.by_pair.get(pair, 0))
+    o, lse = fa_ops.flash_attention(q, k, v, return_lse=True, **opts)
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, lse=lse, **opts)
+    torch.cuda.synchronize()
+    after = (fa_ops.flash_attention.padded, fa_ops.flash_attention.by_pair.get(pair, 0),
+             fa_ops.flash_attention_bwd.padded, fa_ops.flash_attention_bwd.by_pair.get(pair, 0))
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
+    assert o.shape == (B, Sq, H, Dv) and [g.shape for g in got] == [q.shape, k.shape, v.shape]
+    plain_o, plain_lse = fa_ref.flash_attention_ref(q, k, v, return_lse=True, **opts)
+    _agree(o, plain_o, dtype)
+    torch.testing.assert_close(lse, plain_lse, rtol=1e-4, atol=1e-4 * float(plain_lse.abs().max()))
+    _grads_agree(got, fa_ref.flash_attention_bwd_ref(q, k, v, o, do, **opts), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("D", [48, 80])
+def test_decode_attention_padded_route(dev, D, dtype):
+    rng = np.random.default_rng(D)
+    q, k, v = _qkv(rng, (4, 8, D), (4, 300, 2, D), dtype, dev)
+    before = da_ops.decode_attention.padded
+    for pos, window, cap in ((299, 0, 50.0), (250, 100, 0.0)):
+        out = da_ops.decode_attention(q, k, v, pos, window=window, softcap=cap)
+        assert out.shape == (4, 8, D)
+        _agree(out, da_ref.decode_attention_ref(q, k, v, pos, window=window, softcap=cap), dtype)
+    assert da_ops.decode_attention.padded == before + 2
+
+
+def test_instance_widths_take_no_padding(dev):
+    """Each instance's own widths run unpadded, the padded counters still."""
+    rng = np.random.default_rng(2)
+    before = fa_ops.flash_attention.padded, da_ops.decode_attention.padded
+    for D, Dv in fa_ops.PAIRS:
+        q = _randn(rng, (1, 70, 2, D), torch.bfloat16, dev)
+        kv = _randn(rng, (1, 70, 2, D + Dv), torch.bfloat16, dev)
+        fa_ops.flash_attention(q, kv[..., :D], kv[..., D:])
+    for D in da_ops.HEAD_DIMS:
+        q, k, v = _qkv(rng, (2, 4, D), (2, 50, 2, D), torch.bfloat16, dev)
+        da_ops.decode_attention(q, k, v, 30)
+    torch.cuda.synchronize()
+    assert (fa_ops.flash_attention.padded, da_ops.decode_attention.padded) == before
 
 
 # The split pass's edges: rep 1-16, S not a multiple of the 32-key chunk,
@@ -490,9 +563,11 @@ def test_decode_attention_rings(dev, W):
 
 
 def test_attention_wrappers_reject_bad_cuda_input(dev):
-    q = torch.ones((1, 8, 2, 48), device=dev)
+    q = torch.ones((1, 8, 2, 320), device=dev)
     with pytest.raises(ValueError, match="takes D"):
         fa_ops.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="takes D"):
+        da_ops.decode_attention(q[:, 0], q, q, 3)
     q = torch.ones((1, 2, 64), device=dev)
     kv = torch.ones((1, 8, 2, 64), device=dev)
     with pytest.raises(ValueError, match="pos 8 outside"):
@@ -774,17 +849,23 @@ def test_moe_layer_and_mla_decode_on_the_card_equal_the_host(dev, arch, cf):
             torch.testing.assert_close(cc[k].cpu(), ch[k], rtol=1e-5, atol=1e-5)
 
 
+MLA_WIDTHS = {"published": dict(qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128), "reduced": {}}
+
+
+@pytest.mark.parametrize("widths", sorted(MLA_WIDTHS))
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-v3-671b"])
-def test_reduced_moe_model_on_the_card_equals_the_host(dev, arch):
-    """Reduced deepseek with the published MLA head widths (nope 128, rope
-    64, v 128: the flash kernel's (192, 128) instance; the reduced widths
-    48 / 32 have none), float32: prefill (flash kernel) and 12 decode
-    steps on the card against the host, and both latent caches."""
-    cfg, host, card = _moe_pair(dev, arch, qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128)
+def test_reduced_moe_model_on_the_card_equals_the_host(dev, arch, widths):
+    """Reduced deepseek, float32, at the published MLA head widths (nope
+    128, rope 64, v 128: the flash kernel's (192, 128) instance) and at
+    the reduced config's own (48, 32), which take the padded route to
+    (64, 64): prefill (flash kernel) and 12 decode steps on the card
+    against the host, and both latent caches."""
+    cfg, host, card = _moe_pair(dev, arch, **MLA_WIDTHS[widths])
     toks = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 12)))
-    before = fa_ops.flash_attention.launches
+    before = fa_ops.flash_attention.launches, fa_ops.flash_attention.padded
     (lh, ah), (lc, ac) = host.forward(toks), card.forward(toks.to(dev))
-    assert fa_ops.flash_attention.launches == before + cfg.num_layers
+    assert fa_ops.flash_attention.launches == before[0] + cfg.num_layers
+    assert fa_ops.flash_attention.padded == before[1] + (cfg.num_layers if widths == "reduced" else 0)
     torch.testing.assert_close(lc.cpu(), lh, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(ac.cpu(), ah, rtol=1e-5, atol=1e-7)
     ch, cc = decode.init_cache(host, 2, 16), decode.init_cache(card, 2, 16)
@@ -801,7 +882,8 @@ def test_reduced_moe_model_on_the_card_equals_the_host(dev, arch):
 
 # (B, Sq, Sk, H, KV, D, Dv, causal, window, softcap): every (D, Dv)
 # instance, GQA rep 1/2/3/10/16, ragged lengths, window edges inside a
-# 32-row tile, Sq < Sk non-causal, soft-cap 0 and 50.
+# tile, Sq < Sk and Sq > Sk non-causal, soft-cap 0 and 50, and a window
+# of 1 (each row sees only itself: dq and dk are zero but for rounding).
 FLASH_BWD_CASES = [
     (1, 77, 77, 4, 2, 32, 32, True, 0, 0.0),
     (2, 200, 200, 6, 2, 64, 64, True, 50, 50.0),
@@ -811,18 +893,23 @@ FLASH_BWD_CASES = [
     (1, 200, 200, 8, 8, 192, 128, True, 0, 0.0),
     (1, 1000, 1000, 16, 16, 192, 128, False, 0, 0.0),
     (2, 64, 64, 2, 2, 128, 128, True, 2, 50.0),
+    (2, 64, 64, 2, 2, 32, 32, True, 1, 50.0),
+    (2, 200, 77, 8, 2, 128, 128, False, 0, 0.0),
 ]
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
-def _grads_agree(got, want, dtype):
-    """Each of dq, dk, dv: max |diff| ≤ tol · max |plain| (f32 1e-4, bf16
-    2e-2), and in bf16 the mean error under 1% of the mean |plain|."""
+def _grads_agree(got, want, dtype, floor=0.0):
+    """Each of dq, dk, dv: max |diff| ≤ tol · max(max |plain|, floor) (f32
+    1e-4, bf16 2e-2; ``floor`` a tenth of the call's largest gradient for a
+    window of 1, as tests/test_torch_flash_bwd.py holds it), and in bf16,
+    where the floor does not bind, the mean error under 1% of the mean
+    |plain|."""
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == b.dtype == dtype and a.shape == b.shape, name
-        err = float((a.float() - b.float()).abs().max())
-        assert err <= BWD_TOL[dtype] * float(b.float().abs().max()), f"{name}: {err}"
-        if dtype == torch.bfloat16:
+        err, big = float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
+        assert err <= BWD_TOL[dtype] * max(big, floor), f"{name}: {err}"
+        if dtype == torch.bfloat16 and big >= floor:
             assert float((a.float() - b.float()).abs().mean()) < 0.01 * float(b.float().abs().mean()), name
 
 
@@ -835,15 +922,15 @@ def test_flash_attention_backward_kernel(dev, case, dtype):
     kv = torch.cat([_randn(rng, (B, Sk, KV, D), dtype, dev, 1.5), _randn(rng, (B, Sk, KV, Dv), dtype, dev)], -1)
     k, v = kv[..., :D], kv[..., D:]          # one buffer, as MLA's (and the strides the kernel reads)
     do = _randn(rng, (B, Sq, H, Dv), dtype, dev)
-    o = fa_ops.flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+    o, lse = fa_ops.flash_attention(q, k, v, causal=causal, window=window, softcap=cap, return_lse=True)
     before = fa_ops.flash_attention_bwd.launches, fa_ops.flash_attention_bwd.by_pair.get((D, Dv), 0)
-    got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, softcap=cap)
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, softcap=cap, lse=lse)
     torch.cuda.synchronize()
     assert fa_ops.flash_attention_bwd.launches == before[0] + 1
     assert fa_ops.flash_attention_bwd.by_pair[(D, Dv)] == before[1] + 1
     want = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window, softcap=cap)
-    _grads_agree(got, want, dtype)
-    again = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, softcap=cap)
+    _grads_agree(got, want, dtype, 0.1 * max(float(w.float().abs().max()) for w in want) if window == 1 else 0.0)
+    again = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, softcap=cap, lse=lse)
     for a, b in zip(got, again):          # no atomics: the same bits every run
         assert torch.equal(a, b)
 
@@ -862,13 +949,49 @@ def test_flash_attention_autograd_launches_both_kernels(dev):
     _grads_agree((q.grad, k.grad, v.grad), want, torch.bfloat16)
 
 
+def test_flash_attention_kernels_from_a_fresh_host_thread(dev):
+    """The forward and backward as the first CUDA work of a new host
+    thread (an autograd worker's first node is one): the entries make the
+    device's context current before the driver encodes their tensor maps."""
+    import threading
+
+    rng = np.random.default_rng(8)
+    q, k, v = _qkv(rng, (1, 300, 8, 128), (1, 300, 4, 128), torch.bfloat16, dev)
+    do = _randn(rng, (1, 300, 8, 128), torch.bfloat16, dev)
+    want_o = fa_ref.flash_attention_ref(q, k, v, window=100, softcap=50.0)
+    out, errors = {}, []
+
+    def run():
+        try:
+            o, lse = fa_ops.flash_attention(q, k, v, window=100, softcap=50.0, return_lse=True)
+            out["o"] = o
+            out["g"] = fa_ops.flash_attention_bwd(q, k, v, o, do, window=100, softcap=50.0, lse=lse)
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 (reported below, on the test's thread)
+            errors.append(e)
+
+    for _ in range(2):
+        th = threading.Thread(target=run)
+        th.start()
+        th.join()
+        assert not errors, errors
+        _agree(out["o"], want_o, torch.bfloat16)
+        _grads_agree(out["g"], fa_ref.flash_attention_bwd_ref(q, k, v, out["o"], do, window=100, softcap=50.0),
+                     torch.bfloat16)
+
+
 def test_flash_attention_backward_refuses_what_it_cannot_take(dev):
-    q = torch.ones((1, 8, 2, 80), device=dev)
-    o = torch.ones((1, 8, 2, 80), device=dev)
+    q = torch.ones((1, 8, 2, 320), device=dev)
+    o = torch.ones((1, 8, 2, 320), device=dev)
     with pytest.raises(ValueError, match="takes D"):
         fa_ops.flash_attention_bwd(q, q, q, o, o)
     with pytest.raises(ValueError, match="do must be"):
         fa_ops.flash_attention_bwd(q[..., :64], q[..., :64], q[..., :64], o[..., :64], o[..., :32])
+    q64, o64 = q[..., :64].contiguous(), o[..., :64].contiguous()
+    with pytest.raises(ValueError, match="lse must be"):              # the card's kernels take P from it
+        fa_ops.flash_attention_bwd(q64, q64, q64, o64, o64)
+    with pytest.raises(ValueError, match="lse must be"):
+        fa_ops.flash_attention_bwd(q64, q64, q64, o64, o64, lse=torch.zeros((1, 2, 7), device=dev))
 
 
 def test_reduced_training_on_the_card_equals_the_host(dev):

@@ -9,10 +9,13 @@ same inputs from a NumPy seed: max |diff| ≤ 2e-5 · max |reference| in
 float32, 2e-2 in bf16 (the bf16 oracle rounds its scores and P to bf16
 before its products; the port's backward sums in float32 throughout).
 Then ``FlashAttentionFn``'s plumbing on the host, the wrapper's checks,
-and the two kernels' walks over tiles (kernel A's key tiles a query
-tile sees, kernel B's query tiles a key tile is seen by), written out
-as the kernel writes them and held against the mask: the card alone can
-run the kernel (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+and the kernels' walks over tiles (kernel A's key tiles a query tile
+sees, kernel B's query tiles a key tile is seen by; the float32 kernels'
+32-row tiles and the bf16 kernels' 128-row blocks of two 64-row
+warpgroups and 64-key blocks, with the tiles that skip the mask test),
+written out as the kernels write them and held against the mask: the
+card alone can run the kernels (``tests/test_torch_cuda.py``,
+``chip_smoke.py``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -198,3 +201,77 @@ def test_both_walks_cover_every_visible_pair(Sq, Sk, causal, window):
             for q0 in range(0, Sq, BQ):
                 for k0 in range(0, Sk, BK):
                     assert not seen[q0, k0] or want[q0:q0 + BQ, k0:k0 + BK].any(), (q0, k0)
+
+
+# -- the bf16 kernels' walks (csrc/flash_attention_bwd.cu: flash_bwd_dq_bf16_kernel,
+# flash_bwd_dkv_bf16_kernel), written out as the kernels write them
+
+BF16_SHAPES = [
+    (77, 77, True, 0), (200, 200, True, 100), (1000, 1000, True, 333), (77, 200, False, 0),
+    (200, 77, False, 0), (130, 130, True, 45), (1000, 1000, True, 1), (64, 64, True, 1),
+    (256, 256, True, 64), (8192, 8192, True, 4096), (2048, 1601, False, 0), (200, 200, False, 50),
+]
+
+
+def dq_tiles(Sq, Sk, causal, window, qw0, q0):
+    """Kernel A: the key tiles of 64 of the block at q0 (128 rows) and the
+    visible ones [t_lo, t_hi) of its warpgroup at qw0 (64 rows)."""
+    bq, bk = 128, 64
+    ke = min(Sk, min(q0 + bq, Sq)) if causal else Sk
+    kb = max(0, q0 - window + 1) // bk * bk if window > 0 else 0
+    nt = (ke - kb + bk - 1) // bk
+    t_lo = t_hi = 0
+    if qw0 < Sq:
+        t_hi = min(nt, (qw0 + 63 - kb) // bk + 1) if causal else nt
+        x = qw0 - window + 2 - bk - kb
+        if window > 0 and x > 0:
+            t_lo = min(t_hi, (x + bk - 1) // bk)
+    return kb, t_lo, t_hi
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window", BF16_SHAPES)
+def test_bf16_dq_walk_covers_every_visible_pair(Sq, Sk, causal, window):
+    """Every visible pair lies in a tile its warpgroup reads; a tile it
+    skips holds none; a tile it reads without the mask test (not an edge)
+    holds only visible pairs."""
+    qp, kp = np.arange(Sq)[:, None], np.arange(Sk)[None, :]
+    want = visible(qp, kp, Sq, Sk, causal, window)
+    seen = np.zeros((Sq, Sk), bool)
+    for q0 in range(0, Sq, 128):
+        for qw0 in (q0, q0 + 64):
+            kb, t_lo, t_hi = dq_tiles(Sq, Sk, causal, window, qw0, q0)
+            rows = np.arange(qw0, qw0 + 64)[:, None]
+            for t in range(t_lo, t_hi):
+                k0 = kb + 64 * t
+                keys = np.arange(k0, k0 + 64)[None, :]
+                ok = visible(rows, keys, Sq, Sk, causal, window)
+                edge = (k0 + 64 > Sk or qw0 + 63 >= Sq or (causal and k0 + 63 > qw0)
+                        or (window > 0 and k0 <= qw0 + 63 - window))
+                assert edge or ok.all(), (qw0, k0)
+                r, c = np.nonzero(ok)
+                seen[rows[r, 0], keys[0, c]] = True
+    np.testing.assert_array_equal(seen, want)
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window", BF16_SHAPES)
+def test_bf16_dkv_walk_covers_every_visible_pair(Sq, Sk, causal, window):
+    """Kernel B: a block of 64 keys walks the query tiles of 64 rows from
+    q_begin to q_end; every visible pair lies in one, and a tile without the
+    mask test (not an edge) holds only visible pairs."""
+    qp, kp = np.arange(Sq)[:, None], np.arange(Sk)[None, :]
+    want = visible(qp, kp, Sq, Sk, causal, window)
+    seen = np.zeros((Sq, Sk), bool)
+    for k0 in range(0, Sk, 64):
+        k_last = min(k0 + 64, Sk) - 1
+        q_begin = k0 if causal else 0
+        q_end = min(Sq, k_last + window) if window > 0 else Sq
+        keys = np.arange(k0, k0 + 64)[None, :]
+        for q0 in range(q_begin, q_end, 64):
+            rows = np.arange(q0, q0 + 64)[:, None]
+            ok = visible(rows, keys, Sq, Sk, causal, window)
+            edge = (q0 + 64 > Sq or k0 + 64 > Sk or (causal and k0 + 63 > q0)
+                    or (window > 0 and q0 + 63 - k0 >= window))
+            assert edge or ok.all(), (k0, q0)
+            r, c = np.nonzero(ok)
+            seen[rows[r, 0], keys[0, c]] = True
+    np.testing.assert_array_equal(seen, want)

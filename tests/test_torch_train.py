@@ -272,7 +272,9 @@ def test_resume_from_the_reference_state(optimizer):
 
 def test_adamw8_state_of_a_stacked_scalar_is_requantized_per_layer():
     """The vlm family's cross-block tanh gates are one scalar a layer,
-    stacked: the reference quantizes them together, the port one by one."""
+    stacked in the reference and quantized there as one block: carried
+    across, each layer's state holds the reference's own code and its
+    block's scale, unchanged."""
     cfg = get_config("llama-3.2-vision-11b", reduced=True).replace(**_kw("llama-3.2-vision-11b"))
     ref_lm = RefLM(ref_get_config("llama-3.2-vision-11b", reduced=True).replace(**_kw("llama-3.2-vision-11b")))
     params = ref_lm.init(jax.random.PRNGKey(0))
@@ -280,11 +282,86 @@ def test_adamw8_state_of_a_stacked_scalar_is_requantized_per_layer():
     g["cross_blocks"]["xgate"] = jnp.asarray([0.25, -1.0], jnp.float32)
     _, ropt = r_adamw8_update(g, r_adamw8_init(params), params, 1e-3)
     opt = opt_state_from_reference(cfg, jax.tree.map(np.asarray, ropt), "adamw8")
+    rq = np.asarray(ropt["m"]["cross_blocks"]["xgate"]["q"])
+    rs = np.asarray(ropt["m"]["cross_blocks"]["xgate"]["scale"])
+    assert rq.shape == (1, 2)                      # one block of both layers
     for i, want in enumerate([0.25, -1.0]):
         st = opt["m"][f"cross_blocks.{i}.xgate"]
         assert tuple(st["q"].shape) == (1, 1)
+        assert int(st["q"]) == int(rq[0, i]) and float(st["scale"]) == float(rs[0])
         assert float(st["q"].float() * st["scale"]) == pytest.approx(0.1 * want, rel=1e-2)
     assert set(opt["m"]) == {k for k, _ in LM(cfg, device="meta").named_parameters()}
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-base"])
+def test_adamw8_steps_of_a_family_with_stacked_scalars_equal_the_reference(arch):
+    """Three adamw8 steps of a reduced vlm / encdec model from fresh
+    state, the same gradients (NumPy, seeded) in both packages: the
+    parameters within 1e-5 of each leaf's largest |p|; the stacked cross
+    gates' codes and scales equal to the reference's (quantized as one
+    block across their layers); every other leaf's codes off by at most
+    one in at most 0.1% of the elements, as test_torch_optim holds."""
+    _, params, lm = _pair(arch)
+    cfg = get_config(arch, reduced=True).replace(**_kw(arch))
+    pdict = dict(lm.named_parameters())
+    assert P8.stacked_scalars(pdict), "no stacked scalar in this family"
+    ropt, opt = r_adamw8_init(params), P8.adamw8_init(pdict)
+    rng = np.random.default_rng(4)
+    for _ in range(3):
+        g = jax.tree.map(lambda p: jnp.asarray(rng.normal(size=p.shape).astype(np.float32) * 0.05), params)
+        params, ropt = r_adamw8_update(g, ropt, params, 1e-2)
+        P8.adamw8_update(params_from_reference(cfg, jax.tree.map(np.asarray, g)), opt, pdict, 1e-2)
+    want = params_from_reference(cfg, jax.tree.map(np.asarray, params))
+    for k, p in pdict.items():
+        torch.testing.assert_close(p.detach(), want[k], rtol=0, atol=1e-5 * float(want[k].abs().max()), msg=k)
+    carried = opt_state_from_reference(cfg, jax.tree.map(np.asarray, ropt), "adamw8")
+    gated = {n for _, names in P8.stacked_scalars(pdict) for n in names}
+    off = total = 0
+    for mom in ("m", "v"):
+        for k in pdict:
+            q, qr = opt[mom][k]["q"].to(torch.int32), carried[mom][k]["q"].to(torch.int32)
+            if k in gated:
+                assert torch.equal(q, qr) and torch.equal(opt[mom][k]["scale"], carried[mom][k]["scale"]), (mom, k)
+                continue
+            assert int((q - qr).abs().max()) <= 1, (mom, k)
+            off += int((q != qr).sum())
+            total += q.numel()
+    assert off <= total * 1e-3
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "recurrentgemma-2b"])
+def test_adamw_steps_decay_the_stacked_leaves_as_the_reference(arch):
+    """Three AdamW steps (weight decay 0.1) of a reduced model whose norm
+    scales start at one: the reference decays each stacked (L, d) leaf, so
+    the port decays each layer's row too (``optim.decays``); every
+    parameter within 1e-5 of its leaf's largest |p|."""
+    _, params, lm = _pair(arch)
+    cfg = get_config(arch, reduced=True).replace(**_kw(arch))
+    pdict = dict(lm.named_parameters())
+    assert any(P.decays(k, p) and p.dim() == 1 for k, p in pdict.items())
+    ropt, opt = R.adamw_init(params), P.adamw_init(pdict)
+    rng = np.random.default_rng(6)
+    for _ in range(3):
+        g = jax.tree.map(lambda p: jnp.asarray(rng.normal(size=p.shape).astype(np.float32) * 0.05), params)
+        params, ropt = R.adamw_update(g, ropt, params, 1e-2)
+        P.adamw_update(params_from_reference(cfg, jax.tree.map(np.asarray, g)), opt, pdict, 1e-2)
+    want = params_from_reference(cfg, jax.tree.map(np.asarray, params))
+    for k, p in pdict.items():
+        torch.testing.assert_close(p.detach(), want[k], rtol=0, atol=1e-5 * float(want[k].abs().max()), msg=k)
+
+
+def test_stacked_scalars_follow_the_reference_stacking_order():
+    """Two stacking axes (a hybrid period's blocks) in row-major order;
+    matrices, top-level scalars and other names stay out."""
+    z = torch.zeros(())
+    params = {f"self_blocks.{i}.{j}.gate": z for i in (1, 0) for j in (2, 0, 1)}
+    params.update({"cross_blocks.1.xgate": z, "cross_blocks.0.xgate": z, "cross_blocks.0.w": torch.zeros(3, 3),
+                   "final_norm": torch.zeros(4), "embed_scale": z})
+    groups = dict((tuple(names), shape) for shape, names in P8.stacked_scalars(params))
+    assert groups == {
+        tuple(f"self_blocks.{i}.{j}.gate" for i in (0, 1) for j in (0, 1, 2)): (2, 3),
+        ("cross_blocks.0.xgate", "cross_blocks.1.xgate"): (2,),
+    }
 
 
 # -- the reference's loop tests (tests/launch/test_train_loop.py), on the port -------
