@@ -168,6 +168,31 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    checkpoint directory); and launch/train.py --arch deepseek-v2-236b
    --reduced for 3 steps, its MLA widths (48, 32) padded forward and
    backward.
+11. The dry run against the card, every kernel counter set to 0 before
+   the phase and read after (``launches_ph11`` on every row of the
+   kernels line). First ``runtime.serve.abstract_cache`` (built on the
+   ``meta`` device through the attention kernels' shape-only route)
+   against ``init_cache`` on the card, in shape and type, for every
+   family at the configuration phases 8-9 serve it. 11.1: gemma2-9b at
+   its published width and depth in bf16 through
+   ``runtime.serve.build_serve_step``, B 4 over a max_len 8,192 cache:
+   steps at positions 0-15 from an empty cache, then one at 8,191 over
+   a cache filled from a seeded generator, the logits (and the cache)
+   bit-equal to ``decode.decode_step`` on a copy, 42 decode launches a
+   step, none padded. 11.2: three cells cut to one card, each run once
+   on ``meta`` by ``launch.dryrun`` (``analyze_step``, ``cell_record``)
+   and once on the card with tensors of ``input_specs``' shapes and
+   types: (a) that decode step at 8,191, (b) a B 1 × S 8,192 prefill at
+   42 layers, (c) phase 10's training step (8 layers, B 1 × S 8,192,
+   remat, AdamW). For each, the FLOPs ``launch.op_analysis`` counts on
+   the card (a separate pass) equal the dry run's exactly, and so do
+   the kernels' charged work and the argument bytes (parameters,
+   optimizer state, batch, cache); the dry run's high-water mark is
+   within 10% of ``torch.cuda.max_memory_allocated`` over the timed
+   steps (reset before them); the median step (host clock ending in a
+   synchronize, without the analysis) is printed beside
+   ``step_time_lower_bound_s`` and their ratio, and each cell's record
+   on a line of its own.
 
 The attention wrappers count their padded calls too (``padded``): the
 flash and backward rows carry them for phases 9 and 10
@@ -917,16 +942,6 @@ def sdpa_backend(torch, fn) -> str:
     return "not measured (no SDPA backend operator in the trace)"
 
 
-def attn_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the masks let through."""
-    total = 0
-    for qp in range(Sq):
-        hi = min(qp, Sk - 1) if causal else Sk - 1
-        lo = max(0, qp - window + 1) if window > 0 else 0
-        total += max(0, hi - lo + 1)
-    return total
-
-
 def mla_qkv(draw, B: int, Sq: int, Sk: int, H: int, KV: int, dtype):
     """q (B, Sq, H, 192) and k (B, Sk, KV, 192), v (B, Sk, KV, 128) as two
     column ranges of one buffer, as models.mla builds them."""
@@ -997,8 +1012,9 @@ def phase_attention_kernels(torch):
         err, rel = agree(torch, kern, plain, 2e-2, f"flash_attention at prefill scale (window {window})")
         del kern, plain
         torch.cuda.empty_cache()
-        pairs = attn_pairs(S, S, True, window)
-        b_ms, b_by = bound((2 * B * S * H * D + 2 * B * S * KV * D) * 2, 4 * B * H * D * pairs, "bf16")
+        pairs = fa_ops.visible_pairs(S, S, True, window)
+        flops, nbytes = fa_ops.work(B, S, S, H, KV, D, D, window=window)
+        b_ms, b_by = bound(nbytes, flops, "bf16")
         rows[window] = dict(
             ms=kernel_ms(torch, fa_ops.launcher(q, k, v, o, window=window, softcap=cap), reps=5, inner=5),
             plain_ms=kernel_ms(torch, lambda: fa_ref.flash_attention_ref(q, k, v, window=window, softcap=cap),
@@ -1028,8 +1044,8 @@ def phase_attention_kernels(torch):
         torch.cuda.synchronize()
         err, rel = agree(torch, kern, plain, 2e-2, f"flash_attention {name}")
         o = torch.empty_like(q)
-        pairs = attn_pairs(Sq, Sk, c["causal"], 0)
-        b_ms, b_by = bound((2 * B_ * Sq * H_ * D_ + 2 * B_ * Sk * KV_ * D_) * 2, 4 * B_ * H_ * D_ * pairs, "bf16")
+        flops, nbytes = fa_ops.work(B_, Sq, Sk, H_, KV_, D_, D_, causal=c["causal"])
+        b_ms, b_by = bound(nbytes, flops, "bf16")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         sdpa = lambda qt=qt, kt=kt, vt=vt: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)  # noqa: E731
         out["flash_attention"][name] = dict(
@@ -1051,8 +1067,9 @@ def phase_attention_kernels(torch):
     err, rel = agree(torch, kern, plain, 2e-2, "flash_attention (192, 128) at deepseek-v2's prefill")
     del kern, plain
     torch.cuda.empty_cache()
-    pairs = attn_pairs(S, S, True, 0)
-    b_ms, b_by = bound(2 * B * S * H * (DQK + DV) * 2, 2 * B * H * pairs * (DQK + DV), "bf16")
+    pairs = fa_ops.visible_pairs(S, S, True, 0)
+    flops, nbytes = fa_ops.work(B, S, S, H, H, DQK, DV)
+    b_ms, b_by = bound(nbytes, flops, "bf16")
     o = q.new_empty((B, S, H, DV))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
@@ -1080,9 +1097,8 @@ def phase_attention_kernels(torch):
         err, rel = agree(torch, kern, plain, 2e-2, f"decode_attention {name} at serving scale")
         o = torch.empty_like(q)
 
-        visible = pos + 1
-        b_ms, b_by = bound(2 * B * visible * KV * D * 2 + 2 * B * H * D * 2,
-                           4 * B * H * D * visible, "bf16")
+        flops, nbytes = da_ops.work(B, H, KV, D, pos)
+        b_ms, b_by = bound(nbytes, flops, "bf16")
         qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
         sdpa = lambda qs=qs, ks=ks, vs=vs: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True)  # noqa: E731
         split = da_ops.split_size(B, KV, L)
@@ -1112,8 +1128,8 @@ def phase_attention_kernels(torch):
         err, rel = agree(torch, kern, plain, 2e-2, f"decode_attention {name}")
         o = torch.empty_like(q)
         visible = pos + 1
-        b_ms, b_by = bound(2 * B_ * visible * KV_ * D_ * 2 + 2 * B_ * H_ * D_ * 2,
-                           4 * B_ * H_ * D_ * visible, "bf16")
+        flops, nbytes = da_ops.work(B_, H_, KV_, D_, pos)
+        b_ms, b_by = bound(nbytes, flops, "bf16")
         qs, ks, vs = q[:, :, None], k[:, :visible].transpose(1, 2), v[:, :visible].transpose(1, 2)
         sdpa = lambda qs=qs, ks=ks, vs=vs: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True)  # noqa: E731
         r = dict(ms=kernel_ms(torch, da_ops.launcher(q, k, v, o, pos)), split=da_ops.split_size(B_, KV_, S_),
@@ -2400,12 +2416,6 @@ PADDED_DECODE = [
 BWD_ROW = dict(B=1, S=8192, H=16, KV=8, D=256, cap=50.0)
 
 
-def bwd_ops(H: int, D: int, Dv: int, pairs: int) -> float:
-    """Operations of the backward: five products a (query, key) pair and
-    head (S, dP, dV, dQ, dK), 2·(3·D + 2·Dv)."""
-    return 2 * (3 * D + 2 * Dv) * H * pairs
-
-
 def grads_agree(torch, got, want, name: str, what: str, floor: float = 0.0) -> tuple[float, float]:
     """Each of dq, dk, dv within BWD_TOL[name] of max(max |plain|, floor)
     (``floor``: a tenth of the call's largest gradient where a window of 1
@@ -2511,9 +2521,9 @@ def phase_flash_backward(torch):
                                                             f"(window {window})")
         del got, want
         torch.cuda.empty_cache()
-        pairs = attn_pairs(S, S, True, window)
-        nbytes = (4 * B * S * H * D + 4 * B * S * KV * D) * 2     # q, o, dO, dq; k, v, dk, dv
-        b_ms, b_by = bound(nbytes, bwd_ops(H, D, D, pairs) * B, "bf16")
+        pairs = fa_ops.visible_pairs(S, S, True, window)
+        flops, nbytes = fa_ops.bwd_work(B, S, S, H, KV, D, D, window=window)
+        b_ms, b_by = bound(nbytes, flops, "bf16")
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         run = fa_ops.bwd_launcher(q, k, v, o, do, dq, dk, dv, lse=lse, window=window, softcap=cap)
         o0, lse0 = fa_ops.flash_attention(q, k, v, window=window, return_lse=True)
@@ -2583,15 +2593,18 @@ def gemma2_train(torch, layers: int, dtype: str = "bfloat16"):
 
 def train_bound_ops(cfg, n_params: int, B: int, S: int) -> float:
     """6·P·tokens (forward and backward of every weight, the tied head
-    once) plus attention's products: forward 4·D and backward
-    2·(3·D + 2·D) a pair and head, global layers causal, local ones
-    within the window."""
+    once) plus attention's products (the flash kernels' ``work``: forward
+    4·D and backward 2·(3·D + 2·D) a pair and head), global layers causal,
+    local ones within the window."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models.common import layer_flags
 
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     attn = 0.0
     for g in layer_flags(cfg)["is_global"]:
-        pairs = attn_pairs(S, S, True, 0 if g else cfg.local_window)
-        attn += (4 * cfg.head_dim_ + bwd_ops(1, cfg.head_dim_, cfg.head_dim_, 1)) * cfg.num_heads * pairs * B
+        window = 0 if g else cfg.local_window
+        attn += (fa_ops.work(B, S, S, H, KV, D, D, window=window)[0]
+                 + fa_ops.bwd_work(B, S, S, H, KV, D, D, window=window)[0])
     return 6.0 * n_params * B * S + attn
 
 
@@ -2835,6 +2848,222 @@ def phase_train(torch) -> dict:
     return out
 
 
+# -- phase 11: the serve step and the dry run against the card ----------------------
+#
+# 11.1: gemma2-9b at its published width and depth (42 layers, bf16) through
+# runtime.serve.build_serve_step, B 4 over a max_len 8,192 cache: steps at
+# positions 0-15 from an empty cache, then one at 8,191 over a cache filled
+# from a seeded generator, each bit-equal to decode.decode_step on a copy of
+# the same cache. 11.2: three cells cut to one card, each run once on the
+# meta device by launch.dryrun and once on the card with arguments of
+# input_specs' shapes and types: (a) that decode step at 8,191, (b) a B 1 x
+# S 8,192 prefill at 42 layers, (c) phase 10's training step (8 layers, B 1
+# x S 8,192, remat, AdamW).
+SERVE11 = dict(B=4, max_len=8192, steps=16, seed=11)
+PEAK_TOL = 0.10       # |meta high-water − card peak| ≤ PEAK_TOL · card peak
+
+
+def cache_tree(tree) -> dict:
+    """{name: (shape, type)} of a cache tree."""
+    return {k: cache_tree(v) if isinstance(v, dict) else (tuple(v.shape), str(v.dtype)) for k, v in tree.items()}
+
+
+def tree_leaves(tree):
+    for v in tree.values():
+        yield from (tree_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def abstract_caches(torch) -> dict:
+    """runtime.serve.abstract_cache against init_cache on the card, in shape
+    and type, for every family at the configuration phases 8-9 serve it
+    (each model allocated, not initialised, and freed before the next):
+    recurrentgemma-2b and mamba2-780m at the engine's 4 slots x 64,
+    llama-3.2-vision-11b at 1 x 64 over its image tokens, whisper-base at
+    1 x 448 over 448 frames (the reference's stub gives max_len frames),
+    deepseek-v2 (6 layers) and v3 (4 layers) at 4 x 64."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM, decode
+    from repro_torch.runtime.serve import abstract_cache
+
+    out = {}
+    for arch, (B, max_len), cut in (("recurrentgemma-2b", (4, 64), {}), ("mamba2-780m", (4, 64), {}),
+                                    ("llama-3.2-vision-11b", (1, 64), {}), ("whisper-base", (1, WHISPER_TOKENS), {}),
+                                    ("deepseek-v2-236b", (4, 64), MOE_CUTS["deepseek-v2-236b"]),
+                                    ("deepseek-v3-671b", (4, 64), MOE_CUTS["deepseek-v3-671b"])):
+        cfg = get_config(arch).replace(**cut)
+        lm = LM(cfg, device="cuda")
+        kw = {}
+        if cfg.family == "vlm":
+            kw["image_embeds"] = torch.zeros((B, cfg.num_image_tokens, cfg.d_model), dtype=cfg.cdtype, device="cuda")
+        if cfg.family == "encdec":
+            kw["audio_embeds"] = torch.zeros((B, max_len, cfg.d_model), dtype=cfg.cdtype, device="cuda")
+        with torch.no_grad():
+            cache = decode.init_cache(lm, B, max_len, **kw)
+        want, got = cache_tree(cache), cache_tree(abstract_cache(lm, B, max_len))
+        check(want == got, f"phase 11 {arch}: abstract_cache {got} != init_cache {want}")
+        out[arch] = dict(batch=B, max_len=max_len, cache_bytes=tree_bytes(cache))
+        del lm, cache, kw
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase 11 abstract_cache == init_cache on the card (shape, type): {json.dumps(out)}")
+    return out
+
+
+def serve_step_phase(torch, lm) -> tuple[dict, dict]:
+    """11.1 on gemma2-9b (42 layers, bf16, on the card): returns (results,
+    the filled cache after its step at max_len − 1)."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.models import decode
+    from repro_torch.runtime.serve import build_serve_step
+
+    cfg = lm.cfg
+    B, max_len = SERVE11["B"], SERVE11["max_len"]
+    dev = torch.device("cuda")
+    step, cache_abs = build_serve_step(lm, B, max_len)
+    cache = decode.init_cache(lm, B, max_len)
+    check(cache_tree(cache_abs) == cache_tree(cache), "phase 11 abstract_cache != init_cache for gemma2-9b")
+    twin = {k: v.clone() for k, v in cache.items()}
+    rng = np.random.default_rng(SERVE11["seed"])
+    kernel = da_ops.decode_attention
+    per_step = []
+
+    def one(pos):
+        nonlocal cache, twin
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32), device=dev)
+        n0, p0 = kernel.launches, kernel.padded
+        got, cache = step(tok, cache, pos)
+        torch.cuda.synchronize()
+        per_step.append((kernel.launches - n0, kernel.padded - p0))
+        want, twin = decode.decode_step(lm, tok, twin, pos)
+        check(torch.equal(got, want), f"phase 11 serve step at pos {pos} != decode_step")
+        check(tuple(got.shape) == (B, 1, cfg.padded_vocab) and bool(torch.isfinite(got).all()),
+              f"phase 11 serve step logits at pos {pos}")
+
+    t0 = time.perf_counter()
+    for pos in range(SERVE11["steps"]):
+        one(pos)
+    gen = torch.Generator(device=dev).manual_seed(SERVE11["seed"])
+    for k in cache:
+        cache[k].copy_(torch.randn(cache[k].shape, generator=gen, device=dev).to(cache[k].dtype))
+        twin[k].copy_(cache[k])
+    one(max_len - 1)
+    for k in cache:
+        check(torch.equal(cache[k], twin[k]), f"phase 11 serve step cache {k} != decode_step's")
+    wall = time.perf_counter() - t0
+    check(all(p == (cfg.num_layers, 0) for p in per_step),
+          f"phase 11 decode launches (count, padded) a serve step {per_step}")
+    print(f"phase 11.1 gemma2-9b serve step (B {B}, max_len {max_len}): positions 0-{SERVE11['steps'] - 1} and "
+          f"{max_len - 1} bit-equal to decode_step, {cfg.num_layers} decode launches a step (padded 0), "
+          f"{wall:.3f} s")
+    del twin
+    return dict(steps=len(per_step), launches_per_step=cfg.num_layers, padded=0, wall_s=wall), cache
+
+
+def dry_cell(torch, lm_card, sh, args: dict, *, reps: int) -> dict:
+    """11.2 for one cell: the dry run on a meta twin of ``lm_card`` against
+    the card: FLOPs (exact), argument bytes (exact), high-water mark (within
+    PEAK_TOL of max_memory_allocated), the measured median step beside
+    step_time_lower_bound_s. The step is timed without the analysis and
+    counted in a separate pass."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import mesh_from_arg
+    from repro_torch.launch.op_analysis import OpAnalysis
+    from repro_torch.models import LM
+
+    cfg = lm_card.cfg
+    t0 = time.perf_counter()
+    lm_meta = LM(cfg, device="meta")
+    cost, meta_args, outs, _ = dryrun.analyze_step(lm_meta, sh)
+    total, active = dryrun.count_params(lm_meta, cfg)
+    rec = dryrun.cell_record(cfg, sh, mesh_from_arg("1"), cost, meta_args, outs, total, active)
+    meta_s = time.perf_counter() - t0
+    card_args = sum(tree_bytes(v) for v in args.values())
+    check(card_args == rec["memory"]["argument_bytes"],
+          f"phase 11 {sh.name}: argument bytes on the card {card_args} != dry run's {rec['memory']['argument_bytes']}")
+    step = dryrun.make_step(lm_card, sh)
+    with OpAnalysis() as mode:
+        step(args)
+        torch.cuda.synchronize()
+    check(mode.cost.flops == rec["cost"]["program_flops"],
+          f"phase 11 {sh.name}: FLOPs on the card {mode.cost.flops} != dry run's {rec['cost']['program_flops']}")
+    check(mode.cost.by_kernel == rec["kernels"], f"phase 11 {sh.name}: kernel work {mode.cost.by_kernel} != "
+                                                  f"dry run's {rec['kernels']}")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(reps):
+        t1 = time.perf_counter()
+        step(args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated()
+    pred = rec["memory"]["argument_bytes"] + rec["memory"]["temp_bytes"]
+    check(abs(pred - peak) <= PEAK_TOL * peak, f"phase 11 {sh.name}: dry-run high-water {pred} vs card peak {peak}")
+    step_s = statistics.median(times)
+    bound_s = rec["step_time_lower_bound_s"]
+    r = dict(cell=sh.name, kind=sh.kind, seq_len=sh.seq_len, batch=sh.global_batch, layers=cfg.num_layers,
+             flops=mode.cost.flops, argument_bytes=card_args, meta_high_water=pred, card_peak=peak,
+             card_allocated_before=base, peak_ratio=pred / peak, step_s=step_s, step_times_s=times,
+             step_time_lower_bound_s=bound_s, dominant_term=rec["dominant_term"], step_over_bound=step_s / bound_s,
+             meta_analysis_s=meta_s, kernels=rec["kernels"])
+    print(f"phase 11.2 {sh.name}: FLOPs {mode.cost.flops} (meta = card), argument bytes {card_args} (meta = card), "
+          f"high-water {pred} vs card peak {peak} (ratio {pred / peak:.6f}); step median {step_s:.6f} s of {reps}, "
+          f"bound {bound_s:.6f} s ({rec['dominant_term']}), step / bound {step_s / bound_s:.6f}")
+    print(f"phase 11.2 record {sh.name}: {json.dumps(rec)}")
+    return r
+
+
+def phase_dryrun_on_card(torch) -> dict:
+    """Phase 11: abstract caches of every family, the serve step (11.1),
+    then the three dry-run cells against the card (11.2)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import Shape, input_specs
+    from repro_torch.models import LM
+    from repro_torch.runtime import init_opt_state
+
+    out = {"abstract_caches": abstract_caches(torch)}
+    dev = torch.device("cuda")
+    cfg = get_config("gemma2-9b")
+    lm = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
+    out["serve_step"], cache = serve_step_phase(torch, lm)
+
+    def card_batch(sh, drop=()):
+        """Tensors of input_specs' shapes and types on the card: tokens
+        (and labels) from a seeded generator."""
+        rng = np.random.default_rng(SEED + 11)
+        return {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, tuple(v.shape)).astype(np.int32), device=dev)
+                for k, v in input_specs(cfg, sh).items() if k not in drop}
+
+    B, max_len = SERVE11["B"], SERVE11["max_len"]
+    sh = Shape("decode_8k_b4", max_len, B, "decode")
+    out["decode"] = dry_cell(torch, lm, sh, {"params": dict(lm.named_parameters()), "cache": cache,
+                                             "batch": card_batch(sh)}, reps=10)
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    sh = Shape("prefill_8k_b1", PREFILL["S"], 1, "prefill")
+    out["prefill"] = dry_cell(torch, lm, sh, {"params": dict(lm.named_parameters()), "batch": card_batch(sh)},
+                              reps=3)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, lm = gemma2_train(torch, TRAIN["layers"])
+    sh = Shape("train_8k_b1", TRAIN["S"], TRAIN["B"], "train")
+    opt = init_opt_state(lm)
+    out["train"] = dry_cell(torch, lm, sh, {"params": dict(lm.named_parameters()), "opt": opt,
+                                            "batch": card_batch(sh)}, reps=3)
+    del lm, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2945,6 +3174,25 @@ def main() -> int:
     print(f"phase 10 in {time.perf_counter() - t0:.3f} s, launches {ph10_launches}, flash by instance "
           f"{ph10_pairs}, flash backward by instance {ph10_bwd_pairs}, padded {ph10_padded}")
     check(ph10_launches["flash_attention_bwd"] > 0, "phase 10 never launched flash_attention_bwd")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    zero_counts(all_counters)
+    t0 = time.perf_counter()
+    dry = phase_dryrun_on_card(torch)
+    ph11_launches = {name: fn.launches for name, fn in all_counters.items()}
+    ph11_pairs = flash_pairs()
+    ph11_padded = padded_counts(all_counters)
+    print(f"phase 11 in {time.perf_counter() - t0:.3f} s, launches {ph11_launches}, flash by instance {ph11_pairs}, "
+          f"padded {ph11_padded}")
+    for name in attn_counters():
+        check(ph11_launches[name] > 0, f"phase 11 never launched {name}")
+    check(ph11_launches["flash_attention_bwd"] > 0, "phase 11 never launched flash_attention_bwd")
+    check(not any(ph11_padded.values()), f"phase 11 took the padded route {ph11_padded}")
+    print("phase 11 step / bound (" + smi + "): " + json.dumps(
+        {k: {"step_s": r["step_s"], "step_time_lower_bound_s": r["step_time_lower_bound_s"],
+             "ratio": r["step_over_bound"], "peak_ratio": r["peak_ratio"]}
+         for k, r in dry.items() if k in ("decode", "prefill", "train")}))
 
     meta = {
         "cost_matrix_f32": ("src/repro_torch/kernels/cost_matrix/csrc/cost_matrix.cu",
@@ -2972,13 +3220,14 @@ def main() -> int:
             library_ms=None, shape=r["shape"], launches_sim=sim_launches[name],
             launches_p2p=p2p_launches[name], launches_ph8=ph8_launches[name],
             launches_ph9=ph9_launches[name], launches_ph10=ph10_launches[name],
+            launches_ph11=ph11_launches[name],
             **({"wrapper_ms": r["wrapper_ms"]} if "wrapper_ms" in r else {}),
         ))
     # The flash rows split the wrapper's counts by instance: "flash_attention"
     # counts the instances with v as wide as q and k, "flash_attention
     # (192, 128)" MLA's, each per phase as measured (``launches_by_pair``).
     phase_pairs = {"main": serving["pairs"], "sim": sim_pairs, "p2p": p2p_pairs, "ph8": ph8_pairs, "ph9": ph9_pairs,
-                   "ph10": ph10_pairs}
+                   "ph10": ph10_pairs, "ph11": ph11_pairs}
     source, replaces = attn_meta["flash_attention"]
     for name, mla, r in (("flash_attention", False, attn["flash_attention"]),
                          ("flash_attention (192, 128)", True, attn["flash_attention_mla"])):
@@ -2986,7 +3235,7 @@ def main() -> int:
         line.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, launches=counts["ph9" if mla else "main"],
             launches_sim=counts["sim"], launches_p2p=counts["p2p"], launches_ph8=counts["ph8"],
-            launches_ph9=counts["ph9"], launches_ph10=counts["ph10"],
+            launches_ph9=counts["ph9"], launches_ph10=counts["ph10"], launches_ph11=counts["ph11"],
             launches_by_pair={ph: {key: n for key, n in pairs.items() if (key == MLA_PAIR) == mla}
                               for ph, pairs in phase_pairs.items()},
             launches_padded={} if mla else {"ph9": ph9_padded["flash_attention"],
@@ -2996,7 +3245,7 @@ def main() -> int:
                      launches=serving["launches"]["decode_attention"], launches_sim=sim_launches["decode_attention"],
                      launches_p2p=p2p_launches["decode_attention"], launches_ph8=ph8_launches["decode_attention"],
                      launches_ph9=ph9_launches["decode_attention"], launches_ph10=ph10_launches["decode_attention"],
-                     **attn["decode_attention"]))
+                     launches_ph11=ph11_launches["decode_attention"], **attn["decode_attention"]))
     # The backward has no Pallas twin (the reference differentiates jnp
     # attention); it is the gradient of the forward TPU kernel's function.
     line.append(dict(name="flash_attention_bwd", route="cuda",
@@ -3006,7 +3255,8 @@ def main() -> int:
                      launches=ph10_launches["flash_attention_bwd"], launches_main=main_bwd,
                      launches_sim=sim_launches["flash_attention_bwd"], launches_p2p=p2p_launches["flash_attention_bwd"],
                      launches_ph8=ph8_launches["flash_attention_bwd"], launches_ph9=ph9_launches["flash_attention_bwd"],
-                     launches_ph10=ph10_launches["flash_attention_bwd"], launches_by_pair={"ph10": ph10_bwd_pairs},
+                     launches_ph10=ph10_launches["flash_attention_bwd"],
+                     launches_ph11=ph11_launches["flash_attention_bwd"], launches_by_pair={"ph10": ph10_bwd_pairs},
                      launches_padded={"ph10": ph10_padded["flash_attention_bwd"]}, **bwd_row))
     for k in line:
         k["bound_share"] = k["bound_ms"] / k["ms"]

@@ -27,7 +27,7 @@ import torch
 
 __all__ = [
     "SOURCES", "NVCC_FLAGS", "build", "library", "check", "launch_device", "strided_device",
-    "check_rows", "stream_of",
+    "check_rows", "stream_of", "require_card",
 ]
 
 _KERNELS = Path(__file__).resolve().parent
@@ -156,9 +156,10 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
 
 
-def _one_device(name: str, args: dict) -> torch.device:
+def _one_device(name: str, args: dict, types: tuple = ("cpu", "cuda")) -> torch.device:
     """The common device of a wrapper's tensors: every argument a tensor,
-    all on one device, and that device the host or a CUDA card."""
+    all on one device, and that device's type one of ``types`` (the host
+    or a CUDA card, and ``meta`` for a wrapper with a shape-only route)."""
     for key, t in args.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name}: {key} must be a torch.Tensor, got {type(t).__name__}")
@@ -166,7 +167,7 @@ def _one_device(name: str, args: dict) -> torch.device:
     if len(devices) != 1:
         raise ValueError(f"{name}: tensors on several devices {sorted(map(str, devices))}")
     dev = devices.pop()
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in types:
         raise ValueError(f"{name}: no kernel or plain version for device {dev}")
     return dev
 
@@ -193,8 +194,10 @@ def launch_device(name: str, args: dict, dtypes: dict, shapes: dict):
 
 def strided_device(name: str, args: dict, dtypes: tuple) -> tuple[torch.device, torch.dtype]:
     """Validate the tensors of a wrapper whose kernel reads through
-    strides; return their common device and type, one of ``dtypes``."""
-    dev = _one_device(name, args)
+    strides (the attention kernels, which also take ``meta`` tensors on
+    a shape-only route); return their common device and type, one of
+    ``dtypes``."""
+    dev = _one_device(name, args, ("cpu", "cuda", "meta"))
     types = {t.dtype for t in args.values()}
     if len(types) != 1 or next(iter(types)) not in dtypes:
         raise TypeError(f"{name}: tensors must share one type of {list(dtypes)}, got {sorted(map(str, types))}")
@@ -203,13 +206,23 @@ def strided_device(name: str, args: dict, dtypes: tuple) -> tuple[torch.device, 
 
 def check_rows(name: str, args: dict) -> None:
     """A strided kernel's tensors: the last dimension contiguous, and the
-    base and every other stride on 16 bytes (its vector loads)."""
+    base and every other stride on 16 bytes (its vector loads). A
+    ``meta`` tensor has no base address: only its strides are checked."""
     for key, t in args.items():
         per16 = 16 // t.element_size()
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: {key} must have a contiguous last dimension")
-        if t.data_ptr() % 16 or any(s % per16 for s in t.stride()[:-1]):
+        base = 0 if t.device.type == "meta" else t.data_ptr()
+        if base % 16 or any(s % per16 for s in t.stride()[:-1]):
             raise ValueError(f"{name}: {key} must start and stride on 16 bytes, strides {t.stride()}")
+
+
+def require_card(name: str, *tensors: torch.Tensor) -> None:
+    """Refuse a launch on anything but CUDA tensors: a ``meta`` tensor has
+    no storage to hand a kernel, so reaching a launch with one is a bug."""
+    for t in tensors:
+        if t is not None and t.device.type != "cuda":
+            raise ValueError(f"{name}: a kernel launches only on CUDA tensors, got one on {t.device}")
 
 
 def stream_of(device) -> int:

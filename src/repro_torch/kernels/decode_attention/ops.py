@@ -19,6 +19,13 @@ the cache with zero columns appended (k and v two column ranges of one
 new buffer ``[k | 0 | v | 0]``) at the true width's scale D^-0.5, and the
 output's zero columns are sliced off; ``decode_attention.padded`` counts
 those calls. D > 256 raises.
+
+A ``meta`` tensor takes the card's route up to the launch (checks,
+padding, the output's allocation) and stops there, returning an empty
+output; no counter moves. On the card and on ``meta`` alike a call
+charges its kernel's work (``work``, at the instance launched) to the
+active counters of ``repro_torch._counting``. ``launcher`` raises on
+anything but CUDA tensors.
 """
 from __future__ import annotations
 
@@ -27,11 +34,12 @@ import math
 
 import torch
 
+from ... import _counting
 from .. import _build
 from ..flash_attention.ops import pad_qkv
 from .ref import decode_attention_ref
 
-__all__ = ["decode_attention", "launcher", "split_size", "workspace_floats", "instance", "HEAD_DIMS",
+__all__ = ["decode_attention", "launcher", "split_size", "workspace_floats", "instance", "work", "HEAD_DIMS",
            "MAX_REP", "CHUNK", "WAVE", "BLOCK_COST"]
 
 _ENTRY = {torch.float32: "repro_decode_attention_f32", torch.bfloat16: "repro_decode_attention_bf16"}
@@ -72,6 +80,15 @@ def workspace_floats(B: int, KV: int, rep: int, S: int, D: int, split: int) -> i
     return B * KV * -(-S // split) * rep * (D + 2)
 
 
+def work(B: int, H: int, KV: int, D: int, pos: int, *, window: int = 0, itemsize: int = 2) -> tuple[int, int]:
+    """(FLOPs, bytes) of one launch: the query sees min(pos + 1, window)
+    keys (pos + 1 without a window), two products of 2·D a visible key
+    and head; those keys' k and v rows read once, q read and o written
+    once, all in their type."""
+    visible = min(pos + 1, window) if window > 0 else pos + 1
+    return 4 * B * H * D * visible, (2 * B * visible * KV * D + 2 * B * H * D) * itemsize
+
+
 def decode_attention(q, k, v, pos: int, *, window: int = 0, softcap: float = 0.0):
     """q: (B, H, D); k, v: (B, S, KV, D); 0 ≤ pos < S → (B, H, D).
 
@@ -110,6 +127,9 @@ def decode_attention(q, k, v, pos: int, *, window: int = 0, softcap: float = 0.0
     o = torch.empty((B, H, Dk), dtype=dtype, device=dev)
     if B == 0:
         return o[..., :D]
+    _counting.charge("decode_attention", *work(B, H, KV, Dk, pos, window=window, itemsize=q.element_size()))
+    if dev.type == "meta":
+        return o[..., :D].contiguous() if padded else o
     run = launcher(q, k, v, o, pos, window=window, softcap=softcap, scale=1.0 / math.sqrt(D))
     decode_attention.launches += 1
     decode_attention.padded += int(padded)
@@ -124,6 +144,7 @@ def launcher(q, k, v, o, pos: int, *, window: int = 0, softcap: float = 0.0, spl
     closure holds the split pass's float32 workspace (m, l, then acc per
     split and head). ``split`` overrides ``split_size`` (for measuring the
     choice); ``scale`` defaults to D^-0.5."""
+    _build.require_card("decode_attention", q, k, v, o)
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     rep = H // KV

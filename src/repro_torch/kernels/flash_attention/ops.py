@@ -34,6 +34,16 @@ failed build or launch raises in either direction. The backward counts
 its launches in ``flash_attention_bwd.launches``,
 ``flash_attention_bwd.by_pair`` and ``flash_attention_bwd.padded``;
 ``bwd_launcher`` is its timing handle.
+
+A ``meta`` tensor takes the card's route up to the launch, checks,
+padding and output allocation included, and stops there: the outputs
+(o, lse, dq, dk, dv) come back empty in the kernel's shapes and types,
+and no launch or padded counter moves. On the card and on ``meta`` alike
+a call charges its kernel's work, ``work``/``bwd_work`` at the instance
+launched, to the active counters of ``repro_torch._counting`` (the dry
+run's ``launch.op_analysis``); ``visible_pairs`` is the (query, key)
+pairs the masks let through, in closed form. ``launcher`` and
+``bwd_launcher`` raise on anything but CUDA tensors.
 """
 from __future__ import annotations
 
@@ -41,11 +51,12 @@ import math
 
 import torch
 
+from ... import _counting
 from .. import _build
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_bwd", "FlashAttentionFn", "launcher", "bwd_launcher",
-           "instance", "pad_qkv", "HEAD_DIMS", "PAIRS"]
+           "instance", "pad_qkv", "visible_pairs", "work", "bwd_work", "HEAD_DIMS", "PAIRS"]
 
 _ENTRY = {torch.float32: "repro_flash_attention_f32", torch.bfloat16: "repro_flash_attention_bf16"}
 _BWD_ENTRY = {torch.float32: "repro_flash_attention_bwd_f32", torch.bfloat16: "repro_flash_attention_bwd_bf16"}
@@ -73,6 +84,44 @@ def pad_qkv(q, k, v, pair: tuple[int, int]):
     buf[..., :D] = k
     buf[..., DQK:DQK + Dv] = v
     return qp, buf[..., :DQK], buf[..., DQK:]
+
+
+def _tri(n: int) -> int:
+    """1 + 2 + … + n, 0 for n ≤ 0."""
+    return n * (n + 1) // 2 if n > 0 else 0
+
+
+def visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks let through: query qp sees the keys
+    kp ≤ min(qp, Sk − 1) (every key when not causal) with qp − kp < window
+    when there is a window, that is min(qp + 1, Sk) keys (Sk) less the
+    max(0, qp − window + 1) below its window, and none once that is
+    negative (qp ≥ Sk + window − 1)."""
+    m = min(Sq, Sk)
+    seen = _tri(m) + (Sq - m) * Sk if causal else Sq * Sk
+    if window > 0:
+        seen += -_tri(Sq - window) + _tri(Sq - Sk - window)
+    return seen
+
+
+def work(B: int, Sq: int, Sk: int, H: int, KV: int, D: int, Dv: int, *, causal: bool = True, window: int = 0,
+         itemsize: int = 2, lse: bool = False) -> tuple[int, int]:
+    """(FLOPs, bytes) of one forward launch: two products a visible pair
+    and head, 2·(D + Dv); q, k, v read once and o written once in their
+    type, and the float32 lse written when asked for."""
+    flops = 2 * B * H * visible_pairs(Sq, Sk, causal, window) * (D + Dv)
+    nbytes = (B * Sq * H * (D + Dv) + B * Sk * KV * (D + Dv)) * itemsize + (4 * B * H * Sq if lse else 0)
+    return flops, nbytes
+
+
+def bwd_work(B: int, Sq: int, Sk: int, H: int, KV: int, D: int, Dv: int, *, causal: bool = True,
+             window: int = 0, itemsize: int = 2) -> tuple[int, int]:
+    """(FLOPs, bytes) of one backward launch: five products a visible
+    pair and head (S, dP, dV, dQ, dK), 2·(3·D + 2·Dv); q, o, dO, k, v and
+    the float32 lse read once, dq, dk, dv written once."""
+    flops = 2 * (3 * D + 2 * Dv) * H * visible_pairs(Sq, Sk, causal, window) * B
+    nbytes = (2 * B * Sq * H * (D + Dv) + 2 * B * Sk * KV * (D + Dv)) * itemsize + 4 * B * H * Sq
+    return flops, nbytes
 
 
 def _pad_cols(t, width: int):
@@ -105,7 +154,7 @@ def _checked(q, k, v, window: int, softcap: float):
         raise ValueError("flash_attention: window and softcap must be ≥ 0")
     if Sk < 1 or (window > 0 and Sq > Sk + window - 1):
         raise ValueError(f"flash_attention: a query row sees no key (Sq {Sq}, Sk {Sk}, window {window})")
-    if dev.type == "cuda":
+    if dev.type != "cpu":           # the card's checks, on the card and on meta
         pair = instance(D, Dv)
         if pair is None:
             raise ValueError(f"flash_attention: the kernel takes D, Dv up to an instance of {PAIRS} "
@@ -139,9 +188,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: f
 
 def _forward(q, k, v, causal, window, softcap, lse: bool = False):
     """The forward on checked tensors: the plain version on the host, the
-    kernel (counted) on the card; returns (o, lse or None), lse (B, H, Sq)
-    float32 when asked for (on the card a view of a (B, H, lse_stride(Sq))
-    buffer)."""
+    kernel (counted) on the card, empty outputs on ``meta``; returns
+    (o, lse or None), lse (B, H, Sq) float32 when asked for (off the host a
+    view of a (B, H, lse_stride(Sq)) buffer)."""
     if q.device.type == "cpu":
         out = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap, return_lse=lse)
         return out if lse else (out, None)
@@ -155,11 +204,14 @@ def _forward(q, k, v, causal, window, softcap, lse: bool = False):
     o = torch.empty((B, Sq, H, pair[1]), dtype=q.dtype, device=q.device)
     lse_t = torch.empty((B, H, lse_stride(Sq)), dtype=torch.float32, device=q.device) if lse else None
     if B * Sq * H:
-        run = launcher(q, k, v, o, lse=lse_t, causal=causal, window=window, softcap=softcap, scale=scale)
-        flash_attention.launches += 1
-        flash_attention.by_pair[pair] = flash_attention.by_pair.get(pair, 0) + 1
-        flash_attention.padded += int(padded)
-        run()
+        _counting.charge("flash_attention", *work(B, Sq, k.shape[1], H, k.shape[2], *pair, causal=causal,
+                                                  window=window, itemsize=q.element_size(), lse=lse))
+        if q.device.type != "meta":
+            run = launcher(q, k, v, o, lse=lse_t, causal=causal, window=window, softcap=softcap, scale=scale)
+            flash_attention.launches += 1
+            flash_attention.by_pair[pair] = flash_attention.by_pair.get(pair, 0) + 1
+            flash_attention.padded += int(padded)
+            run()
     if padded:
         o = o[..., :Dv].contiguous()
     return o, (lse_t[..., :Sq] if lse else None)
@@ -188,19 +240,20 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window: int = 0,
                         lse=None):
     """Gradients (dq, dk, dv) of ``flash_attention(q, k, v, ...)`` = o at
     the output gradient do (B, Sq, H, Dv), in q's, k's and v's shapes and
-    type: the backward kernels on the card, its plain version on the host.
+    type: the backward kernels on the card, its plain version on the host,
+    empty tensors on ``meta``.
 
     ``lse`` is the forward's row log-sum-exp (B, H, Sq) float32
     (``flash_attention(..., return_lse=True)``): the card's kernels take P
-    from it, so it is required there; the host's plain version rebuilds P
-    without it."""
+    from it, so it is required there and on ``meta``; the host's plain
+    version rebuilds P without it."""
     dev, dtype = _checked(q, k, v, window, softcap)
     B, Sq, H, D = q.shape
     Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
     for name, t in (("o", o), ("do", do)):
         if not isinstance(t, torch.Tensor) or t.shape != (B, Sq, H, Dv) or t.device != dev:
             raise ValueError(f"flash_attention_bwd: {name} must be a ({B}, {Sq}, {H}, {Dv}) tensor on {dev}")
-    if (lse is not None or dev.type == "cuda") and (not isinstance(lse, torch.Tensor) or lse.shape != (B, H, Sq)
+    if (lse is not None or dev.type != "cpu") and (not isinstance(lse, torch.Tensor) or lse.shape != (B, H, Sq)
                                                     or lse.device != dev):
         raise ValueError(f"flash_attention_bwd: lse must be a ({B}, {H}, {Sq}) tensor on {dev}")
     if dev.type == "cpu":
@@ -222,12 +275,15 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window: int = 0,
     if B * Sq * H == 0:
         dk.zero_(), dv.zero_()
     else:
-        run = bwd_launcher(q, k, v, o, do, dq, dk, dv, lse=lse, causal=causal, window=window, softcap=softcap,
-                           scale=1.0 / math.sqrt(D))
-        flash_attention_bwd.launches += 1
-        flash_attention_bwd.by_pair[pair] = flash_attention_bwd.by_pair.get(pair, 0) + 1
-        flash_attention_bwd.padded += int(padded)
-        run()
+        _counting.charge("flash_attention_bwd", *bwd_work(B, Sq, Sk, H, KV, *pair, causal=causal,
+                                                          window=window, itemsize=q.element_size()))
+        if dev.type != "meta":
+            run = bwd_launcher(q, k, v, o, do, dq, dk, dv, lse=lse, causal=causal, window=window,
+                               softcap=softcap, scale=1.0 / math.sqrt(D))
+            flash_attention_bwd.launches += 1
+            flash_attention_bwd.by_pair[pair] = flash_attention_bwd.by_pair.get(pair, 0) + 1
+            flash_attention_bwd.padded += int(padded)
+            run()
     if padded:
         return dq[..., :D].contiguous(), dk[..., :D].contiguous(), dv[..., :Dv].contiguous()
     return dq, dk, dv
@@ -240,6 +296,7 @@ def launcher(q, k, v, o, *, lse=None, causal: bool = True, window: int = 0, soft
     padding); ``lse``, a float32 (B, H, lse_stride(Sq)) buffer or a view of
     its first Sq columns, also receives the rows' log-sum-exp. ``scale``
     defaults to D^-0.5 of q's width."""
+    _build.require_card("flash_attention", q, k, v, o, lse)
     B, Sq, H, D = q.shape
     Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
     scale = 1.0 / math.sqrt(D) if scale is None else scale
@@ -261,6 +318,7 @@ def bwd_launcher(q, k, v, o, do, dq, dk, dv, *, lse, causal: bool = True, window
     closure, on CUDA tensors that ``flash_attention_bwd`` has checked, at
     q's width (o, do contiguous; lse the forward's, laid out as
     ``launcher`` writes it). ``scale`` defaults to D^-0.5 of q's width."""
+    _build.require_card("flash_attention_bwd", q, k, v, o, do, dq, dk, dv, lse)
     B, Sq, H, D = q.shape
     Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
     scale = 1.0 / math.sqrt(D) if scale is None else scale

@@ -15,7 +15,7 @@ positions are 0…Sq−1 and 0…Sk−1 throughout, as every model path of the
 reference passes them. The decode path writes the new token's key and
 value into the cache in place and returns the cache.
 
-Left for later slices (ROADMAP.md): the sharded decode paths.
+Left for a later slice (ROADMAP.md, queue A12.5): the sharded decode paths.
 """
 from __future__ import annotations
 

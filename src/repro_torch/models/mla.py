@@ -15,7 +15,7 @@ stock PyTorch products, as the reference does: its 128 query heads over
 one 576-wide key are no instance of the decode kernel, and the
 reference reaches no Pallas kernel there either.
 
-Left for a later slice (ROADMAP.md): ``mla_decode_sharded``.
+Left for a later slice (ROADMAP.md, queue A12.5): ``mla_decode_sharded``.
 """
 from __future__ import annotations
 

@@ -15,8 +15,9 @@ coef · E · Σ_e f_e · p_e. No kernel: the products are plain large
 matrix products (the reference leaves them to XLA), and the rest is
 stock PyTorch operations.
 
-Left for a later slice (ROADMAP.md): the reference's ``a2a`` expert
-parallelism and its ``set_moe_impl`` knob, which need several cards.
+Left for a later slice (ROADMAP.md, queue A12.5): the reference's
+``a2a`` expert parallelism and its ``set_moe_impl`` knob, which need
+several cards.
 """
 from __future__ import annotations
 

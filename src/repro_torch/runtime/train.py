@@ -17,6 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .._counting import trips
 from ..models import LM
 from ..optim import AdamWConfig, adamw_init, adamw_update, clip_by_global_norm, linear_warmup_cosine
 from ..optim.adamw8 import adamw8_init, adamw8_update
@@ -61,6 +62,13 @@ def _on(device, batch: dict) -> dict:
             for k, v in batch.items()}
 
 
+def _grad(p: torch.Tensor) -> torch.Tensor:
+    """``p``'s gradient; zeros where the loss does not reach it (the sigmoid
+    router's bias only picks experts), as ``jax.grad`` gives them, so that
+    clipping and the update (its weight decay) treat it as the reference does."""
+    return p.grad if p.grad is not None else torch.zeros_like(p)
+
+
 def build_train_step(lm: LM, tcfg: TrainConfig = TrainConfig()):
     """``train_step(opt, batch) → {"loss", "grad_norm", "lr"}`` for ``lm``
     on its device; turns ``lm``'s gradients on."""
@@ -80,16 +88,17 @@ def build_train_step(lm: LM, tcfg: TrainConfig = TrainConfig()):
         n = tcfg.microbatches
         if n <= 1:
             loss = backward(batch)
-            return {k: p.grad for k, p in params.items()}, loss
+            return {k: _grad(p) for k, p in params.items()}, loss
         if any(v.shape[0] % n for v in batch.values()):
             raise ValueError(f"batch of {next(iter(batch.values())).shape[0]} does not split into {n} microbatches")
         gsum = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in params.items()}
         lsum = torch.zeros((), dtype=torch.float32, device=lm.device)
-        for i in range(n):
+        for i in trips(n):      # one counted trip, scaled by n, under the dry run's analysis
             mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i] for k, v in batch.items()}
             lsum += backward(mb)
             for k, p in params.items():
-                gsum[k] += p.grad.float()
+                if p.grad is not None:
+                    gsum[k] += p.grad.float()
                 p.grad = None
         inv = 1.0 / n
         return {k: g.mul_(inv) for k, g in gsum.items()}, lsum * inv

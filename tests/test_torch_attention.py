@@ -214,9 +214,12 @@ class TestWrapperChecks:
         q = torch.zeros((1, 8, 2, 32))
         with pytest.raises(TypeError, match="share one type"):
             fa_ops.flash_attention(q, q.double(), q)
-        with pytest.raises(ValueError, match="no kernel or plain version"):
-            m = q.to("meta")
-            fa_ops.flash_attention(m, m, m)
+        with pytest.raises(ValueError, match="several devices"):
+            fa_ops.flash_attention(q.to("meta"), q, q)
+        # meta takes the shape-only route (test_torch_shapes_serve.py): no launch
+        m = q.to("meta")
+        out = fa_ops.flash_attention(m, m, m)
+        assert out.device.type == "meta" and out.shape == q.shape
 
     def test_flash_k_and_v_share_all_but_their_width(self):
         q = torch.zeros((1, 8, 2, 192))

@@ -1021,3 +1021,99 @@ def test_reduced_training_on_the_card_equals_the_host(dev):
     assert fa_ops.flash_attention_bwd.launches - before[1] == 3 * L
     for (name, a), (_, b) in zip(card.named_parameters(), host.named_parameters()):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0, atol=1e-4 * float(b.abs().max()), msg=name)
+
+
+# -- the meta route, the serve step and the smoke's bounds on the card --------------
+
+def _work_of(fn):
+    from repro_torch.launch.op_analysis import OpAnalysis
+
+    with OpAnalysis() as mode:
+        fn()
+    return mode.cost.by_kernel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("D,Dv", [(32, 32), (64, 64), (128, 128), (256, 256), (192, 128), (48, 32), (80, 80)])
+def test_meta_and_kernel_routes_charge_equal_work(dev, D, Dv, dtype):
+    """Flash forward (with and without lse) and backward, then the decode
+    kernel at D: the same calls, FLOPs and bytes charged on the card as on
+    meta, and launches only on the card."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    B, Sq, Sk, H, KV = 2, 77, 200, 6, 3
+    out = {}
+    for device in (dev, torch.device("meta")):
+        gen = torch.Generator().manual_seed(0)
+        draw = lambda *s: torch.randn(s, generator=gen).to(dtype).to(device)  # noqa: E731
+        kv = draw(B, Sk, KV, D + Dv)
+        q, k, v = draw(B, Sq, H, D), kv[..., :D], kv[..., D:]
+        n0 = fa_ops.flash_attention.launches + fa_ops.flash_attention_bwd.launches + da_ops.decode_attention.launches
+
+        def run():
+            fa_ops.flash_attention(q, k, v, causal=False, softcap=30.0)
+            o, lse = fa_ops.flash_attention(q, k, v, window=64, return_lse=True)
+            fa_ops.flash_attention_bwd(q, k, v, o, o, window=64, lse=lse)
+            da_ops.decode_attention(draw(B, H, D), draw(B, Sk, KV, D), draw(B, Sk, KV, D), 150, window=100)
+
+        out[device.type] = _work_of(run)
+        n1 = fa_ops.flash_attention.launches + fa_ops.flash_attention_bwd.launches + da_ops.decode_attention.launches
+        assert n1 - n0 == (4 if device.type == "cuda" else 0)
+    assert out["cuda"] == out["meta"]
+
+
+def test_serve_step_on_the_card_is_decode_step(dev):
+    import copy as _copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM, decode
+    from repro_torch.runtime.serve import build_serve_step
+
+    cfg = get_config("gemma2-9b", reduced=True)
+    lm = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    B, max_len = 3, 40
+    step, cache_abs = build_serve_step(lm, B, max_len)
+    cache = decode.init_cache(lm, B, max_len)
+    assert {k: (v.shape, v.dtype) for k, v in cache_abs.items()} == {k: (v.shape, v.dtype) for k, v in cache.items()}
+    twin = _copy.deepcopy(cache)
+    rng = np.random.default_rng(0)
+    for pos in list(range(5)) + [max_len - 1]:
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32), device=dev)
+        got, cache = step(tok, cache, pos)
+        want, twin = decode.decode_step(lm, tok, twin, pos)
+        assert torch.equal(got, want)
+
+
+def test_smoke_bounds_are_unchanged_on_the_card(dev):
+    """chip_smoke.py's timed shapes, their (bytes, operations) as the smoke
+    counted them before the move into the kernels' work functions."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_module", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    pairs = fa_ops.visible_pairs
+    B, S_, H, KV, D = (cs.PREFILL[k] for k in ("B", "S", "H", "KV", "D"))
+    for window in (0, 4096):
+        f, b = fa_ops.work(B, S_, S_, H, KV, D, D, window=window)
+        assert cs.bound(b, f, "bf16") == cs.bound((2 * B * S_ * H * D + 2 * B * S_ * KV * D) * 2,
+                                                  4 * B * H * D * pairs(S_, S_, True, window), "bf16")
+        f, b = fa_ops.bwd_work(B, S_, S_, H, KV, D, D, window=window)
+        assert cs.bound(b, f, "bf16") == cs.bound((4 * B * S_ * H * D + 4 * B * S_ * KV * D) * 2,
+                                                  2 * (3 * D + 2 * D) * H * pairs(S_, S_, True, window) * B, "bf16")
+    B, S_, H, DQK, DV = (cs.MLA_ROW[k] for k in ("B", "S", "H", "DQK", "DV"))
+    f, b = fa_ops.work(B, S_, S_, H, H, DQK, DV)
+    assert cs.bound(b, f, "bf16") == cs.bound(2 * B * S_ * H * (DQK + DV) * 2,
+                                              2 * B * H * pairs(S_, S_, True, 0) * (DQK + DV), "bf16")
+    for c in cs.DECODE_ROWS.values():
+        f, b = da_ops.work(c["B"], c["H"], c["KV"], c["D"], c["pos"])
+        v = c["pos"] + 1
+        old = (2 * c["B"] * v * c["KV"] * c["D"] * 2 + 2 * c["B"] * c["H"] * c["D"] * 2,
+               4 * c["B"] * c["H"] * c["D"] * v)
+        assert cs.bound(b, f, "bf16") == cs.bound(*old, "bf16")

@@ -44,6 +44,9 @@ def test_imports_with_jax_and_reference_blocked():
         "import repro_torch.models.decode, repro_torch.models.attention, repro_torch.models.interop\n"
         "import repro_torch.optim, repro_torch.optim.adamw8, repro_torch.optim.compress, repro_torch.data\n"
         "import repro_torch.checkpoint, repro_torch.runtime, repro_torch.runtime.train, repro_torch.launch.train\n"
+        "import repro_torch.configs.shapes, repro_torch.runtime.serve, repro_torch.runtime.sharding\n"
+        "import repro_torch.runtime.pspec, repro_torch.launch.mesh, repro_torch.launch.op_analysis\n"
+        "import repro_torch.launch.dryrun, repro_torch._counting\n"
         "for n in repro_torch.scenarios.SCENARIOS:\n"
         "    repro_torch.scenarios.get_generator(n), repro_torch.scenarios.get_verifier(n)\n"
         "repro_torch.configs.get_config('gemma2-9b')\n"

@@ -461,3 +461,35 @@ def test_abstract_train_state_is_meta_and_full_size():
     assert opt8["m"]["embed"]["q"].dtype == torch.int8
     with pytest.raises(ValueError, match="optimizer"):
         abstract_train_state(LM(get_config("gemma2-9b"), device="meta"), optimizer="sgd")
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_step_with_a_parameter_the_loss_does_not_reach(microbatches):
+    """deepseek-v3's sigmoid router: its bias only picks the experts, so the
+    loss has no gradient for it. The reference's ``jax.grad`` gives zeros,
+    which AdamW then decays (the stacked (L, E) leaf is 2-D); the port's
+    step took None for a gradient and failed (ROADMAP C9). Two steps from
+    the same weights, a bias away from zero: every parameter as the
+    reference's composition leaves it."""
+    ref_lm, params, lm = _pair("deepseek-v3-671b")
+    bias = params["moe_blocks"]["moe"]["router_bias"]
+    params["moe_blocks"]["moe"]["router_bias"] = jnp.asarray(
+        np.linspace(-0.5, 0.5, bias.size).reshape(bias.shape), jnp.float32)
+    lm.load_state_dict(params_from_reference(lm.cfg, jax.tree.map(np.asarray, params)))
+    tcfg = TrainConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10, microbatches=microbatches)
+    ref_step, step = _ref_step(ref_lm, tcfg), build_train_step(lm, tcfg)
+    ropt, opt = R.adamw_init(params), init_opt_state(lm)
+    for s in range(2):
+        rb, pb = _batch(lm.cfg, 2, 16, seed=10 + s)
+        params, ropt, rloss, rgn, _ = ref_step(params, ropt, rb)
+        m = step(opt, pb)
+        _close(m["loss"], rloss, 1e-5, "loss")
+        _close(m["grad_norm"], rgn, 1e-4, "grad_norm")
+    want = params_from_reference(lm.cfg, jax.tree.map(np.asarray, params))
+    got = dict(lm.named_parameters())
+    for k, p in got.items():
+        torch.testing.assert_close(p.detach(), want[k], rtol=0, atol=1e-4 * float(want[k].abs().max()), msg=k)
+    name = next(k for k in got if k.endswith("router_bias"))
+    start = params_from_reference(lm.cfg, {"moe_blocks": {"moe": {"router_bias": np.asarray(
+        np.linspace(-0.5, 0.5, bias.size).reshape(bias.shape), np.float32)}}})[name]
+    assert not torch.equal(got[name].detach(), start)          # decayed, as the reference's
