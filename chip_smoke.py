@@ -193,6 +193,35 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    synchronize, without the analysis) is printed beside
    ``step_time_lower_bound_s`` and their ratio, and each cell's record
    on a line of its own.
+12. The sharded decode paths on the one card. (a) In this process, the
+   decode kernel's key-range entry (``key0``, ``lse=True``) at gemma2-9b's
+   decode shape (B 4, S 8,192, H 16/8, D 256, bf16, soft-cap 50) cut into
+   4 ranges of 2,048: each range against its plain version, the ranges'
+   (out, lse) pairs combined against the whole-cache kernel and the plain
+   version (2e-2), at pos 8,191 and 4,095 (two ranges see no key: out 0,
+   lse −inf); each range's launch timed beside its byte bound. Then the
+   one-process results, and four ranks spawned on the card
+   (``launch.mesh.run_ranks``: a 2 × 2 ("data", "model") mesh, gloo on
+   cuda:0, every rank's kernel counters set to 0 before its part and read
+   after; the kernels line's ``launches_ph12`` are their sums), each held
+   to them: (b) gemma2-9b at published width through
+   ``build_serve_step(..., mesh=...)``, B 4 over max_len 8,192 caches filled
+   from a seeded generator, steps at 0, 1, 4,095, 4,096, 4,097 and 8,191
+   (across the 4,096 ring's wrap): in float32 with 2 layers each rank's
+   logits rows within 2e-4 of the one-process ``decode_step`` and the same
+   argmax, in bf16 with 4 layers within 2e-2 of the logits' largest
+   magnitude and the same argmax but where the one-process logits' top two
+   lie within that tolerance of each other; every step of every rank runs
+   each layer through the sharded attention and MLP and launches the
+   decode kernel once a layer, through the key-range entry; (c) one
+   deepseek-v2-236b MLA layer, ``mla_decode_sharded`` against ``mla_decode``
+   (bf16, 2e-2 of the largest magnitude); (d) one deepseek-v2-236b moe
+   layer, the a2a dispatch (2-D EP: 160 experts over the 4 ranks) on
+   B 2 × S 512 against the gather dispatch in this process, capacity factor
+   cut to 64 (dropless), output within 2e-2 and aux within 1e-3. Prints each
+   rank's step times and peak memory: four processes time-sharing one card
+   with their collectives staged through host memory, not the sharded
+   step's speed, and held to no bound.
 
 The attention wrappers count their padded calls too (``padded``): the
 flash and backward rows carry them for phases 9 and 10
@@ -1857,14 +1886,16 @@ def train_counters():
 
 def zero_counts(counters: dict) -> None:
     """Every counter of ``counters`` to 0, the flash wrapper's per-instance
-    counts (``by_pair``) and the padded route's (``padded``) with its
-    total."""
+    counts (``by_pair``), the padded route's (``padded``) and the decode
+    kernel's key-range entry's (``ranged``) with its total."""
     for fn in counters.values():
         fn.launches = 0
         if hasattr(fn, "by_pair"):
             fn.by_pair = {}
         if hasattr(fn, "padded"):
             fn.padded = 0
+        if hasattr(fn, "ranged"):
+            fn.ranged = 0
 
 
 def padded_counts(counters: dict) -> dict:
@@ -3064,6 +3095,408 @@ def phase_dryrun_on_card(torch) -> dict:
     return out
 
 
+# -- phase 12: the sharded decode paths, four ranks on the one card -------------------
+#
+# (a) In this process: the decode kernel's key-range entry at gemma2-9b's
+# decode shape, the 8,192-key cache cut into 4 ranges of 2,048, each
+# range's (out, lse) combined and held against the whole-cache kernel and
+# the plain version, at pos 8,191 and at 4,095 (two ranges see no key);
+# each range's launch timed beside its byte bound. (b)-(d) four spawned
+# ranks on a 2 x 2 ("data", "model") mesh, gloo on cuda:0
+# (launch.mesh.run_ranks), each against this process's one-process
+# result: gemma2-9b at published width through build_serve_step(...,
+# mesh=...), B 4 over max_len 8,192 caches filled from a seeded generator,
+# steps at positions that cross the 4,096 ring's wrap; one deepseek-v2-236b
+# MLA layer (mla_decode_sharded against mla_decode); one deepseek-v2-236b
+# moe layer, the a2a dispatch (2-D EP, 160 experts over 4 ranks) on
+# B 2 x S 512 against the gather dispatch.
+PH12 = dict(mesh={"data": 2, "model": 2}, B=4, max_len=8192, steps=(0, 1, 4095, 4096, 4097, 8191), seed=12,
+            layers={"float32": 2, "bfloat16": 4})
+RANGE12 = dict(B=4, S=8192, H=16, KV=8, D=256, cap=50.0, ranges=4, positions=(8191, 4095))
+MLA12 = dict(B=4, max_len=8192, steps=(0, 4095, 4096, 8191))
+MOE12 = dict(B=2, S=512, capacity_factor=64.0)   # the dropless cut: neither dispatch drops a token
+F32_TOL = 2e-4        # the reference test's decode tolerance (tests/models/test_sharded_decode.py)
+BF16_REL = 2e-2       # bf16: max |sharded − one process| ≤ BF16_REL · max |one process|
+AUX_RTOL = 1e-3
+
+
+def combine_ranges(torch, pairs):
+    """The ranks' combine of (out, lse) pairs: M = max lse, w = e^(lse − M),
+    out = Σ w·out / Σ w (models.attention.decode_attention_sharded)."""
+    outs, lses = torch.stack([o for o, _ in pairs]), torch.stack([m for _, m in pairs])
+    M = lses.amax(0)
+    w = torch.exp(lses - torch.where(torch.isfinite(M), M, torch.zeros_like(M)))
+    return (w[..., None] * outs).sum(0) / w.sum(0)[..., None]
+
+
+def range_entry(torch) -> dict:
+    """12a: the key-range entry at gemma2-9b's decode shape, in this process."""
+    from repro_torch.kernels.decode_attention import ops as da_ops, ref as da_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    B, S, H, KV, D, cap, m = (RANGE12[k] for k in ("B", "S", "H", "KV", "D", "cap", "ranges"))
+    bf = torch.bfloat16
+    q = (torch.randn((B, H, D), generator=gen, device=dev) * QK_STD).to(bf)
+    k = (torch.randn((B, S, KV, D), generator=gen, device=dev) * QK_STD).to(bf)
+    v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(bf)
+    n = S // m
+    sl = [slice(r * n, (r + 1) * n) for r in range(m)]
+    out = {"checks": {}}
+    for pos in RANGE12["positions"]:
+        pairs = [da_ops.decode_attention(q, k[:, s], v[:, s], pos, softcap=cap, key0=s.start, lse=True) for s in sl]
+        plain = [da_ref.decode_attention_ref(q, k[:, s], v[:, s], pos, softcap=cap, key0=s.start, lse=True) for s in sl]
+        torch.cuda.synchronize()
+        lse_err, empty = 0.0, []
+        for r, ((o, lse), (po, pl)) in enumerate(zip(pairs, plain)):
+            check(not bool(torch.isnan(o).any() or torch.isnan(lse).any()), f"phase 12a range {r} at {pos}: NaN")
+            if da_ops.visible_keys(pos, key0=sl[r].start, S=n) == 0:
+                check(torch.equal(o, torch.zeros_like(o)) and bool((lse == float("-inf")).all())
+                      and bool((pl == float("-inf")).all()), f"phase 12a range {r} at {pos}: not (0, -inf)")
+                empty.append(r)
+                continue
+            agree(torch, o, po, ATTN_TOL["bfloat16"], f"phase 12a range {r} at {pos} out")
+            lse_err = max(lse_err, max_abs_err(torch, lse, pl))
+        check(lse_err <= 1e-4 * float(plain[0][1].abs().max()) + 1e-4, f"phase 12a lse error {lse_err!r}")
+        got = combine_ranges(torch, pairs).to(bf)
+        whole = da_ops.decode_attention(q, k, v, pos, softcap=cap)
+        ref = da_ref.decode_attention_ref(q, k, v, pos, softcap=cap)
+        torch.cuda.synchronize()
+        e_w, _ = agree(torch, got, whole, ATTN_TOL["bfloat16"], f"phase 12a combined at {pos} vs the whole-cache kernel")
+        e_p, _ = agree(torch, got, ref, ATTN_TOL["bfloat16"], f"phase 12a combined at {pos} vs the plain version")
+        out["checks"][str(pos)] = dict(empty_ranges=empty, max_abs_err_whole=e_w, max_abs_err_plain=e_p,
+                                       lse_max_abs_err=lse_err)
+    pos = RANGE12["positions"][0]
+    o = torch.empty((B, H, D), dtype=torch.float32, device=dev)
+    lse = torch.empty((B, H), dtype=torch.float32, device=dev)
+    ms = [kernel_ms(torch, da_ops.launcher(q, k[:, s], v[:, s], o, pos, softcap=cap, key0=s.start, lse=lse))
+          for s in sl]
+    flops, nbytes = da_ops.work(B, H, KV, D, pos, key0=sl[0].start, S=n, lse=True)
+    b_ms, b_by = bound(nbytes, flops, "bf16")
+    r0 = sl[0]
+    plain_ms = kernel_ms(torch, lambda: da_ref.decode_attention_ref(q, k[:, r0], v[:, r0], pos, softcap=cap, lse=True),
+                         reps=3, inner=2)
+    # the library: one cuDNN SDPA call that returns the lse, on range 0 (every key visible at pos 8,191), at
+    # soft-cap 0 (SDPA has none); a kv head's query heads are its query rows, so K and V are read once
+    qg, kg, vg = q.view(B, KV, H // KV, D), k[:, r0].transpose(1, 2), v[:, r0].transpose(1, 2)
+    library = lambda: torch.ops.aten._scaled_dot_product_cudnn_attention(qg, kg, vg, None, True)[:2]  # noqa: E731
+    lib_o, lib_lse = library()
+    own_o, own_lse = da_ops.decode_attention(q, k[:, r0], v[:, r0], pos, key0=0, lse=True)
+    torch.cuda.synchronize()
+    lib_err, _ = agree(torch, lib_o.reshape(B, H, D), own_o.to(bf), ATTN_TOL["bfloat16"],
+                       "phase 12a key-range entry at cap 0 vs cuDNN SDPA")
+    lib_lse_err = max_abs_err(torch, lib_lse.reshape(B, H), own_lse)
+    check(lib_lse_err <= 1e-2, f"phase 12a key-range lse at cap 0 vs cuDNN SDPA's: {lib_lse_err!r}")
+    out.update(shape=[B, n, H, KV, D], ranges=m, cache_len=S, pos=pos, ms_per_range=ms, ms=statistics.median(ms),
+               bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / statistics.median(ms), plain_ms=plain_ms,
+               ms_softcap0=kernel_ms(torch, da_ops.launcher(q, k[:, r0], v[:, r0], o, pos, key0=0, lse=lse)),
+               library_ms=kernel_ms(torch, library), library_backend="cudnn", library_max_abs_err=lib_err,
+               library_lse_max_abs_err=lib_lse_err, max_abs_err=out["checks"][str(pos)]["max_abs_err_plain"],
+               whole_cache_ms=kernel_ms(torch, lambda: da_ops.decode_attention(q, k, v, pos, softcap=cap)))
+    print(f"phase 12a key-range entry {out['shape']} x {m} ranges: {json.dumps(out)}")
+    del q, k, v, o, lse
+    torch.cuda.empty_cache()
+    return out
+
+
+def gemma12(torch, dtype: str, dev):
+    """gemma2-9b at published width, depth cut to PH12's layers, from the seed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    cfg = get_config("gemma2-9b").replace(num_layers=PH12["layers"][dtype], param_dtype=dtype, compute_dtype=dtype)
+    return cfg, LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(PH12["seed"]))
+
+
+def cache12(torch, lm) -> dict:
+    """The global caches of B x max_len, every slot from a seeded generator."""
+    from repro_torch.models import decode
+
+    cache = decode.init_cache(lm, PH12["B"], PH12["max_len"])
+    gen = torch.Generator(device=lm.device).manual_seed(PH12["seed"] + 1)
+    for t in cache.values():
+        t.copy_(torch.randn(t.shape, generator=gen, device=lm.device).to(t.dtype))
+    return cache
+
+
+def tokens12(vocab: int) -> np.ndarray:
+    return np.random.default_rng(PH12["seed"]).integers(0, vocab, (PH12["B"], len(PH12["steps"]))).astype(np.int32)
+
+
+def mla12(torch, dev):
+    """One deepseek-v2-236b MLA layer at published width (bf16), its global
+    latent caches and the steps' inputs, from seeded generators."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.mla import init_mla, init_mla_
+
+    cfg = get_config("deepseek-v2-236b")
+    gen = torch.Generator(device=dev).manual_seed(PH12["seed"] + 2)
+    p = init_mla(cfg, dev)
+    init_mla_(p, cfg, gen)
+    for name in ("q_norm", "kv_norm"):
+        p[name].normal_(0.0, 0.1, generator=gen)
+    B, L = MLA12["B"], MLA12["max_len"]
+    caches = {"c_kv": torch.randn((B, L, cfg.kv_lora_rank), generator=gen, device=dev).to(cfg.cdtype),
+              "k_rope": torch.randn((B, L, cfg.qk_rope_head_dim), generator=gen, device=dev).to(cfg.cdtype)}
+    xs = [(torch.randn((B, 1, cfg.d_model), generator=gen, device=dev) * 0.3).to(cfg.cdtype) for _ in MLA12["steps"]]
+    return cfg, dict(p), caches, xs
+
+
+def moe12_cfg():
+    from repro_torch.configs import get_config
+
+    return get_config("deepseek-v2-236b").replace(capacity_factor=MOE12["capacity_factor"])
+
+
+def moe12(torch, dev, experts=None):
+    """One deepseek-v2-236b moe layer at published width (bf16), capacity
+    factor cut to 64: the router, the ``experts`` (all by default; each
+    expert's weights from a generator seeded by its index, so that a rank
+    draws its block alone), the shared experts, and x (B, S, d) of
+    standard deviation 0.3."""
+    cfg = moe12_cfg()
+    E, d, f, dt = cfg.num_experts, cfg.d_model, cfg.moe_d_ff, cfg.pdtype
+    experts = range(E) if experts is None else experts
+    gen = torch.Generator(device=dev)
+
+    def w(shape, fan_in, seed, dtype=dt):
+        gen.manual_seed(seed)
+        return (torch.randn(shape, generator=gen, device=dev) / math.sqrt(fan_in)).to(dtype)
+
+    base = PH12["seed"] * 10_000
+    p = {"router": w((d, E), d, base, torch.float32)}
+    for j, (name, shape, fan) in enumerate((("w_gate", (d, f), d), ("w_up", (d, f), d), ("w_down", (f, d), f))):
+        t = torch.empty((len(experts), *shape), dtype=dt, device=dev)
+        for i, e in enumerate(experts):
+            t[i] = w(shape, fan, base + 1 + 3 * e + j)
+        p[name] = t
+    fs = f * cfg.num_shared_experts
+    p["shared"] = {"w_gate": w((d, fs), d, base - 1), "w_up": w((d, fs), d, base - 2), "w_down": w((fs, d), fs, base - 3)}
+    gen.manual_seed(base - 4)
+    x = (torch.randn((MOE12["B"], MOE12["S"], d), generator=gen, device=dev) * 0.3).to(dt)
+    return cfg, p, x
+
+
+def kernel_counters() -> dict:
+    from repro_torch.kernels.cost_matrix import ops as cm_ops
+    from repro_torch.kernels.priority_requeue import ops as pr_ops
+
+    return dict(train_counters(), cost_matrix_f32=cm_ops.cost_matrix_classed, cost_matrix_f64=cm_ops.cost_matrix_f64,
+                cost_argmin_f64=cm_ops.cost_argmin_f64, priority_requeue=pr_ops.priority_requeue)
+
+
+def phase12_rank(mesh) -> dict:
+    """One rank of phase 12 (b)-(d), on its blocks; every kernel counter set
+    to 0 before and read after. Returns this rank's outputs (its rows, its
+    MLA rows, its moe tokens), per-step counts and times, and peak memory."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.models import attention, decode, moe
+    from repro_torch.models.mla import mla_decode_sharded, mla_decode_specs
+    from repro_torch.runtime.pspec import logical_axis_rules
+    from repro_torch.runtime.serve import build_serve_step
+    from repro_torch.runtime.sharding import block_index, local_block
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    counters = kernel_counters()
+    zero_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = {"coords": dict(mesh.coords), "backend": mesh.backend, "device": str(dev)}
+    B, max_len = PH12["B"], PH12["max_len"]
+    for dtype in ("float32", "bfloat16"):
+        cfg, lm = gemma12(torch, dtype, dev)
+        toks = tokens12(cfg.vocab_size)
+        step, (psh, csh, tsh, _), _ = build_serve_step(lm, B, max_len, mesh=mesh)
+        full = cache12(torch, lm)
+        with logical_axis_rules(mesh):
+            cache = decode.init_cache(lm, B, max_len)
+        for k in cache:
+            cache[k].copy_(local_block(full[k], csh[k], mesh))
+        del full
+        rows, counts, times = [], [], []
+        for n, pos in enumerate(PH12["steps"]):
+            tok = local_block(torch.as_tensor(toks[:, n:n + 1], device=dev), tsh, mesh)
+            before = (attention.decode_attention_sharded.calls, attention.decode_mlp_sharded.calls,
+                      da_ops.decode_attention.launches, da_ops.decode_attention.ranged)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, cache = step(tok, cache, pos)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            counts.append(dict(attention=attention.decode_attention_sharded.calls - before[0],
+                               mlp=attention.decode_mlp_sharded.calls - before[1],
+                               decode_launches=da_ops.decode_attention.launches - before[2],
+                               range_launches=da_ops.decode_attention.ranged - before[3]))
+            rows.append(logits.float().cpu().numpy())
+        res[dtype] = dict(logits=np.stack(rows), counts=counts, step_s=times, layers=cfg.num_layers,
+                          cut_params=sum(any(e is not None for e in sp) for sp in psh.values()),
+                          cache_specs={k: [list(e) if isinstance(e, tuple) else e for e in v] for k, v in csh.items()})
+        del lm, step, cache, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (c) one MLA layer
+    cfg, p, caches, xs = mla12(torch, dev)
+    specs = mla_decode_specs(cfg, mesh, MLA12["B"])
+    local = {w: local_block(t, specs[w], mesh).clone() for w, t in p.items()}
+    ckv, kr = (local_block(caches[k], specs["cache"], mesh).clone() for k in ("c_kv", "k_rope"))
+    del p, caches
+    ys = []
+    with logical_axis_rules(mesh):
+        for x, pos in zip(xs, MLA12["steps"]):
+            y, ckv, kr = mla_decode_sharded(local, local_block(x, specs["x"], mesh), ckv, kr, pos, cfg,
+                                            batch=MLA12["B"])
+            ys.append(y.float().cpu().numpy())
+    res["mla"] = np.stack(ys)
+    del local, ckv, kr, xs
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) one moe layer, the a2a dispatch
+    cfg = moe12_cfg()
+    specs = moe.moe_a2a_specs(cfg, mesh)
+    e_idx, e_n = block_index(mesh, specs["w_gate"][0], mesh.coords)
+    E_loc = cfg.num_experts // e_n
+    _, p, x = moe12(torch, dev, experts=range(e_idx * E_loc, (e_idx + 1) * E_loc))
+    moe.set_moe_impl("a2a")
+    try:
+        with logical_axis_rules(mesh):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            y, aux = moe.moe_layer(p, local_block(x, specs["x"], mesh), cfg)
+            torch.cuda.synchronize()
+            res["moe_s"] = time.perf_counter() - t1
+    finally:
+        moe.set_moe_impl("gather")
+    res["moe"], res["moe_aux"] = y.float().cpu().numpy(), float(aux)
+    res["ep2d"] = specs["w_gate"][0] == ("model", "data")
+    del p, x, y
+    res["launches"] = {name: fn.launches for name, fn in counters.items()}
+    res["flash_pairs"] = flash_pairs()
+    res["range_launches"] = da_ops.decode_attention.ranged
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def rows_of(a: np.ndarray, coords: dict, mesh_shape: dict, spec) -> np.ndarray:
+    """The block of a one-process result that the rank at ``coords`` holds."""
+    import torch
+    from repro_torch.runtime.sharding import local_block
+
+    return local_block(torch.from_numpy(np.ascontiguousarray(a)), spec, mesh_shape, coords).numpy()
+
+
+def bf16_close(got: np.ndarray, want: np.ndarray, what: str) -> float:
+    """max |got − want| ≤ BF16_REL · max |want|; returns that error over max |want|."""
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    check(rel <= BF16_REL, f"{what}: max error {rel!r} of max |one process| (limit {BF16_REL})")
+    return rel
+
+
+def phase_sharded(torch) -> dict:
+    """Phase 12 (b)-(d): the one-process results here, then four ranks on
+    the card, each held to them."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import decode, moe
+    from repro_torch.models.attention import _decode_bspec
+    from repro_torch.models.mla import mla_decode
+
+    t0 = time.perf_counter()
+    out = {}
+    dev = torch.device("cuda")
+    B, steps = PH12["B"], PH12["steps"]
+    want = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg, lm = gemma12(torch, dtype, dev)
+        toks = tokens12(cfg.vocab_size)
+        cache = cache12(torch, lm)
+        rows = []
+        for n, pos in enumerate(steps):
+            logits, cache = decode.decode_step(lm, torch.as_tensor(toks[:, n:n + 1], device=dev), cache, pos)
+            rows.append(logits.float().cpu().numpy())
+        want[dtype] = np.stack(rows)
+        del lm, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg, p, caches, xs = mla12(torch, dev)
+    ys = []
+    with torch.no_grad():
+        for x, pos in zip(xs, MLA12["steps"]):
+            y, _, _ = mla_decode(p, x, caches["c_kv"], caches["k_rope"], pos, cfg)
+            ys.append(y.float().cpu().numpy())
+    want["mla"] = np.stack(ys)
+    del p, caches, xs
+    cfg, p, x = moe12(torch, dev)
+    with torch.no_grad():
+        y, aux = moe.moe_layer(p, x, cfg)
+    want["moe"], want["moe_aux"] = y.float().cpu().numpy(), float(aux)
+    del p, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    ranks = run_ranks(phase12_rank, PH12["mesh"], backend="gloo", timeout=900)
+    ranks_s = time.perf_counter() - t1
+    mesh = PH12["mesh"]
+    rows_spec = (_decode_bspec(mesh, B), None, None)
+    moe_spec = moe.moe_a2a_specs(cfg, mesh)["x"]
+    per_rank = []
+    for r in ranks:
+        c = r["coords"]
+        check(r["backend"] == "gloo" and r["device"].startswith("cuda"),
+              f"phase 12 rank {c}: {r['backend']} {r['device']}")
+        got = r["float32"]["logits"]
+        ref = rows_of(want["float32"], c, mesh, (None,) + rows_spec)
+        f32_err = max_abs_err(torch, torch.from_numpy(got), torch.from_numpy(ref))
+        check(bool(np.all(np.abs(got - ref) <= F32_TOL + F32_TOL * np.abs(ref))),
+              f"phase 12b rank {c} float32 logits differ from the one-process step by {f32_err!r}")
+        check(np.array_equal(got.argmax(-1), ref.argmax(-1)), f"phase 12b rank {c} float32 argmax differs")
+        got, ref = r["bfloat16"]["logits"], rows_of(want["bfloat16"], c, mesh, (None,) + rows_spec)
+        bf_rel = bf16_close(got, ref, f"phase 12b rank {c} bf16 logits")
+        # the same greedy token, but where the one-process logits' two largest
+        # lie within the tolerance of each other (a tie the rounding may turn)
+        top2 = np.sort(ref, axis=-1)[..., -2:]
+        tie = (top2[..., 1] - top2[..., 0]) <= BF16_REL * np.abs(ref).max()
+        same = got.argmax(-1) == ref.argmax(-1)
+        picked = np.take_along_axis(ref, got.argmax(-1)[..., None], -1)[..., 0]
+        check(bool(np.all(same | (tie & (top2[..., 1] - picked <= BF16_REL * np.abs(ref).max())))),
+              f"phase 12b rank {c} bf16 argmax differs outside a tie")
+        for dtype in ("float32", "bfloat16"):
+            L = r[dtype]["layers"]
+            for n, k in enumerate(r[dtype]["counts"]):
+                check(k == dict(attention=L, mlp=L, decode_launches=L, range_launches=L),
+                      f"phase 12b rank {c} {dtype} step {steps[n]}: {k}, want {L} of each")
+        mla_rel = bf16_close(r["mla"], rows_of(want["mla"], c, mesh, (None,) + rows_spec), f"phase 12c rank {c} MLA")
+        moe_rel = bf16_close(r["moe"], rows_of(want["moe"], c, mesh, moe_spec), f"phase 12d rank {c} moe a2a")
+        check(abs(r["moe_aux"] - want["moe_aux"]) <= AUX_RTOL * abs(want["moe_aux"]),
+              f"phase 12d rank {c} aux {r['moe_aux']!r} vs {want['moe_aux']!r}")
+        check(r["ep2d"], f"phase 12d rank {c}: not 2-D expert parallelism")
+        per_rank.append(dict(coords=c, f32_max_abs_err=f32_err, bf16_rel_err=bf_rel, bf16_ties=int(tie.sum()),
+                             bf16_argmax_same=int(same.sum()), mla_rel_err=mla_rel, moe_rel_err=moe_rel,
+                             aux=r["moe_aux"], peak_bytes=r["peak_bytes"], wall_s=r["wall_s"],
+                             step_s={d: r[d]["step_s"] for d in ("float32", "bfloat16")}, moe_s=r["moe_s"],
+                             counts={d: r[d]["counts"] for d in ("float32", "bfloat16")},
+                             cut_params={d: r[d]["cut_params"] for d in ("float32", "bfloat16")},
+                             cache_specs=r["bfloat16"]["cache_specs"]))
+        print(f"phase 12 rank {c}: {json.dumps(per_rank[-1])}")
+    launches = {name: sum(r["launches"][name] for r in ranks) for name in ranks[0]["launches"]}
+    pairs: dict = {}
+    for r in ranks:
+        for key, n in r["flash_pairs"].items():
+            pairs[key] = pairs.get(key, 0) + n
+    out.update(ranks=per_rank, launches=launches, flash_pairs=pairs,
+               range_launches=sum(r["range_launches"] for r in ranks),
+               one_process_s=one_s, ranks_s=ranks_s, wall_s=time.perf_counter() - t0, aux=want["moe_aux"])
+    print(f"phase 12 four ranks on one card (2 x 2 mesh, gloo, collectives staged through host memory): the step "
+          f"times above are four processes time-sharing one card, not the sharded step's speed, and are held to no "
+          f"bound; ranks {ranks_s:.3f} s, one-process references {one_s:.3f} s, phase {out['wall_s']:.3f} s, "
+          f"launches {launches}, key-range launches {out['range_launches']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3193,6 +3626,21 @@ def main() -> int:
         {k: {"step_s": r["step_s"], "step_time_lower_bound_s": r["step_time_lower_bound_s"],
              "ratio": r["step_over_bound"], "peak_ratio": r["peak_ratio"]}
          for k, r in dry.items() if k in ("decode", "prefill", "train")}))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phase 12's path runs in four spawned ranks: each sets its counters to 0
+    # before its part and reads them after; these are their sums.
+    zero_counts(all_counters)
+    t0 = time.perf_counter()
+    entry = range_entry(torch)
+    sharded = phase_sharded(torch)
+    sharded["range_entry"] = entry
+    ph12_launches, ph12_pairs = sharded["launches"], sharded["flash_pairs"]
+    print(f"phase 12 in {time.perf_counter() - t0:.3f} s, launches (four ranks) {ph12_launches}, flash by instance "
+          f"{ph12_pairs}, key-range launches {sharded['range_launches']}")
+    check(ph12_launches["decode_attention"] > 0 and sharded["range_launches"] == ph12_launches["decode_attention"],
+          "phase 12 never launched decode_attention's key-range entry, or launched another")
 
     meta = {
         "cost_matrix_f32": ("src/repro_torch/kernels/cost_matrix/csrc/cost_matrix.cu",
@@ -3220,14 +3668,14 @@ def main() -> int:
             library_ms=None, shape=r["shape"], launches_sim=sim_launches[name],
             launches_p2p=p2p_launches[name], launches_ph8=ph8_launches[name],
             launches_ph9=ph9_launches[name], launches_ph10=ph10_launches[name],
-            launches_ph11=ph11_launches[name],
+            launches_ph11=ph11_launches[name], launches_ph12=ph12_launches[name],
             **({"wrapper_ms": r["wrapper_ms"]} if "wrapper_ms" in r else {}),
         ))
     # The flash rows split the wrapper's counts by instance: "flash_attention"
     # counts the instances with v as wide as q and k, "flash_attention
     # (192, 128)" MLA's, each per phase as measured (``launches_by_pair``).
     phase_pairs = {"main": serving["pairs"], "sim": sim_pairs, "p2p": p2p_pairs, "ph8": ph8_pairs, "ph9": ph9_pairs,
-                   "ph10": ph10_pairs, "ph11": ph11_pairs}
+                   "ph10": ph10_pairs, "ph11": ph11_pairs, "ph12": ph12_pairs}
     source, replaces = attn_meta["flash_attention"]
     for name, mla, r in (("flash_attention", False, attn["flash_attention"]),
                          ("flash_attention (192, 128)", True, attn["flash_attention_mla"])):
@@ -3236,7 +3684,7 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces, launches=counts["ph9" if mla else "main"],
             launches_sim=counts["sim"], launches_p2p=counts["p2p"], launches_ph8=counts["ph8"],
             launches_ph9=counts["ph9"], launches_ph10=counts["ph10"], launches_ph11=counts["ph11"],
-            launches_by_pair={ph: {key: n for key, n in pairs.items() if (key == MLA_PAIR) == mla}
+            launches_ph12=counts["ph12"], launches_by_pair={ph: {key: n for key, n in pairs.items() if (key == MLA_PAIR) == mla}
                               for ph, pairs in phase_pairs.items()},
             launches_padded={} if mla else {"ph9": ph9_padded["flash_attention"],
                                             "ph10": ph10_padded["flash_attention"]}, **r))
@@ -3245,7 +3693,10 @@ def main() -> int:
                      launches=serving["launches"]["decode_attention"], launches_sim=sim_launches["decode_attention"],
                      launches_p2p=p2p_launches["decode_attention"], launches_ph8=ph8_launches["decode_attention"],
                      launches_ph9=ph9_launches["decode_attention"], launches_ph10=ph10_launches["decode_attention"],
-                     launches_ph11=ph11_launches["decode_attention"], **attn["decode_attention"]))
+                     launches_ph11=ph11_launches["decode_attention"],
+                     launches_ph12=ph12_launches["decode_attention"],
+                     launches_ph12_range_entry=sharded["range_launches"], range_entry=sharded["range_entry"],
+                     **attn["decode_attention"]))
     # The backward has no Pallas twin (the reference differentiates jnp
     # attention); it is the gradient of the forward TPU kernel's function.
     line.append(dict(name="flash_attention_bwd", route="cuda",
@@ -3256,7 +3707,8 @@ def main() -> int:
                      launches_sim=sim_launches["flash_attention_bwd"], launches_p2p=p2p_launches["flash_attention_bwd"],
                      launches_ph8=ph8_launches["flash_attention_bwd"], launches_ph9=ph9_launches["flash_attention_bwd"],
                      launches_ph10=ph10_launches["flash_attention_bwd"],
-                     launches_ph11=ph11_launches["flash_attention_bwd"], launches_by_pair={"ph10": ph10_bwd_pairs},
+                     launches_ph11=ph11_launches["flash_attention_bwd"],
+                     launches_ph12=ph12_launches["flash_attention_bwd"], launches_by_pair={"ph10": ph10_bwd_pairs},
                      launches_padded={"ph10": ph10_padded["flash_attention_bwd"]}, **bwd_row))
     for k in line:
         k["bound_share"] = k["bound_ms"] / k["ms"]

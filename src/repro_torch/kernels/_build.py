@@ -70,9 +70,9 @@ _SIGNATURES = {
     **{f"repro_flash_attention_bwd_{t}": (*(_P,) * 10, *(_I64,) * 7, *(_I64,) * 6,
                                           _c.c_int, _I64, _c.c_float, _c.c_float, _P)
        for t in ("f32", "bf16")},
-    # q, k, v, o, ws_m, ws_l, ws_acc; B, KV, rep, S, D, pos; k/v strides;
-    # window, softcap, scale, split; stream
-    **{f"repro_decode_attention_{t}": (*(_P,) * 7, *(_I64,) * 6, *(_I64,) * 3,
+    # q, k, v, o, ws_m, ws_l, ws_acc, lse (or null); B, KV, rep, S, D, pos, key0;
+    # k/v strides; window, softcap, scale, split; stream
+    **{f"repro_decode_attention_{t}": (*(_P,) * 8, *(_I64,) * 7, *(_I64,) * 3,
                                        _I64, _c.c_float, _c.c_float, _I64, _P)
        for t in ("f32", "bf16")},
 }

@@ -25,6 +25,18 @@
 // l = 0 and acc = 0, and drops out of the combine. Ring caches use the
 // same kernel: the caller passes pos' = min(pos, W - 1) and no window.
 //
+// Key ranges (the sharded decode): key j of the given k and v sits at
+// position key0 + j, visible iff key0 + j <= pos and, with a window,
+// pos - (key0 + j) < window; pos may lie before the range (no key
+// visible) or past its end. Asked for the log-sum-exp (lse != NULL),
+// the combine writes the normalised output in float32 and the natural
+// log-sum-exp of the range's visible scores per query head, so that
+// ranges held by different ranks combine exactly: with M the largest
+// lse, out = sum_r e^(lse_r - M) out_r / sum_r e^(lse_r - M). A range
+// with no visible key gives out = 0 and lse = -inf. Without lse the
+// output is cast to q's type, as before; key0 = 0 there is the whole
+// cache.
+//
 // Bound on an H100: bytes. gemma2-9b serving (B 4, KV 8, S 8192, D 256,
 // bf16) reads 2·4·8·8192·256·2 B = 268 MB of K and V, 0.080 ms at
 // 3.35 TB/s; its 2·2·B·H·S·D = 0.54 GFLOP are far below the card's rate.
@@ -57,6 +69,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -2.0e38f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRep = 16;
@@ -71,7 +84,8 @@ struct Params {
   float* ws_m;    // (B, KV, nsplit, rep), exp2 domain
   float* ws_l;    // (B, KV, nsplit, rep)
   float* ws_acc;  // (B, KV, nsplit, rep, D)
-  int B, KV, rep, S, pos, window, split, nsplit;
+  float* lse;     // (B, KV, rep) natural log-sum-exp, or NULL: o cast to T
+  int B, KV, rep, S, pos, key0, window, split, nsplit;
   int64_t kv_sb, kv_ss, kv_sh;  // k and v strides (elements): batch, sequence, head
   float qk_scale;  // scale · log2 e, or scale / softcap with a soft-cap
   float cap_log2;  // softcap · log2 e, or 0 without one
@@ -189,11 +203,13 @@ __global__ void __launch_bounds__(kThreads, REPB <= 4 ? 2 : 1) decode_split_kern
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int64_t ws_row = ((int64_t)(b * p.KV + g) * p.nsplit + sp) * rep;
 
-  // Keys of this split that some mask lets through: [a, e].
+  // Keys of this split that some mask lets through: [a, e] (key j at
+  // position key0 + j).
   const int j0 = sp * p.split;
   const int j1 = min(p.S, j0 + p.split) - 1;
-  const int lo = p.window > 0 ? max(0, p.pos - p.window + 1) : 0;
-  const int a = max(j0, lo), e = min(j1, p.pos);
+  const int last = p.pos - p.key0;
+  const int lo = p.window > 0 ? max(0, last - p.window + 1) : 0;
+  const int a = max(j0, lo), e = min(j1, last);
   if (a > e) {
     for (int idx = tid; idx < rep * D; idx += kThreads) p.ws_acc[ws_row * D + idx] = 0.f;
     if (tid < rep) {
@@ -379,12 +395,15 @@ __global__ void __launch_bounds__(kThreads, REPB <= 4 ? 2 : 1) decode_split_kern
 }
 
 // Combine the splits of one (batch, group): block (g, b), D threads.
+// With lse, o is float32 and a head with no visible key gets 0 and -inf.
 template <typename T, int D>
 __global__ void __launch_bounds__(D) decode_combine_kernel(Params p) {
   const int g = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   const int rep = p.rep;
   const int64_t base = (int64_t)(b * p.KV + g) * p.nsplit * rep;
-  T* og = static_cast<T*>(p.o) + ((int64_t)b * p.KV + g) * rep * D;
+  const int64_t row0 = ((int64_t)b * p.KV + g) * rep;
+  T* og = static_cast<T*>(p.o) + row0 * D;
+  float* of = static_cast<float*>(p.o) + row0 * D;
   for (int r = 0; r < rep; ++r) {
     float m = kNegInf;
     for (int s = 0; s < p.nsplit; ++s) m = fmaxf(m, p.ws_m[base + (int64_t)s * rep + r]);
@@ -395,7 +414,12 @@ __global__ void __launch_bounds__(D) decode_combine_kernel(Params p) {
       l += p.ws_l[row] * w;
       acc += p.ws_acc[row * D + d] * w;
     }
-    og[r * D + d] = from_float<T>(acc / fmaxf(l, 1e-30f));
+    if (p.lse == nullptr) {
+      og[r * D + d] = from_float<T>(acc / fmaxf(l, 1e-30f));
+    } else {
+      of[r * D + d] = l > 0.f ? acc / l : 0.f;
+      if (d == 0) p.lse[row0 + r] = l > 0.f ? (m + log2f(l)) * kLn2 : -__int_as_float(0x7f800000);
+    }
   }
 }
 
@@ -423,14 +447,17 @@ int launch_rep(const Params& p, void* stream) {
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, float* ws_m, float* ws_l,
-             float* ws_acc, int64_t B, int64_t KV, int64_t rep, int64_t S, int64_t D, int64_t pos,
-             int64_t kv_sb, int64_t kv_ss, int64_t kv_sh, int64_t window, float softcap,
-             float scale, int64_t split, void* stream) {
-  if (rep < 1 || rep > kMaxRep || split < 1 || pos < 0 || pos >= S) return (int)cudaErrorInvalidValue;
+             float* ws_acc, float* lse, int64_t B, int64_t KV, int64_t rep, int64_t S, int64_t D,
+             int64_t pos, int64_t key0, int64_t kv_sb, int64_t kv_ss, int64_t kv_sh, int64_t window,
+             float softcap, float scale, int64_t split, void* stream) {
+  if (rep < 1 || rep > kMaxRep || split < 1 || pos < 0 || key0 < 0 || pos > 2147483647 ||
+      key0 > 2147483647)
+    return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
-  p.ws_m = ws_m; p.ws_l = ws_l; p.ws_acc = ws_acc;
+  p.ws_m = ws_m; p.ws_l = ws_l; p.ws_acc = ws_acc; p.lse = lse;
   p.B = (int)B; p.KV = (int)KV; p.rep = (int)rep; p.S = (int)S; p.pos = (int)pos;
+  p.key0 = (int)key0;
   p.window = (int)window; p.split = (int)split;
   p.nsplit = (int)((S + split - 1) / split);
   p.kv_sb = kv_sb; p.kv_ss = kv_ss; p.kv_sh = kv_sh;
@@ -452,23 +479,25 @@ extern "C" {
 // The workspace holds B·KV·ceil(S/split)·rep floats for m and for l, and
 // D times that for acc; the wrapper allocates it. scale multiplies q·k:
 // the wrapper passes the true head width's D^-0.5, which differs from
-// this instance's where it pads q and the cache with zero columns.
+// this instance's where it pads q and the cache with zero columns. key j
+// of k and v sits at position key0 + j. lse NULL: o (B, H, D) in q's
+// type; else o (B, H, D) float32 and lse (B, H) float32.
 int repro_decode_attention_f32(const void* q, const void* k, const void* v, void* o, float* ws_m,
-                               float* ws_l, float* ws_acc, int64_t B, int64_t KV, int64_t rep,
-                               int64_t S, int64_t D, int64_t pos, int64_t kv_sb, int64_t kv_ss,
-                               int64_t kv_sh, int64_t window, float softcap, float scale,
-                               int64_t split, void* stream) {
-  return dispatch<float>(q, k, v, o, ws_m, ws_l, ws_acc, B, KV, rep, S, D, pos, kv_sb, kv_ss,
-                         kv_sh, window, softcap, scale, split, stream);
+                               float* ws_l, float* ws_acc, float* lse, int64_t B, int64_t KV,
+                               int64_t rep, int64_t S, int64_t D, int64_t pos, int64_t key0,
+                               int64_t kv_sb, int64_t kv_ss, int64_t kv_sh, int64_t window,
+                               float softcap, float scale, int64_t split, void* stream) {
+  return dispatch<float>(q, k, v, o, ws_m, ws_l, ws_acc, lse, B, KV, rep, S, D, pos, key0, kv_sb,
+                         kv_ss, kv_sh, window, softcap, scale, split, stream);
 }
 
 int repro_decode_attention_bf16(const void* q, const void* k, const void* v, void* o, float* ws_m,
-                                float* ws_l, float* ws_acc, int64_t B, int64_t KV, int64_t rep,
-                                int64_t S, int64_t D, int64_t pos, int64_t kv_sb, int64_t kv_ss,
-                                int64_t kv_sh, int64_t window, float softcap, float scale,
-                                int64_t split, void* stream) {
-  return dispatch<bf16>(q, k, v, o, ws_m, ws_l, ws_acc, B, KV, rep, S, D, pos, kv_sb, kv_ss,
-                        kv_sh, window, softcap, scale, split, stream);
+                                float* ws_l, float* ws_acc, float* lse, int64_t B, int64_t KV,
+                                int64_t rep, int64_t S, int64_t D, int64_t pos, int64_t key0,
+                                int64_t kv_sb, int64_t kv_ss, int64_t kv_sh, int64_t window,
+                                float softcap, float scale, int64_t split, void* stream) {
+  return dispatch<bf16>(q, k, v, o, ws_m, ws_l, ws_acc, lse, B, KV, rep, S, D, pos, key0, kv_sb,
+                        kv_ss, kv_sh, window, softcap, scale, split, stream);
 }
 
 }  // extern "C"

@@ -20,6 +20,14 @@ new buffer ``[k | 0 | v | 0]``) at the true width's scale D^-0.5, and the
 output's zero columns are sliced off; ``decode_attention.padded`` counts
 those calls. D > 256 raises.
 
+The key-range entry (``key0``, ``lse=True``): k and v are a range of a
+longer cache whose key j sits at position key0 + j (pos may lie before
+or past the range), and the call returns the range's float32 output
+and the natural log-sum-exp of its visible scores (B, H), 0 and −inf
+for a head that sees no key. Ranks holding ranges of one cache combine
+those pairs (``models.attention.decode_attention_sharded``). A ring
+cache's range takes pos' = min(pos, W − 1) and no window.
+
 A ``meta`` tensor takes the card's route up to the launch (checks,
 padding, the output's allocation) and stops there, returning an empty
 output; no counter moves. On the card and on ``meta`` alike a call
@@ -39,7 +47,8 @@ from .. import _build
 from ..flash_attention.ops import pad_qkv
 from .ref import decode_attention_ref
 
-__all__ = ["decode_attention", "launcher", "split_size", "workspace_floats", "instance", "work", "HEAD_DIMS",
+__all__ = ["decode_attention", "launcher", "split_size", "workspace_floats", "instance", "work", "visible_keys",
+           "HEAD_DIMS",
            "MAX_REP", "CHUNK", "WAVE", "BLOCK_COST"]
 
 _ENTRY = {torch.float32: "repro_decode_attention_f32", torch.bfloat16: "repro_decode_attention_bf16"}
@@ -80,20 +89,33 @@ def workspace_floats(B: int, KV: int, rep: int, S: int, D: int, split: int) -> i
     return B * KV * -(-S // split) * rep * (D + 2)
 
 
-def work(B: int, H: int, KV: int, D: int, pos: int, *, window: int = 0, itemsize: int = 2) -> tuple[int, int]:
-    """(FLOPs, bytes) of one launch: the query sees min(pos + 1, window)
-    keys (pos + 1 without a window), two products of 2·D a visible key
-    and head; those keys' k and v rows read once, q read and o written
-    once, all in their type."""
-    visible = min(pos + 1, window) if window > 0 else pos + 1
-    return 4 * B * H * D * visible, (2 * B * visible * KV * D + 2 * B * H * D) * itemsize
+def visible_keys(pos: int, *, window: int = 0, key0: int = 0, S: int | None = None) -> int:
+    """Keys j of a range (key0 + j its position, j < S; no end without S)
+    that the query at pos sees: key0 + j ≤ pos and, with a window,
+    pos − (key0 + j) < window."""
+    last = pos - key0 if S is None else min(S - 1, pos - key0)
+    first = max(0, pos - key0 - window + 1) if window > 0 else 0
+    return max(0, last - first + 1)
 
 
-def decode_attention(q, k, v, pos: int, *, window: int = 0, softcap: float = 0.0):
-    """q: (B, H, D); k, v: (B, S, KV, D); 0 ≤ pos < S → (B, H, D).
+def work(B: int, H: int, KV: int, D: int, pos: int, *, window: int = 0, itemsize: int = 2, key0: int = 0,
+         S: int | None = None, lse: bool = False) -> tuple[int, int]:
+    """(FLOPs, bytes) of one launch: two products of 2·D a visible key
+    (``visible_keys``) and head; those keys' k and v rows read once, q
+    read once in its type, and o written once, in q's type or, with
+    ``lse``, float32 with the float32 log-sum-exp (B, H)."""
+    visible = visible_keys(pos, window=window, key0=key0, S=S)
+    out = B * H * D * 4 + B * H * 4 if lse else B * H * D * itemsize
+    return 4 * B * H * D * visible, (2 * B * visible * KV * D + B * H * D) * itemsize + out
 
-    Keys at positions kp ≤ pos (and pos − kp < window with a window)
-    are visible to the one query token."""
+
+def decode_attention(q, k, v, pos: int, *, window: int = 0, softcap: float = 0.0, key0: int = 0,
+                     lse: bool = False):
+    """q: (B, H, D); k, v: (B, S, KV, D); pos ≥ 0, key0 ≥ 0 → (B, H, D) in
+    q's type, or with ``lse`` (out (B, H, D) float32, lse (B, H) float32).
+
+    Key j sits at position key0 + j. Keys at positions kp ≤ pos (and
+    pos − kp < window with a window) are visible to the one query token."""
     dev, dtype = _build.strided_device("decode_attention", dict(q=q, k=k, v=v), tuple(_ENTRY))
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"decode_attention: q (B,H,D), k and v (B,S,KV,D); got "
@@ -103,13 +125,13 @@ def decode_attention(q, k, v, pos: int, *, window: int = 0, softcap: float = 0.0
     if k.shape[0] != B or k.shape[3] != D or KV < 1 or H % KV:
         raise ValueError(f"decode_attention: q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          "share B and D with H a multiple of KV")
-    pos = int(pos)
-    if not 0 <= pos < S:
-        raise ValueError(f"decode_attention: pos {pos} outside the cache [0, {S})")
+    pos, key0 = int(pos), int(key0)
+    if pos < 0 or key0 < 0:
+        raise ValueError(f"decode_attention: pos {pos} and key0 {key0} must be ≥ 0")
     if window < 0 or softcap < 0:
         raise ValueError("decode_attention: window and softcap must be ≥ 0")
     if dev.type == "cpu":
-        return decode_attention_ref(q, k, v, pos, window=window, softcap=softcap)
+        return decode_attention_ref(q, k, v, pos, window=window, softcap=softcap, key0=key0, lse=lse)
     rep = H // KV
     Dk = instance(D)
     if Dk is None or rep > MAX_REP:
@@ -124,27 +146,37 @@ def decode_attention(q, k, v, pos: int, *, window: int = 0, softcap: float = 0.0
     if k.stride() != v.stride():
         raise ValueError("decode_attention: k and v must have the same strides")
     _build.check_rows("decode_attention", dict(q=q, k=k, v=v))
-    o = torch.empty((B, H, Dk), dtype=dtype, device=dev)
+    o = torch.empty((B, H, Dk), dtype=torch.float32 if lse else dtype, device=dev)
+    m = torch.empty((B, H), dtype=torch.float32, device=dev) if lse else None
+
+    def result():
+        out = o[..., :D].contiguous() if padded else o
+        return (out, m) if lse else out
+
     if B == 0:
-        return o[..., :D]
-    _counting.charge("decode_attention", *work(B, H, KV, Dk, pos, window=window, itemsize=q.element_size()))
+        return result()
+    _counting.charge("decode_attention", *work(B, H, KV, Dk, pos, window=window, itemsize=q.element_size(),
+                                               key0=key0, S=S, lse=lse))
     if dev.type == "meta":
-        return o[..., :D].contiguous() if padded else o
-    run = launcher(q, k, v, o, pos, window=window, softcap=softcap, scale=1.0 / math.sqrt(D))
+        return result()
+    run = launcher(q, k, v, o, pos, window=window, softcap=softcap, scale=1.0 / math.sqrt(D), key0=key0, lse=m)
     decode_attention.launches += 1
     decode_attention.padded += int(padded)
+    decode_attention.ranged += int(lse)
     run()
-    return o[..., :D].contiguous() if padded else o
+    return result()
 
 
 def launcher(q, k, v, o, pos: int, *, window: int = 0, softcap: float = 0.0, split: int | None = None,
-             scale: float | None = None):
+             scale: float | None = None, key0: int = 0, lse=None):
     """The kernel's launch into ``o`` (B, H, D) as a closure, on CUDA
     tensors that ``decode_attention`` has checked, at q's width; the
     closure holds the split pass's float32 workspace (m, l, then acc per
     split and head). ``split`` overrides ``split_size`` (for measuring the
-    choice); ``scale`` defaults to D^-0.5."""
-    _build.require_card("decode_attention", q, k, v, o)
+    choice); ``scale`` defaults to D^-0.5. With ``lse`` (a float32 (B, H)
+    tensor) the kernel writes o in float32 and the log-sum-exp into it;
+    key j of k and v sits at position key0 + j."""
+    _build.require_card("decode_attention", q, k, v, o, lse)
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     rep = H // KV
@@ -154,14 +186,15 @@ def launcher(q, k, v, o, pos: int, *, window: int = 0, softcap: float = 0.0, spl
     n = ws.numel() // (D + 2)
     fn = getattr(_build.library(), _ENTRY[q.dtype])
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            ws.data_ptr(), ws[n:].data_ptr(), ws[2 * n:].data_ptr(),
-            B, KV, rep, S, D, int(pos), k.stride(0), k.stride(1), k.stride(2),
+            ws.data_ptr(), ws[n:].data_ptr(), ws[2 * n:].data_ptr(), None if lse is None else lse.data_ptr(),
+            B, KV, rep, S, D, int(pos), int(key0), k.stride(0), k.stride(1), k.stride(2),
             int(window), float(softcap), float(scale), split, _build.stream_of(q.device))
 
-    def run(_hold=(q, k, v, o, ws)):
+    def run(_hold=(q, k, v, o, ws, lse)):
         _build.check(fn(*args), "decode_attention")
     return run
 
 
 decode_attention.launches = 0
 decode_attention.padded = 0
+decode_attention.ranged = 0      # launches of the key-range entry (lse=True)

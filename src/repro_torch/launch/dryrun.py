@@ -28,8 +28,10 @@ A decode cell is one ``decode_step`` at the last position, max_len − 1,
 of a max_len cache. On a mesh of more than one device the argument bytes
 follow the rules, while the compute and memory terms are those of the
 one-device program divided by the number of devices
-(``per_device_terms``): the port has no sharded step until ROADMAP.md's
-queue A12.5, and so no collective. The artifacts load through
+(``per_device_terms``): the sharded decode paths run only on a mesh
+placed over a process group, which a ``meta`` program has not, so the dry
+run counts no sharded step and no collective until a per-rank ``meta`` run
+(ROADMAP.md, queue A12.8). The artifacts load through
 ``grid.capacity_from_roofline`` as the reference's do.
 """
 from __future__ import annotations
@@ -49,6 +51,7 @@ from repro_torch.grid.capacity import HBM_BW, PEAK_FLOPS
 from repro_torch.launch.mesh import mesh_from_arg
 from repro_torch.launch.op_analysis import OpAnalysis
 from repro_torch.models import LM
+from repro_torch.models.moe import set_moe_impl
 from repro_torch.runtime import sharding as shlib
 from repro_torch.runtime.serve import abstract_cache, build_serve_step
 from repro_torch.runtime.train import TrainConfig, build_prefill_step, build_train_step, init_opt_state
@@ -59,7 +62,7 @@ __all__ = ["run_cell", "count_params", "auto_microbatches", "analyze_step", "ste
 # One H100's memory, the data sheet's 80 GB: a cell fits where its
 # argument and temporary bytes a device stay within it.
 DEVICE_BYTES = 80e9
-PER_DEVICE_TERMS = "single-device program / n_devices (no sharded step until A12.5)"
+PER_DEVICE_TERMS = "single-device program / n_devices (no per-rank sharded program until A12.8)"
 
 # activation budget steering the automatic microbatch count
 _CARRY_BUDGET = 4 * 2**30  # per-device live residual-carry bytes
@@ -208,8 +211,8 @@ def run_cell(arch: str, shape_name: str, mesh_arg: str, *, reduced: bool = False
     """The cell's record (module note). ``memo`` shares one analysis
     between meshes that run the same one-device program."""
     if compress_pod_grads:
-        raise ValueError("--compress-pod-grads: the port has one device and no pod axis to compress over "
-                         "until the sharded paths (ROADMAP.md, A12.5)")
+        raise ValueError("--compress-pod-grads: the pod axis's gradient compression waits for a per-rank meta "
+                         "run of the sharded programs (ROADMAP.md, A12.8)")
     cfg = get_config(arch, reduced=reduced)
     if remat_policy:
         cfg = cfg.replace(remat_policy=remat_policy)
@@ -309,18 +312,22 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true", help="smoke mode: reduced configs + shrunken shapes")
     ap.add_argument("--microbatches", type=int, default=None)
     ap.add_argument("--moe-impl", default=None, choices=["gather", "a2a", "auto"],
-                    help="MoE dispatch: the port has the gather dispatch only (a2a comes with A12.5)")
+                    help="MoE dispatch (models.moe.set_moe_impl); a2a and auto need a placed mesh, which the "
+                         "meta programs have not (A12.8)")
     ap.add_argument("--remat-policy", default=None, choices=["full", "dots"])
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "adamw8"])
     ap.add_argument("--compress-pod-grads", action="store_true",
-                    help="not in the port: no pod axis until A12.5")
+                    help="not in the port yet: waits for a per-rank meta run (A12.8)")
     args = ap.parse_args(argv)
     if args.moe_impl not in (None, "gather"):
-        ap.error(f"--moe-impl {args.moe_impl}: the port dispatches experts by gather only; the a2a dispatch "
-                 "and set_moe_impl come with the sharded paths (ROADMAP.md, A12.5)")
+        ap.error(f"--moe-impl {args.moe_impl}: the a2a dispatch runs on a mesh placed over a process group, and "
+                 "the dry run's meta programs have none (a shapes-only mesh has no process group), so a2a is not "
+                 "applicable there; its per-device count needs a per-rank meta run (ROADMAP.md, A12.8)")
+    if args.moe_impl is not None:
+        set_moe_impl(args.moe_impl)
     if args.compress_pod_grads:
-        ap.error("--compress-pod-grads: the port has one device and no pod axis to compress over until the "
-                 "sharded paths (ROADMAP.md, A12.5)")
+        ap.error("--compress-pod-grads: the pod axis's gradient compression waits for a per-rank meta run of "
+                 "the sharded programs (ROADMAP.md, A12.8)")
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

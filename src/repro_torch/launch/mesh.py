@@ -1,14 +1,55 @@
-"""Production mesh shapes, as plain ordered axis → size mappings (the
-port of ``repro.launch.mesh``).
+"""Meshes (the port of ``repro.launch.mesh``): production shapes as plain
+ordered axis → size mappings, and meshes placed over a
+``torch.distributed`` process group, with the collectives the sharded
+decode paths run along one axis.
 
-Nothing here touches a device or creates a process group: the port runs
-one device, and the shapes feed ``runtime.sharding``'s rules and the dry
-run's per-device figures. Placing a program on such a mesh comes with
-the sharded paths (ROADMAP.md, queue A12.5).
+A shapes-only mesh (``make_production_mesh``, ``mesh_from_arg``) touches
+no device and no process group: it feeds ``runtime.sharding``'s rules and
+the dry run's per-device figures. ``make_mesh`` builds a
+``torch.distributed.device_mesh.DeviceMesh`` over a process group the
+caller has initialised, one rank a device, and returns a ``Mesh``: the
+same axis → size mapping, plus each axis's process group and this rank's
+coordinate on it. ``runtime.pspec.logical_axis_rules(mesh)`` makes it the
+current mesh; the sharded decode paths (``models.attention``,
+``models.mla``, ``models.moe``) run inside it on each rank's blocks, as the
+reference's ``shard_map`` bodies do, and call:
+
+  ``all_reduce``  psum (``op="sum"``) or pmax (``op="max"``) over an axis,
+                  or over the whole mesh with ``axis=None``
+  ``all_gather``  ``jax.lax.all_gather(..., tiled=True)``: the axis's
+                  blocks concatenated along a dimension, in coordinate order
+  ``all_to_all``  ``jax.lax.all_to_all(..., split_axis=0, concat_axis=0,
+                  tiled=False)``: chunk i of dimension 0 to coordinate i,
+                  the chunks received stacked by the sender's coordinate
+
+The sum, the gather and the all-to-all carry gradients (a sum's gradient
+is the sum of the ranks' gradients; a gather's, its block of that sum;
+an all-to-all's, the all-to-all back), so the moe layer's a2a dispatch
+differentiates as the reference's does. The max does not.
+
+The backend is the caller's choice (``nccl`` on a pod, one rank a card;
+``gloo`` for ranks on the host or several ranks sharing one card, where
+it stages CUDA tensors through host memory itself); nothing here picks
+another backend on a failure. ``run_ranks`` spawns the ranks of one mesh
+on this host, each with one intra-op thread, and returns what each
+rank's function returned.
 """
 from __future__ import annotations
 
-__all__ = ["make_production_mesh", "mesh_from_arg"]
+import math
+import multiprocessing
+import queue
+import tempfile
+import traceback
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["make_production_mesh", "mesh_from_arg", "make_mesh", "Mesh", "placed", "all_reduce", "all_gather",
+           "all_to_all", "run_ranks", "AXES"]
+
+AXES = ("pod", "data", "model")
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> dict:
@@ -27,5 +68,210 @@ def mesh_from_arg(arg: str) -> dict:
     dims = tuple(int(x) for x in arg.split("x"))
     if not 1 <= len(dims) <= 3 or min(dims) < 1:
         raise ValueError(f"mesh {arg!r}: expected single, multi or AxB[xC] of positive sizes")
-    axes = ("pod", "data", "model")[-len(dims):]
+    axes = AXES[-len(dims):]
     return dict(zip(axes, dims))
+
+
+class Mesh(dict):
+    """A mesh placed over the process group: axis → size (read as a
+    shapes-only mesh is), and for each axis ``groups[axis]``, the process
+    group of the ranks that differ from this one only on that axis, and
+    ``coords[axis]``, this rank's coordinate on it. ``device`` is this
+    rank's device, ``backend`` the process group's, ``device_mesh`` the
+    ``DeviceMesh`` the groups come from."""
+
+    def __init__(self, shape: dict, device_mesh, device: torch.device, backend: str):
+        super().__init__(shape)
+        self.device_mesh = device_mesh
+        self.device = device
+        self.backend = backend
+        self.groups = {ax: device_mesh.get_group(ax) for ax in shape}
+        self.coords = dict(zip(shape, device_mesh.get_coordinate()))
+
+
+def placed(mesh) -> bool:
+    """Whether ``mesh`` lives on a process group (``make_mesh``), as against
+    a shapes-only mapping."""
+    return isinstance(mesh, Mesh)
+
+
+def make_mesh(shape: dict, *, device_type: str = "cuda") -> Mesh:
+    """The mesh of ``shape`` (axis → size, the axes a suffix of ("pod",
+    "data", "model")) over the initialised default process group, whose
+    world size must be the mesh's size; ranks are laid out row-major (the
+    last axis fastest), each on the card unless ``device_type`` says
+    otherwise. Collective: every rank calls it."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh: initialise the process group first (torch.distributed.init_process_group)")
+    names = tuple(shape)
+    if not names or names != AXES[-len(names):]:
+        raise ValueError(f"make_mesh: axes {names} must be a suffix of {AXES}")
+    world = dist.get_world_size()
+    if math.prod(shape.values()) != world:
+        raise ValueError(f"make_mesh: mesh {dict(shape)} has {math.prod(shape.values())} ranks, the process "
+                         f"group {world}")
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if device_type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh: device_type 'cuda' and no CUDA device on this rank")
+        device = torch.device("cuda", torch.cuda.current_device())
+    else:
+        device = torch.device(device_type)
+    dm = DeviceMesh(device_type, torch.arange(world).reshape(tuple(shape.values())), mesh_dim_names=names)
+    return Mesh(shape, dm, device, dist.get_backend())
+
+
+# -- collectives along one axis ---------------------------------------------------
+
+def _group(mesh: Mesh, axis):
+    return None if axis is None else mesh.groups[axis]
+
+
+def _size(mesh: Mesh, axis) -> int:
+    return math.prod(mesh.values()) if axis is None else mesh[axis]
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+def all_reduce(x: torch.Tensor, axis, mesh: Mesh, op: str = "sum") -> torch.Tensor:
+    """The sum (or max) of ``x`` over the ranks along ``axis`` (over the
+    whole mesh with None), on every one of them; ``x`` is left as it is."""
+    if _size(mesh, axis) == 1:
+        return x
+    if op == "sum":
+        return _AllReduceSum.apply(x, _group(mesh, axis))
+    if op != "max":
+        raise ValueError(f"all_reduce: op {op!r} is 'sum' or 'max'")
+    out = x.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_group(mesh, axis))
+    return out
+
+
+def _gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, index, dim):
+        ctx.group, ctx.index, ctx.dim, ctx.block = group, index, dim, x.shape[dim]
+        return _gather(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g.narrow(ctx.dim, ctx.index * ctx.block, ctx.block), None, None, None, None
+
+
+def all_gather(x: torch.Tensor, axis: str, mesh: Mesh, dim: int) -> torch.Tensor:
+    """The ranks' blocks along ``axis`` concatenated on ``dim`` in
+    coordinate order (``jax.lax.all_gather(x, axis, axis=dim, tiled=True)``)."""
+    n = mesh[axis]
+    if n == 1:
+        return x
+    return _AllGather.apply(x, mesh.groups[axis], n, mesh.coords[axis], dim % x.dim())
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:
+    """x's dimension 0 (a multiple of the axis's size) cut into equal
+    chunks, chunk i sent to coordinate i; the result holds the chunks
+    received, in the senders' coordinate order."""
+    n = mesh[axis]
+    if x.shape[0] % n:
+        raise ValueError(f"all_to_all: dimension 0 of {tuple(x.shape)} does not divide over {axis!r} ({n})")
+    if n == 1:
+        return x
+    return _AllToAll.apply(x, mesh.groups[axis])
+
+
+# -- ranks of one mesh on this host ---------------------------------------------
+
+def _rank_main(rank: int, shape: dict, backend: str, device_type: str, init: str, fn, args, results) -> None:
+    try:
+        torch.set_num_threads(1)
+        if device_type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(f"rank {rank}: device_type 'cuda' and no CUDA device")
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+        dist.init_process_group(backend, init_method=init, world_size=math.prod(shape.values()), rank=rank)
+        try:
+            out = fn(make_mesh(shape, device_type=device_type), *args)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, True, out))
+    except BaseException:  # noqa: BLE001 — reported to the parent, which raises
+        results.put((rank, False, traceback.format_exc()))
+
+
+def run_ranks(fn, shape: dict, *, backend: str, device_type: str = "cuda", args: tuple = (),
+              timeout: float = 600.0) -> list:
+    """``fn(mesh, *args)`` on each rank of a mesh of ``shape``, one spawned
+    process a rank on this host (``fn`` importable, its result picklable),
+    the ranks meeting through a file in a fresh temporary directory.
+    Returns the results in rank order; raises with the first failing
+    rank's traceback, or when ``timeout`` seconds pass, after ending every
+    process it started."""
+    world = math.prod(shape.values())
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as tmp:
+        init = (Path(tmp) / "rendezvous").as_uri()
+        procs = [ctx.Process(target=_rank_main, args=(r, dict(shape), backend, device_type, init, fn, args, results))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        got, failure = {}, None
+        try:
+            while len(got) < world and failure is None:
+                rank, ok, out = results.get(timeout=timeout)
+                if ok:
+                    got[rank] = out
+                else:
+                    failure = f"rank {rank} failed:\n{out}"
+        except queue.Empty:
+            failure = f"run_ranks: {world - len(got)} of {world} ranks gave no result in {timeout} s"
+        finally:
+            for p in procs:
+                p.join(timeout=5 if failure else 60)
+                if p.is_alive():
+                    p.terminate()
+                    p.join(timeout=10)
+    if failure:
+        raise RuntimeError(failure)
+    return [got[r] for r in range(world)]

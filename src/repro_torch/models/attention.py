@@ -15,22 +15,40 @@ positions are 0…Sq−1 and 0…Sk−1 throughout, as every model path of the
 reference passes them. The decode path writes the new token's key and
 value into the cache in place and returns the cache.
 
-Left for a later slice (ROADMAP.md, queue A12.5): the sharded decode paths.
+The sharded decode (``decode_attention_sharded``, ``decode_mlp_sharded``)
+runs under a mesh placed over a process group (``launch.mesh.make_mesh``,
+made current by ``runtime.pspec.logical_axis_rules``): each rank runs the
+body of the reference's ``shard_map`` on its own blocks, cut by the same
+in_specs (``decode_attention_specs``, ``decode_mlp_specs``), and a
+``jax.lax.psum``/``pmax``/``all_gather`` becomes the same collective over
+the axis's process group (``launch.mesh``). Projections are partial
+products over the weights' 'data' shard of the input dimension, summed
+over 'data': weights never move, only the (B, 1, ·) decode activations,
+the (B, H) and (B, H, D) softmax states cross ranks. The cache stays
+sharded over 'model' along S; each rank attends over its range through
+the decode kernel's key-range entry (``key0``, ``lse``) and the ranks
+combine their (out, lse) pairs.
 """
 from __future__ import annotations
 
+import math
+import os
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .._device import warm_host_math
 from ..kernels.decode_attention.ops import decode_attention as decode_attention_kernel
 from ..kernels.flash_attention.ops import flash_attention
+from ..launch.mesh import all_gather, all_reduce
 from .common import ModelConfig
 from .layers import init_linear_, linear, rope, softcap
 
 __all__ = [
     "init_attention", "init_attention_", "attention", "decode_attention", "cross_decode",
-    "cross_kv", "init_kv_cache", "rope_theta", "CHUNKED_THRESHOLD",
+    "cross_kv", "init_kv_cache", "rope_theta", "CHUNKED_THRESHOLD", "decode_attention_sharded",
+    "decode_mlp_sharded", "decode_attention_specs", "decode_mlp_specs",
 ]
 
 NEG_INF = -2.0e38
@@ -267,3 +285,229 @@ def cross_decode(params, x_t: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     q = _heads(x_t, params["wq"], cfg.num_heads, cfg.head_dim_)[:, 0]
     o = decode_attention_kernel(q, ck, cv, ck.shape[1] - 1, window=0, softcap=0.0)
     return _out(params, o[:, None], cfg)
+
+
+# -- the sharded decode ------------------------------------------------------------
+
+def current_mesh():
+    """``runtime.pspec.current_mesh()`` (imported here at call time:
+    ``runtime`` imports the models)."""
+    from ..runtime.pspec import current_mesh as _current
+
+    return _current()
+
+
+def _sharded_decode_applicable(S: int) -> bool:
+    """The reference's rule on the current mesh and the cache's global
+    length S (a rank's shard times 'model'), with its baseline knob:
+    ``REPRO_SHARDED_DECODE=0`` turns the sharded decode off."""
+    if os.environ.get("REPRO_SHARDED_DECODE", "1") == "0":
+        return False
+    mesh = current_mesh()
+    if mesh is None:
+        return False
+    m = mesh.get("model", 1)
+    return m > 1 and S % m == 0 and S // m >= 128
+
+
+def _decode_bspec(mesh, B: int):
+    """The mesh axes the global batch B shards over in the decode bodies:
+    ('pod', 'data') where both divide it, else ('data',), else None."""
+    has_pod = mesh.get("pod", 1) > 1
+    bax = ("pod", "data") if has_pod else ("data",)
+    pd = math.prod(mesh.get(a, 1) for a in bax)
+    if B > 1 and B % pd == 0:
+        return bax
+    if B > 1 and B % mesh.get("data", 1) == 0:
+        return ("data",)
+    return None
+
+
+def _psum_proj(x, w, d: int, mesh, axis: str = "data"):
+    """Weight-stationary projection: x (B, 1, d) at full d times w
+    (d_loc, …), this rank's shard of the input dimension over ``axis``,
+    summed over the axis: only the (B, 1, ·) products move. x must hold
+    the same rows on every rank of ``axis`` (gather the batch first)."""
+    d_loc = w.shape[0]
+    if d_loc != d:
+        r = mesh.coords[axis]
+        x = x[..., r * d_loc:(r + 1) * d_loc]
+    y = linear(x, w.reshape(d_loc, -1)).reshape(*x.shape[:-1], *w.shape[1:])
+    return y if d_loc == d else all_reduce(y, axis, mesh)
+
+
+def _gather_batch(x, bspec, mesh):
+    """The (tiny) decode activations of every row of the batch axes, so
+    that weight-stationary partial products see every row."""
+    for ax in reversed(bspec or ()):
+        x = all_gather(x, ax, mesh, dim=0)
+    return x
+
+
+def _batch_row_start(mesh, bspec, B_loc: int) -> int:
+    """This rank's first row of the global batch: its coordinates on the
+    batch axes row-major (pod before data), times its rows."""
+    idx = 0
+    for ax in (bspec or ()):
+        idx = idx * mesh[ax] + mesh.coords[ax]
+    return idx * B_loc
+
+
+def _sharded_mlp_applicable() -> bool:
+    if os.environ.get("REPRO_SHARDED_DECODE", "1") == "0":
+        return False
+    mesh = current_mesh()
+    return mesh is not None and mesh.get("model", 1) > 1
+
+
+def _rows(mesh, batch: int, bspec) -> int:
+    """A rank's rows of the global batch under ``bspec``."""
+    n = math.prod(mesh[a] for a in (bspec or ()))
+    if batch % n:
+        raise ValueError(f"batch {batch} does not divide over {bspec}")
+    return batch // n
+
+
+def decode_attention_specs(cfg: ModelConfig, mesh, B: int) -> dict:
+    """The reference's in_specs of ``decode_attention_sharded``'s body for
+    the global batch B: a rank's blocks of x (B, 1, d), of the projections
+    (the input dimension over 'data' where it divides, the heads over
+    'model' where they divide; wo the other way round) and of each cache
+    (B, S, KV, D): rows over the batch axes, S over 'model' (the QK-norm
+    scales are whole). The function reads its blocks by them, and the
+    serve step cuts them by them."""
+    bspec = _decode_bspec(mesh, B)
+    m, dsz = mesh.get("model", 1), mesh.get("data", 1)
+    d_ax = "data" if (dsz > 1 and cfg.d_model % dsz == 0) else None
+    h_ax = "model" if cfg.num_heads % m == 0 else None
+    kv_ax = "model" if cfg.num_kv_heads % m == 0 else None
+    return {"x": (bspec, None, None), "wq": (d_ax, h_ax, None), "wk": (d_ax, kv_ax, None),
+            "wv": (d_ax, kv_ax, None), "wo": (h_ax, None, d_ax), "cache": (bspec, "model", None, None)}
+
+
+def decode_attention_sharded(params, x_t: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
+                             cfg: ModelConfig, *, batch: int, is_global: bool = True, ring: bool = False):
+    """Weight-stationary, sequence-parallel decode attention on this rank's
+    blocks (``decode_attention_specs`` for the global batch ``batch``):
+    x_t (B_loc, 1, d), the projections' blocks in ``params``, and this
+    layer's cache shard (B_loc, S_loc, KV, D), the keys of positions
+    coordinate('model') · S_loc onward (of a ring: its slots). Writes the
+    token's key and value into the shard that owns its slot, in place, and
+    returns (out (B_loc, 1, d), cache_k, cache_v).
+
+    The attention over the shard runs through the decode kernel's
+    key-range entry (on the host its plain version); the ranks along
+    'model' combine their (out, lse) pairs: M = max lse, w = e^(lse − M),
+    out = Σ w·out / Σ w, the reference's pmax and two psums."""
+    mesh = current_mesh()
+    specs = decode_attention_specs(cfg, mesh, batch)
+    bspec = specs["x"][0]
+    Bl, S_loc = cache_k.shape[0], cache_k.shape[1]
+    if Bl != _rows(mesh, batch, bspec) or x_t.shape[0] != Bl:
+        raise ValueError(f"decode_attention_sharded: rows {x_t.shape[0]} and a cache of {Bl} rows, for a global "
+                         f"batch {batch} over {bspec}")
+    H, KV, D, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, cfg.d_model
+    S = S_loc * mesh["model"]
+    if pos < 0 or (not ring and pos >= S):
+        raise ValueError(f"decode_attention_sharded: pos {pos} outside a {'ring' if ring else 'linear cache'} of {S}")
+    wq, wk, wv, wo = params["wq"], params["wk"], params["wv"], params["wo"]
+    # projections: weights stay put; the batch rows gather (tiny), partial
+    # products sum over the weights' d-shard axis
+    xg = _gather_batch(x_t, bspec, mesh)                # (B, 1, d)
+    q = _psum_proj(xg, wq, d, mesh)                     # (B, 1, H_loc, D)
+    kt = _psum_proj(xg, wk, d, mesh)
+    vt = _psum_proj(xg, wv, d, mesh)
+    if q.shape[2] != H:
+        q = all_gather(q, "model", mesh, dim=2)
+    if kt.shape[2] != KV:
+        kt = all_gather(kt, "model", mesh, dim=2)
+        vt = all_gather(vt, "model", mesh, dim=2)
+    # back to this rank's rows (the cache is batch-sharded)
+    row0 = _batch_row_start(mesh, bspec, Bl)
+    q, kt, vt = (a[row0:row0 + Bl] for a in (q, kt, vt))
+    if cfg.qk_norm:
+        q = _qk_norm(q, params["q_norm"])
+        kt = _qk_norm(kt, params["k_norm"])
+    theta = rope_theta(cfg, is_global)
+    posb = torch.full((Bl, 1), pos, dtype=torch.int64, device=x_t.device)
+    q = rope(q, posb, theta)[:, 0]
+    kt = rope(kt, posb, theta)
+    # the single-row write, on the shard that owns the slot (a ring's slot wraps)
+    start = mesh.coords["model"] * S_loc
+    slot = (pos % S if ring else pos) - start
+    if 0 <= slot < S_loc:
+        cache_k[:, slot] = kt[:, 0].to(cache_k.dtype)
+        cache_v[:, slot] = vt[:, 0].to(cache_v.dtype)
+    # a ring's slot j holds position pos − ((pos − j) mod W): visible iff j ≤ min(pos, W − 1)
+    read, window = (min(pos, S - 1), 0) if ring else (pos, 0 if is_global else cfg.local_window)
+    o, lse = decode_attention_kernel(q, cache_k, cache_v, read, window=window, softcap=cfg.attn_logit_softcap,
+                                     key0=start, lse=True)
+    M = all_reduce(lse, "model", mesh, op="max")
+    M = torch.where(torch.isfinite(M), M, torch.zeros_like(M))
+    w = torch.exp(lse - M)
+    l = all_reduce(w, "model", mesh)
+    acc = all_reduce(w[..., None] * o, "model", mesh)
+    out = (acc / l[..., None]).to(q.dtype)[:, None]    # (B_loc, 1, H, D)
+    # output projection: heads over 'model' (row-parallel), d over 'data';
+    # every row again, so that the d-column gather collects the same rows
+    og = _gather_batch(out, bspec, mesh)
+    H_loc = wo.shape[0]
+    if H_loc != H:
+        r = mesh.coords["model"]
+        o_slice = og[:, :, r * H_loc:(r + 1) * H_loc]
+        y = all_reduce(linear(o_slice.reshape(*og.shape[:2], H_loc * D), wo.reshape(H_loc * D, -1)), "model", mesh)
+    else:
+        y = linear(og.reshape(*og.shape[:2], H * D), wo.reshape(H * D, -1))
+    if y.shape[-1] != d:
+        y = all_gather(y, "data", mesh, dim=2)
+    decode_attention_sharded.calls += 1
+    return y[row0:row0 + Bl], cache_k, cache_v
+
+
+def decode_mlp_specs(cfg: ModelConfig, mesh, B: int) -> dict:
+    """The reference's in_specs of ``decode_mlp_sharded``'s body: x
+    (B, 1, d) by rows; w_gate, w_up (d, f) with d over 'data' and f over
+    'model' where they divide; w_down (f, d) the other way round."""
+    bspec = _decode_bspec(mesh, B)
+    m, dsz = mesh.get("model", 1), mesh.get("data", 1)
+    d_ax = "data" if (dsz > 1 and cfg.d_model % dsz == 0) else None
+    f_ax = "model" if (m > 1 and cfg.d_ff % m == 0) else None
+    return {"x": (bspec, None, None), "w_gate": (d_ax, f_ax), "w_up": (d_ax, f_ax), "w_down": (f_ax, d_ax)}
+
+
+def decode_mlp_sharded(p, x: torch.Tensor, cfg: ModelConfig, *, batch: int) -> torch.Tensor:
+    """Weight-stationary decode MLP on this rank's blocks
+    (``decode_mlp_specs``): x (B_loc, 1, d) → (B_loc, 1, d). The 2-D-sharded
+    weights stay where they are; only (B, 1, ·) activations are summed or
+    gathered across the mesh."""
+    mesh = current_mesh()
+    d = cfg.d_model
+    bspec = _decode_bspec(mesh, batch)
+    Bl = x.shape[0]
+    if Bl != _rows(mesh, batch, bspec):
+        raise ValueError(f"decode_mlp_sharded: {Bl} rows for a global batch {batch} over {bspec}")
+    kind = cfg.mlp
+    xg = _gather_batch(x, bspec, mesh)                  # (B, 1, d)
+    warm_host_math(xg)
+    if kind in ("swiglu", "geglu"):
+        g = _psum_proj(xg, p["w_gate"], d, mesh)
+        u = _psum_proj(xg, p["w_up"], d, mesh)
+        act = (F.silu(g) if kind == "swiglu" else F.gelu(g, approximate="tanh")) * u
+    elif kind in ("squared_relu", "gelu"):
+        u = _psum_proj(xg, p["w_up"], d, mesh)
+        act = torch.square(F.relu(u)) if kind == "squared_relu" else F.gelu(u, approximate="tanh")
+    else:
+        raise ValueError(kind)
+    wdn = p["w_down"]                                   # (f_loc, d_loc)
+    y = linear(act, wdn)
+    if wdn.shape[0] != cfg.d_ff:                        # f was sharded over 'model'
+        y = all_reduce(y, "model", mesh)
+    if y.shape[-1] != d:
+        y = all_gather(y, "data", mesh, dim=2)
+    row0 = _batch_row_start(mesh, bspec, Bl)
+    decode_mlp_sharded.calls += 1
+    return y[row0:row0 + Bl]
+
+
+decode_attention_sharded.calls = 0   # layers run through the sharded attention, this process
+decode_mlp_sharded.calls = 0

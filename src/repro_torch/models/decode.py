@@ -19,8 +19,24 @@ layer and copies nothing else.
 
 Ring, linear and cross layers all go through the decode-attention kernel
 (``attention.decode_attention``, ``attention.cross_decode``); MLA layers
-take the absorbed form in stock products (``mla.mla_decode``). The
-sharded decode paths are a later slice.
+take the absorbed form in stock products (``mla.mla_decode``).
+
+Under a mesh placed over a process group (``launch.mesh.make_mesh``, the
+current mesh of ``runtime.pspec.logical_axis_rules``) each rank runs the
+step on its rows of the global batch (``attention._decode_bspec``), as the
+reference's sharded step does: every block that the reference runs
+through ``_attn_decode_block`` takes the sharded attention
+(``attention.decode_attention_sharded``, through the decode kernel's
+key-range entry) where ``_sharded_decode_applicable`` holds for its cache's
+global length, and the sharded MLP where ``_sharded_mlp_applicable`` holds;
+the embedding, norms, logits, cross layers and recurrent blocks, which
+the reference leaves outside its ``shard_map`` bodies, run on the rank's
+rows with whole weights. ``init_cache`` then allocates only the rank's
+block of each cache (``cache_blocks``), and ``param_blocks`` gives the
+specs by which a rank's parameters are cut (``runtime.serve`` cuts them).
+The moe family (MLA in its absorbed form) and the ssm family, whose
+decode the reference leaves to XLA's SPMD partitioner under a mesh, raise
+(ROADMAP.md, queue A12.6).
 """
 from __future__ import annotations
 
@@ -28,7 +44,10 @@ from typing import Any
 
 import torch
 
-from .attention import cross_decode, cross_kv, decode_attention, init_kv_cache
+from ..launch.mesh import placed
+from .attention import (_decode_bspec, _rows, _sharded_decode_applicable, _sharded_mlp_applicable, cross_decode,
+                        cross_kv, current_mesh, decode_attention, decode_attention_sharded, decode_attention_specs,
+                        decode_mlp_sharded, decode_mlp_specs)
 from .common import ModelConfig
 from .layers import mlp, rms_norm
 from .lm import hybrid_periods
@@ -36,14 +55,25 @@ from .mla import init_mla_cache, mla_decode
 from .rglru import init_rglru_state, rglru_decode
 from .ssm import init_mamba_cache, mamba_decode
 
-__all__ = ["init_cache", "decode_step"]
+__all__ = ["init_cache", "decode_step", "cache_blocks", "param_blocks"]
 
 
-def _attn_decode_block(p, x_t, kc, vc, pos: int, cfg: ModelConfig, *, is_global: bool, ring: bool):
+def _attn_decode_block(p, x_t, kc, vc, pos: int, cfg: ModelConfig, *, is_global: bool, ring: bool,
+                       batch: int | None = None, S: int | None = None):
+    """One attention block; under a placed mesh (``batch``, the global
+    batch, given) the sharded attention where the cache's global length
+    ``S`` allows it and the sharded MLP, as the reference's block does."""
     h = rms_norm(x_t, p.ln1)
-    a, kc, vc = decode_attention(p.attn, h, kc, vc, pos, cfg, is_global=is_global, ring=ring)
+    if batch is not None and _sharded_decode_applicable(S):
+        a, kc, vc = decode_attention_sharded(p.attn, h, kc, vc, pos, cfg, batch=batch, is_global=is_global,
+                                             ring=ring)
+    else:
+        a, kc, vc = decode_attention(p.attn, h, kc, vc, pos, cfg, is_global=is_global, ring=ring)
     x = x_t + a
-    return x + mlp(p.mlp, rms_norm(x, p.ln2), cfg.mlp), kc, vc
+    h2 = rms_norm(x, p.ln2)
+    if batch is not None and _sharded_mlp_applicable():
+        return x + decode_mlp_sharded(p.mlp, h2, cfg, batch=batch), kc, vc
+    return x + mlp(p.mlp, h2, cfg.mlp), kc, vc
 
 
 def _cross_block(p, x_t, ck, cv, cfg: ModelConfig):
@@ -77,11 +107,16 @@ def _uses_rings(cfg: ModelConfig) -> bool:
     return "L" in cfg.layer_pattern and cfg.local_window > 0
 
 
-def _cross_cache(blocks, src: torch.Tensor, cfg: ModelConfig) -> dict:
-    """Each cross layer's keys and values over ``src``, stacked: (n, B, N, KV, D)."""
-    B, N, _ = src.shape
-    shape = (len(blocks), B, N, cfg.num_kv_heads, cfg.head_dim_)
-    cache = {"cross_k": src.new_empty(shape), "cross_v": src.new_empty(shape)}
+def _cross_cache(blocks, src: torch.Tensor, cfg: ModelConfig, z, batch: int) -> dict:
+    """Each cross layer's keys and values over ``src`` (B, N, d), stacked:
+    (n, B, N, KV, D), allocated by ``init_cache``'s ``z`` for the global
+    ``batch`` (under a mesh, ``src`` holds this rank's rows of it)."""
+    N = src.shape[1]
+    cache = {name: z(name, len(blocks), batch, N, cfg.num_kv_heads, cfg.head_dim_, dtype=src.dtype)
+             for name in ("cross_k", "cross_v")}
+    if cache["cross_k"].shape[1] != src.shape[0]:
+        raise ValueError(f"{cfg.name}: {src.shape[0]} rows of cross-attention input for a cache of "
+                         f"{cache['cross_k'].shape[1]} rows")
     for i, b in enumerate(blocks):
         cache["cross_k"][i], cache["cross_v"][i] = cross_kv(b.attn, src, cfg)
     return cache
@@ -91,36 +126,170 @@ def _cross_cache(blocks, src: torch.Tensor, cfg: ModelConfig) -> dict:
 # cache init
 # ---------------------------------------------------------------------------
 
+def _placed_mesh(cfg: ModelConfig):
+    """The current mesh if it is placed over a process group, else None;
+    raises for the families whose sharded decode is not ported."""
+    mesh = current_mesh()
+    if not placed(mesh):
+        return None
+    if cfg.family in ("moe", "ssm"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family's decode under a mesh is XLA's SPMD partition of the whole step "
+            "in the reference (DTensor placement in the port: ROADMAP.md, queue A12.6)")
+    return mesh
+
+
+def _self_attention_blocks(lm, max_len: int):
+    """(parameter prefix, global cache length) of every block the decode
+    step runs through ``_attn_decode_block``."""
+    cfg = lm.cfg
+    fam = cfg.family
+    W = min(cfg.local_window, max_len)
+    if fam == "dense":
+        if _uses_rings(cfg):
+            n_p, pat = _pattern_period(cfg)
+            return [(f"blocks.{i}", W if c == "L" else max_len) for i, c in enumerate(pat * n_p)]
+        return [(f"blocks.{i}", max_len) for i in range(cfg.num_layers)]
+    if fam == "vlm":
+        return [(f"self_blocks.{p}.{j}", max_len) for p, selfs in enumerate(lm.self_blocks) for j in range(len(selfs))]
+    if fam == "hybrid":
+        return [(f"attn_blocks.{p}", W) for p in range(len(lm.attn_blocks))]
+    if fam == "encdec":
+        return [(f"dec_self.{i}", max_len) for i in range(cfg.num_layers)]
+    return []
+
+
+def _same_spec(mesh, a: tuple, b: tuple) -> bool:
+    """Two specs shard alike: the same axes of size > 1 on every dimension."""
+    from ..runtime.sharding import spec_axes          # runtime imports the models
+
+    norm = lambda e: tuple(x for x in spec_axes(e) if mesh.get(x, 1) > 1)  # noqa: E731
+    return len(a) == len(b) and all(norm(x) == norm(y) for x, y in zip(a, b))
+
+
+def cache_blocks(lm, batch: int, max_len: int) -> dict:
+    """The spec of a rank's block of every cache ``init_cache`` allocates
+    under the current (placed) mesh for the global batch ``batch``: a
+    self-attention cache whose global length S takes the sharded attention
+    is cut as ``decode_attention_specs``' cache, rows over the batch axes and
+    S over 'model' (checked against ``runtime.sharding.cache_specs``: raises
+    where they differ); every other cache by rows only. The stacked layer
+    axes lead, unsharded."""
+    from ..runtime.sharding import cache_specs        # runtime imports the models
+
+    cfg = lm.cfg
+    fam = cfg.family
+    mesh = _placed_mesh(cfg)
+    if mesh is None:
+        raise ValueError("cache_blocks: no placed mesh is current (launch.mesh.make_mesh, pspec.logical_axis_rules)")
+    bspec = _decode_bspec(mesh, batch)
+    W = min(cfg.local_window, max_len)
+
+    def attn(lead: tuple, S: int, name: str) -> tuple:
+        """A self-attention cache (*lead, B, S, KV, D), lead its stacked layer axes."""
+        spec = (None,) * len(lead) + decode_attention_specs(cfg, mesh, batch)["cache"]
+        if not _sharded_decode_applicable(S):
+            return (None,) * len(lead) + (bspec, None, None, None)
+        shape = lead + (batch, S, cfg.num_kv_heads, cfg.head_dim_)
+        want = cache_specs(mesh, torch.empty(shape, device="meta"), batch)
+        if not _same_spec(mesh, want, spec):
+            raise ValueError(f"{cfg.name}: cache {name} {shape} would be cut as {want} by "
+                             f"runtime.sharding.cache_specs, and the sharded attention reads it as {spec}")
+        return spec
+
+    def rows(bdim: int, n: int) -> tuple:
+        return (None,) * bdim + (bspec,) + (None,) * (n - bdim - 1)
+
+    if fam == "dense":
+        if _uses_rings(cfg):
+            n_p, pat = _pattern_period(cfg)
+            sp = {"local": attn((n_p, pat.count("L")), W, "local_k"),
+                  "global": attn((n_p, pat.count("G")), max_len, "global_k")}
+            return {f"{kind}_{kv}": sp[kind] for kind in ("local", "global") for kv in ("k", "v")}
+        sp = attn((cfg.num_layers,), max_len, "k")
+        return {"k": sp, "v": sp}
+    if fam == "vlm":
+        k_every = cfg.cross_attn_every
+        sp = attn((cfg.num_layers // k_every, k_every - 1), max_len, "k")
+        return {"k": sp, "v": sp, "cross_k": rows(1, 5), "cross_v": rows(1, 5)}
+    if fam == "hybrid":
+        n_p, rem = hybrid_periods(cfg)
+        sp = attn((n_p,), W, "ring_k")
+        out = {"h": rows(2, 4), "conv": rows(2, 5), "ring_k": sp, "ring_v": sp}
+        if rem:
+            out |= {"extra_h": rows(1, 3), "extra_conv": rows(1, 4)}
+        return out
+    if fam == "encdec":
+        sp = attn((cfg.num_layers,), max_len, "k")
+        return {"k": sp, "v": sp, "cross_k": rows(1, 5), "cross_v": rows(1, 5)}
+    raise ValueError(fam)
+
+
+def param_blocks(lm, batch: int, max_len: int) -> dict:
+    """The spec of a rank's block of every parameter of ``lm`` under the
+    current (placed) mesh for the global batch ``batch`` and caches of
+    ``max_len``: the attention projections of a block that takes the
+    sharded attention by ``decode_attention_specs``, every attention
+    block's MLP by ``decode_mlp_specs`` where the sharded MLP applies, and
+    every other parameter whole (the reference's shard_map in_specs, which
+    its decode step reshards to)."""
+    cfg = lm.cfg
+    mesh = _placed_mesh(cfg)
+    if mesh is None:
+        raise ValueError("param_blocks: no placed mesh is current (launch.mesh.make_mesh, pspec.logical_axis_rules)")
+    specs = {name: (None,) * p.dim() for name, p in lm.named_parameters()}
+    attn, mlp_specs = decode_attention_specs(cfg, mesh, batch), decode_mlp_specs(cfg, mesh, batch)
+    for prefix, S in _self_attention_blocks(lm, max_len):
+        if _sharded_decode_applicable(S):
+            for w in ("wq", "wk", "wv", "wo"):
+                specs[f"{prefix}.attn.{w}"] = attn[w]
+        if _sharded_mlp_applicable():
+            for w in ("w_gate", "w_up", "w_down"):
+                if f"{prefix}.mlp.{w}" in specs:
+                    specs[f"{prefix}.mlp.{w}"] = mlp_specs[w]
+    return specs
+
+
 @torch.no_grad()
 def init_cache(lm, batch: int, max_len: int, *, image_embeds: torch.Tensor | None = None,
                audio_embeds: torch.Tensor | None = None) -> dict[str, Any]:
     """Caches on ``lm``'s device (zeros, but for the cross K/V that vlm
     computes from ``image_embeds`` (B, N, d) and encdec from the encoder's
-    pass over ``audio_embeds``), in the reference's shapes and types."""
+    pass over ``audio_embeds``), in the reference's shapes and types.
+
+    Under a placed mesh, for the global batch ``batch``: each cache is this
+    rank's block of its unsharded shape, cut by its spec in
+    ``cache_blocks``; ``image_embeds`` / ``audio_embeds`` are then this
+    rank's rows."""
+    from ..runtime.sharding import local_block        # runtime imports the models
+
     cfg: ModelConfig = lm.cfg
     fam = cfg.family
     KV, D = cfg.num_kv_heads, cfg.head_dim_
     dev = lm.device
-    z = lambda *s: torch.zeros(s, dtype=cfg.cdtype, device=dev)  # noqa: E731
+    mesh = _placed_mesh(cfg)
+    specs = None if mesh is None else cache_blocks(lm, batch, max_len)
+
+    def z(name: str, *shape: int, dtype=cfg.cdtype) -> torch.Tensor:
+        """Zeros for the cache ``name`` of the unsharded ``shape`` (under a
+        mesh, of this rank's block of it)."""
+        if specs is not None:
+            shape = local_block(torch.empty(shape, device="meta"), specs[name], mesh).shape
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    W = min(cfg.local_window, max_len)
     if fam == "dense":
         if _uses_rings(cfg):
             n_p, pat = _pattern_period(cfg)
-            nl, ng = pat.count("L"), pat.count("G")
-            W = min(cfg.local_window, max_len)
-            return {
-                "local_k": z(n_p, nl, batch, W, KV, D), "local_v": z(n_p, nl, batch, W, KV, D),
-                "global_k": z(n_p, ng, batch, max_len, KV, D),
-                "global_v": z(n_p, ng, batch, max_len, KV, D),
-            }
-        return init_kv_cache(cfg, batch, max_len, cfg.num_layers, device=dev)
+            return {f"{kind}_{kv}": z(f"{kind}_{kv}", n_p, pat.count(c), batch, S, KV, D)
+                    for kind, c, S in (("local", "L", W), ("global", "G", max_len)) for kv in "kv"}
+        return {kv: z(kv, cfg.num_layers, batch, max_len, KV, D) for kv in "kv"}
     if fam == "vlm":
         if image_embeds is None:
             raise ValueError(f"{cfg.name}: vlm caches need image_embeds (the cross K/V)")
         k_every = cfg.cross_attn_every
-        n_p = cfg.num_layers // k_every
-        cache = {"k": z(n_p, k_every - 1, batch, max_len, KV, D),
-                 "v": z(n_p, k_every - 1, batch, max_len, KV, D)}
-        return cache | _cross_cache(lm.cross_blocks, image_embeds.to(cfg.cdtype), cfg)
+        cache = {kv: z(kv, cfg.num_layers // k_every, k_every - 1, batch, max_len, KV, D) for kv in "kv"}
+        return cache | _cross_cache(lm.cross_blocks, image_embeds.to(cfg.cdtype), cfg, z, batch)
     if fam == "moe":
         k = cfg.first_k_dense
         cache = {"moe": init_mla_cache(cfg, batch, max_len, cfg.num_layers - k, device=dev)}
@@ -131,22 +300,17 @@ def init_cache(lm, batch: int, max_len: int, *, image_embeds: torch.Tensor | Non
         return init_mamba_cache(cfg, batch, cfg.num_layers, device=dev)
     if fam == "hybrid":
         n_p, rem = hybrid_periods(cfg)
-        st = init_rglru_state(cfg, batch, n_p * 2, device=dev)
-        W = min(cfg.local_window, max_len)
-        cache = {
-            "h": st["h"].reshape(n_p, 2, batch, -1),
-            "conv": st["conv"].reshape(n_p, 2, batch, 3, -1),
-            "ring_k": z(n_p, batch, W, KV, D), "ring_v": z(n_p, batch, W, KV, D),
-        }
+        st = {k: t[0] for k, t in init_rglru_state(cfg, batch, 1, device="meta").items()}   # one layer's state
+        cache = {k: z(k, n_p, 2, *t.shape, dtype=t.dtype) for k, t in st.items()}           # two a period
+        cache |= {"ring_k": z("ring_k", n_p, batch, W, KV, D), "ring_v": z("ring_v", n_p, batch, W, KV, D)}
         if rem:
-            ex = init_rglru_state(cfg, batch, rem, device=dev)
-            cache["extra_h"], cache["extra_conv"] = ex["h"], ex["conv"]
+            cache |= {f"extra_{k}": z(f"extra_{k}", rem, *t.shape, dtype=t.dtype) for k, t in st.items()}
         return cache
     if fam == "encdec":
         if audio_embeds is None:
             raise ValueError(f"{cfg.name}: encdec caches need audio_embeds (the encoder's input)")
-        cache = init_kv_cache(cfg, batch, max_len, cfg.num_layers, device=dev)
-        return cache | _cross_cache(lm.dec_cross, lm.encode(audio_embeds), cfg)
+        cache = {kv: z(kv, cfg.num_layers, batch, max_len, KV, D) for kv in "kv"}
+        return cache | _cross_cache(lm.dec_cross, lm.encode(audio_embeds), cfg, z, batch)
     raise ValueError(fam)
 
 
@@ -155,17 +319,33 @@ def init_cache(lm, batch: int, max_len: int, *, image_embeds: torch.Tensor | Non
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def decode_step(lm, tokens_t: torch.Tensor, cache: dict, pos: int):
+def decode_step(lm, tokens_t: torch.Tensor, cache: dict, pos: int, *, batch: int | None = None,
+                max_len: int | None = None):
     """tokens_t (B, 1) integer; pos an int → (logits (B, 1, V) float32,
     cache), the cache updated in place. Layers run in the reference's
     order: with local dense layers period by period, locals before
     globals within a period (the natural order for the contiguous L…G
     patterns of the dense configs); the moe family's dense layers before
     its routed ones; the hybrid's two recurrent blocks before its
-    attention block in each period, then the trailing ones."""
+    attention block in each period, then the trailing ones.
+
+    Under a placed mesh: ``lm`` holds this rank's parameter blocks
+    (``param_blocks``), ``cache`` its cache blocks (``init_cache``),
+    tokens_t its rows of the global batch ``batch``, and the logits are
+    those rows'; ``max_len`` is the caches' global length."""
     cfg: ModelConfig = lm.cfg
     fam = cfg.family
     pos = int(pos)
+    geo = lambda ring: {}  # noqa: E731
+    mesh = _placed_mesh(cfg)
+    if mesh is not None:
+        if batch is None or max_len is None:
+            raise ValueError("decode_step under a placed mesh takes the global batch and max_len")
+        if tokens_t.shape[0] != _rows(mesh, batch, _decode_bspec(mesh, batch)):
+            raise ValueError(f"decode_step: {tokens_t.shape[0]} rows of tokens for a global batch {batch} over "
+                             f"{_decode_bspec(mesh, batch)}")
+        W = min(cfg.local_window, max_len)
+        geo = lambda ring: {"batch": batch, "S": W if ring else max_len}  # noqa: E731
     x = lm._embed(tokens_t)
     if fam == "dense":
         blocks = lm.blocks
@@ -178,20 +358,20 @@ def decode_step(lm, tokens_t: torch.Tensor, cache: dict, pos: int):
                 for n, i in enumerate(li):
                     x, _, _ = _attn_decode_block(
                         blocks[p * period + i], x, cache["local_k"][p, n], cache["local_v"][p, n],
-                        pos, cfg, is_global=False, ring=True)
+                        pos, cfg, is_global=False, ring=True, **geo(True))
                 for n, i in enumerate(gi):
                     x, _, _ = _attn_decode_block(
                         blocks[p * period + i], x, cache["global_k"][p, n], cache["global_v"][p, n],
-                        pos, cfg, is_global=True, ring=False)
+                        pos, cfg, is_global=True, ring=False, **geo(False))
         else:
             for i, blk in enumerate(blocks):
                 x, _, _ = _attn_decode_block(blk, x, cache["k"][i], cache["v"][i], pos, cfg,
-                                             is_global=True, ring=False)
+                                             is_global=True, ring=False, **geo(False))
     elif fam == "vlm":
         for p, (selfs, cross) in enumerate(zip(lm.self_blocks, lm.cross_blocks)):
             for j, blk in enumerate(selfs):
                 x, _, _ = _attn_decode_block(blk, x, cache["k"][p, j], cache["v"][p, j], pos, cfg,
-                                             is_global=True, ring=False)
+                                             is_global=True, ring=False, **geo(False))
             x = _cross_block(cross, x, cache["cross_k"][p], cache["cross_v"][p], cfg)
     elif fam == "moe":
         for part, blocks in (("dense", getattr(lm, "dense_blocks", ())), ("moe", lm.moe_blocks)):
@@ -206,13 +386,13 @@ def decode_step(lm, tokens_t: torch.Tensor, cache: dict, pos: int):
             for j, blk in enumerate(recs):
                 x = _rec_block(blk, x, cache["h"][p, j], cache["conv"][p, j], cfg)
             x, _, _ = _attn_decode_block(attn, x, cache["ring_k"][p], cache["ring_v"][p], pos, cfg,
-                                         is_global=False, ring=True)
+                                         is_global=False, ring=True, **geo(True))
         for i, blk in enumerate(getattr(lm, "extra_rec", ())):
             x = _rec_block(blk, x, cache["extra_h"][i], cache["extra_conv"][i], cfg)
     elif fam == "encdec":
         for i, (self_blk, cross) in enumerate(zip(lm.dec_self, lm.dec_cross)):
             x, _, _ = _attn_decode_block(self_blk, x, cache["k"][i], cache["v"][i], pos, cfg,
-                                         is_global=True, ring=False)
+                                         is_global=True, ring=False, **geo(False))
             x = _cross_block(cross, x, cache["cross_k"][i], cache["cross_v"][i], cfg)
     else:
         raise ValueError(fam)

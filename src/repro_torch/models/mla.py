@@ -15,7 +15,15 @@ stock PyTorch products, as the reference does: its 128 query heads over
 one 576-wide key are no instance of the decode kernel, and the
 reference reaches no Pallas kernel there either.
 
-Left for a later slice (ROADMAP.md, queue A12.5): ``mla_decode_sharded``.
+``mla_decode_sharded`` is the reference's weight-stationary,
+sequence-parallel form of that decode on a rank's blocks under a placed
+mesh (``mla_decode_specs``): the latent cache sharded over 'model' along
+S, projections summed over 'data', the small absorbed W^UK/W^UV gathered
+once a layer, the shards' softmax states combined by a max and two sums.
+Its products are the reference's stock ones (the 576-wide latent key is no
+instance of the decode kernel). The reference's moe decode does not call
+it (its decode.py keeps the absorbed single-device form: "refuted"), and
+neither does the port's; it is held like the other sharded functions.
 """
 from __future__ import annotations
 
@@ -23,11 +31,14 @@ import torch
 from torch import nn
 
 from .._device import warm_host_math
-from .attention import _attend
+from ..launch.mesh import all_gather, all_reduce
+from .attention import (_attend, _batch_row_start, _decode_bspec, _gather_batch, _psum_proj, _rows,
+                        current_mesh)
 from .common import ModelConfig
 from .layers import init_linear_, linear, rms_norm, rope
 
-__all__ = ["init_mla", "init_mla_", "mla_attention", "mla_decode", "init_mla_cache"]
+__all__ = ["init_mla", "init_mla_", "mla_attention", "mla_decode", "init_mla_cache", "mla_decode_sharded",
+           "mla_decode_specs"]
 
 NEG_INF = -2.0e38
 
@@ -145,3 +156,97 @@ def mla_decode(params, x_t: torch.Tensor, c_kv_cache: torch.Tensor, k_rope_cache
     out = torch.einsum("bqhr,rhv->bqhv", lat, wkb[..., dn:])   # W^UV on the way out
     return (linear(out.reshape(B, 1, H * dv), params["wo"].reshape(H * dv, cfg.d_model)),
             c_kv_cache, k_rope_cache)
+
+
+def mla_decode_specs(cfg: ModelConfig, mesh, B: int) -> dict:
+    """The reference's in_specs of ``mla_decode_sharded``'s body for the
+    global batch B: x (B, 1, d) by rows; the input dimension of wq_a (or
+    wq), wkv_a and wo's output over 'data' where it divides; the heads of
+    wq_b (or wq), wkv_b and wo over 'model' where they divide; each cache
+    (B, S, r) rows over the batch axes and S over 'model'."""
+    bspec = _decode_bspec(mesh, B)
+    m, dsz = mesh.get("model", 1), mesh.get("data", 1)
+    d_ax = "data" if (dsz > 1 and cfg.d_model % dsz == 0) else None
+    h_ax = "model" if cfg.num_heads % m == 0 else None
+    specs = {"x": (bspec, None, None), "wkv_a": (d_ax, None), "kv_norm": (None,), "wkv_b": (None, h_ax, None),
+             "wo": (h_ax, None, d_ax), "cache": (bspec, "model", None)}
+    if cfg.q_lora_rank:
+        specs |= {"wq_a": (d_ax, None), "q_norm": (None,), "wq_b": (None, h_ax, None)}
+    else:
+        specs["wq"] = (d_ax, h_ax, None)
+    return specs
+
+
+def mla_decode_sharded(params, x_t: torch.Tensor, c_kv_cache: torch.Tensor, k_rope_cache: torch.Tensor, pos: int,
+                       cfg: ModelConfig, *, batch: int):
+    """One token in the absorbed form on this rank's blocks
+    (``mla_decode_specs`` for the global batch ``batch``): x_t (B_loc, 1, d)
+    and this layer's latent cache shards c_kv (B_loc, S_loc, rkv) and
+    k_rope (B_loc, S_loc, dr), positions coordinate('model') · S_loc
+    onward. Writes the token's latent and rotary key on the shard that
+    owns row ``pos`` and returns (out (B_loc, 1, d), c_kv_cache,
+    k_rope_cache)."""
+    mesh = current_mesh()
+    bspec = _decode_bspec(mesh, batch)
+    Bl, S_loc = c_kv_cache.shape[0], c_kv_cache.shape[1]
+    if Bl != _rows(mesh, batch, bspec) or x_t.shape[0] != Bl:
+        raise ValueError(f"mla_decode_sharded: rows {x_t.shape[0]} and a cache of {Bl} rows, for a global batch "
+                         f"{batch} over {bspec}")
+    if not 0 <= pos < S_loc * mesh["model"]:
+        raise ValueError(f"mla_decode_sharded: pos {pos} outside a cache of {S_loc * mesh['model']}")
+    d, H = cfg.d_model, cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    rkv, rq = cfg.kv_lora_rank, cfg.q_lora_rank
+    xg = _gather_batch(x_t, bspec, mesh)                          # (B, 1, d)
+    # queries
+    if rq:
+        cq = rms_norm(_psum_proj(xg, params["wq_a"], d, mesh), params["q_norm"])
+        wq_b = params["wq_b"]                                     # (rq, H_loc, dn + dr)
+        q = linear(cq, wq_b.reshape(rq, -1)).reshape(*cq.shape[:2], wq_b.shape[1], dn + dr)
+    else:
+        q = _psum_proj(xg, params["wq"], d, mesh)
+    if q.shape[2] != H:
+        q = all_gather(q, "model", mesh, dim=2)
+    # latents
+    kv_a = _psum_proj(xg, params["wkv_a"], d, mesh)               # (B, 1, rkv + dr)
+    row0 = _batch_row_start(mesh, bspec, Bl)
+    q, kv_a = q[row0:row0 + Bl], kv_a[row0:row0 + Bl]
+    posb = torch.full((Bl, 1), pos, dtype=torch.int64, device=x_t.device)
+    qn, qr = q[..., :dn], rope(q[..., dn:], posb, cfg.rope_theta)
+    c_t = rms_norm(kv_a[..., :rkv], params["kv_norm"])
+    kr_t = rope(kv_a[..., rkv:], posb, cfg.rope_theta)
+    # the single-row write, on the shard that owns row pos
+    start = mesh.coords["model"] * S_loc
+    slot = pos - start
+    if 0 <= slot < S_loc:
+        c_kv_cache[:, slot] = c_t[:, 0].to(c_kv_cache.dtype)
+        k_rope_cache[:, slot] = kr_t[:, 0].to(k_rope_cache.dtype)
+    # absorbed attention over this shard's latents
+    wkb = params["wkv_b"]
+    if wkb.shape[1] != H:                                         # gather the small W^UK / W^UV
+        wkb = all_gather(wkb, "model", mesh, dim=1)
+    q_abs = torch.einsum("bqhc,rhc->bqhr", qn, wkb[..., :dn])
+    s = (torch.einsum("bqhr,bkr->bhqk", q_abs, c_kv_cache)
+         + torch.einsum("bqhc,bkc->bhqk", qr, k_rope_cache)).float() * ((dn + dr) ** -0.5)
+    valid = start + torch.arange(S_loc, device=x_t.device) <= pos
+    s = torch.where(valid, s, torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
+    warm_host_math(s)
+    M = all_reduce(s.amax(dim=-1), "model", mesh, op="max")       # (B_loc, H, 1)
+    p = torch.exp(s - M[..., None])
+    l = all_reduce(p.sum(dim=-1), "model", mesh)
+    lat = all_reduce(torch.einsum("bhqk,bkr->bqhr", p.to(c_kv_cache.dtype), c_kv_cache).float(), "model", mesh)
+    lat = (lat / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]).to(x_t.dtype)
+    out = torch.einsum("bqhr,rhv->bqhv", lat, wkb[..., dn:])      # W^UV on the way out
+    # output projection (weight-stationary)
+    og = _gather_batch(out, bspec, mesh)
+    wo = params["wo"]
+    H_loc = wo.shape[0]
+    if H_loc != H:
+        r = mesh.coords["model"]
+        o_slice = og[:, :, r * H_loc:(r + 1) * H_loc]
+        y = all_reduce(linear(o_slice.reshape(*og.shape[:2], H_loc * dv), wo.reshape(H_loc * dv, -1)), "model", mesh)
+    else:
+        y = linear(og.reshape(*og.shape[:2], H * dv), wo.reshape(H * dv, -1))
+    if y.shape[-1] != d:
+        y = all_gather(y, "data", mesh, dim=2)
+    return y[row0:row0 + Bl], c_kv_cache, k_rope_cache

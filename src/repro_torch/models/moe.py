@@ -15,21 +15,49 @@ coef · E · Σ_e f_e · p_e. No kernel: the products are plain large
 matrix products (the reference leaves them to XLA), and the rest is
 stock PyTorch operations.
 
-Left for a later slice (ROADMAP.md, queue A12.5): the reference's
-``a2a`` expert parallelism and its ``set_moe_impl`` knob, which need
-several cards.
+``MOE_IMPL`` (``set_moe_impl``) picks the dispatch as the reference's
+does: ``gather`` (the default), ``a2a`` (expert parallelism with explicit
+all-to-alls, ``_moe_a2a``) or ``auto`` (a2a where the mesh and the shapes
+allow it, ``_a2a_applicable``). The a2a dispatch runs under a mesh
+placed over a process group (``launch.mesh.make_mesh``), each rank on its
+block of the tokens (``moe_a2a_specs``): rows over the batch axes, the
+sequence over 'model'; experts over 'model' with their input dimension
+over 'data' (1-D EP, gathered once a layer), or over 'model' × 'data'
+when the experts divide it (2-D EP, no gather). A shapes-only mesh has no
+process group, so a2a is not applicable under it (the dry run's ``meta``
+programs). Under a placed mesh the gather dispatch of a sharded batch,
+which the reference leaves to XLA's SPMD partitioner, has no port yet
+(ROADMAP.md, queue A12.6), and ``moe_layer`` raises. The expert products
+stay stock batched products, as the reference's.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .._device import warm_host_math
+from ..launch.mesh import all_gather, all_reduce, all_to_all, placed
+from .attention import current_mesh
 from .common import ModelConfig
 from .layers import init_linear_, linear
 
-__all__ = ["MoEParams", "init_moe_", "moe_layer"]
+__all__ = ["MoEParams", "init_moe_", "moe_layer", "set_moe_impl", "moe_a2a_specs"]
+
+# 'gather' — the GShard scatter/gather dispatch (the default);
+# 'a2a'    — expert parallelism with explicit all-to-alls over 'model'
+#            (and 'data' with 2-D EP);
+# 'auto'   — a2a wherever the mesh and the shapes allow it.
+MOE_IMPL = "gather"
+
+
+def set_moe_impl(impl: str) -> None:
+    global MOE_IMPL
+    if impl not in ("gather", "a2a", "auto"):
+        raise ValueError(f"set_moe_impl: {impl!r} is not 'gather', 'a2a' or 'auto'")
+    MOE_IMPL = impl
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -121,9 +149,128 @@ def _positions_in_expert(idx: torch.Tensor, E: int) -> torch.Tensor:
     return torch.stack(cols, dim=1)
 
 
+def _a2a_applicable(cfg: ModelConfig, S: int) -> bool:
+    """The reference's rule on the current mesh and the global sequence
+    length S."""
+    mesh = current_mesh()
+    if mesh is None:
+        return False
+    m = mesh.get("model", 1)
+    return m > 1 and S % m == 0 and cfg.num_experts % m == 0 and S >= m
+
+
 def moe_layer(params, x: torch.Tensor, cfg: ModelConfig):
-    """x (B, S, d) → (y (B, S, d), aux loss float32): the reference's
-    ``_moe_gather`` and its shared experts."""
+    """x (B, S, d) → (y (B, S, d), aux loss float32), dispatched by
+    ``MOE_IMPL``. Under a placed mesh x is this rank's block (B_loc,
+    S_loc, d) and the a2a dispatch runs (its global S is S_loc times
+    'model'); elsewhere the gather dispatch runs on the whole batch."""
+    mesh = current_mesh()
+    if placed(mesh):
+        if MOE_IMPL in ("a2a", "auto") and _a2a_applicable(cfg, x.shape[1] * mesh.get("model", 1)):
+            return _moe_a2a(params, x, cfg)
+        raise NotImplementedError(
+            f"moe_layer: under a placed mesh only the a2a dispatch runs (MOE_IMPL {MOE_IMPL!r}, "
+            f"{cfg.num_experts} experts, sequence {x.shape[1]} a rank, mesh {dict(mesh)}); the gather dispatch of "
+            "a sharded batch is XLA's SPMD partition in the reference (ROADMAP.md, queue A12.6)")
+    return _moe_gather(params, x, cfg)
+
+
+def moe_a2a_specs(cfg: ModelConfig, mesh) -> dict:
+    """The reference's in_specs of ``_moe_a2a``'s body: x (B, S, d) with B
+    over the batch axes and S over 'model'; the router (and its bias)
+    whole; the experts (E, d, f) / (E, f, d) over 'model' × 'data'
+    (model-major) when E divides it (2-D EP), else E over 'model' and d
+    over 'data' where it divides (1-D EP, ZeRO'd). The shared experts run
+    outside the body on every token with their whole weights."""
+    m, dsz = mesh.get("model", 1), mesh.get("data", 1)
+    bax = ("pod", "data") if mesh.get("pod", 1) > 1 else ("data",)
+    if dsz > 1 and cfg.num_experts % (m * dsz) == 0:
+        w = wd = (("model", "data"), None, None)
+    else:
+        zero_d = dsz > 1 and cfg.d_model % dsz == 0
+        w = ("model", "data" if zero_d else None, None)
+        wd = ("model", None, "data" if zero_d else None)
+    specs = {"x": (bax, "model", None), "router": (None, None), "w_gate": w, "w_up": w, "w_down": wd}
+    if cfg.router == "sigmoid":
+        specs["router_bias"] = (None,)
+    if cfg.num_shared_experts:
+        specs["shared"] = {"w_gate": (None, None), "w_up": (None, None), "w_down": (None, None)}
+    return specs
+
+
+def _moe_a2a(params, x: torch.Tensor, cfg: ModelConfig):
+    """Expert parallelism on this rank's blocks (``moe_a2a_specs``):
+    x (B_loc, S_loc, d) → (y (B_loc, S_loc, d), aux). The rank routes its
+    T_loc tokens into an (E, C_loc, d) buffer, C_loc = max(4, ⌊T_loc·K·cf/E⌋);
+    an all-to-all over 'model' (then over 'data' with 2-D EP) swaps
+    expert-major for sender-major, the local experts run on their resident
+    weights (gathered over 'data' when ZeRO'd), and the reverse
+    all-to-alls bring the outputs back; the shared experts follow, on this
+    rank's tokens. aux comes from the mean of the global statistics, the
+    same on every rank: a global loss is the sum of the ranks' losses with
+    aux counted once (aux / world on each rank). Gradients flow through
+    both all-to-alls and the weight gathers."""
+    mesh = current_mesh()
+    m, dsz = mesh.get("model", 1), mesh.get("data", 1)
+    E, K = cfg.num_experts, cfg.top_k
+    ep2d = dsz > 1 and E % (m * dsz) == 0
+    E_loc = E // (m * dsz) if ep2d else E // m
+    Bl, Sl, d = x.shape
+    T = Bl * Sl
+    xt = x.reshape(T, d)
+    gates, idx, probs = _route(params, xt, cfg)
+    # aux from the global statistics: a mean over every rank of the mesh
+    world = math.prod(mesh.values())
+    f_e = all_reduce(F.one_hot(idx[:, 0], E).float().mean(dim=0), None, mesh) / world
+    p_e = all_reduce(probs.mean(dim=0), None, mesh) / world
+    aux = cfg.aux_loss_coef * E * torch.sum(f_e * p_e)
+
+    C = max(4, int(T * K * cfg.capacity_factor / E))
+    pos = _positions_in_expert(idx, E)
+    keep = pos < C
+    slot = torch.where(keep, idx * C + pos, E * C).reshape(-1)  # E·C: the drop bin
+    buf = x.new_zeros((E * C + 1, d))
+    buf[slot] = xt.repeat_interleave(K, dim=0)                  # kept slots are unique
+    buf = buf[: E * C]
+    # dispatch: expert-major → (sender, local expert)-major
+    if ep2d:
+        b = all_to_all(buf.reshape(m, dsz, E_loc, C, d), "model", mesh)   # (m_src, dsz, E_loc, C, d)
+        b = all_to_all(b.transpose(0, 1), "data", mesh)                  # (dsz_src, m_src, E_loc, C, d)
+        b = b.permute(2, 1, 0, 3, 4).reshape(E_loc, m * dsz * C, d)
+    else:
+        b = all_to_all(buf.reshape(m, E_loc, C, d), "model", mesh)       # (m_src, E_loc, C, d)
+        b = b.transpose(0, 1).reshape(E_loc, m * C, d)
+    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
+    if wg.shape[1] != d:                                        # ZeRO'd d: gather once a layer
+        wg = all_gather(wg, "data", mesh, dim=1)
+        wu = all_gather(wu, "data", mesh, dim=1)
+    if wd.shape[2] != d:
+        wd = all_gather(wd, "data", mesh, dim=2)
+    warm_host_math(b)
+    h = F.silu(torch.bmm(b, wg)) * torch.bmm(b, wu)
+    out = torch.bmm(h, wd)
+    # the return trip, the dispatch's mirror
+    if ep2d:
+        o = all_to_all(out.reshape(E_loc, m, dsz, C, d).permute(2, 1, 0, 3, 4), "data", mesh)
+        o = all_to_all(o.transpose(0, 1), "model", mesh).reshape(E * C, d)
+    else:
+        o = all_to_all(out.reshape(E_loc, m, C, d).transpose(0, 1), "model", mesh).reshape(E * C, d)
+    flat = torch.cat([o, o.new_zeros((1, d))])
+    y = (flat[slot].view(T, K, d) * (gates * keep).to(x.dtype)[..., None]).sum(dim=1)
+    return _shared(params, xt, y).view(Bl, Sl, d), aux
+
+
+def _shared(params, xt: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """y plus the shared experts' output on the tokens xt, where the layer has them."""
+    if "shared" not in params:
+        return y
+    sh = params["shared"]
+    hs = F.silu(linear(xt, sh["w_gate"])) * linear(xt, sh["w_up"])
+    return y + linear(hs, sh["w_down"])
+
+
+def _moe_gather(params, x: torch.Tensor, cfg: ModelConfig):
+    """The reference's ``_moe_gather`` and its shared experts."""
     B, S, d = x.shape
     T = B * S
     E, K = cfg.num_experts, cfg.top_k
@@ -143,8 +290,4 @@ def moe_layer(params, x: torch.Tensor, cfg: ModelConfig):
     out = torch.bmm(h, params["w_down"]).reshape(E * C, d)
     flat = torch.cat([out, out.new_zeros((1, d))])
     y = (flat[slot].view(T, K, d) * (gates * keep).to(x.dtype)[..., None]).sum(dim=1)
-    if "shared" in params:
-        sh = params["shared"]
-        hs = F.silu(linear(xt, sh["w_gate"])) * linear(xt, sh["w_up"])
-        y = y + linear(hs, sh["w_down"])
-    return y.view(B, S, d), aux
+    return _shared(params, xt, y).view(B, S, d), aux

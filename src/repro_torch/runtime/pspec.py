@@ -1,19 +1,20 @@
 """Logical-axis sharding rules (MaxText-style) with divisibility fallback,
 as functions of a mesh's shape (the port of ``repro.runtime.pspec``).
 
-A mesh here is a plain ordered mapping of axis name → size
-(``launch.mesh.make_production_mesh``). Model code may annotate tensors
-with *logical* axes (``shard(x, 'batch', 'seq', 'embed')``); a context
-(``logical_axis_rules``) maps logical axes to mesh axes, and ``spec_for``
-gives each dimension's mesh axis, a tuple of axes or None. A logical
-axis drops to replicated when the dimension does not divide the mesh
-axes (e.g. 10 heads on a 16-way 'model' axis).
+A mesh here is an ordered mapping of axis name → size: a shapes-only
+one (``launch.mesh.make_production_mesh``) or one placed over a process
+group (``launch.mesh.make_mesh``), which reads the same way. Model code may
+annotate tensors with *logical* axes (``shard(x, 'batch', 'seq',
+'embed')``); a context (``logical_axis_rules``) maps logical axes to mesh
+axes, and ``spec_for`` gives each dimension's mesh axis, a tuple of axes
+or None. A logical axis drops to replicated when the dimension does not
+divide the mesh axes (e.g. 10 heads on a 16-way 'model' axis).
 
-``shard`` is a no-op: the port runs one device, as the reference runs
-outside a context, and its models do not call it. Placing tensors by
-these specs (DTensor placements) comes with the sharded paths
-(ROADMAP.md, queue A12.5); the reference's shard_map ``Manual`` axes have
-no counterpart until then.
+``current_mesh()`` is the mesh of the innermost context. Under a placed
+mesh the decode step takes the sharded paths (``models.decode``): each
+rank runs the reference's ``shard_map`` bodies on its own blocks, so there
+are no ``Manual`` axes to skip. ``shard`` is a no-op: a rank's tensors are
+its blocks already, and the port's models do not call it.
 """
 from __future__ import annotations
 

@@ -22,11 +22,15 @@ with the stacked axes dropped (the reference never shards them). Every
 rule reads only the leaf's unstacked dimensions, which are the port
 parameter's own.
 
-``named``/``tree_shardings`` (``NamedSharding`` trees) have no
-counterpart here: placing tensors by these specs takes DTensor
-placements, which come with the sharded decode paths (ROADMAP.md, queue
-A12.5). ``per_device_bytes`` gives the bytes a device would hold under a
-spec, which the dry run reports.
+``local_block``/``local_blocks`` are the counterpart of the reference's
+``named``/``tree_shardings``: where the reference hands XLA a
+``NamedSharding`` and lets it place the global array, a rank of a placed
+mesh (``launch.mesh.make_mesh``) cuts its own block of a full tensor by
+the spec and its coordinates. A dimension sharded over a tuple of axes
+shards over their product with the tuple's first axis major, as JAX lays
+out ``P(("model", "data"))`` (model-major; ``("pod", "data")`` is the mesh's
+own order). ``per_device_bytes`` gives the bytes a device would hold
+under a spec, which the dry run reports.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ import torch
 from ..optim.adamw import stack_position
 
 __all__ = ["param_specs", "opt_specs", "opt8_specs", "batch_specs", "cache_specs", "needs_zero3",
-           "per_device_bytes", "tree_map"]
+           "per_device_bytes", "tree_map", "local_block", "local_blocks", "block_index", "spec_axes"]
 
 def _axis_size(mesh: dict, name: str) -> int:
     return mesh.get(name, 1)
@@ -215,6 +219,52 @@ def cache_specs(mesh: dict, cache, batch_size: int):
         return tuple(assign)
 
     return tree_map(spec, cache)
+
+
+def spec_axes(entry) -> tuple:
+    """The mesh axes of one spec entry: a name, a tuple of names, or None."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def block_index(mesh, entry, coords: dict) -> tuple[int, int]:
+    """(index of the block, number of blocks) along a dimension whose spec
+    entry is ``entry``, for the rank at ``coords`` (axis → coordinate): the
+    entry's axes row-major, the first one major."""
+    idx, n = 0, 1
+    for a in spec_axes(entry):
+        idx = idx * mesh[a] + coords[a]
+        n *= mesh[a]
+    return idx, n
+
+
+def local_block(x: torch.Tensor, spec: tuple, mesh, coords: dict | None = None) -> torch.Tensor:
+    """The block of the full tensor ``x`` that the rank at ``coords`` (by
+    default this rank's, ``mesh.coords``) holds under ``spec``: each
+    sharded dimension cut into equal blocks over its axes. A view of
+    ``x`` where the cut allows one, else a copy; raises where a sharded
+    dimension does not divide."""
+    coords = mesh.coords if coords is None else coords
+    if len(spec) != x.dim():
+        raise ValueError(f"local_block: spec {spec} for a tensor of shape {tuple(x.shape)}")
+    for dim, entry in enumerate(spec):
+        idx, n = block_index(mesh, entry, coords)
+        if n == 1:
+            continue
+        if x.shape[dim] % n:
+            raise ValueError(f"local_block: dimension {dim} of {tuple(x.shape)} does not divide over {entry}")
+        blk = x.shape[dim] // n
+        x = x.narrow(dim, idx * blk, blk)
+    return x
+
+
+def local_blocks(tree, specs, mesh, coords: dict | None = None):
+    """``local_block`` over a nested dict of tensors and the dict of specs
+    of the same structure (``tree_shardings``' counterpart)."""
+    if isinstance(tree, dict):
+        return {k: local_blocks(v, specs[k], mesh, coords) for k, v in tree.items()}
+    return local_block(tree, specs, mesh, coords)
 
 
 def per_device_bytes(mesh: dict, t: torch.Tensor, spec: tuple) -> int:

@@ -236,10 +236,17 @@ class TestWrapperChecks:
 
     @pytest.mark.parametrize("pos", [-1, 16])
     def test_decode_pos_outside_the_cache(self, pos):
-        q = torch.zeros((1, 4, 32))
-        k = torch.zeros((1, 16, 2, 32))
-        with pytest.raises(ValueError, match="outside the cache"):
-            da_ops.decode_attention(q, k, k, pos)
+        """A negative position raises; a position past the cache's end sees
+        every key, as the last position does (key j is visible iff
+        key0 + j ≤ pos, the key-range entry's rule)."""
+        rng = np.random.default_rng(3)
+        q = torch.from_numpy(rng.standard_normal((1, 4, 32)).astype(np.float32))
+        k = torch.from_numpy(rng.standard_normal((1, 16, 2, 32)).astype(np.float32))
+        if pos < 0:
+            with pytest.raises(ValueError, match=f"pos {pos} and key0 0 must be"):
+                da_ops.decode_attention(q, k, k, pos)
+        else:
+            assert torch.equal(da_ops.decode_attention(q, k, k, pos), da_ops.decode_attention(q, k, k, 15))
 
     def test_decode_plain_version_on_a_strided_layer_view(self):
         rng = np.random.default_rng(2)

@@ -562,6 +562,68 @@ def test_decode_attention_rings(dev, W):
         _agree(out, ref, torch.bfloat16)
 
 
+# The key-range entry (key0, lse=True) at tests/test_torch_decode_range.py's
+# cases: (B, S, H, KV, D, pos, window, softcap), rep 1, 2, 10 and 2; cut
+# into m ranges, some wholly past pos or before the window.
+RANGE_CASES = [
+    (2, 512, 4, 4, 32, 511, 0, 50.0),
+    (2, 512, 8, 4, 64, 200, 0, 0.0),
+    (1, 1024, 10, 1, 128, 700, 300, 0.0),
+    (3, 256, 16, 8, 32, 0, 0, 50.0),
+    (2, 2048, 16, 8, 256, 1500, 4096, 50.0),
+]
+
+
+def _combine(pairs):
+    outs, lses = torch.stack([o for o, _ in pairs]), torch.stack([m for _, m in pairs])
+    M = lses.amax(0)
+    w = torch.exp(lses - torch.where(torch.isfinite(M), M, torch.zeros_like(M)))
+    return (w[..., None] * outs).sum(0) / w.sum(0)[..., None]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [2, 4, 8])
+@pytest.mark.parametrize("case", RANGE_CASES, ids=str)
+def test_decode_attention_key_range_entry(dev, case, m, dt):
+    """Each range's (out, lse) from the kernel against the plain version on
+    the same range (out at the type's tolerance, lse within 1e-4; −inf
+    where the range sees no key), and the ranges combined against the
+    whole-cache kernel."""
+    B, S, H, KV, D, pos, window, cap = case
+    rng = np.random.default_rng(S + pos + m)
+    q, k, v = _qkv(rng, (B, H, D), (B, S, KV, D), dt, dev)
+    n = S // m
+    pairs = []
+    before = da_ops.decode_attention.launches, da_ops.decode_attention.ranged
+    for r in range(m):
+        kw = dict(window=window, softcap=cap, key0=r * n, lse=True)
+        out, lse = da_ops.decode_attention(q, k[:, r * n:(r + 1) * n], v[:, r * n:(r + 1) * n], pos, **kw)
+        ref_out, ref_lse = da_ref.decode_attention_ref(q, k[:, r * n:(r + 1) * n], v[:, r * n:(r + 1) * n], pos, **kw)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.float32 and not torch.isnan(out).any() and not torch.isnan(lse).any()
+        torch.testing.assert_close(out, ref_out, rtol=_tol(dt), atol=_tol(dt))
+        torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+        if da_ops.visible_keys(pos, window=window, key0=r * n, S=n) == 0:
+            assert torch.equal(out, torch.zeros_like(out)) and bool((lse == float("-inf")).all())
+        pairs.append((out, lse))
+    assert (da_ops.decode_attention.launches, da_ops.decode_attention.ranged) == (before[0] + m, before[1] + m)
+    whole = da_ops.decode_attention(q, k, v, pos, window=window, softcap=cap)
+    _agree(_combine(pairs).to(dt), whole, dt)
+
+
+@pytest.mark.parametrize("pos", [0, 3, 510, 511, 512, 513, 600, 4095])
+def test_decode_attention_key_ranges_of_a_ring(dev, pos):
+    """A 512-slot ring cut into 4 ranges, each read to pos' = min(pos, W − 1)."""
+    W, m = 512, 4
+    rng = np.random.default_rng(pos)
+    q, k, v = _qkv(rng, (2, 8, 256), (2, W, 4, 256), torch.bfloat16, dev)
+    read = min(pos, W - 1)
+    pairs = [da_ops.decode_attention(q, k[:, r * 128:(r + 1) * 128], v[:, r * 128:(r + 1) * 128], read,
+                                     softcap=50.0, key0=r * 128, lse=True) for r in range(m)]
+    _agree(_combine(pairs).to(torch.bfloat16), da_ref.decode_attention_ref(q, k, v, read, softcap=50.0),
+           torch.bfloat16)
+
+
 def test_attention_wrappers_reject_bad_cuda_input(dev):
     q = torch.ones((1, 8, 2, 320), device=dev)
     with pytest.raises(ValueError, match="takes D"):
@@ -570,8 +632,8 @@ def test_attention_wrappers_reject_bad_cuda_input(dev):
         da_ops.decode_attention(q[:, 0], q, q, 3)
     q = torch.ones((1, 2, 64), device=dev)
     kv = torch.ones((1, 8, 2, 64), device=dev)
-    with pytest.raises(ValueError, match="pos 8 outside"):
-        da_ops.decode_attention(q, kv, kv, 8)
+    with pytest.raises(ValueError, match="pos -1"):
+        da_ops.decode_attention(q, kv, kv, -1)
     with pytest.raises(ValueError, match="contiguous last dimension"):
         odd = torch.ones((1, 8, 2, 128), device=dev)[..., ::2]
         da_ops.decode_attention(q, odd, odd, 3)

@@ -186,7 +186,7 @@ def test_cli_refuses_what_waits_for_the_sharded_paths(tmp_path):
         with pytest.raises(SystemExit) as e:
             dryrun.main(["--arch", "gemma2-9b", "--shape", "train_4k", "--reduced", "--out", str(tmp_path), *extra])
         assert e.value.code == 2
-    with pytest.raises(ValueError, match="A12.5"):
+    with pytest.raises(ValueError, match="A12.8"):
         dryrun.run_cell("gemma2-9b", "train_4k", "1", reduced=True, compress_pod_grads=True)
 
 
