@@ -27,6 +27,29 @@ is the sum of the ranks' gradients; a gather's, its block of that sum;
 an all-to-all's, the all-to-all back), so the moe layer's a2a dispatch
 differentiates as the reference's does. The max does not.
 
+The gradient convention of every sharded step: each rank's loss is its
+share of the total, the shares summing to it over the whole mesh, and
+every collective's backward is the exact adjoint of its forward (the
+three above). A rank's gradient of a block is then its share of that
+block's gradient, and the gradient of a parameter is the sum of its
+ranks' gradients over the mesh axes its block is replicated on. Where
+ranks along 'model' hold the same rows (Megatron's tensor parallelism),
+each takes 1/m of those rows' loss: the row-parallel sum's backward then
+adds the m shares of its output's gradient back into the whole one, and
+a replicated activation's gradient is a partial whose sum over 'model'
+is the whole. This is used in place of Megatron's f/g pair (an identity
+with a summing backward, a sum with an identity backward) because it
+needs no second form of any collective inside the model: the gathers
+of ZeRO-3 and of the embedding (``gather_dims``) keep their one
+backward, the reduce-scatter, whichever axes they run over. The one
+exception is the loss itself: ``sum_shares`` adds the ranks' shares into
+the total every rank reports, and passes the gradient to each rank's
+share unchanged.
+
+``gather_dims`` rebuilds a whole tensor from a block (the inverse of
+``runtime.sharding.local_block``), differentiably; ``make_mesh_from_ranks``
+is the training CLI's mesh over every rank of the process group.
+
 The backend is the caller's choice (``nccl`` on a pod, one rank a card;
 ``gloo`` for ranks on the host or several ranks sharing one card, where
 it stages CUDA tensors through host memory itself); nothing here picks
@@ -46,8 +69,8 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 
-__all__ = ["make_production_mesh", "mesh_from_arg", "make_mesh", "Mesh", "placed", "all_reduce", "all_gather",
-           "all_to_all", "run_ranks", "AXES"]
+__all__ = ["make_production_mesh", "mesh_from_arg", "make_mesh", "make_mesh_from_ranks", "mesh_shape_from_ranks",
+           "Mesh", "placed", "all_reduce", "sum_shares", "all_gather", "gather_dims", "all_to_all", "run_ranks", "AXES"]
 
 AXES = ("pod", "data", "model")
 
@@ -122,6 +145,20 @@ def make_mesh(shape: dict, *, device_type: str = "cuda") -> Mesh:
     return Mesh(shape, dm, device, dist.get_backend())
 
 
+def mesh_shape_from_ranks(world: int) -> dict:
+    """The reference CLI's mesh over ``world`` devices
+    (``repro.launch.train.make_mesh_from_devices``): 'model' is the first of
+    16, 8, 4, 2, 1 that divides the world, 'data' the rest."""
+    model = next(c for c in (16, 8, 4, 2, 1) if world % c == 0 and c <= world)
+    return {"data": world // model, "model": model}
+
+
+def make_mesh_from_ranks(*, device_type: str = "cuda") -> Mesh:
+    """The ``mesh_shape_from_ranks`` mesh over every rank of the initialised
+    process group. Collective: every rank calls it."""
+    return make_mesh(mesh_shape_from_ranks(dist.get_world_size()), device_type=device_type)
+
+
 # -- collectives along one axis ---------------------------------------------------
 
 def _group(mesh: Mesh, axis):
@@ -161,6 +198,28 @@ def all_reduce(x: torch.Tensor, axis, mesh: Mesh, op: str = "sum") -> torch.Tens
     return out
 
 
+class _SumShares(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_shares(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum of the ranks' shares ``x`` over the whole mesh, on every rank;
+    its gradient reaches each rank's share as it is (Megatron's g): a loss
+    whose ranks' shares sum to the total reports the total, and each rank
+    differentiates its share."""
+    if _size(mesh, None) == 1:
+        return x
+    return _SumShares.apply(x, None)
+
+
 def _gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
@@ -178,7 +237,8 @@ class _AllGather(torch.autograd.Function):
     def backward(ctx, g):
         g = g.contiguous().clone()
         dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
-        return g.narrow(ctx.dim, ctx.index * ctx.block, ctx.block), None, None, None, None
+        # a copy of the block, so that the whole sum is freed here
+        return g.narrow(ctx.dim, ctx.index * ctx.block, ctx.block).clone(), None, None, None, None
 
 
 def all_gather(x: torch.Tensor, axis: str, mesh: Mesh, dim: int) -> torch.Tensor:
@@ -188,6 +248,23 @@ def all_gather(x: torch.Tensor, axis: str, mesh: Mesh, dim: int) -> torch.Tensor
     if n == 1:
         return x
     return _AllGather.apply(x, mesh.groups[axis], n, mesh.coords[axis], dim % x.dim())
+
+
+def gather_dims(x: torch.Tensor, spec: tuple, mesh: Mesh, axes=None) -> torch.Tensor:
+    """The whole tensor of which ``x`` is this rank's block under ``spec``
+    (``runtime.sharding.local_block``'s inverse): each dimension sharded
+    over mesh axes gathered over them, the last axis of a tuple first, as
+    the block index reads them (the first axis major). With ``axes``, only
+    the dimensions sharded over those axes alone (ZeRO-3's 'data'). The
+    gradient comes back through the gathers: the block of the sum over the
+    axes gathered."""
+    for dim, entry in enumerate(spec):
+        names = () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+        if not names or (axes is not None and not set(names) <= set(axes)):
+            continue
+        for ax in reversed(names):
+            x = all_gather(x, ax, mesh, dim=dim)
+    return x
 
 
 def _exchange(x: torch.Tensor, group) -> torch.Tensor:

@@ -28,6 +28,21 @@ the (B, H) and (B, H, D) softmax states cross ranks. The cache stays
 sharded over 'model' along S; each rank attends over its range through
 the decode kernel's key-range entry (``key0``, ``lse``) and the ranks
 combine their (out, lse) pairs.
+
+The sharded full-sequence attention and MLP (``attention_sharded``,
+``mlp_sharded``; training and prefill) run on a rank's rows of the batch
+and its blocks of the parameters, given the specs that
+``runtime.sharding.param_specs`` cut them by (the model passes each layer
+its own, from its ``placement``): Megatron over 'model' (wq,
+wk, wv and w_gate, w_up column-parallel over the heads and the ff
+dimension; wo and w_down row-parallel, their partial outputs summed over
+'model'), ZeRO-3 over 'data' (each block's input dimension gathered at
+use, its gradient reduce-scattered back through the gather). The flash
+kernel runs forward and backward on the rank's H/m query heads and the
+kv heads they read, so GQA's rep stays the model's. A dimension the rules
+leave whole (it does not divide) is computed whole on every rank. The
+gradient convention is ``launch.mesh``'s: each rank's loss is its share,
+1/m of its rows' along 'model'.
 """
 from __future__ import annotations
 
@@ -41,14 +56,14 @@ from torch import nn
 from .._device import warm_host_math
 from ..kernels.decode_attention.ops import decode_attention as decode_attention_kernel
 from ..kernels.flash_attention.ops import flash_attention
-from ..launch.mesh import all_gather, all_reduce
+from ..launch.mesh import all_gather, all_reduce, gather_dims
 from .common import ModelConfig
-from .layers import init_linear_, linear, rope, softcap
+from .layers import init_linear_, linear, mlp, rope, softcap
 
 __all__ = [
     "init_attention", "init_attention_", "attention", "decode_attention", "cross_decode",
     "cross_kv", "init_kv_cache", "rope_theta", "CHUNKED_THRESHOLD", "decode_attention_sharded",
-    "decode_mlp_sharded", "decode_attention_specs", "decode_mlp_specs",
+    "decode_mlp_sharded", "decode_attention_specs", "decode_mlp_specs", "attention_sharded", "mlp_sharded",
 ]
 
 NEG_INF = -2.0e38
@@ -511,3 +526,63 @@ def decode_mlp_sharded(p, x: torch.Tensor, cfg: ModelConfig, *, batch: int) -> t
 
 decode_attention_sharded.calls = 0   # layers run through the sharded attention, this process
 decode_mlp_sharded.calls = 0
+
+
+# -- the sharded full-sequence attention and MLP -------------------------------------
+
+def _local_kv(k, H: int, H_loc: int, h0: int):
+    """The kv heads that query heads h0 … h0 + H_loc − 1 read, of k (B, S, KV,
+    D) holding all KV heads: a slice where the rank's heads cover whole kv
+    groups (or lie in one), else each query head's own copy (rep 1)."""
+    KV = k.shape[2]
+    rep = H // KV
+    if H_loc % rep == 0:
+        return k[:, :, h0 // rep:(h0 + H_loc) // rep]
+    if rep % H_loc == 0:
+        return k[:, :, h0 // rep:h0 // rep + 1]
+    return k.repeat_interleave(rep, dim=2)[:, :, h0:h0 + H_loc]
+
+
+def attention_sharded(params, x: torch.Tensor, cfg: ModelConfig, mesh, specs: dict, *,
+                      is_global: bool = True) -> torch.Tensor:
+    """Causal self-attention of a rank's rows x (B_loc, S, d) on its blocks,
+    cut by ``specs`` (name → spec, ``runtime.sharding.param_specs``'): the
+    projections' 'data' blocks gathered whole along d, the rank's query
+    heads and the kv heads they read through the flash kernel (forward, and
+    backward through ``FlashAttentionFn``), the row-parallel output summed
+    over 'model' → (B_loc, S, d), the same on every rank of 'model'."""
+    attention_sharded.calls += 1
+    H, D, d = cfg.num_heads, cfg.head_dim_, cfg.d_model
+    w = {n: gather_dims(params[n], specs[n], mesh, axes=("data",)) for n in ("wq", "wk", "wv", "wo")}
+    H_loc, KV_loc = w["wq"].shape[1], w["wk"].shape[1]
+    B, S, _ = x.shape
+    q = _heads(x, w["wq"], H_loc, D)
+    k = _heads(x, w["wk"], KV_loc, D)
+    v = _heads(x, w["wv"], KV_loc, D)
+    if cfg.qk_norm:
+        q = _qk_norm(q, params["q_norm"])
+        k = _qk_norm(k, params["k_norm"])
+    theta = rope_theta(cfg, is_global)
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    q = rope(q, positions, theta)
+    k = rope(k, positions, theta)
+    if H_loc != H and KV_loc == cfg.num_kv_heads:   # the heads are cut, the kv heads whole
+        h0 = mesh.coords["model"] * H_loc
+        k, v = _local_kv(k, H, H_loc, h0), _local_kv(v, H, H_loc, h0)
+    o = _attend(q, k, v, cfg, causal=True, window=0 if is_global else cfg.local_window)
+    y = linear(o.reshape(B, S, H_loc * D), w["wo"].reshape(H_loc * D, d))
+    return y if H_loc == H else all_reduce(y, "model", mesh)
+
+
+def mlp_sharded(p, x: torch.Tensor, cfg: ModelConfig, mesh, specs: dict) -> torch.Tensor:
+    """The MLP of a rank's rows x (B_loc, S, d) on its blocks, cut by
+    ``specs``: the 'data' blocks gathered whole along d, the rank's ff
+    columns, the row-parallel w_down's partial output summed over 'model'."""
+    mlp_sharded.calls += 1
+    w = {n: gather_dims(p[n], specs[n], mesh, axes=("data",)) for n in specs}
+    y = mlp(w, x, cfg.mlp)
+    return y if w["w_down"].shape[0] == cfg.d_ff else all_reduce(y, "model", mesh)
+
+
+attention_sharded.calls = 0   # calls of the sharded full-sequence attention (remat's recompute too), this process
+mlp_sharded.calls = 0

@@ -35,18 +35,32 @@ of the backbone is recomputed in backward too
 matrix-product outputs, as the reference's
 ``dots_with_no_batch_dims_saveable``), so on the card the flash kernel
 runs once more a layer.
+
+An LM may hold one rank's blocks of its parameters under a mesh placed
+over a process group (``placement``, a ``Placement``: set by
+``runtime.train.place_``, which the sharded training and prefill steps
+call). Its ``forward`` and ``loss`` then run on the rank's rows of the
+batch: the dense family's blocks through ``attention_sharded`` and
+``mlp_sharded``, the embedding (and the tied unembedding) gathered whole
+at use, the gradient flowing back through the gathers. ``loss`` is the
+global mean: the sums of nll and lse² and the count of unmasked labels
+are summed over the mesh before the division, each rank differentiating
+its share (``launch.mesh.sum_shares``). The other families refuse under
+a placement (ROADMAP A12.6).
 """
 from __future__ import annotations
 
 import functools
 import math
+from dataclasses import dataclass
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from .._device import resolve_device
-from .attention import attention, init_attention, init_attention_
+from ..launch.mesh import all_reduce, gather_dims, sum_shares
+from .attention import attention, attention_sharded, init_attention, init_attention_, mlp_sharded
 from .common import ModelConfig, layer_flags, torch_dtype
 from .layers import embed, init_embedding_, init_linear_, mlp, rms_norm, softcap
 from .mla import init_mla, init_mla_, mla_attention
@@ -54,7 +68,26 @@ from .moe import MoEParams, init_moe_, moe_layer
 from .rglru import init_rglru, init_rglru_, rglru_forward
 from .ssm import init_mamba, init_mamba_, mamba_forward
 
-__all__ = ["LM", "Block", "MLABlock", "MambaBlock", "RGLRUBlock"]
+__all__ = ["LM", "Block", "MLABlock", "MambaBlock", "RGLRUBlock", "Placement"]
+
+
+@dataclass(frozen=True)
+class Placement:
+    """An LM's parameters as one rank's blocks: the mesh (placed over a
+    process group), every parameter's spec (``runtime.sharding.param_specs``),
+    and the number of ranks the batch rows are split over."""
+    mesh: object
+    specs: dict
+    row_shards: int
+
+    def under(self, prefix: str) -> dict:
+        """The specs of module ``prefix``'s parameters, by their names in it."""
+        return _under(self.specs, prefix)
+
+
+def _under(specs: dict, prefix: str) -> dict:
+    p = prefix + "."
+    return {k[len(p):]: s for k, s in specs.items() if k.startswith(p)}
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -98,7 +131,14 @@ class Block(nn.Module):
             self.xgate.zero_()
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig, is_global: bool = True, *,
-                causal: bool = True, kv_x: torch.Tensor | None = None) -> torch.Tensor:
+                causal: bool = True, kv_x: torch.Tensor | None = None,
+                mesh=None, specs: dict | None = None) -> torch.Tensor:
+        if mesh is not None:        # a rank's blocks, cut by ``specs``: the sharded attention and MLP
+            if kv_x is not None or self.xgate is not None or not causal:
+                raise NotImplementedError("Block: only causal self-attention blocks run sharded (ROADMAP A12.6b)")
+            x = x + attention_sharded(self.attn, rms_norm(x, self.ln1), cfg, mesh, _under(specs, "attn"),
+                                      is_global=is_global)
+            return x + mlp_sharded(self.mlp, rms_norm(x, self.ln2), cfg, mesh, _under(specs, "mlp"))
         h = attention(self.attn, rms_norm(x, self.ln1), cfg, is_global=is_global,
                       causal=causal, kv_x=kv_x)
         if self.xgate is not None:
@@ -219,6 +259,7 @@ class LM(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         self.flags = layer_flags(cfg)
+        self.placement: Placement | None = None
         V, d = cfg.padded_vocab, cfg.d_model
         self.embed = _param((V, d), cfg.pdtype, dev)
         self.final_norm = _param(d, torch.float32, dev)
@@ -272,16 +313,30 @@ class LM(nn.Module):
         return self
 
     # ---------------- embedding / head ----------------
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _whole(self, name: str) -> torch.Tensor:
+        """Parameter ``name`` whole: under a placement gathered from this
+        rank's block (its gradient comes back through the gathers)."""
+        t = getattr(self, name)
+        if self.placement is None:
+            return t
+        return gather_dims(t, self.placement.specs[name], self.placement.mesh)
+
+    def _head(self, table: torch.Tensor | None) -> torch.Tensor:
+        """The output projection's table: the embedding's (``table``, already
+        whole) when tied, else the unembedding whole."""
+        return table if self.cfg.tie_embeddings else self._whole("unembed")
+
+    def _embed(self, tokens: torch.Tensor, table: torch.Tensor | None = None) -> torch.Tensor:
         cfg = self.cfg
-        x = embed(tokens, self.embed).to(cfg.cdtype)
+        x = embed(tokens, self.embed if table is None else table).to(cfg.cdtype)
         # the scale is rounded to the compute type first (√3584 → 59.75 in bf16)
         return x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype, device=x.device)
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+    def _logits(self, x: torch.Tensor, table: torch.Tensor | None = None) -> torch.Tensor:
         cfg = self.cfg
         x = rms_norm(x, self.final_norm)
-        table = self.embed if cfg.tie_embeddings else self.unembed
+        if table is None:
+            table = self.embed if cfg.tie_embeddings else self.unembed
         logits = torch.matmul(x, table.t()).to(torch.float32)   # product in the compute type
         return softcap(logits, cfg.final_logit_softcap)
 
@@ -294,23 +349,30 @@ class LM(nn.Module):
         (serving prefill) emits the final position's logits only, so the
         (B, S, V) tensor never exists. aux_loss is the float32 sum of the
         moe layers' load-balance losses (zero for the other families)."""
-        x, aux = self._backbone(tokens, image_embeds=image_embeds, audio_embeds=audio_embeds)
+        x, aux, table = self._backbone(tokens, image_embeds=image_embeds, audio_embeds=audio_embeds)
         if last_only:
             x = x[:, -1:]
-        return self._logits(x), aux
+        return self._logits(x, self._head(table)), aux
 
     def _backbone(self, tokens: torch.Tensor, *, image_embeds=None, audio_embeds=None):
         """tokens (B, S) → (final hidden states (B, S, d) before the final
-        norm, aux loss), the layers in the reference's order. Dense layers
-        run in order with their per-layer global flag (the reference's
-        period-grouped L…G scan and its flag scan both reduce to this)."""
+        norm, aux loss, the embedding table used), the layers in the
+        reference's order. Dense layers run in order with their per-layer
+        global flag (the reference's period-grouped L…G scan and its flag
+        scan both reduce to this)."""
         cfg = self.cfg
         fam = cfg.family
-        x = self._embed(tokens)
+        place = self.placement
+        if place is not None and fam != "dense":
+            raise NotImplementedError(f"LM: the {fam} family on a rank's blocks under a mesh is not ported "
+                                      f"(ROADMAP A12.6{'c' if fam in ('moe', 'ssm') else 'b'})")
+        table = self._whole("embed")
+        x = self._embed(tokens, table)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if fam == "dense":
-            for blk, is_global in zip(self.blocks, self.flags["is_global"]):
-                x = self._block(blk, x, cfg, bool(is_global))
+            for i, (blk, is_global) in enumerate(zip(self.blocks, self.flags["is_global"])):
+                kw = {} if place is None else {"mesh": place.mesh, "specs": place.under(f"blocks.{i}")}
+                x = self._block(blk, x, cfg, bool(is_global), **kw)
         elif fam == "vlm":
             if image_embeds is None:
                 raise ValueError(f"{cfg.name}: the vlm family needs image_embeds")
@@ -340,7 +402,7 @@ class LM(nn.Module):
             for self_blk, cross in zip(self.dec_self, self.dec_cross):
                 # one body a decoder layer, as the reference's remat groups them
                 x = self._block(lambda h, s=self_blk, c=cross: c(s(h, cfg), cfg, causal=False, kv_x=enc), x)
-        return x, aux
+        return x, aux, table
 
     def _block(self, fn, *args, **kwargs):
         """``fn(*args, **kwargs)``, recomputed in backward under ``cfg.remat``
@@ -382,30 +444,49 @@ class LM(nn.Module):
         exist whole: each chunk of positions is normed, projected,
         soft-capped and reduced, and recomputed in backward
         (``torch.utils.checkpoint``). Labels outside [0, vocab_size) are
-        masked out."""
+        masked out.
+
+        Under a placement ``batch`` holds this rank's rows of a global
+        batch split over the mesh's batch axes
+        (``runtime.sharding.batch_axes``); the chunk count is the global
+        batch's, the sums and the count are the whole
+        mesh's, and the returned values are the global ones on every rank,
+        whose gradients reach each rank's share: its rows' sums over the
+        global count, times 1/m (the 'model' ranks hold the same rows)."""
         cfg = self.cfg
-        x, aux = self._backbone(batch["tokens"], image_embeds=batch.get("image_embeds"),
-                                audio_embeds=batch.get("audio_embeds"))
+        x, aux, table = self._backbone(batch["tokens"], image_embeds=batch.get("image_embeds"),
+                                       audio_embeds=batch.get("audio_embeds"))
+        table = self._head(table)
         labels = batch["labels"]
         B, S, _ = x.shape
-        n = ce_chunks(B, S, cfg.padded_vocab, self._CE_CHUNK_BUDGET, self._CE_MAX_CHUNKS)
+        place = self.placement
+        rows = B * (1 if place is None else place.row_shards)
+        n = ce_chunks(rows, S, cfg.padded_vocab, self._CE_CHUNK_BUDGET, self._CE_MAX_CHUNKS)
         C = S // n
         nll = zsq = torch.zeros((), dtype=torch.float32, device=x.device)
         cnt = 0
         for i in range(n):
-            a, b, c = checkpoint(self._chunk_ce, x[:, i * C:(i + 1) * C], labels[:, i * C:(i + 1) * C],
+            a, b, c = checkpoint(self._chunk_ce, x[:, i * C:(i + 1) * C], labels[:, i * C:(i + 1) * C], table,
                                  use_reentrant=False)
             nll, zsq, cnt = nll + a, zsq + b, cnt + c
-        denom = torch.clamp(torch.as_tensor(cnt, device=x.device), min=1)
-        ce = nll / denom
-        zloss = cfg.z_loss * (zsq / denom)
+        cnt = torch.as_tensor(cnt, device=x.device)
+        if place is None:
+            denom = torch.clamp(cnt, min=1)
+            ce = nll / denom
+            zloss = cfg.z_loss * (zsq / denom)
+            return ce + zloss + aux, {"ce": ce, "z_loss": zloss, "aux": aux}
+        mesh = place.mesh
+        m = mesh.get("model", 1)
+        denom = torch.clamp(all_reduce(cnt, None, mesh) // m, min=1)
+        ce = sum_shares(nll / denom / m, mesh)
+        zloss = sum_shares(cfg.z_loss * (zsq / denom) / m, mesh)
         return ce + zloss + aux, {"ce": ce, "z_loss": zloss, "aux": aux}
 
-    def _chunk_ce(self, x_c: torch.Tensor, labels_c: torch.Tensor):
-        """One chunk's (Σ nll, Σ lse², count of unmasked labels)."""
+    def _chunk_ce(self, x_c: torch.Tensor, labels_c: torch.Tensor, table: torch.Tensor):
+        """One chunk's (Σ nll, Σ lse², count of unmasked labels), ``table``
+        the output projection's (V, d)."""
         cfg = self.cfg
         h = rms_norm(x_c, self.final_norm)
-        table = self.embed if cfg.tie_embeddings else self.unembed
         logits = torch.matmul(h, table.t()).to(torch_dtype(cfg.logits_dtype))
         logits = softcap(logits, cfg.final_logit_softcap)
         mask = (labels_c >= 0) & (labels_c < cfg.vocab_size)

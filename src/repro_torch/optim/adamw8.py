@@ -15,6 +15,11 @@ finds each such group (``adamw.stack_position``: the stacks of
 update quantizes the group as the reference quantizes its leaf. Each
 member keeps the 0-d layout (q (1, 1), scale (1,)): its own code and
 its block's scale.
+
+A sharded step updates blocks of its parameters cut along the last axis
+(``runtime.train``); ``last_dims`` gives the whole parameter's last
+dimension, whose block size the codes keep, so that a rank's codes and
+scales are its block of the whole leaf's.
 """
 from __future__ import annotations
 
@@ -48,10 +53,11 @@ def block_size(last_dim: int) -> int:
     return cands[0] if cands else 1
 
 
-def _quantize(x32: torch.Tensor) -> dict:
-    """param-shaped float32 → {q int8 (..., nb, b), scale float32 (..., nb)}."""
+def _quantize(x32: torch.Tensor, b: int | None = None) -> dict:
+    """param-shaped float32 → {q int8 (..., nb, b), scale float32 (..., nb)},
+    in blocks of ``b`` (by default ``block_size`` of the last dimension)."""
     last = x32.shape[-1]
-    b = block_size(last)
+    b = block_size(last) if b is None else b
     xb = x32.reshape(x32.shape[:-1] + (last // b, b))
     scale = torch.clamp(torch.amax(torch.abs(xb), dim=-1), min=1e-12) / 127.0
     q = torch.clamp(torch.round(xb / scale[..., None]), -127, 127).to(torch.int8)
@@ -103,9 +109,11 @@ def adamw8_init(params: dict) -> dict:
 
 
 @torch.no_grad()
-def adamw8_update(grads: dict, state: dict, params: dict, lr, cfg: AdamWConfig = AdamWConfig()) -> dict:
+def adamw8_update(grads: dict, state: dict, params: dict, lr, cfg: AdamWConfig = AdamWConfig(),
+                  last_dims: dict | None = None) -> dict:
     """One step in place: dequantize, the float32 AdamW update, requantize
-    m and √v; returns ``state``."""
+    m and √v (in blocks of ``block_size(last_dims[name])`` where given);
+    returns ``state``."""
     state["step"] += 1
     b1c, b2c = bias_corrections(state["step"], cfg)
     groups = stacked_scalars(params)
@@ -122,7 +130,8 @@ def adamw8_update(grads: dict, state: dict, params: dict, lr, cfg: AdamWConfig =
         if decays(name, p):
             delta = delta + cfg.weight_decay * p.float()
         p.copy_(p.float() - lr * delta.reshape(p.shape))
-        for old, new in ((mq, _quantize(m)), (vq, _quantize(torch.sqrt(v)))):
+        b = block_size(last_dims[name]) if last_dims and name in last_dims else None
+        for old, new in ((mq, _quantize(m, b)), (vq, _quantize(torch.sqrt(v), b))):
             old["q"].copy_(new["q"])
             old["scale"].copy_(new["scale"])
     for shape, names in groups:

@@ -29,8 +29,14 @@ mesh (``launch.mesh.make_mesh``) cuts its own block of a full tensor by
 the spec and its coordinates. A dimension sharded over a tuple of axes
 shards over their product with the tuple's first axis major, as JAX lays
 out ``P(("model", "data"))`` (model-major; ``("pod", "data")`` is the mesh's
-own order). ``per_device_bytes`` gives the bytes a device would hold
-under a spec, which the dry run reports.
+own order). ``gather_blocks`` is their inverse, a collective: every
+rank's blocks gathered back into the whole tensors, a leaf at a time,
+onto the host of the ranks that keep them (for checkpoints and tests).
+``opt_state_specs`` picks the optimizer state's specs (``opt_specs`` or
+``opt8_specs``) and ``block_shape`` gives a block's shape, from which a
+rank allocates its blocks of a state it never holds whole.
+``per_device_bytes`` gives the bytes a device would hold under a spec,
+which the dry run reports.
 """
 from __future__ import annotations
 
@@ -39,10 +45,12 @@ from typing import Any, Optional
 
 import torch
 
+from ..launch.mesh import gather_dims
 from ..optim.adamw import stack_position
 
 __all__ = ["param_specs", "opt_specs", "opt8_specs", "batch_specs", "cache_specs", "needs_zero3",
-           "per_device_bytes", "tree_map", "local_block", "local_blocks", "block_index", "spec_axes"]
+           "per_device_bytes", "tree_map", "local_block", "local_blocks", "gather_blocks", "block_index",
+           "block_shape", "spec_axes", "opt_state_specs", "batch_axes"]
 
 def _axis_size(mesh: dict, name: str) -> int:
     return mesh.get(name, 1)
@@ -164,6 +172,16 @@ def opt8_specs(mesh: dict, opt: dict, pspecs: dict) -> dict:
             "step": ()}
 
 
+def opt_state_specs(mesh: dict, opt: dict, pspecs: dict, optimizer: str = "adamw") -> dict:
+    """The specs of optimizer state ``opt`` (a tree of tensors or ``meta``
+    tensors of the whole state) for parameter specs ``pspecs``: AdamW's
+    moments as their parameters, adamw8's codes and scales by
+    ``opt8_specs``."""
+    if optimizer not in ("adamw", "adamw8"):
+        raise ValueError(f"optimizer must be 'adamw' or 'adamw8', got {optimizer!r}")
+    return (opt8_specs if optimizer == "adamw8" else opt_specs)(mesh, opt, pspecs)
+
+
 def tree_map(fn, tree):
     """``fn`` over every tensor of a nested dict, keeping its structure."""
     if isinstance(tree, dict):
@@ -187,6 +205,12 @@ def batch_specs(mesh: dict, batch, *, pod_manual: bool = False):
         return (bx, *([None] * (leaf.dim() - 1)))
 
     return tree_map(spec, batch)
+
+
+def batch_axes(mesh: dict) -> tuple:
+    """The mesh axes a sharded step's batch rows are split over, pod-major
+    (``batch_specs`` of a batch they divide)."""
+    return tuple(a for a in ("pod", "data") if _axis_size(mesh, a) > 1)
 
 
 def cache_specs(mesh: dict, cache, batch_size: int):
@@ -265,6 +289,34 @@ def local_blocks(tree, specs, mesh, coords: dict | None = None):
     if isinstance(tree, dict):
         return {k: local_blocks(v, specs[k], mesh, coords) for k, v in tree.items()}
     return local_block(tree, specs, mesh, coords)
+
+
+@torch.no_grad()
+def gather_blocks(tree, specs, mesh, keep: bool = True):
+    """The whole tensors of which ``tree`` (a tensor or a nested dict of
+    them) holds this rank's blocks under ``specs`` (the same structure),
+    ``local_blocks``' inverse, on the host where ``keep`` (a checkpoint's
+    writer) and None elsewhere. Collective: every rank of the mesh calls it
+    with the same structure. One leaf at a time, each whole leaf moved to
+    the host or dropped at once, so that no device holds more than one
+    whole leaf beside its blocks."""
+    if isinstance(tree, dict):
+        out = {k: gather_blocks(v, specs[k], mesh, keep) for k, v in tree.items()}
+        return out if keep else None
+    whole = gather_dims(tree.detach(), specs, mesh)
+    return whole.cpu() if keep else None
+
+
+def block_shape(shape, spec: tuple, mesh: dict) -> tuple:
+    """The shape of a rank's block of a tensor of ``shape`` under ``spec``;
+    raises where a sharded dimension does not divide."""
+    out = list(shape)
+    for i, entry in enumerate(spec):
+        n = math.prod(mesh.get(a, 1) for a in spec_axes(entry))
+        if out[i] % n:
+            raise ValueError(f"block_shape: dimension {i} of {tuple(shape)} does not divide over {entry}")
+        out[i] //= n
+    return tuple(out)
 
 
 def per_device_bytes(mesh: dict, t: torch.Tensor, spec: tuple) -> int:

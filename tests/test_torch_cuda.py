@@ -1085,6 +1085,65 @@ def test_reduced_training_on_the_card_equals_the_host(dev):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0, atol=1e-4 * float(b.abs().max()), msg=name)
 
 
+
+# -- the sharded training step on the card -------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("window", [0, 4096])
+def test_sharded_attention_local_heads_on_the_card(dev, window, dtype):
+    """What a rank of a 2 × 2 mesh runs in gemma2-9b's sharded attention
+    (``chip_smoke.py`` phase 13): its 8 of 16 query heads and 4 of 8 kv
+    heads (GQA's rep 2 kept), D 256, soft-cap 50, one row of 2,048 tokens,
+    a global and a local layer (window 4,096), through ``FlashAttentionFn``:
+    the forward and backward kernels, once each, against the plain
+    versions."""
+    rng = np.random.default_rng(13 + window)
+    q, k, v = (t.requires_grad_() for t in _qkv(rng, (1, 2048, 8, 256), (1, 2048, 4, 256), dtype, dev))
+    do = _randn(rng, (1, 2048, 8, 256), dtype, dev)
+    before = fa_ops.flash_attention.launches, fa_ops.flash_attention_bwd.launches
+    o = fa_ops.flash_attention(q, k, v, window=window, softcap=50.0)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert (fa_ops.flash_attention.launches, fa_ops.flash_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    _agree(o.detach(), fa_ref.flash_attention_ref(q.detach(), k.detach(), v.detach(), window=window, softcap=50.0),
+           dtype)
+    want = fa_ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), o.detach(), do, window=window,
+                                          softcap=50.0)
+    _grads_agree((q.grad, k.grad, v.grad), want, dtype)
+
+
+def test_sharded_train_step_on_the_card_equals_one_process(dev):
+    """Four ranks of a 2 × 2 mesh on the one card (gloo), reduced gemma2 in
+    float32 with remat: 3 sharded steps against the one-process step on
+    the card from the same parameters and data (``tests/_torch_sharded_train
+    _ranks.card_step``): loss and grad norm within 1e-5 relative, the
+    learning rate equal, every parameter block within the CPU test's limits
+    in units of its leaf's largest change (``ranks.assert_within_change``),
+    and every rank through the flash kernels."""
+    import json
+
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.runtime import sharding
+
+    import _torch_sharded_train_ranks as ranks
+
+    want = ranks.card_step(None)                  # builds the library before any rank starts
+    mesh = {"data": 2, "model": 2}
+    L = ranks.CARD_CFG["num_layers"]
+    for r in run_ranks(ranks.card_step, mesh, backend="gloo", args=(), timeout=600):
+        coords = dict(zip(mesh, (int(c) for c in r["coords"])))
+        got = r["metrics"]
+        np.testing.assert_allclose(got[:, :2], want["metrics"][:, :2], rtol=1e-5, atol=0)
+        np.testing.assert_array_equal(got[:, 2], want["metrics"][:, 2])
+        assert r["launches"].tolist() == [2 * L * 3, L * 3]           # remat: two forwards a layer a step
+        for name, spec in json.loads(str(r["specs"])).items():
+            spec = tuple(tuple(e) if isinstance(e, list) else e for e in spec)
+            whole = torch.from_numpy(want["params"][name])
+            block = sharding.local_block(whole, spec, mesh, coords).numpy()
+            change = float(np.abs(want["params"][name] - want["before"][name]).max())
+            ranks.assert_within_change(r["params"][name], block, change, "adamw", f"{name} at {coords}")
+
+
 # -- the meta route, the serve step and the smoke's bounds on the card --------------
 
 def _work_of(fn):
