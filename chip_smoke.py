@@ -246,6 +246,29 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    (float32) and 1e-2 (bf16) of the largest one-process logit. Prints each
    rank's losses, grad norms, step times, peak memory and launches:
    four processes sharing one card over gloo, held to no bound.
+14. The hybrid, vlm and encdec families trained, at published width,
+   with the cross layers' gates at 0.5. (a) In this process, float32, B 1
+   × S 512: recurrentgemma-2b (3 of 26 layers, R R L, window cut to 128),
+   llama-3.2-vision-11b (5 of 40, one cross layer over 1,601 image
+   tokens), whisper-base (6 + 6, 1,500 frames): the loss within 1e-5
+   relative and every gradient within 1e-3 of its leaf's max |g| of the
+   same with attention through the plain version (phase 10's oracle),
+   the forward and backward kernels at each family's instance ((256,
+   256), (128, 128), (64, 64)) and the plain route launching nothing.
+   Then four ranks on the 2 × 2 mesh as in phase 13: (b) bf16, remat,
+   ``TrainConfig``'s defaults, 2 steps of a global B 2: recurrentgemma-2b
+   with 5 layers (R R L R R) at S 2,048, llama-3.2-vision-11b with 5 at S
+   2,048, whisper-base whole at S 448, every loss and grad norm within
+   2e-2 relative of the one-process steps (here, first), the same
+   learning rates; (c) whisper-base in float32, 3 steps at S 448 against
+   rank 0's one-process steps to phase 13's f32 limits; (d) each
+   family's prefill under the mesh on (b)'s first batch within 1e-2 of
+   the largest one-process logit (whisper-base in float32 too, 1e-4).
+   Every sharded attention call launches the flash kernel and every
+   training layer its backward, each at its family's instance, none
+   padded; ``rglru_sharded`` runs once a recurrent layer a forward. The
+   kernels line's ``launches_ph14`` are (a)'s kernel route and the four
+   ranks' sums.
 
 The attention wrappers count their padded calls too (``padded``): the
 flash and backward rows carry them for phases 9 and 10
@@ -3420,6 +3443,33 @@ def bf16_close(got: np.ndarray, want: np.ndarray, what: str) -> float:
     return rel
 
 
+def summed(counts: list) -> dict:
+    """The sum of the count dicts ``counts``, key by key."""
+    out: dict = {}
+    for c in counts:
+        for key, n in c.items():
+            out[key] = out.get(key, 0) + n
+    return out
+
+
+def card_ranks(fn, mesh: dict) -> tuple[list, float]:
+    """``run_ranks(fn)`` over gloo, every rank on the one card, each rank's
+    caching allocator giving freed segments back (four share the card):
+    (the ranks' results, seconds)."""
+    from repro_torch.launch.mesh import run_ranks
+
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        return run_ranks(fn, mesh, backend="gloo", timeout=900), time.perf_counter() - t0
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+
+
 def phase_sharded(torch) -> dict:
     """Phase 12 (b)-(d): the one-process results here, then four ranks on
     the card, each held to them."""
@@ -3507,11 +3557,8 @@ def phase_sharded(torch) -> dict:
                              cut_params={d: r[d]["cut_params"] for d in ("float32", "bfloat16")},
                              cache_specs=r["bfloat16"]["cache_specs"]))
         print(f"phase 12 rank {c}: {json.dumps(per_rank[-1])}")
-    launches = {name: sum(r["launches"][name] for r in ranks) for name in ranks[0]["launches"]}
-    pairs: dict = {}
-    for r in ranks:
-        for key, n in r["flash_pairs"].items():
-            pairs[key] = pairs.get(key, 0) + n
+    launches = summed([r["launches"] for r in ranks])
+    pairs = summed([r["flash_pairs"] for r in ranks])
     out.update(ranks=per_rank, launches=launches, flash_pairs=pairs,
                range_launches=sum(r["range_launches"] for r in ranks),
                one_process_s=one_s, ranks_s=ranks_s, wall_s=time.perf_counter() - t0, aux=want["moe_aux"])
@@ -3568,6 +3615,13 @@ def batches13(S: int) -> list:
 def train13(torch, lm, tcfg, S: int, mesh=None) -> tuple:
     """PH13's steps of build_train_step (under ``mesh`` on this rank's rows):
     (metrics a step, seconds a step ending in a synchronize, the step)."""
+    return train_steps(torch, lm, tcfg, batches13(S), mesh)
+
+
+def train_steps(torch, lm, tcfg, batches: list, mesh=None) -> tuple:
+    """build_train_step over ``batches`` (global batches; under ``mesh`` this
+    rank's rows of each): (metrics a step, seconds a step ending in a
+    synchronize, the optimizer state)."""
     from repro_torch.runtime.train import build_train_step, init_opt_state, shard_batch
 
     step = build_train_step(lm, tcfg) if mesh is None else build_train_step(lm, tcfg, mesh=mesh)[0]
@@ -3575,7 +3629,7 @@ def train13(torch, lm, tcfg, S: int, mesh=None) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()        # the whole model's storage, freed by the cut (four processes share the card)
     metrics, times = [], []
-    for b in batches13(S):
+    for b in batches:
         b = b if mesh is None else shard_batch(b, mesh)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3702,7 +3756,6 @@ def phase_sharded_train(torch) -> dict:
     """Phase 13: the one-process bf16 losses and prefill logits here, then
     four ranks on the card, each held to them (and rank 0 to its own
     one-process f32 oracle)."""
-    from repro_torch.launch.mesh import run_ranks
     from repro_torch.runtime.sharding import batch_specs
     from repro_torch.runtime.train import TrainConfig
 
@@ -3721,18 +3774,7 @@ def phase_sharded_train(torch) -> dict:
         torch.cuda.empty_cache()
     one_s = time.perf_counter() - t0
 
-    # four caching allocators share the card: each rank's gives freed segments back
-    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-    t1 = time.perf_counter()
-    try:
-        ranks = run_ranks(phase13_rank, PH13["mesh"], backend="gloo", timeout=900)
-    finally:
-        if alloc is None:
-            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
-    ranks_s = time.perf_counter() - t1
+    ranks, ranks_s = card_ranks(phase13_rank, PH13["mesh"])
     mesh, L, steps = PH13["mesh"], PH13["layers"], PH13["steps"]
     rows = (batch_specs(mesh, {"x": torch.zeros(PH13["B"])})["x"][0], None, None)
     per_rank = []
@@ -3782,13 +3824,8 @@ def phase_sharded_train(torch) -> dict:
     check(oracle["worst_over_change"] <= PH13_PARAM_TOL and oracle["worst_share_over_1e2"] <= PH13_PARAM_SHARE[1],
           f"phase 13b parameters: {oracle['worst_over_change']!r} of a leaf's largest change (limit {PH13_PARAM_TOL}), "
           f"{oracle['worst_share_over_1e2']!r} of a leaf beyond {PH13_PARAM_SHARE[0]} (limit {PH13_PARAM_SHARE[1]})")
-    launches = {name: sum(r["launches"][name] for r in ranks) for name in ranks[0]["launches"]}
-    pairs, bwd_pairs = {}, {}
-    for r in ranks:
-        for key, n in r["flash_pairs"].items():
-            pairs[key] = pairs.get(key, 0) + n
-        for key, n in r["bwd_pairs"].items():
-            bwd_pairs[key] = bwd_pairs.get(key, 0) + n
+    launches = summed([r["launches"] for r in ranks])
+    pairs, bwd_pairs = summed([r["flash_pairs"] for r in ranks]), summed([r["bwd_pairs"] for r in ranks])
     out = dict(ranks=per_rank, params=n_params, one_process_bf16=one_bf16, one_process_bf16_step_s=one_times,
                oracle=oracle, oracle_f32_max_rel=float(np.max(np.abs(np.asarray(ranks[0]["f32"]["metrics"])[:, :2]
                                                                     - want_m[:, :2]) / np.abs(want_m[:, :2]))),
@@ -3803,9 +3840,319 @@ def phase_sharded_train(torch) -> dict:
     return out
 
 
+# -- phase 14: the hybrid, vlm and encdec families trained, and under a mesh ----
+#
+# At published width. (a) One process, float32, B 1 x S 512: the loss and
+# every gradient with attention through the kernels (forward and backward)
+# against the plain route (phase 10.2's oracle): recurrentgemma-2b with 3
+# of 26 layers (R R L), its window cut to 128 so that it bites;
+# llama-3.2-vision-11b with 5 of 40 (4 self, 1 cross over 1,601 image
+# tokens); whisper-base whole (6 + 6, 1,500 frames). (b) Four ranks on the
+# 2 x 2 mesh (gloo, one card), bf16, remat, TrainConfig's defaults, 2 steps
+# of a global B 2 (one row a data rank) against the same steps in one
+# process: recurrentgemma-2b with 5 of 26 layers (R R L + R R: rec_blocks,
+# attn_blocks and extra_rec) at S 2,048 (the 2,048 window does not bite:
+# (a) holds it), llama-3.2-vision-11b with 5 layers at S 2,048,
+# whisper-base whole at S 448. (c) whisper-base's f32 oracle on the four
+# ranks: 3 steps at S 448 against rank 0's one-process step, the encoder's
+# non-causal, the decoder's causal and its cross attention on every rank's
+# heads. (d) The prefill under the mesh on (b)'s first batch, bf16 each
+# family, whisper-base in f32 too. The cross layers' gates at CROSS_GATE.
+PH14 = dict(mesh={"data": 2, "model": 2}, B=2, steps=2, oracle_steps=3, oracle_S=512, data_seed=1)
+PH14_ORACLE = {"recurrentgemma-2b": dict(num_layers=3, local_window=128),
+               "llama-3.2-vision-11b": dict(num_layers=5), "whisper-base": {}}
+PH14_TRAIN = {"recurrentgemma-2b": (dict(num_layers=5), 2048), "llama-3.2-vision-11b": (dict(num_layers=5), 2048),
+              "whisper-base": ({}, WHISPER_TOKENS)}
+PH14_PAIRS = {"recurrentgemma-2b": "256x256", "llama-3.2-vision-11b": "128x128", "whisper-base": "64x64"}
+PH14_GRAD_TOL = 1e-3     # (a): each gradient leaf within 1e-3 of its max |g|, as phase 10.2
+
+
+def family_layers(cfg) -> tuple[int, int]:
+    """(attention layers, RG-LRU layers) of one forward: self and cross
+    attention, whisper's encoder too."""
+    if cfg.family == "hybrid":
+        n_p, rem = divmod(cfg.num_layers, 3)
+        return n_p, 2 * n_p + rem
+    if cfg.family == "encdec":
+        return cfg.num_encoder_layers + 2 * cfg.num_layers, 0
+    return cfg.num_layers, 0
+
+
+def batches14(torch, cfg, S: int, n: int, B: int = PH14["B"]) -> list:
+    """``n`` global batches of B x S from SyntheticLMDataset(vocab, S, seed=1),
+    each with the family's seeded image or audio embeddings."""
+    from repro_torch.data import SyntheticLMDataset
+
+    ds = SyntheticLMDataset(cfg.vocab_size, S, seed=PH14["data_seed"])
+    emb = family_inputs(torch, cfg, B)
+    return [dict(ds.batch(s, B), **emb) for s in range(n)]
+
+
+def oracle14(torch, arch: str) -> dict:
+    """(a) for one family: float32, B 1 x S 512, the loss and every gradient
+    through the kernels against the plain route, on the card."""
+    cfg, lm = build_family(torch, arch, "float32", **PH14_ORACLE[arch])
+    lm.requires_grad_(True)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batches14(torch, cfg, PH14["oracle_S"], 1, B=1)[0].items()}
+    counters = train_counters()
+
+    def loss_and_grads():
+        lm.zero_grad(set_to_none=True)
+        total, _ = lm.loss(batch)
+        total.backward()
+        bwd = {f"{d}x{dv}": n for (d, dv), n in sorted(counters["flash_attention_bwd"].by_pair.items())}
+        return total.detach(), {k: p.grad.clone() for k, p in lm.named_parameters()}, bwd
+
+    pairs = {}
+    (k_loss, k_grads, bwd_pairs), k_s, k_launches = counted(torch, loss_and_grads, pairs, counters)
+    with plain_attention():
+        (p_loss, p_grads, _), _, p_launches = counted(torch, loss_and_grads, counters=counters)
+    L, _ = family_layers(cfg)
+    pair = PH14_PAIRS[arch]
+    check(k_launches["flash_attention"] == 2 * L and k_launches["flash_attention_bwd"] == L
+          and pairs == {pair: 2 * L} and bwd_pairs == {pair: L},
+          f"phase 14a {arch}: kernel launches {k_launches}, instances {pairs} {bwd_pairs}")
+    check(not any(p_launches.values()), f"phase 14a {arch}: the plain route launched {p_launches}")
+    loss_rel = abs(float(k_loss) - float(p_loss)) / abs(float(p_loss))
+    check(loss_rel <= 1e-5, f"phase 14a {arch} f32 loss {float(k_loss)!r} vs plain {float(p_loss)!r}")
+    worst, worst_leaf = 0.0, None
+    for name, g in p_grads.items():
+        big = float(g.abs().max())
+        err = float((k_grads[name] - g).abs().max())
+        check(err <= PH14_GRAD_TOL * big, f"phase 14a {arch} f32 gradient {name}: {err!r} > {PH14_GRAD_TOL} · {big!r}")
+        if big and err / big >= worst:
+            worst, worst_leaf = err / big, name
+    out = dict(layers=cfg.num_layers, cuts=PH14_ORACLE[arch], S=PH14["oracle_S"], loss=float(k_loss),
+               plain_loss=float(p_loss), loss_rel_err=loss_rel, worst_grad_rel_err=worst, worst_leaf=worst_leaf,
+               leaves=len(p_grads), launches=k_launches, pairs=pairs, bwd_pairs=bwd_pairs, kernel_route_s=k_s,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"phase 14a {arch} f32 oracle: {json.dumps(out)}")
+    del lm, k_grads, p_grads
+    return out
+
+
+def prefill14(torch, arch: str, dtype: str, mesh=None) -> np.ndarray:
+    """The prefill step's logits of (b)'s first batch (this rank's rows under ``mesh``)."""
+    from repro_torch.runtime.train import build_prefill_step, shard_batch
+
+    over, S = PH14_TRAIN[arch]
+    cfg, lm = build_family(torch, arch, dtype, **over)
+    batch = {k: v for k, v in batches14(torch, cfg, S, 1)[0].items() if k != "labels"}
+    if mesh is None:
+        step = build_prefill_step(lm)
+    else:
+        step, _ = build_prefill_step(lm, mesh=mesh)
+        batch = shard_batch(batch, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return step(batch).float().cpu().numpy()
+
+
+def whisper14(torch, mesh=None) -> tuple:
+    """(c): whisper-base in float32, PH13_ORACLE's schedule, 3 steps of B 2 x
+    S 448: (metrics, step seconds, the model, its parameters before)."""
+    from repro_torch.runtime.train import TrainConfig
+
+    cfg, lm = build_family(torch, "whisper-base", "float32")
+    before = {k: p.detach().clone() for k, p in lm.named_parameters()} if mesh is None else None
+    metrics, times, _ = train_steps(torch, lm, TrainConfig(**PH13_ORACLE),
+                                    batches14(torch, cfg, WHISPER_TOKENS, PH14["oracle_steps"]), mesh)
+    return metrics, times, lm, before
+
+
+def phase14_rank(mesh) -> dict:
+    """One rank of phase 14 on its blocks: (b) each family's bf16 steps and
+    (d) its bf16 prefill, (c) whisper-base's f32 steps with their final
+    parameters gathered to rank 0 and its f32 prefill, every kernel counter
+    set to 0 before and read after; then on rank 0 alone the one-process
+    steps of (c)."""
+    import torch
+
+    from repro_torch.models import attention, rglru
+    from repro_torch.runtime.sharding import gather_blocks
+    from repro_torch.runtime.train import TrainConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    first = mesh.coords == {"data": 0, "model": 0}
+    say = print if first else (lambda *a, **k: None)
+    res = {"coords": dict(mesh.coords), "backend": mesh.backend, "device": str(mesh.device), "train": {},
+           "prefill": {}}
+    counters = kernel_counters()
+    zero_counts(counters)
+    calls0 = attention.attention_sharded.calls, rglru.rglru_sharded.calls
+    t0 = time.perf_counter()
+    for arch, (over, S) in PH14_TRAIN.items():
+        t1 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, lm = build_family(torch, arch, "bfloat16", **over)
+        check(cfg.remat, f"phase 14b {arch} trains with remat")
+        metrics, times, opt = train_steps(torch, lm, TrainConfig(), batches14(torch, cfg, S, PH14["steps"]), mesh)
+        part = dict(metrics=metrics, step_s=times, block_params=sum(p.numel() for p in lm.parameters()),
+                    peak_bytes=torch.cuda.max_memory_allocated())
+        del lm, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["prefill"][arch] = prefill14(torch, arch, "bfloat16", mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        part["part_s"] = time.perf_counter() - t1
+        res["train"][arch] = part
+        say(f"phase 14b {arch} rank 0 done at {time.perf_counter() - t0:.3f} s: {metrics}", flush=True)
+    # (c) whisper-base's f32 oracle, sharded half
+    torch.cuda.reset_peak_memory_stats()
+    metrics, times, lm, _ = whisper14(torch, mesh)
+    res["f32"] = dict(metrics=metrics, step_s=times, peak_bytes=torch.cuda.max_memory_allocated())
+    finals = gather_blocks(dict(lm.named_parameters()), lm.placement.specs, mesh, keep=first) or {}
+    del lm
+    res["prefill"]["whisper-base f32"] = prefill14(torch, "whisper-base", "float32", mesh)
+    torch.cuda.synchronize()
+    res["sharded_s"] = time.perf_counter() - t0
+    res["launches"] = {name: fn.launches for name, fn in counters.items()}
+    res["flash_pairs"] = flash_pairs()
+    res["bwd_pairs"] = {f"{d}x{dv}": n for (d, dv), n in sorted(counters["flash_attention_bwd"].by_pair.items())}
+    res["padded"] = padded_counts(counters)
+    res["calls"] = (attention.attention_sharded.calls - calls0[0], rglru.rglru_sharded.calls - calls0[1])
+    say(f"phase 14c rank 0 done at {res['sharded_s']:.3f} s: {metrics}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if finals:
+        t1 = time.perf_counter()
+        metrics, times, lm, before = whisper14(torch)
+        by_leaf = param_spread(torch, {k: finals[k].to(mesh.device) for k in finals}, dict(lm.named_parameters()),
+                               before)
+        del lm, before
+        res["oracle"] = dict(metrics=metrics, step_s=times,
+                             worst_over_change=max(r["over_change"] for r in by_leaf.values()),
+                             worst_share_over_1e2=max(r["share_over_1e2"] for r in by_leaf.values()),
+                             leaves=len(by_leaf),
+                             worst_leaves=dict(sorted(by_leaf.items(), key=lambda kv: -kv[1]["over_change"])[:4]))
+        res["oracle_s"] = time.perf_counter() - t1
+    return res
+
+
+def phase_sharded_families(torch) -> dict:
+    """Phase 14: (a) each family's f32 gradient oracle here, then the
+    one-process bf16 steps and prefill logits (and whisper-base's f32
+    prefill), then four ranks on the card, each held to them (and rank 0 to
+    its own one-process f32 steps of (c))."""
+    from repro_torch.runtime.sharding import batch_specs
+    from repro_torch.runtime.train import TrainConfig
+
+    t0 = time.perf_counter()
+    oracles = {}
+    for arch in PH14_ORACLE:
+        torch.cuda.reset_peak_memory_stats()
+        oracles[arch] = oracle14(torch, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    oracle_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    one, want = {}, {}
+    for arch, (over, S) in PH14_TRAIN.items():
+        torch.cuda.reset_peak_memory_stats()
+        cfg, lm = build_family(torch, arch, "bfloat16", **over)
+        n_params = sum(p.numel() for p in lm.parameters())
+        metrics, times, opt = train_steps(torch, lm, TrainConfig(), batches14(torch, cfg, S, PH14["steps"]))
+        one[arch] = dict(metrics=metrics, step_s=times, params=n_params, layers=cfg.num_layers, S=S,
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del lm, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        want[arch] = prefill14(torch, arch, "bfloat16")
+        gc.collect()
+        torch.cuda.empty_cache()
+    want["whisper-base f32"] = prefill14(torch, "whisper-base", "float32")
+    gc.collect()
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t1
+
+    ranks, ranks_s = card_ranks(phase14_rank, PH14["mesh"])
+    mesh = PH14["mesh"]
+    rows = (batch_specs(mesh, {"x": torch.zeros(PH14["B"])})["x"][0], None, None)
+    # per rank: (b) 2 steps of two forwards a layer (remat) and a backward,
+    # (c) 3 steps of whisper-base's, (d) one forward a layer a prefill
+    from repro_torch.configs import get_config
+
+    layers = {arch: family_layers(get_config(arch).replace(**over)) for arch, (over, _) in PH14_TRAIN.items()}
+    steps, wsteps, (wL, _) = PH14["steps"], PH14["oracle_steps"], layers["whisper-base"]
+    fwd_want = {PH14_PAIRS[a]: 2 * steps * L + L for a, (L, _) in layers.items()}
+    fwd_want["64x64"] += 2 * wsteps * wL + wL
+    bwd_want = {PH14_PAIRS[a]: steps * L for a, (L, _) in layers.items()}
+    bwd_want["64x64"] += wsteps * wL
+    rec_want = sum((2 * steps + 1) * R for _, R in layers.values())
+    per_rank = []
+    for r in ranks:
+        c = r["coords"]
+        check(r["backend"] == "gloo" and r["device"].startswith("cuda"), f"phase 14 rank {c}: {r['backend']} {r['device']}")
+        fams = {}
+        for arch in PH14_TRAIN:
+            a, o = np.asarray(r["train"][arch]["metrics"]), np.asarray(one[arch]["metrics"])
+            check(bool(np.isfinite(a).all()), f"phase 14b {arch} rank {c} metrics not finite: {a.tolist()}")
+            rel = np.abs(a[:, :2] - o[:, :2]) / np.abs(o[:, :2])
+            check(bool((rel <= PH13_BF16_LOSS_RTOL).all()),
+                  f"phase 14b {arch} rank {c} bf16 losses and norms {a[:, :2].tolist()} vs one process {o[:, :2].tolist()}")
+            check(np.array_equal(a[:, 2].astype(np.float32), o[:, 2].astype(np.float32)), f"phase 14b {arch} rank {c} lr")
+            fams[arch] = dict(losses=a[:, 0].tolist(), grad_norms=a[:, 1].tolist(), max_rel_err=float(rel.max()),
+                              step_s=r["train"][arch]["step_s"], part_s=r["train"][arch]["part_s"],
+                              peak_gb=r["train"][arch]["peak_bytes"] / 1e9,
+                              block_params=r["train"][arch]["block_params"])
+        errs = {}
+        for key, got in r["prefill"].items():
+            ref = rows_of(want[key], c, mesh, rows)
+            tol = PH13_PREFILL_TOL["float32" if key.endswith("f32") else "bfloat16"]
+            errs[key] = float(np.abs(got - ref).max() / np.abs(ref).max())
+            check(got.shape == ref.shape and errs[key] <= tol,
+                  f"phase 14d rank {c} {key} prefill: {errs[key]!r} of the largest logit (limit {tol})")
+        # (e) every sharded attention call launched the flash kernel, every
+        # training layer its backward, at the families' instances, unpadded
+        fwd, bwd = r["launches"]["flash_attention"], r["launches"]["flash_attention_bwd"]
+        check(fwd == r["calls"][0] == sum(fwd_want.values()) and r["flash_pairs"] == fwd_want
+              and r["bwd_pairs"] == bwd_want and bwd == sum(bwd_want.values()),
+              f"phase 14 rank {c}: flash forward {r['flash_pairs']} (want {fwd_want}), backward {r['bwd_pairs']} "
+              f"(want {bwd_want}), sharded attention calls {r['calls'][0]}")
+        check(r["calls"][1] == rec_want, f"phase 14 rank {c}: rglru_sharded ran {r['calls'][1]} times, not {rec_want}")
+        check(not any(r["padded"].values()), f"phase 14 rank {c} took the padded route {r['padded']}")
+        check(r["launches"]["decode_attention"] == 0, f"phase 14 rank {c} launched decode_attention")
+        per_rank.append(dict(coords=c, families=fams, f32_step_s=r["f32"]["step_s"],
+                             f32_peak_gb=r["f32"]["peak_bytes"] / 1e9, prefill_rel_err=errs, flash_forward=fwd,
+                             flash_backward=bwd, rglru_calls=r["calls"][1], sharded_s=r["sharded_s"]))
+        print(f"phase 14 rank {c}: {json.dumps(per_rank[-1])}")
+    # (c): every rank's f32 metrics against rank 0's one-process steps
+    r0 = next(r for r in ranks if "oracle" in r)
+    oracle = r0["oracle"]
+    print(f"phase 14c one-process f32 whisper-base (rank 0, {r0['oracle_s']:.3f} s): {json.dumps(oracle)}")
+    want_m = np.asarray(oracle["metrics"])
+    check(want_m[0, 2] == 0.0 and want_m[1, 2] > 0, f"phase 14c learning rates {want_m[:, 2].tolist()}")
+    f32_rel = 0.0
+    for r in ranks:
+        got = np.asarray(r["f32"]["metrics"])
+        rel = np.abs(got[:, :2] - want_m[:, :2]) / np.abs(want_m[:, :2])
+        f32_rel = max(f32_rel, float(rel.max()))
+        check(bool((rel <= PH13_LOSS_RTOL).all()) and np.array_equal(got[:, 2], want_m[:, 2]),
+              f"phase 14c rank {r['coords']} f32 metrics {got.tolist()} vs one process {want_m.tolist()}")
+    check(oracle["worst_over_change"] <= PH13_PARAM_TOL and oracle["worst_share_over_1e2"] <= PH13_PARAM_SHARE[1],
+          f"phase 14c parameters: {oracle['worst_over_change']!r} of a leaf's largest change (limit {PH13_PARAM_TOL}), "
+          f"{oracle['worst_share_over_1e2']!r} of a leaf beyond {PH13_PARAM_SHARE[0]} (limit {PH13_PARAM_SHARE[1]})")
+    # the four ranks' counts and (a)'s kernel route's, in this process
+    launches = summed([r["launches"] for r in ranks] + [o["launches"] for o in oracles.values()])
+    pairs = summed([r["flash_pairs"] for r in ranks] + [o["pairs"] for o in oracles.values()])
+    bwd_pairs = summed([r["bwd_pairs"] for r in ranks] + [o["bwd_pairs"] for o in oracles.values()])
+    out = dict(oracles=oracles, one_process=one, ranks=per_rank, whisper_f32=oracle, whisper_f32_max_rel=f32_rel,
+               launches=launches, flash_pairs=pairs, bwd_pairs=bwd_pairs, oracle_s=oracle_s, one_process_s=one_s,
+               ranks_s=ranks_s, wall_s=time.perf_counter() - t0)
+    print(f"phase 14 one-process bf16 references: {json.dumps(one)}")
+    print(f"phase 14 four ranks on one card (2 x 2 mesh, gloo, collectives staged through host memory): the step "
+          f"times above are four processes time-sharing one card, not the sharded step's speed, and are held to no "
+          f"bound; (a) oracles {oracle_s:.3f} s, one-process references {one_s:.3f} s, ranks {ranks_s:.3f} s, "
+          f"phase {out['wall_s']:.3f} s, launches {launches}, flash by instance {pairs}, backward by instance "
+          f"{bwd_pairs}; whisper-base f32 metrics max relative difference {f32_rel!r}")
+    return out
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
@@ -3960,6 +4307,20 @@ def main() -> int:
           f"{ph13_pairs}, flash backward by instance {ph13_bwd_pairs}")
     check(ph13_launches["flash_attention"] > 0 and ph13_launches["flash_attention_bwd"] > 0,
           "phase 13 never launched the flash forward or backward")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phase 14's path: (a) here, with the counters at 0 before each of its
+    # parts and read after, and four spawned ranks, each with its counters
+    # at 0 before its parts and read after; these are their sums.
+    zero_counts(all_counters)
+    t0 = time.perf_counter()
+    fams = phase_sharded_families(torch)
+    ph14_launches, ph14_pairs, ph14_bwd_pairs = fams["launches"], fams["flash_pairs"], fams["bwd_pairs"]
+    print(f"phase 14 in {time.perf_counter() - t0:.3f} s, launches (oracles and four ranks) {ph14_launches}, flash by "
+          f"instance {ph14_pairs}, flash backward by instance {ph14_bwd_pairs}")
+    check(set(ph14_pairs) == set(ph14_bwd_pairs) == set(PH14_PAIRS.values()),
+          f"phase 14 instances {ph14_pairs} {ph14_bwd_pairs}")
 
     meta = {
         "cost_matrix_f32": ("src/repro_torch/kernels/cost_matrix/csrc/cost_matrix.cu",
@@ -3988,13 +4349,14 @@ def main() -> int:
             launches_p2p=p2p_launches[name], launches_ph8=ph8_launches[name],
             launches_ph9=ph9_launches[name], launches_ph10=ph10_launches[name],
             launches_ph11=ph11_launches[name], launches_ph12=ph12_launches[name],
-            launches_ph13=ph13_launches[name], **({"wrapper_ms": r["wrapper_ms"]} if "wrapper_ms" in r else {}),
+            launches_ph13=ph13_launches[name], launches_ph14=ph14_launches[name],
+            **({"wrapper_ms": r["wrapper_ms"]} if "wrapper_ms" in r else {}),
         ))
     # The flash rows split the wrapper's counts by instance: "flash_attention"
     # counts the instances with v as wide as q and k, "flash_attention
     # (192, 128)" MLA's, each per phase as measured (``launches_by_pair``).
     phase_pairs = {"main": serving["pairs"], "sim": sim_pairs, "p2p": p2p_pairs, "ph8": ph8_pairs, "ph9": ph9_pairs,
-                   "ph10": ph10_pairs, "ph11": ph11_pairs, "ph12": ph12_pairs, "ph13": ph13_pairs}
+                   "ph10": ph10_pairs, "ph11": ph11_pairs, "ph12": ph12_pairs, "ph13": ph13_pairs, "ph14": ph14_pairs}
     source, replaces = attn_meta["flash_attention"]
     for name, mla, r in (("flash_attention", False, attn["flash_attention"]),
                          ("flash_attention (192, 128)", True, attn["flash_attention_mla"])):
@@ -4003,7 +4365,8 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces, launches=counts["ph9" if mla else "main"],
             launches_sim=counts["sim"], launches_p2p=counts["p2p"], launches_ph8=counts["ph8"],
             launches_ph9=counts["ph9"], launches_ph10=counts["ph10"], launches_ph11=counts["ph11"],
-            launches_ph12=counts["ph12"], launches_ph13=counts["ph13"], launches_by_pair={ph: {key: n for key, n in pairs.items() if (key == MLA_PAIR) == mla}
+            launches_ph12=counts["ph12"], launches_ph13=counts["ph13"], launches_ph14=counts["ph14"],
+            launches_by_pair={ph: {key: n for key, n in pairs.items() if (key == MLA_PAIR) == mla}
                               for ph, pairs in phase_pairs.items()},
             launches_padded={} if mla else {"ph9": ph9_padded["flash_attention"],
                                             "ph10": ph10_padded["flash_attention"]}, **r))
@@ -4014,6 +4377,7 @@ def main() -> int:
                      launches_ph9=ph9_launches["decode_attention"], launches_ph10=ph10_launches["decode_attention"],
                      launches_ph11=ph11_launches["decode_attention"],
                      launches_ph12=ph12_launches["decode_attention"], launches_ph13=ph13_launches["decode_attention"],
+                     launches_ph14=ph14_launches["decode_attention"],
                      launches_ph12_range_entry=sharded["range_launches"], range_entry=sharded["range_entry"],
                      **attn["decode_attention"]))
     # The backward has no Pallas twin (the reference differentiates jnp
@@ -4029,7 +4393,8 @@ def main() -> int:
                      launches_ph11=ph11_launches["flash_attention_bwd"],
                      launches_ph12=ph12_launches["flash_attention_bwd"],
                      launches_ph13=ph13_launches["flash_attention_bwd"],
-                     launches_by_pair={"ph10": ph10_bwd_pairs, "ph13": ph13_bwd_pairs},
+                     launches_ph14=ph14_launches["flash_attention_bwd"],
+                     launches_by_pair={"ph10": ph10_bwd_pairs, "ph13": ph13_bwd_pairs, "ph14": ph14_bwd_pairs},
                      launches_padded={"ph10": ph10_padded["flash_attention_bwd"]}, **bwd_row))
     for k in line:
         k["bound_share"] = k["bound_ms"] / k["ms"]
@@ -4050,6 +4415,7 @@ def main() -> int:
     print(f"priority_requeue f64 instance (not on the main path): ms {f64['ms']!r} plain_ms "
           f"{f64['plain_ms']!r} bound_ms {f64['bound_ms']!r}, bit-equal to reprioritize_np")
     check(all(math.isfinite(k["ms"]) for k in line), "a kernel time is not finite")
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.3f} s")
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

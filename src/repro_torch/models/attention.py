@@ -36,10 +36,13 @@ and its blocks of the parameters, given the specs that
 its own, from its ``placement``): Megatron over 'model' (wq,
 wk, wv and w_gate, w_up column-parallel over the heads and the ff
 dimension; wo and w_down row-parallel, their partial outputs summed over
-'model'), ZeRO-3 over 'data' (each block's input dimension gathered at
+'model' in float32 and rounded once, ``layers.row_parallel``), ZeRO-3
+over 'data' (each block's input dimension gathered at
 use, its gradient reduce-scattered back through the gather). The flash
 kernel runs forward and backward on the rank's H/m query heads and the
-kv heads they read, so GQA's rep stays the model's. A dimension the rules
+kv heads they read, so GQA's rep stays the model's; self-attention causal
+or not, and cross-attention over the rank's rows of the image embeddings
+or of the encoder's output, under the reference's rules. A dimension the rules
 leave whole (it does not divide) is computed whole on every rank. The
 gradient convention is ``launch.mesh``'s: each rank's loss is its share,
 1/m of its rows' along 'model'.
@@ -58,7 +61,7 @@ from ..kernels.decode_attention.ops import decode_attention as decode_attention_
 from ..kernels.flash_attention.ops import flash_attention
 from ..launch.mesh import all_gather, all_reduce, gather_dims
 from .common import ModelConfig
-from .layers import init_linear_, linear, mlp, rope, softcap
+from .layers import init_linear_, linear, mlp_hidden, rope, row_parallel, softcap
 
 __all__ = [
     "init_attention", "init_attention_", "attention", "decode_attention", "cross_decode",
@@ -544,34 +547,43 @@ def _local_kv(k, H: int, H_loc: int, h0: int):
 
 
 def attention_sharded(params, x: torch.Tensor, cfg: ModelConfig, mesh, specs: dict, *,
-                      is_global: bool = True) -> torch.Tensor:
-    """Causal self-attention of a rank's rows x (B_loc, S, d) on its blocks,
-    cut by ``specs`` (name → spec, ``runtime.sharding.param_specs``'): the
-    projections' 'data' blocks gathered whole along d, the rank's query
+                      is_global: bool = True, causal: bool = True, kv_x: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence attention of a rank's rows x (B_loc, S, d) on its
+    blocks, cut by ``specs`` (name → spec, ``runtime.sharding.param_specs``'):
+    the projections' 'data' blocks gathered whole along d, the rank's query
     heads and the kv heads they read through the flash kernel (forward, and
     backward through ``FlashAttentionFn``), the row-parallel output summed
-    over 'model' → (B_loc, S, d), the same on every rank of 'model'."""
+    over 'model' → (B_loc, S, d), the same on every rank of 'model'.
+
+    ``causal`` and ``kv_x`` as ``attention``'s: self-attention (``kv_x``
+    None) takes rotary embeddings, causal or not, and a local layer's
+    window; cross-attention projects its keys and values from ``kv_x``
+    (B_loc, Sk, d), the rank's rows of the image embeddings or of the
+    encoder's output, and takes neither."""
     attention_sharded.calls += 1
     H, D, d = cfg.num_heads, cfg.head_dim_, cfg.d_model
     w = {n: gather_dims(params[n], specs[n], mesh, axes=("data",)) for n in ("wq", "wk", "wv", "wo")}
     H_loc, KV_loc = w["wq"].shape[1], w["wk"].shape[1]
     B, S, _ = x.shape
+    src = x if kv_x is None else kv_x
     q = _heads(x, w["wq"], H_loc, D)
-    k = _heads(x, w["wk"], KV_loc, D)
-    v = _heads(x, w["wv"], KV_loc, D)
+    k = _heads(src, w["wk"], KV_loc, D)
+    v = _heads(src, w["wv"], KV_loc, D)
     if cfg.qk_norm:
         q = _qk_norm(q, params["q_norm"])
         k = _qk_norm(k, params["k_norm"])
-    theta = rope_theta(cfg, is_global)
-    positions = torch.arange(S, device=x.device).expand(B, S)
-    q = rope(q, positions, theta)
-    k = rope(k, positions, theta)
+    if causal or kv_x is None:          # self-attention → rotary
+        theta = rope_theta(cfg, is_global)
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        q = rope(q, positions, theta)
+        k = rope(k, positions, theta)
     if H_loc != H and KV_loc == cfg.num_kv_heads:   # the heads are cut, the kv heads whole
         h0 = mesh.coords["model"] * H_loc
         k, v = _local_kv(k, H, H_loc, h0), _local_kv(v, H, H_loc, h0)
-    o = _attend(q, k, v, cfg, causal=True, window=0 if is_global else cfg.local_window)
-    y = linear(o.reshape(B, S, H_loc * D), w["wo"].reshape(H_loc * D, d))
-    return y if H_loc == H else all_reduce(y, "model", mesh)
+    window = 0 if (is_global or kv_x is not None) else cfg.local_window
+    o = _attend(q, k, v, cfg, causal=causal, window=window).reshape(B, S, H_loc * D)
+    wo = w["wo"].reshape(H_loc * D, d)
+    return linear(o, wo) if H_loc == H else row_parallel(o, wo, mesh)
 
 
 def mlp_sharded(p, x: torch.Tensor, cfg: ModelConfig, mesh, specs: dict) -> torch.Tensor:
@@ -580,8 +592,8 @@ def mlp_sharded(p, x: torch.Tensor, cfg: ModelConfig, mesh, specs: dict) -> torc
     columns, the row-parallel w_down's partial output summed over 'model'."""
     mlp_sharded.calls += 1
     w = {n: gather_dims(p[n], specs[n], mesh, axes=("data",)) for n in specs}
-    y = mlp(w, x, cfg.mlp)
-    return y if w["w_down"].shape[0] == cfg.d_ff else all_reduce(y, "model", mesh)
+    h = mlp_hidden(w, x, cfg.mlp)
+    return linear(h, w["w_down"]) if w["w_down"].shape[0] == cfg.d_ff else row_parallel(h, w["w_down"], mesh)
 
 
 attention_sharded.calls = 0   # calls of the sharded full-sequence attention (remat's recompute too), this process

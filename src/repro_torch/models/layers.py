@@ -15,10 +15,11 @@ import torch
 import torch.nn.functional as F
 
 from .._device import warm_host_math
+from ..launch.mesh import all_reduce
 
 __all__ = [
     "softcap", "rms_norm", "init_linear_", "init_embedding_", "linear", "embed",
-    "rope", "mlp",
+    "rope", "mlp", "mlp_hidden", "row_parallel",
 ]
 
 
@@ -60,6 +61,36 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w)
 
 
+class _ProductF32(torch.autograd.Function):
+    """x (..., k) · w (k, n) of a narrower type with a float32 result: the
+    product's float32 accumulation returned unrounded (``torch.mm(...,
+    out_dtype=)`` on the card). The gradient reaches x and w in their type,
+    as the product's own backward gives it."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        y = torch.mm(x2, w, out_dtype=torch.float32) if x.is_cuda else x2.float() @ w.float()
+        return y.view(*x.shape[:-1], w.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return g @ w.t(), x.reshape(-1, x.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
+    """x (..., k) · w (k, n), k this rank's slice of the contraction, summed
+    over 'model' (Megatron's row-parallel product): each rank's partial
+    product kept in float32 and the sum rounded once to x's type, as a
+    one-device product rounds its float32 accumulation once (rounding each
+    partial first would round twice)."""
+    y = linear(x, w) if x.dtype == torch.float32 else _ProductF32.apply(x, w)
+    return all_reduce(y, "model", mesh).to(x.dtype)
+
+
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """table[tokens], through ``F.embedding``: its backward sums repeated
     tokens' gradients in a fixed order (the backward of ``table[tokens]``,
@@ -89,6 +120,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 def mlp(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     """``params`` maps ``w_gate``/``w_up``/``w_down`` to (d, f)/(f, d)."""
+    return linear(mlp_hidden(params, x, kind), params["w_down"])
+
+
+def mlp_hidden(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The MLP's activation (..., f), the input of ``w_down``."""
     warm_host_math(x)
     if kind == "swiglu":
         h = F.silu(linear(x, params["w_gate"])) * linear(x, params["w_up"])
@@ -100,4 +136,4 @@ def mlp(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
         h = F.gelu(linear(x, params["w_up"]), approximate="tanh")
     else:
         raise ValueError(kind)
-    return linear(h, params["w_down"])
+    return h

@@ -40,13 +40,17 @@ An LM may hold one rank's blocks of its parameters under a mesh placed
 over a process group (``placement``, a ``Placement``: set by
 ``runtime.train.place_``, which the sharded training and prefill steps
 call). Its ``forward`` and ``loss`` then run on the rank's rows of the
-batch: the dense family's blocks through ``attention_sharded`` and
-``mlp_sharded``, the embedding (and the tied unembedding) gathered whole
-at use, the gradient flowing back through the gathers. ``loss`` is the
+batch: the attention blocks through ``attention_sharded`` (causal or
+not, self or cross: the vlm's image layers, whisper's encoder and its
+decoder's cross layers, the tanh gate applied after the row-parallel
+sum), the RG-LRU blocks through ``rglru_sharded``, every MLP through
+``mlp_sharded``, the embedding (and the unembedding) gathered whole at
+use, the gradient flowing back through the gathers. ``loss`` is the
 global mean: the sums of nll and lse² and the count of unmasked labels
 are summed over the mesh before the division, each rank differentiating
-its share (``launch.mesh.sum_shares``). The other families refuse under
-a placement (ROADMAP A12.6).
+its share (``launch.mesh.sum_shares``). The dense, hybrid, vlm and
+encdec families run under a placement; moe and ssm refuse (ROADMAP
+A12.6c).
 """
 from __future__ import annotations
 
@@ -65,7 +69,7 @@ from .common import ModelConfig, layer_flags, torch_dtype
 from .layers import embed, init_embedding_, init_linear_, mlp, rms_norm, softcap
 from .mla import init_mla, init_mla_, mla_attention
 from .moe import MoEParams, init_moe_, moe_layer
-from .rglru import init_rglru, init_rglru_, rglru_forward
+from .rglru import init_rglru, init_rglru_, rglru_forward, rglru_sharded
 from .ssm import init_mamba, init_mamba_, mamba_forward
 
 __all__ = ["LM", "Block", "MLABlock", "MambaBlock", "RGLRUBlock", "Placement"]
@@ -134,10 +138,11 @@ class Block(nn.Module):
                 causal: bool = True, kv_x: torch.Tensor | None = None,
                 mesh=None, specs: dict | None = None) -> torch.Tensor:
         if mesh is not None:        # a rank's blocks, cut by ``specs``: the sharded attention and MLP
-            if kv_x is not None or self.xgate is not None or not causal:
-                raise NotImplementedError("Block: only causal self-attention blocks run sharded (ROADMAP A12.6b)")
-            x = x + attention_sharded(self.attn, rms_norm(x, self.ln1), cfg, mesh, _under(specs, "attn"),
-                                      is_global=is_global)
+            h = attention_sharded(self.attn, rms_norm(x, self.ln1), cfg, mesh, _under(specs, "attn"),
+                                  is_global=is_global, causal=causal, kv_x=kv_x)
+            if self.xgate is not None:
+                h = h * torch.tanh(self.xgate).to(h.dtype)
+            x = x + h
             return x + mlp_sharded(self.mlp, rms_norm(x, self.ln2), cfg, mesh, _under(specs, "mlp"))
         h = attention(self.attn, rms_norm(x, self.ln1), cfg, is_global=is_global,
                       causal=causal, kv_x=kv_x)
@@ -216,7 +221,10 @@ class RGLRUBlock(nn.Module):
         init_rglru_(self.mix, cfg, generator)
         _init_mlp_(self.mlp, generator)
 
-    def forward(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cfg: ModelConfig, *, mesh=None, specs: dict | None = None) -> torch.Tensor:
+        if mesh is not None:        # a rank's blocks, cut by ``specs``: the sharded RG-LRU and MLP
+            x = x + rglru_sharded(self.mix, rms_norm(x, self.ln1), cfg, mesh, _under(specs, "mix"))
+            return x + mlp_sharded(self.mlp, rms_norm(x, self.ln2), cfg, mesh, _under(specs, "mlp"))
         x = x + rglru_forward(self.mix, rms_norm(x, self.ln1), cfg)
         return x + mlp(self.mlp, rms_norm(x, self.ln2), cfg.mlp)
 
@@ -363,24 +371,24 @@ class LM(nn.Module):
         cfg = self.cfg
         fam = cfg.family
         place = self.placement
-        if place is not None and fam != "dense":
+        if place is not None and fam in ("moe", "ssm"):
             raise NotImplementedError(f"LM: the {fam} family on a rank's blocks under a mesh is not ported "
-                                      f"(ROADMAP A12.6{'c' if fam in ('moe', 'ssm') else 'b'})")
+                                      "(ROADMAP A12.6c)")
+        on = self._on
         table = self._whole("embed")
         x = self._embed(tokens, table)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if fam == "dense":
             for i, (blk, is_global) in enumerate(zip(self.blocks, self.flags["is_global"])):
-                kw = {} if place is None else {"mesh": place.mesh, "specs": place.under(f"blocks.{i}")}
-                x = self._block(blk, x, cfg, bool(is_global), **kw)
+                x = self._block(blk, x, cfg, bool(is_global), **on(f"blocks.{i}"))
         elif fam == "vlm":
             if image_embeds is None:
                 raise ValueError(f"{cfg.name}: the vlm family needs image_embeds")
             img = image_embeds.to(cfg.cdtype)
-            for selfs, cross in zip(self.self_blocks, self.cross_blocks):
-                for blk in selfs:
-                    x = self._block(blk, x, cfg)
-                x = self._block(cross, x, cfg, causal=False, kv_x=img)
+            for p, (selfs, cross) in enumerate(zip(self.self_blocks, self.cross_blocks)):
+                for j, blk in enumerate(selfs):
+                    x = self._block(blk, x, cfg, **on(f"self_blocks.{p}.{j}"))
+                x = self._block(cross, x, cfg, causal=False, kv_x=img, **on(f"cross_blocks.{p}"))
         elif fam == "moe":
             for blk in getattr(self, "dense_blocks", ()):
                 x, _ = self._block(blk, x, cfg)
@@ -391,18 +399,27 @@ class LM(nn.Module):
             for blk in self.blocks:
                 x = self._block(blk, x, cfg)
         elif fam == "hybrid":
-            for recs, attn in zip(self.rec_blocks, self.attn_blocks):
-                for blk in recs:
-                    x = self._block(blk, x, cfg)
-                x = self._block(attn, x, cfg, is_global=False)
-            for blk in getattr(self, "extra_rec", ()):
-                x = self._block(blk, x, cfg)
+            for p, (recs, attn) in enumerate(zip(self.rec_blocks, self.attn_blocks)):
+                for j, blk in enumerate(recs):
+                    x = self._block(blk, x, cfg, **on(f"rec_blocks.{p}.{j}"))
+                x = self._block(attn, x, cfg, is_global=False, **on(f"attn_blocks.{p}"))
+            for i, blk in enumerate(getattr(self, "extra_rec", ())):
+                x = self._block(blk, x, cfg, **on(f"extra_rec.{i}"))
         else:                                                   # encdec
             enc = self._encode(audio_embeds)
-            for self_blk, cross in zip(self.dec_self, self.dec_cross):
+            for i, (self_blk, cross) in enumerate(zip(self.dec_self, self.dec_cross)):
                 # one body a decoder layer, as the reference's remat groups them
-                x = self._block(lambda h, s=self_blk, c=cross: c(s(h, cfg), cfg, causal=False, kv_x=enc), x)
+                def layer(h, s=self_blk, c=cross, i=i):
+                    h = s(h, cfg, **on(f"dec_self.{i}"))
+                    return c(h, cfg, causal=False, kv_x=enc, **on(f"dec_cross.{i}"))
+                x = self._block(layer, x)
         return x, aux, table
+
+    def _on(self, prefix: str) -> dict:
+        """The keywords that run module ``prefix`` on this rank's blocks under
+        the placement (none without one)."""
+        place = self.placement
+        return {} if place is None else {"mesh": place.mesh, "specs": place.under(prefix)}
 
     def _block(self, fn, *args, **kwargs):
         """``fn(*args, **kwargs)``, recomputed in backward under ``cfg.remat``
@@ -427,8 +444,8 @@ class LM(nn.Module):
         if audio_embeds is None:
             raise ValueError(f"{self.cfg.name}: the encdec family needs audio_embeds")
         x = audio_embeds.to(self.cfg.cdtype)
-        for blk in self.enc_blocks:
-            x = self._block(blk, x, self.cfg, causal=False)
+        for i, blk in enumerate(self.enc_blocks):
+            x = self._block(blk, x, self.cfg, causal=False, **self._on(f"enc_blocks.{i}"))
         return rms_norm(x, self.enc_norm)
 
     # ---------------- loss ----------------

@@ -9,6 +9,16 @@ combine, (a1·a2, b1·a2 + b2), runs as a log-depth doubling scan over S
 Gates and state are float32, products in the compute type, as in the
 reference. Decode is one fused step against an (h, conv) cache that it
 updates in place.
+
+``rglru_sharded`` runs the block on a rank's rows and its blocks under a
+mesh placed over a process group (training and prefill), cut by
+``runtime.sharding.param_specs``: the width over 'model' (w_x, w_gate,
+conv_w, w_r and w_i by their columns, out by its rows), d over 'data'
+(gathered whole at use). The recurrence is elementwise over the width,
+so each rank convolves, gates and scans its own channels; only the
+input of w_r and w_i, the whole xw, is gathered over 'model' (its
+gradient reduce-scattered back), and the row-parallel output is summed
+over 'model'.
 """
 from __future__ import annotations
 
@@ -17,11 +27,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import warm_host_math
+from ..launch.mesh import all_gather, gather_dims
 from .common import ModelConfig
-from .layers import init_linear_
+from .layers import init_linear_, row_parallel
 
 __all__ = ["init_rglru", "init_rglru_", "rglru_forward", "rglru_decode", "init_rglru_state",
-           "linear_scan"]
+           "linear_scan", "rglru_sharded"]
 
 _C = 8.0  # Griffin's fixed recurrence sharpness
 
@@ -66,9 +77,15 @@ def _conv(x, w, b):
 
 def _gates(params, xw):
     warm_host_math(xw)
-    r = torch.sigmoid((xw @ params["w_r"]).float())
-    i = torch.sigmoid((xw @ params["w_i"]).float())
-    log_a = -_C * F.softplus(params["lam"])[None, None, :] * r
+    return _gated(xw @ params["w_r"], xw @ params["w_i"], params["lam"], xw)
+
+
+def _gated(r, i, lam, xw):
+    """(a, gated) of channels whose gate pre-activations are r and i, decay
+    parameters lam and conv outputs xw."""
+    r = torch.sigmoid(r.float())
+    i = torch.sigmoid(i.float())
+    log_a = -_C * F.softplus(lam)[None, None, :] * r
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-8))
     gated = beta * i * xw.float()
@@ -96,6 +113,32 @@ def rglru_forward(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     gate = F.gelu((x @ params["w_gate"]).float(), approximate="tanh")
     y = (h * gate).to(x.dtype)
     return y @ params["out"]
+
+
+def rglru_sharded(params, x: torch.Tensor, cfg: ModelConfig, mesh, specs: dict) -> torch.Tensor:
+    """``rglru_forward`` of a rank's rows x (B_loc, S, d) on its blocks, cut
+    by ``specs`` (name → spec): the rank's w/m channels convolved, gated and
+    scanned, from the whole xw gathered over 'model' for w_r and w_i; the
+    row-parallel output summed over 'model' → (B_loc, S, d), the same on
+    every rank of 'model'. A width the rules leave whole (it does not
+    divide 'model') runs whole on every rank."""
+    rglru_sharded.calls += 1
+    w = {n: gather_dims(params[n], specs[n], mesh, axes=("data",))
+         for n in ("w_x", "w_gate", "conv_w", "w_r", "w_i", "out")}
+    cols = w["w_x"].shape[1]
+    if cols == cfg.lru_width_:
+        return rglru_forward({n: params[n] for n in ("conv_b", "lam")} | w, x, cfg)
+    c = slice(mesh.coords["model"] * cols, (mesh.coords["model"] + 1) * cols)
+    xw_loc = _conv(x @ w["w_x"], w["conv_w"], params["conv_b"][c])
+    warm_host_math(xw_loc)
+    xw = all_gather(xw_loc, "model", mesh, dim=2)
+    a, gated = _gated(xw @ w["w_r"], xw @ w["w_i"], params["lam"][c], xw_loc)
+    h = linear_scan(a, gated)
+    gate = F.gelu((x @ w["w_gate"]).float(), approximate="tanh")
+    return row_parallel((h * gate).to(x.dtype), w["out"], mesh)
+
+
+rglru_sharded.calls = 0   # calls of the sharded RG-LRU (remat's recompute too), this process
 
 
 def init_rglru_state(cfg: ModelConfig, batch: int, layers: int, device=None) -> dict:

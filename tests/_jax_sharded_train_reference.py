@@ -8,7 +8,8 @@ Reads ``DIR/cases.json`` and ``DIR/inputs.npz`` (written by the test) and
 writes ``DIR/reference.npz``. For a training case: the reference's own
 ``build_train_step(lm, mesh, tcfg)`` jitted on a mesh of the case's shape,
 the parameters placed by ``param_specs``, the optimizer state by
-``opt_specs`` or ``opt8_specs`` and the batch by ``batch_specs``, as the
+``opt_specs`` or ``opt8_specs`` and the batch (with the vlm's image or
+encdec's audio embeddings) by ``batch_specs``, as the
 reference CLI places them (``repro.launch.train``); each step's loss, grad
 norm and learning rate, and the global parameters and (for adamw8) the
 moments' codes and scales after the last step. For a prefill case:
@@ -33,6 +34,9 @@ from repro.optim.adamw8 import adamw8_init  # noqa: E402
 from repro.runtime import sharding as shlib  # noqa: E402
 from repro.runtime.pspec import logical_axis_rules  # noqa: E402
 from repro.runtime.train import TrainConfig, build_prefill_step, build_train_step  # noqa: E402
+
+
+BATCH_KEYS = ("tokens", "labels", "image_embeds", "audio_embeds")
 
 
 def config(case):
@@ -64,7 +68,9 @@ def make_mesh(shape):
 
 
 def batch_of(inp, key, s, mesh):
-    b = {n: jnp.asarray(inp[f"{key}/{n}{s}"]) for n in ("tokens", "labels")}
+    """Step ``s``'s batch of case ``key``: tokens and labels, and the image
+    or audio embeddings where the case has them, placed by ``batch_specs``."""
+    b = {n: jnp.asarray(inp[f"{key}/{n}{s}"]) for n in BATCH_KEYS if f"{key}/{n}{s}" in inp}
     return jax.device_put(b, shlib.named(mesh, shlib.batch_specs(mesh, b)))
 
 

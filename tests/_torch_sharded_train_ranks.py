@@ -1,5 +1,6 @@
-"""The port's side of ``tests/test_torch_sharded_train.py``: what each rank
-of an 8-rank gloo mesh runs (spawned by ``launch.mesh.run_ranks``, so it
+"""The port's side of ``tests/test_torch_sharded_train.py`` and
+``tests/test_torch_sharded_families.py``: what each rank of an 8-rank gloo
+mesh runs (spawned by ``launch.mesh.run_ranks``, so it
 lives in a module the ranks import; it imports no JAX).
 
 ``run(mesh, workdir)`` reads the cases (``cases.json``) and the inputs
@@ -9,8 +10,10 @@ builds the model from the reference's parameter tree
 and rows, and returns NumPy arrays: each step's metrics, the rank's
 parameter blocks (and adamw8 codes and scales) after the last step and
 on the first rank the whole parameters gathered from them, the
-prefill's logits rows, and the sharded layers each step ran. ``cli`` runs
-the training CLI on a rank and returns its parameter blocks, and
+prefill's logits rows, and the sharded layers each step ran (and
+``rglru_sharded`` against ``rglru_forward`` where the width does not
+divide 'model'). ``cli`` runs the training CLI on a rank and returns its
+parameter blocks, and
 ``card_step`` a rank of the card test's sharded step
 (``tests/test_torch_cuda.py``). The helpers ``reference_tree``,
 ``batches``, ``TCFG`` and ``assert_within_change`` are shared with the
@@ -25,9 +28,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.models import LM, attention, params_from_reference
+from repro_torch.models import LM, attention, params_from_reference, rglru
 from repro_torch.models.interop import STACKED
-from repro_torch.runtime.sharding import gather_blocks
+from repro_torch.runtime.sharding import gather_blocks, local_block
 from repro_torch.runtime.train import TrainConfig, build_prefill_step, build_train_step, init_opt_state, shard_batch
 
 # 1e-3 at its peak, reached after one warmup step (step 0's learning rate is 0)
@@ -97,16 +100,58 @@ def reference_tree(cfg, seed: int) -> dict:
 def batches(cfg, B: int, S: int, steps: int, seed: int) -> list[dict]:
     """``steps`` global batches: tokens, and labels masked unevenly by row
     (row r loses about r/(2B) of its labels, to −1 or past the vocabulary),
-    so that a microbatch's count of unmasked labels depends on its rows."""
+    so that a microbatch's count of unmasked labels depends on its rows;
+    for the vlm family image embeddings (B, num_image_tokens, d), for
+    encdec audio embeddings (B, encoder_seq_len, d), N(0, 1) float32."""
     rng = np.random.default_rng(seed)
+    embeds = {"vlm": ("image_embeds", cfg.num_image_tokens), "encdec": ("audio_embeds", cfg.encoder_seq_len)}
     out = []
     for _ in range(steps):
         toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
         labels = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
         drop = rng.random((B, S)) < (np.arange(B)[:, None] / (2.0 * B))
         labels[drop] = np.where(rng.random(int(drop.sum())) < 0.5, -1, cfg.vocab_size + 3)
-        out.append({"tokens": toks, "labels": labels})
+        b = {"tokens": toks, "labels": labels}
+        if cfg.family in embeds:
+            name, n = embeds[cfg.family]
+            b[name] = rng.standard_normal((B, n, cfg.d_model)).astype(np.float32)
+        out.append(b)
     return out
+
+
+def run_with_reference(work: Path, cases: dict, inp: dict, meshes: dict, timeout: float = 300) -> tuple:
+    """Write ``cases`` and ``inp`` under ``work``, start the reference's
+    script (``tests/_jax_sharded_train_reference.py``) on them in a
+    subprocess under eight forced host devices and, at the same time, the
+    port's ranks on each mesh of ``meshes`` (name → shape) in turn: (the
+    reference's outputs, name → each rank's results)."""
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.launch.mesh import run_ranks
+
+    repo = Path(__file__).resolve().parents[1]
+    (work / "cases.json").write_text(json.dumps(cases))
+    np.savez(work / "inputs.npz", **inp)
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    ref_proc = subprocess.Popen([sys.executable, str(repo / "tests" / "_jax_sharded_train_reference.py"), str(work)],
+                                env=env, cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        port = {name: run_ranks(run, mesh, backend="gloo", device_type="cpu", args=(str(work),), timeout=timeout)
+                for name, mesh in meshes.items()}
+    finally:
+        out, err = ref_proc.communicate(timeout=2 * timeout)
+    assert ref_proc.returncode == 0 and "OK" in out, out + "\n" + err
+    return dict(np.load(work / "reference.npz")), port
+
+
+def cut(a: np.ndarray, spec, mesh: dict, coords: dict) -> np.ndarray:
+    """The block of ``a`` the rank at ``coords`` holds under ``spec`` (as
+    JSON gives it back: lists for tuples)."""
+    spec = tuple(tuple(e) if isinstance(e, list) else e for e in spec)
+    return local_block(torch.from_numpy(np.array(a, order="C")), spec, mesh, coords).numpy()   # 0-d stays 0-d
 
 
 def tree_of(inp, prefix: str) -> dict:
@@ -134,8 +179,12 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.is_floating_point() else t).numpy().copy()
 
 
-def _batch(inp, key: str, s: int) -> dict:
-    return {n: inp[f"{key}/{n}{s}"] for n in ("tokens", "labels")}
+BATCH_KEYS = ("tokens", "labels", "image_embeds", "audio_embeds")
+
+
+def batch_of(inp, key: str, s: int) -> dict:
+    """Step ``s``'s global batch of case ``key``: every key it has."""
+    return {n: inp[f"{key}/{n}{s}"] for n in BATCH_KEYS if f"{key}/{n}{s}" in inp}
 
 
 def _train(mesh, key, case, inp, out):
@@ -143,14 +192,16 @@ def _train(mesh, key, case, inp, out):
     lm = model(cfg, inp, key)
     step, (psh, osh) = build_train_step(lm, tcfg, mesh=mesh)
     opt = init_opt_state(lm, tcfg.optimizer)
-    metrics, calls = [], []
+    metrics, calls, rec = [], [], []
     for s in range(case["steps"]):
-        before = attention.attention_sharded.calls, attention.mlp_sharded.calls
-        m = step(opt, shard_batch(_batch(inp, key, s), mesh))
+        before = attention.attention_sharded.calls, attention.mlp_sharded.calls, rglru.rglru_sharded.calls
+        m = step(opt, shard_batch(batch_of(inp, key, s), mesh))
         calls.append((attention.attention_sharded.calls - before[0], attention.mlp_sharded.calls - before[1]))
+        rec.append(rglru.rglru_sharded.calls - before[2])
         metrics.append([float(m["loss"]), float(m["grad_norm"]), float(m["lr"])])
     out[f"{key}/metrics"] = np.asarray(metrics, np.float64)
     out[f"{key}/calls"] = np.asarray(calls)
+    out[f"{key}/rglru_calls"] = np.asarray(rec)
     for name, p in lm.named_parameters():
         out[f"{key}/params/{name}"] = _np(p)
     whole = gather_blocks(dict(lm.named_parameters()), psh, mesh, keep=not any(mesh.coords.values()))
@@ -168,9 +219,10 @@ def _train(mesh, key, case, inp, out):
 def _prefill(mesh, key, case, inp, out):
     cfg = config(case)
     step, psh = build_prefill_step(model(cfg, inp, key), mesh=mesh)
-    before = attention.attention_sharded.calls
-    out[f"{key}/logits"] = _np(step(shard_batch(_batch(inp, key, 0), mesh)))
-    out[f"{key}/calls"] = np.asarray(attention.attention_sharded.calls - before)
+    before = attention.attention_sharded.calls, rglru.rglru_sharded.calls
+    out[f"{key}/logits"] = _np(step(shard_batch(batch_of(inp, key, 0), mesh)))
+    out[f"{key}/calls"] = np.asarray(attention.attention_sharded.calls - before[0])
+    out[f"{key}/rglru_calls"] = np.asarray(rglru.rglru_sharded.calls - before[1])
     out[f"{key}/specs"] = np.asarray(json.dumps(psh))
 
 
@@ -189,6 +241,24 @@ def _refusals(mesh, key, case, inp, out):
     out[f"{key}/messages"] = np.asarray(msgs)
 
 
+def _rglru_whole(mesh, key, case, inp, out):
+    """``rglru_sharded`` on this rank's rows and blocks of a width that does
+    not divide 'model', and ``rglru_forward`` of the whole block on the same
+    rows: both outputs."""
+    from repro_torch.runtime.sharding import param_specs
+
+    cfg = config(case)
+    p = {k: torch.from_numpy(np.ascontiguousarray(inp[f"{key}/mix/{k}"])) for k in rglru.init_rglru(cfg, "meta")}
+    specs = param_specs(mesh, p, zero3=True)
+    x = shard_batch({"x": inp[f"{key}/x"]}, mesh)["x"]
+    before = rglru.rglru_sharded.calls
+    got = rglru.rglru_sharded({k: local_block(t, specs[k], mesh) for k, t in p.items()}, x, cfg, mesh, specs)
+    out[f"{key}/got"] = _np(got)
+    out[f"{key}/want"] = _np(rglru.rglru_forward(p, x, cfg))
+    out[f"{key}/calls"] = np.asarray(rglru.rglru_sharded.calls - before)
+    out[f"{key}/specs"] = np.asarray(json.dumps(specs))
+
+
 def _message(fn) -> str:
     try:
         fn()
@@ -197,7 +267,7 @@ def _message(fn) -> str:
         return f"{type(e).__name__}: {e}"
 
 
-RUN = {"train": _train, "prefill": _prefill, "refusals": _refusals}
+RUN = {"train": _train, "prefill": _prefill, "refusals": _refusals, "rglru_whole": _rglru_whole}
 
 
 def run(mesh, workdir: str) -> dict:
@@ -223,21 +293,43 @@ def cli(mesh, argv: list) -> dict:
     return out
 
 
-# reduced gemma2 for the card test: float32, remat, the window cut to 8
-CARD_CFG = dict(num_layers=4, local_window=8, remat=True, param_dtype="float32", compute_dtype="float32")
+# the card tests' reduced models: float32, remat, windows cut to 8, the vlm
+# with a cross layer every 4 of 8 layers and 2 kv heads
+CARD_CFG = {"gemma2-9b": dict(num_layers=4, local_window=8),
+            "recurrentgemma-2b": dict(local_window=8),
+            "llama-3.2-vision-11b": dict(num_layers=8, cross_attn_every=4, num_kv_heads=2),
+            "whisper-base": {}}
+CARD_GATE = 0.5       # the cross layers' tanh gates (the reference initialises 0: no gradient reaches them)
 
 
-def card_step(mesh) -> dict:
-    """3 train steps of reduced gemma2 built on the card from a seed, on one
-    process (``mesh`` None: the whole parameters before and after) or on
-    this rank of ``mesh`` (its blocks): metrics, parameters, the flash
-    forward and backward launches."""
+def sharded_layers(cfg) -> tuple[int, int, int]:
+    """(attention blocks, MLPs, RG-LRU blocks) of one forward of ``cfg``'s
+    model: self and cross attention, whisper's encoder too."""
+    if cfg.family == "hybrid":
+        n_p, rem = divmod(cfg.num_layers, 3)
+        return n_p, cfg.num_layers, 2 * n_p + rem
+    if cfg.family == "encdec":
+        n = cfg.num_encoder_layers + 2 * cfg.num_layers
+        return n, n, 0
+    return cfg.num_layers, cfg.num_layers, 0
+
+
+def card_step(mesh, arch: str = "gemma2-9b") -> dict:
+    """3 train steps of ``arch`` reduced (``CARD_CFG``) built on the card
+    from a seed, on one process (``mesh`` None: the whole parameters before
+    and after) or on this rank of ``mesh`` (its blocks): metrics,
+    parameters, the flash forward and backward launches."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
-    cfg = get_config("gemma2-9b", reduced=True).replace(**CARD_CFG)
+    cfg = get_config(arch, reduced=True).replace(remat=True, param_dtype="float32", compute_dtype="float32",
+                                                 **CARD_CFG[arch])
     lm = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        for blocks in (getattr(lm, "cross_blocks", ()), getattr(lm, "dec_cross", ())):
+            for b in blocks:
+                b.xgate.fill_(CARD_GATE)
     out = {"before": {k: _np(p) for k, p in lm.named_parameters()}} if mesh is None else {}
     tcfg = TrainConfig(**TCFG)
     if mesh is None:
@@ -256,3 +348,63 @@ def card_step(mesh) -> dict:
             "launches": np.asarray([fa_ops.flash_attention.launches - before[0],
                                     fa_ops.flash_attention_bwd.launches - before[1]])}
     return out
+
+
+def card_layer(mesh, kind: str) -> dict:
+    """One layer at a published width in float32 on the card, from a seed,
+    on a B 2 × S 256 batch: ``rglru`` recurrentgemma-2b's RG-LRU block
+    (2,560 channels), ``cross`` llama-3.2-vision-11b's cross attention over
+    1,601 image tokens (32 heads, 8 kv heads, D 128, non-causal). On one
+    process (``mesh`` None) the output and every parameter's gradient of
+    Σ y·g (g a seeded cotangent); on a rank of ``mesh`` its rows' output,
+    its blocks' gradients of its share Σ y·g / m summed over the axes the
+    block is replicated on, and the flash launches by instance."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.mesh import all_reduce
+    from repro_torch.models.attention import attention, attention_sharded, init_attention, init_attention_
+    from repro_torch.runtime.sharding import param_specs, spec_axes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(5)
+    arch = "recurrentgemma-2b" if kind == "rglru" else "llama-3.2-vision-11b"
+    cfg = get_config(arch).replace(param_dtype="float32", compute_dtype="float32")
+    if kind == "rglru":
+        p = rglru.init_rglru(cfg, dev)
+        rglru.init_rglru_(p, cfg, gen)
+        p["conv_b"].normal_(generator=gen).mul_(0.1)
+    else:
+        p = init_attention(cfg, dev)
+        init_attention_(p, cfg, gen)
+    B, S = 2, 256
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+    kv = torch.randn((B, cfg.num_image_tokens, cfg.d_model), generator=gen, device=dev)
+    g = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+    whole = {k: t.detach() for k, t in p.items()}
+    if mesh is None:
+        leaves = {k: t.clone().requires_grad_() for k, t in whole.items()}
+        y = rglru.rglru_forward(leaves, x, cfg) if kind == "rglru" else \
+            attention(leaves, x, cfg, causal=False, kv_x=kv)
+        (y * g).sum().backward()
+        return {"y": _np(y), "grads": {k: _np(t.grad) for k, t in leaves.items()}}
+    specs = param_specs(mesh, whole, zero3=True)
+    leaves = {k: local_block(t, specs[k], mesh).clone().requires_grad_() for k, t in whole.items()}
+    rows = {k: shard_batch({k: t}, mesh)[k] for k, t in (("x", x), ("kv", kv), ("g", g))}
+    fa_ops.flash_attention.by_pair, fa_ops.flash_attention_bwd.by_pair = {}, {}
+    if kind == "rglru":
+        y = rglru.rglru_sharded(leaves, rows["x"], cfg, mesh, specs)
+    else:
+        y = attention_sharded(leaves, rows["x"], cfg, mesh, specs, causal=False, kv_x=rows["kv"])
+    (y * rows["g"]).sum().div(mesh["model"]).backward()
+    grads = {}
+    for k, t in leaves.items():
+        gk = t.grad
+        for ax in (a for a in mesh if a not in {a for e in specs[k] for a in spec_axes(e)}):
+            gk = all_reduce(gk, ax, mesh)
+        grads[k] = _np(gk)
+    torch.cuda.synchronize()
+    return {"coords": np.array([mesh.coords[a] for a in mesh]), "specs": np.asarray(json.dumps(specs)),
+            "y": _np(y), "grads": grads,
+            "pairs": np.asarray(json.dumps({f"{d}x{dv}": n for (d, dv), n in fa_ops.flash_attention.by_pair.items()})),
+            "bwd_pairs": np.asarray(json.dumps({f"{d}x{dv}": n
+                                                for (d, dv), n in fa_ops.flash_attention_bwd.by_pair.items()}))}

@@ -1112,25 +1112,29 @@ def test_sharded_attention_local_heads_on_the_card(dev, window, dtype):
     _grads_agree((q.grad, k.grad, v.grad), want, dtype)
 
 
-def test_sharded_train_step_on_the_card_equals_one_process(dev):
-    """Four ranks of a 2 × 2 mesh on the one card (gloo), reduced gemma2 in
-    float32 with remat: 3 sharded steps against the one-process step on
-    the card from the same parameters and data (``tests/_torch_sharded_train
-    _ranks.card_step``): loss and grad norm within 1e-5 relative, the
-    learning rate equal, every parameter block within the CPU test's limits
-    in units of its leaf's largest change (``ranks.assert_within_change``),
-    and every rank through the flash kernels."""
+@pytest.mark.parametrize("arch", ["gemma2-9b", "recurrentgemma-2b", "llama-3.2-vision-11b", "whisper-base"])
+def test_sharded_train_step_on_the_card_equals_one_process(dev, arch):
+    """Four ranks of a 2 × 2 mesh on the one card (gloo), each family's
+    reduced model in float32 with remat (``_torch_sharded_train_ranks
+    .CARD_CFG``, the cross gates at 0.5): 3 sharded steps against the
+    one-process step on the card from the same parameters and data
+    (``tests/_torch_sharded_train_ranks.card_step``): loss and grad norm
+    within 1e-5 relative, the learning rate equal, every parameter block
+    within the CPU test's limits in units of its leaf's largest change
+    (``ranks.assert_within_change``), and every rank through the flash
+    kernels."""
     import json
 
+    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.runtime import sharding
 
     import _torch_sharded_train_ranks as ranks
 
-    want = ranks.card_step(None)                  # builds the library before any rank starts
+    want = ranks.card_step(None, arch)            # builds the library before any rank starts
     mesh = {"data": 2, "model": 2}
-    L = ranks.CARD_CFG["num_layers"]
-    for r in run_ranks(ranks.card_step, mesh, backend="gloo", args=(), timeout=600):
+    L = ranks.sharded_layers(get_config(arch, reduced=True).replace(**ranks.CARD_CFG[arch]))[0]
+    for r in run_ranks(ranks.card_step, mesh, backend="gloo", args=(arch,), timeout=600):
         coords = dict(zip(mesh, (int(c) for c in r["coords"])))
         got = r["metrics"]
         np.testing.assert_allclose(got[:, :2], want["metrics"][:, :2], rtol=1e-5, atol=0)
@@ -1142,6 +1146,40 @@ def test_sharded_train_step_on_the_card_equals_one_process(dev):
             block = sharding.local_block(whole, spec, mesh, coords).numpy()
             change = float(np.abs(want["params"][name] - want["before"][name]).max())
             ranks.assert_within_change(r["params"][name], block, change, "adamw", f"{name} at {coords}")
+
+
+@pytest.mark.parametrize("kind", ["rglru", "cross"])
+def test_sharded_layer_on_four_ranks_equals_one_process(dev, kind):
+    """Four ranks of a 2 × 2 mesh on the one card, float32 at published
+    width (``_torch_sharded_train_ranks.card_layer``): recurrentgemma-2b's
+    RG-LRU block (``rglru_sharded``: 1,280 of 2,560 channels a rank, the xw
+    gather over 'model') or llama-3.2-vision-11b's cross attention over
+    1,601 image tokens (``attention_sharded``, non-causal, 16 heads and 4
+    kv heads a rank through the (128, 128) flash kernels, forward and
+    backward). Each rank's output rows and its blocks' gradients (summed
+    over the axes a block is replicated on) against the one-process
+    layer's, within 1e-4 of the largest |value|."""
+    import json
+
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.runtime import sharding
+
+    import _torch_sharded_train_ranks as ranks
+
+    want = ranks.card_layer(None, kind)           # builds the library before any rank starts
+    mesh = {"data": 2, "model": 2}
+    rows = ("data", None, None)
+    for r in run_ranks(ranks.card_layer, mesh, backend="gloo", args=(kind,), timeout=600):
+        coords = dict(zip(mesh, (int(c) for c in r["coords"])))
+        y = sharding.local_block(torch.from_numpy(want["y"]), rows, mesh, coords).numpy()
+        np.testing.assert_allclose(r["y"], y, rtol=0, atol=1e-4 * np.abs(y).max(), err_msg=str(coords))
+        for name, spec in json.loads(str(r["specs"])).items():
+            spec = tuple(tuple(e) if isinstance(e, list) else e for e in spec)
+            g = sharding.local_block(torch.from_numpy(want["grads"][name]), spec, mesh, coords).numpy()
+            np.testing.assert_allclose(r["grads"][name], g, rtol=0, atol=1e-4 * np.abs(g).max(),
+                                       err_msg=f"{name} at {coords}")
+        pairs = (json.loads(str(r["pairs"])), json.loads(str(r["bwd_pairs"])))
+        assert pairs == (({}, {}) if kind == "rglru" else ({"128x128": 1}, {"128x128": 1})), pairs
 
 
 # -- the meta route, the serve step and the smoke's bounds on the card --------------

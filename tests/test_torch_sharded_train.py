@@ -14,7 +14,8 @@ and cut by the step itself, and batches drawn with NumPy from a seed whose
 labels are masked unevenly by row. Cases: reduced gemma2-9b on 2 × 4
 (adamw, 2 microbatches), on 2 × 2 × 2 with a pod axis (adamw8), reduced
 nemotron-4-15b on 2 × 4 (squared-ReLU MLP, untied embeddings, remat), each
-3 steps, and reduced gemma2-9b's prefill step on 2 × 4.
+3 steps, and reduced gemma2-9b's prefill step on 2 × 4 (the hybrid, vlm
+and encdec families: ``test_torch_sharded_families.py``).
 
 Each step's loss and grad norm within 1e-5 relative of the reference's
 and of the port's own unsharded step, the learning rate equal. Each
@@ -25,14 +26,10 @@ the leaf's largest change over the steps: every element within 1e-2
 1e-3 or 1e-2 (``_torch_sharded_train_ranks.assert_within_change``); the
 adamw8 codes and scales.
 The prefill's logits rows within 1e-4 of the largest logit. Also the
-training CLI on 4 gloo ranks with a restart that continues bit for bit,
-and the refusals.
+training CLI on 4 gloo ranks with a restart that continues bit for bit
+(gemma2-9b and whisper-base), and the moe and ssm families' refusals.
 """
 import json
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -47,11 +44,10 @@ from repro_torch.runtime.train import build_prefill_step, build_train_step, init
 
 import _torch_sharded_train_ranks as ranks
 
-REPO = Path(__file__).resolve().parents[1]
 MESH = {"data": 2, "model": 4}                 # the reference tests' mesh
 POD = {"pod": 2, "data": 2, "model": 2}        # batch rows over (pod, data), parameters replicated over pods
 F32 = dict(param_dtype="float32", compute_dtype="float32")
-NON_DENSE = ["recurrentgemma-2b", "llama-3.2-vision-11b", "whisper-base", "deepseek-v2-236b", "mamba2-780m"]
+NOT_PORTED = ["deepseek-v2-236b", "mamba2-780m"]    # the moe and ssm families under a mesh (ROADMAP A12.6c)
 CASES = {
     # local window 8, so that it bites at 32 tokens
     "gemma2": dict(kind="train", arch="gemma2-9b", over=dict(F32, remat=False, local_window=8), mesh=MESH, B=8,
@@ -61,7 +57,7 @@ CASES = {
     "nemotron": dict(kind="train", arch="nemotron-4-15b", over=F32, mesh=MESH, B=8, S=32, steps=3,
                      tcfg=dict(ranks.TCFG, microbatches=1, optimizer="adamw"), seed=3),
     "prefill": dict(kind="prefill", arch="gemma2-9b", over=dict(F32, local_window=8), mesh=MESH, B=8, S=32, seed=4),
-    "refusals": dict(kind="refusals", archs=NON_DENSE, mesh=POD),
+    "refusals": dict(kind="refusals", archs=NOT_PORTED, mesh=POD),
 }
 TRAIN = [k for k, c in CASES.items() if c["kind"] == "train"]
 LOSS_RTOL = 1e-5
@@ -100,32 +96,16 @@ def _inputs() -> dict:
 def runs(tmp_path_factory):
     """(the reference's outputs, each mesh's ranks' results, the inputs): the
     reference subprocess and the ranks run at the same time."""
-    work = tmp_path_factory.mktemp("sharded_train")
-    (work / "cases.json").write_text(json.dumps(CASES))
     inp = _inputs()
-    np.savez(work / "inputs.npz", **inp)
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=8")
-    ref_proc = subprocess.Popen([sys.executable, str(REPO / "tests" / "_jax_sharded_train_reference.py"), str(work)],
-                                env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    try:
-        port = {name: run_ranks(ranks.run, mesh, backend="gloo", device_type="cpu", args=(str(work),), timeout=300)
-                for name, mesh in (("2x4", MESH), ("pod", POD))}
-    finally:
-        out, err = ref_proc.communicate(timeout=600)
-    assert ref_proc.returncode == 0 and "OK" in out, out + "\n" + err
-    return dict(np.load(work / "reference.npz")), port, inp
+    ref, port = ranks.run_with_reference(tmp_path_factory.mktemp("sharded_train"), CASES, inp,
+                                         {"2x4": MESH, "pod": POD})
+    return ref, port, inp
 
 
 def _ranks(port, case):
     """Each rank's results of the case's mesh, with its coordinates."""
     mesh = case["mesh"]
     return [(r, dict(zip(mesh, (int(c) for c in r["coords"])))) for r in port["2x4" if mesh == MESH else "pod"]]
-
-
-def _block(a, spec, mesh, coords):
-    spec = tuple(tuple(e) if isinstance(e, list) else e for e in spec)
-    return sharding.local_block(torch.from_numpy(np.ascontiguousarray(a)), spec, mesh, coords).numpy()
 
 
 _UNSHARDED: dict = {}
@@ -185,7 +165,7 @@ def test_train_step_parameter_blocks_equal_the_reference(runs, key):
             got = r[f"{key}/params/{name}"]
             cut += any(e is not None for e in spec)
             for side, whole in (("reference", want[name]), ("unsharded", after[name])):
-                ranks.assert_within_change(got, _block(whole.numpy(), spec, c["mesh"], coords), change, opt,
+                ranks.assert_within_change(got, ranks.cut(whole.numpy(), spec, c["mesh"], coords), change, opt,
                                            f"{key} {name} ({side}) at {coords}")
     assert cut > 0
 
@@ -203,7 +183,7 @@ def test_gather_blocks_rebuilds_the_whole_parameters_on_one_rank(runs, key):
     for r, coords in rs:
         for name, spec in specs.items():
             np.testing.assert_array_equal(r[f"{key}/params/{name}"],
-                                          _block(first[f"{key}/whole/{name}"], spec, c["mesh"], coords))
+                                          ranks.cut(first[f"{key}/whole/{name}"], spec, c["mesh"], coords))
 
 
 @pytest.mark.parametrize("mesh", [MESH, POD, {"data": 4}, {"pod": 2, "model": 4}, {"model": 8}],
@@ -242,11 +222,11 @@ def test_adamw8_codes_and_scales_equal_the_reference(runs):
                 dropped += bool(pspec and pspec[-1] is not None and spec["scale"][-1] is None)
                 for side, whole in (("reference", want[mom][name]), ("unsharded", own[mom][name])):
                     q = r[f"{key}/opt/{mom}/{name}/q"]
-                    wq = _block(whole["q"].numpy(), spec["q"], c["mesh"], coords)
+                    wq = ranks.cut(whole["q"].numpy(), spec["q"], c["mesh"], coords)
                     diff = np.abs(q.astype(np.int32) - wq.astype(np.int32))
                     assert diff.max() <= 1 and (diff > 0).mean() <= 0.01, (side, mom, name, coords, diff.sum())
                     np.testing.assert_allclose(r[f"{key}/opt/{mom}/{name}/scale"],
-                                               _block(whole["scale"].numpy(), spec["scale"], c["mesh"], coords),
+                                               ranks.cut(whole["scale"].numpy(), spec["scale"], c["mesh"], coords),
                                                rtol=1e-2, atol=1e-4 * float(whole["scale"].abs().max()),
                                                err_msg=f"{side} {mom} {name} at {coords}")
     assert dropped > 0
@@ -275,22 +255,22 @@ def test_prefill_step_equals_the_reference(runs):
     for r, coords in _ranks(port, c):
         got = r["prefill/logits"]
         for whole in (want, own):
-            np.testing.assert_allclose(got, _block(whole, rows, MESH, coords), rtol=0,
+            np.testing.assert_allclose(got, ranks.cut(whole, rows, MESH, coords), rtol=0,
                                        atol=LOGITS_TOL * np.abs(whole).max())
         assert int(r["prefill/calls"]) == cfg.num_layers
         assert all("data" not in json.dumps(s) for s in json.loads(str(r["prefill/specs"])).values())
 
 
 def test_refusals_under_a_placed_mesh(runs):
-    """Every non-dense family's train and prefill steps under a mesh, and
+    """The moe and ssm families' train and prefill steps under a mesh, and
     compress_pod_grads across a pod axis, refuse by name."""
     for r, _ in _ranks(runs[1], CASES["refusals"]):
         msgs = [str(m) for m in r["refusals/messages"]]
-        assert len(msgs) == 2 * len(NON_DENSE) + 1
-        for arch, (train_msg, prefill_msg) in zip(NON_DENSE, zip(msgs[0::2], msgs[1::2])):
+        assert len(msgs) == 2 * len(NOT_PORTED) + 1
+        for arch, (train_msg, prefill_msg) in zip(NOT_PORTED, zip(msgs[0::2], msgs[1::2])):
             fam = get_config(arch).family
             for m in (train_msg, prefill_msg):
-                assert m.startswith("NotImplementedError") and f"the {fam} family" in m and "A12.6" in m, m
+                assert m.startswith("NotImplementedError") and f"the {fam} family" in m and "A12.6c" in m, m
         assert msgs[-1].startswith("NotImplementedError") and "A12.8" in msgs[-1]
 
 
@@ -309,17 +289,20 @@ def test_mesh_from_ranks_follows_the_reference_cli(world, shape):
     assert mesh_shape_from_ranks(world) == dict(zip(("data", "model"), shape))
 
 
-def test_cli_trains_under_four_ranks_and_resumes(tmp_path):
+@pytest.mark.parametrize("arch", ["gemma2-9b", "whisper-base"])
+def test_cli_trains_under_four_ranks_and_resumes(tmp_path, arch):
     """launch/train.py on 4 gloo ranks (the reference's rule: 'model' 4):
     6 steps with a checkpoint every 2; the run cut after its step-5 save
     (the final one deleted) resumes there and ends on every rank's blocks
     bit for bit where the unbroken run ends. The checkpoint is the whole
-    tensors in the one-device format: the one-device CLI resumes from it."""
+    tensors in the one-device format: the one-device CLI resumes from it.
+    whisper-base's zero audio embeddings go through ``shard_batch`` with
+    the tokens."""
     import shutil
 
     from repro_torch.launch import train as train_cli
 
-    args = ["--arch", "gemma2-9b", "--reduced", "--steps", "6", "--global-batch", "4", "--seq", "32",
+    args = ["--arch", arch, "--reduced", "--steps", "6", "--global-batch", "4", "--seq", "32",
             "--ckpt-every", "2", "--device", "cpu", "--ckpt-dir", str(tmp_path / "a")]
     shape = {"data": 1, "model": 4}
     full = run_ranks(ranks.cli, shape, backend="gloo", device_type="cpu", args=(args,), timeout=300)
