@@ -269,6 +269,31 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    padded; ``rglru_sharded`` runs once a recurrent layer a forward. The
    kernels line's ``launches_ph14`` are (a)'s kernel route and the four
    ranks' sums.
+15. The moe and ssm families under a mesh, at published width. (a) In
+   this process, float32, deepseek-v2-236b with 2 of 60 layers (the
+   dense first and one MoE layer), B 1 × S 512, the gather dispatch at
+   the published capacity factor 1.25: the loss within 1e-5 relative and
+   every gradient within 1e-3 of its leaf's max |g| of the plain route's,
+   the (192, 128) forward and backward launching and the plain route
+   nothing; the tokens the two routes send to other experts are counted,
+   and where there are any both run again at the dropless capacity factor
+   64. Then four ranks on the 2 × 2 mesh: (b) bf16, remat, a global B 2:
+   deepseek-v2-236b (2 layers, S 1,024, adamw8) 2 steps of the gather
+   dispatch of the sharded batch at 1.25, which must drop tokens, then 1
+   step of the a2a at 27, above E / K, where a shard's capacity holds all
+   its tokens (dropless); mamba2-780m with 8 of 48 layers at S
+   2,048, 2 steps; every loss and grad norm within 2e-2 relative of the
+   one-process steps (here, first), the same learning rates; (c)
+   mamba2-780m in float32, 4 layers, S 512, 3 steps against rank 0's
+   one-process steps to phase 13's f32 limits; (d) each prefill under the
+   mesh (mamba2 in float32 too); (e) ``build_serve_step(..., mesh=...)``,
+   B 4 over max_len 1,024, a prompt then decode steps: deepseek-v2-236b in
+   bf16 (``mla_decode_sharded``, the gather dispatch of one token a row)
+   and mamba2-780m in bf16 and float32, within phase 12's limits; (f)
+   every ``mla_sharded`` call launches the (192, 128) instance and every
+   training layer its backward, none padded, and ``mamba_sharded`` and
+   the dispatch counters equal the layers run. The kernels line's
+   ``launches_ph15`` are (a)'s kernel route and the four ranks' sums.
 
 The attention wrappers count their padded calls too (``padded``): the
 flash and backward rows carry them for phases 9 and 10
@@ -4149,6 +4174,539 @@ def phase_sharded_families(torch) -> dict:
     return out
 
 
+# -- phase 15: the moe and ssm families under a mesh, at published width ------
+#
+# (a) One process, float32, deepseek-v2-236b with 2 of 60 layers (the dense
+# first layer and one MoE layer), B 1 x S 512, MOE_IMPL "gather" at the
+# published capacity factor 1.25: the loss and every gradient with MLA's
+# attention through the flash kernel's (192, 128) forward and backward
+# against the plain route (phase 10.2's oracle); where the two routes pick
+# different experts for a token the count is printed and both run again at
+# the dropless capacity factor 64. (b) Four ranks on the 2 x 2 mesh (gloo,
+# one card), bf16, remat, a global B 2 (one row a data rank) against the
+# same steps in one process: deepseek-v2-236b (2 layers, S 1,024, adamw8:
+# AdamW's float32 moments of one MoE layer alone would take 45 GB) 2 steps
+# of the gather dispatch at 1.25, the global slots and capacity, then 1
+# step of the a2a at a dropless cut (A2A_DROPLESS: the a2a's per-shard
+# capacity cannot equal one process's otherwise); mamba2-780m with 8 of 48
+# layers at S 2,048 (eight chunks of 256), AdamW, 2 steps. (c) mamba2-780m's
+# f32 oracle on the four ranks: 4 layers, S 512, 3 steps against rank 0's
+# one-process steps, its parameters gathered. (d) Each prefill under the
+# mesh on (b)'s first batch (bf16; mamba2 in f32 too). (e) build_serve_step
+# under the mesh, B 4 over max_len 1,024: a prompt of PH15_SERVE["prompt"]
+# tokens through the step, then PH15_SERVE["decode"] decode steps, deepseek
+# in bf16, mamba2 in bf16 and f32. (f) Launches and layer counts.
+PH15 = dict(mesh={"data": 2, "model": 2}, B=2, data_seed=1)
+PH15_MOE = dict(num_layers=2)                             # of 60: the dense first layer and one MoE layer
+PH15_ORACLE = dict(B=1, S=512)
+PH15_MOE_TRAIN = dict(S=1024, gather_steps=2, a2a_steps=1)
+PH15_SSM = dict(num_layers=8)                             # of 48
+PH15_SSM_TRAIN = dict(S=2048, steps=2)
+PH15_SSM_ORACLE = dict(num_layers=4, S=512, steps=3)
+PH15_SERVE = dict(B=4, max_len=1024, prompt=8, decode=4, seed=15)
+# The a2a step's capacity factor: above E / K = 160 / 6, so that a shard's capacity
+# int(T_loc · K · cf / E) holds every one of its tokens and nothing drops. MOE12's 64
+# (phase 12, forward only) ran out of memory here with four ranks training (H100 80GB HBM3, 700 W).
+A2A_DROPLESS = 27.0
+
+
+def moe15(torch, dtype: str, dev, capacity_factor: float | None = None):
+    """deepseek-v2-236b at published width, PH15_MOE's depth, from the seed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    over = dict(PH15_MOE) | ({} if capacity_factor is None else dict(capacity_factor=capacity_factor))
+    cfg = get_config("deepseek-v2-236b").replace(param_dtype=dtype, compute_dtype=dtype, **over)
+    return cfg, LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
+
+
+def ssm15(torch, dtype: str, dev, layers: int | None = None):
+    """mamba2-780m at published width, ``layers`` of its 48 (PH15_SSM's by
+    default), from the seed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    cfg = get_config("mamba2-780m").replace(param_dtype=dtype, compute_dtype=dtype,
+                                            num_layers=layers or PH15_SSM["num_layers"])
+    return cfg, LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
+
+
+def batches15(vocab: int, S: int, n: int, B: int = PH15["B"]) -> list:
+    from repro_torch.data import SyntheticLMDataset
+
+    ds = SyntheticLMDataset(vocab, S, seed=PH15["data_seed"])
+    return [ds.batch(s, B) for s in range(n)]
+
+
+def routed_ids(torch, fn) -> tuple:
+    """``fn()`` with the router spied on: (its result, every routing's
+    expert ids in call order, on the host)."""
+    from repro_torch.models import moe
+
+    ids, orig = [], moe._route
+
+    def spy(params, xt, cfg):
+        gates, idx, probs = orig(params, xt, cfg)
+        ids.append(idx.cpu())
+        return gates, idx, probs
+
+    moe._route = spy
+    try:
+        return fn(), ids
+    finally:
+        moe._route = orig
+
+
+def oracle15(torch) -> dict:
+    """(a): deepseek-v2-236b f32, 2 layers, B 1 x S 512, gather at the
+    published capacity factor: the loss and every gradient through the
+    kernels against the plain route, on the card; at the dropless cut where
+    the routes pick different experts for some token."""
+    B, S = PH15_ORACLE["B"], PH15_ORACLE["S"]
+    out = {}
+    for cf in (None, DROPLESS):
+        torch.cuda.reset_peak_memory_stats()
+        cfg, lm = moe15(torch, "float32", "cuda", cf)
+        lm.requires_grad_(True)
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in batches15(cfg.vocab_size, S, 1, B)[0].items()}
+        counters = train_counters()
+
+        def loss_and_grads(where=None):
+            lm.zero_grad(set_to_none=True)
+            total, parts = lm.loss(batch)
+            total.backward()
+            grads = {k: p.grad if where is None else p.grad.to(where) for k, p in lm.named_parameters()}
+            lm.zero_grad(set_to_none=True)          # the gradients move to ``grads``: one copy on the card
+            bwd = {f"{d}x{dv}": n for (d, dv), n in sorted(counters["flash_attention_bwd"].by_pair.items())}
+            return total.detach(), float(parts["aux"].detach()), grads, bwd
+
+        pairs = {}
+        # the kernel route's gradients wait on the host while the plain route's are made
+        ((k_loss, k_aux, k_grads, bwd_pairs), k_ids), k_s, k_launches = counted(
+            torch, lambda: routed_ids(torch, lambda: loss_and_grads("cpu")), pairs, counters)
+        with plain_attention():
+            ((p_loss, p_aux, p_grads, _), p_ids), _, p_launches = counted(
+                torch, lambda: routed_ids(torch, loss_and_grads), counters=counters)
+        flips = sum(int((a != b).any(dim=-1).sum()) for a, b in zip(k_ids, p_ids))
+        L = cfg.num_layers
+        check(k_launches["flash_attention"] == 2 * L and k_launches["flash_attention_bwd"] == L
+              and pairs == {MLA_PAIR: 2 * L} and bwd_pairs == {MLA_PAIR: L},
+              f"phase 15a kernel launches {k_launches}, instances {pairs} {bwd_pairs}")
+        check(not any(p_launches.values()), f"phase 15a: the plain route launched {p_launches}")
+        print(f"phase 15a capacity factor {cfg.capacity_factor}: tokens routed to other experts by the plain route "
+              f"{flips} (of {B * S} a routing, {len(k_ids)} routings)")
+        if flips and cf is None:
+            out["flips_at_1.25"] = flips
+            del lm, k_grads, p_grads
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        loss_rel = abs(float(k_loss) - float(p_loss)) / abs(float(p_loss))
+        check(loss_rel <= 1e-5, f"phase 15a f32 loss {float(k_loss)!r} vs plain {float(p_loss)!r}")
+        worst, worst_leaf = 0.0, None
+        for name, g in p_grads.items():
+            big = float(g.abs().max())
+            err = float((k_grads[name].to(g.device) - g).abs().max())
+            check(err <= PH14_GRAD_TOL * big, f"phase 15a f32 gradient {name}: {err!r} > {PH14_GRAD_TOL} · {big!r}")
+            if big and err / big >= worst:
+                worst, worst_leaf = err / big, name
+        out |= dict(layers=L, capacity_factor=cfg.capacity_factor, B=B, S=S, loss=float(k_loss),
+                    plain_loss=float(p_loss), aux=k_aux, loss_rel_err=loss_rel, worst_grad_rel_err=worst,
+                    worst_leaf=worst_leaf, leaves=len(p_grads), flips=flips, launches=k_launches, pairs=pairs,
+                    bwd_pairs=bwd_pairs, kernel_route_s=k_s, params=sum(p.numel() for p in lm.parameters()),
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del lm, k_grads, p_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        break
+    print(f"phase 15a deepseek-v2-236b f32 oracle: {json.dumps(out)}")
+    return out
+
+
+def moe15_steps(torch, lm, mesh=None) -> tuple:
+    """(b)'s deepseek-v2-236b steps (under ``mesh`` on this rank's rows):
+    the gather dispatch at the published capacity factor, then the a2a at
+    ``A2A_DROPLESS`` (one process: the gather at it, the same function);
+    (metrics, seconds a step)."""
+    from repro_torch.models import moe
+    from repro_torch.runtime.train import TrainConfig, build_train_step, init_opt_state, shard_batch
+
+    tcfg = TrainConfig(optimizer="adamw8")
+    step = build_train_step(lm, tcfg) if mesh is None else build_train_step(lm, tcfg, mesh=mesh)[0]
+    opt = init_opt_state(lm, tcfg.optimizer)
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_g, n_a = PH15_MOE_TRAIN["gather_steps"], PH15_MOE_TRAIN["a2a_steps"]
+    metrics, times = [], []
+    cfg = lm.cfg
+    try:
+        for i, b in enumerate(batches15(cfg.vocab_size, PH15_MOE_TRAIN["S"], n_g + n_a)):
+            if i == n_g:
+                lm.cfg = cfg.replace(capacity_factor=A2A_DROPLESS)
+                moe.set_moe_impl("a2a")
+            b = b if mesh is None else shard_batch(b, mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(opt, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            metrics.append([float(m["loss"]), float(m["grad_norm"]), float(m["lr"])])
+    finally:
+        moe.set_moe_impl("gather")
+        lm.cfg = cfg
+    del opt
+    return metrics, times
+
+
+def prefill15(torch, arch: str, dtype: str, dev, mesh=None) -> np.ndarray:
+    """The prefill step's logits of (b)'s first batch (this rank's rows under ``mesh``)."""
+    from repro_torch.runtime.train import build_prefill_step, shard_batch
+
+    if arch == "mamba2-780m":
+        cfg, lm = ssm15(torch, dtype, dev)
+        S = PH15_SSM_TRAIN["S"]
+    else:
+        cfg, lm = moe15(torch, dtype, dev)
+        S = PH15_MOE_TRAIN["S"]
+    batch = {"tokens": batches15(cfg.vocab_size, S, 1)[0]["tokens"]}
+    if mesh is None:
+        step = build_prefill_step(lm)
+    else:
+        step, _ = build_prefill_step(lm, mesh=mesh)
+        batch = shard_batch(batch, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return step(batch).float().cpu().numpy()
+
+
+def serve15(torch, arch: str, dtype: str, dev, mesh=None) -> tuple:
+    """(e): build_serve_step (under ``mesh`` on this rank's rows and blocks)
+    over PH15_SERVE's prompt and decode steps from empty caches: (each
+    step's logits (this rank's rows), stacked; each step's routings, as
+    (the global rows routed, their expert ids) on the host, under ``mesh``
+    the rows this rank routed)."""
+    from repro_torch.models import decode, moe
+    from repro_torch.runtime.pspec import logical_axis_rules
+    from repro_torch.runtime.serve import build_serve_step
+    from repro_torch.runtime.sharding import local_block
+
+    cfg, lm = (ssm15 if arch == "mamba2-780m" else moe15)(torch, dtype, dev)
+    B, max_len = PH15_SERVE["B"], PH15_SERVE["max_len"]
+    n = PH15_SERVE["prompt"] + PH15_SERVE["decode"]
+    toks = np.random.default_rng(PH15_SERVE["seed"]).integers(0, cfg.vocab_size, (B, n))
+    if mesh is None:
+        step, _ = build_serve_step(lm, B, max_len)
+        cache = decode.init_cache(lm, B, max_len)
+        cut = lambda t: t  # noqa: E731
+    else:
+        step, (_, _, tsh, _), _ = build_serve_step(lm, B, max_len, mesh=mesh)
+        with logical_axis_rules(mesh):
+            cache = decode.init_cache(lm, B, max_len)
+        cut = lambda t: local_block(t, tsh, mesh)  # noqa: E731
+    del lm                      # the step holds this rank's blocks (the whole ones shared)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a one-token step's routing: the rows are the global token indices (every row without a mesh)
+    rows_of_call, orig = [], moe._gather_dispatch
+
+    def spy(params, xt, tok, *args):
+        rows_of_call.append(tok.cpu().numpy())
+        return orig(params, xt, tok, *args)
+
+    moe._gather_dispatch = spy
+    logits_by_step, routes = [], []
+    try:
+        for pos in range(n):
+            rows_of_call.clear()
+            (logits, cache), ids = routed_ids(torch, lambda: step(
+                cut(torch.as_tensor(toks[:, pos:pos + 1], device=dev)), cache, pos))
+            logits_by_step.append(logits.float().cpu().numpy())
+            routes.append([(rows_of_call[i] if rows_of_call else np.arange(B), e.numpy()) for i, e in enumerate(ids)])
+    finally:
+        moe._gather_dispatch = orig
+    del step, cache
+    return np.stack(logits_by_step), routes
+
+
+def rerouted(one_routes: list, rank_routes: list) -> set:
+    """The (step, global row) pairs whose tokens the ranks sent to other
+    experts than the one process did, at any moe layer."""
+    out = set()
+    for routes in rank_routes:
+        for step, (calls, want) in enumerate(zip(routes, one_routes)):
+            for (rows, ids), (_, want_ids) in zip(calls, want):
+                for row, e in zip(rows, ids):
+                    if row >= 0 and set(e.tolist()) != set(want_ids[row].tolist()):
+                        out.add((step, int(row)))
+    return out
+
+
+def layer_counts() -> dict:
+    """The sharded layers' calls so far, this process."""
+    from repro_torch.models import mla, moe, ssm
+
+    return {"mla_sharded": mla.mla_sharded.calls, "mla_decode_sharded": mla.mla_decode_sharded.calls,
+            "mamba_sharded": ssm.mamba_sharded.calls, "moe_gather_sharded": moe.moe_gather_sharded.calls,
+            "moe_a2a_sharded": moe.moe_a2a_sharded.calls, "dropped": moe.moe_gather_sharded.dropped}
+
+
+def phase15_rank(mesh) -> dict:
+    """One rank of phase 15 on its blocks: (b) each family's bf16 steps,
+    (d) its prefills, (c) mamba2's f32 steps with their final parameters
+    gathered to rank 0, (e) the serve steps; every kernel counter set to 0
+    before and read after; then on rank 0 alone the one-process steps of
+    (c)."""
+    import torch
+
+    from repro_torch.runtime.sharding import gather_blocks
+    from repro_torch.runtime.train import TrainConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    first = mesh.coords == {"data": 0, "model": 0}
+    say = print if first else (lambda *a, **k: None)
+    res = {"coords": dict(mesh.coords), "backend": mesh.backend, "device": str(dev), "train": {}, "prefill": {},
+           "serve": {}}
+    counters = kernel_counters()
+    zero_counts(counters)
+    calls0 = layer_counts()
+    t0 = time.perf_counter()
+    # (b) deepseek-v2-236b, then (d) its prefill
+    torch.cuda.reset_peak_memory_stats()
+    cfg, lm = moe15(torch, "bfloat16", dev)
+    check(cfg.remat, "phase 15b trains with remat")
+    dropped = layer_counts()["dropped"]
+    metrics, times = moe15_steps(torch, lm, mesh)
+    res["train"]["deepseek-v2-236b"] = dict(metrics=metrics, step_s=times, peak_bytes=torch.cuda.max_memory_allocated(),
+                                            block_params=sum(p.numel() for p in lm.parameters()),
+                                            dropped=layer_counts()["dropped"] - dropped)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 15b deepseek-v2-236b rank 0 done at {time.perf_counter() - t0:.3f} s: {metrics}", flush=True)
+    res["prefill"]["deepseek-v2-236b"] = prefill15(torch, "deepseek-v2-236b", "bfloat16", dev, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) mamba2-780m, then (d) its prefills
+    torch.cuda.reset_peak_memory_stats()
+    cfg, lm = ssm15(torch, "bfloat16", dev)
+    metrics, times, _ = train_steps(torch, lm, TrainConfig(),
+                                    batches15(cfg.vocab_size, PH15_SSM_TRAIN["S"], PH15_SSM_TRAIN["steps"]), mesh)
+    res["train"]["mamba2-780m"] = dict(metrics=metrics, step_s=times, peak_bytes=torch.cuda.max_memory_allocated(),
+                                       block_params=sum(p.numel() for p in lm.parameters()))
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 15b mamba2-780m rank 0 done at {time.perf_counter() - t0:.3f} s: {metrics}", flush=True)
+    for dtype in ("bfloat16", "float32"):
+        res["prefill"][f"mamba2-780m {dtype}"] = prefill15(torch, "mamba2-780m", dtype, dev, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (c) mamba2's f32 oracle, sharded half
+    torch.cuda.reset_peak_memory_stats()
+    cfg, lm = ssm15(torch, "float32", dev, PH15_SSM_ORACLE["num_layers"])
+    metrics, times, _ = train_steps(torch, lm, TrainConfig(**PH13_ORACLE), batches15(
+        cfg.vocab_size, PH15_SSM_ORACLE["S"], PH15_SSM_ORACLE["steps"]), mesh)
+    res["f32"] = dict(metrics=metrics, step_s=times, peak_bytes=torch.cuda.max_memory_allocated())
+    finals = gather_blocks(dict(lm.named_parameters()), lm.placement.specs, mesh, keep=first) or {}
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (e) the serve steps
+    res["routes"] = {}
+    for arch, dtype in (("deepseek-v2-236b", "bfloat16"), ("mamba2-780m", "bfloat16"), ("mamba2-780m", "float32")):
+        t1 = time.perf_counter()
+        res["serve"][f"{arch} {dtype}"], res["routes"][f"{arch} {dtype}"] = serve15(torch, arch, dtype, dev, mesh)
+        res["serve"][f"{arch} {dtype} s"] = time.perf_counter() - t1
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    res["sharded_s"] = time.perf_counter() - t0
+    res["launches"] = {name: fn.launches for name, fn in counters.items()}
+    res["flash_pairs"] = flash_pairs()
+    res["bwd_pairs"] = {f"{d}x{dv}": n for (d, dv), n in sorted(counters["flash_attention_bwd"].by_pair.items())}
+    res["padded"] = padded_counts(counters)
+    res["calls"] = {k: v - calls0[k] for k, v in layer_counts().items()}
+    say(f"phase 15 rank 0 sharded parts done at {res['sharded_s']:.3f} s", flush=True)
+    if finals:
+        t1 = time.perf_counter()
+        cfg, lm = ssm15(torch, "float32", dev, PH15_SSM_ORACLE["num_layers"])
+        before = {k: p.detach().clone() for k, p in lm.named_parameters()}
+        metrics, times, _ = train_steps(torch, lm, TrainConfig(**PH13_ORACLE), batches15(
+            cfg.vocab_size, PH15_SSM_ORACLE["S"], PH15_SSM_ORACLE["steps"]))
+        by_leaf = param_spread(torch, {k: finals[k].to(dev) for k in finals}, dict(lm.named_parameters()), before)
+        del lm, before
+        res["oracle"] = dict(metrics=metrics, step_s=times,
+                             worst_over_change=max(r["over_change"] for r in by_leaf.values()),
+                             worst_share_over_1e2=max(r["share_over_1e2"] for r in by_leaf.values()),
+                             leaves=len(by_leaf),
+                             worst_leaves=dict(sorted(by_leaf.items(), key=lambda kv: -kv[1]["over_change"])[:4]))
+        res["oracle_s"] = time.perf_counter() - t1
+    return res
+
+
+def phase_sharded_moe_ssm(torch) -> dict:
+    """Phase 15: (a) deepseek-v2-236b's f32 gradient oracle here, then the
+    one-process bf16 steps, prefills and serve steps (mamba2's f32 ones
+    too), then four ranks on the card, each held to them (and rank 0 to its
+    own one-process f32 steps of (c))."""
+    from repro_torch.models.attention import _decode_bspec
+    from repro_torch.runtime.sharding import batch_specs
+    from repro_torch.runtime.train import TrainConfig
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    oracle = oracle15(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    oracle_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    one, want, serve = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    cfg, lm = moe15(torch, "bfloat16", dev)
+    n_params = sum(p.numel() for p in lm.parameters())
+    metrics, times = moe15_steps(torch, lm)
+    one["deepseek-v2-236b"] = dict(metrics=metrics, step_s=times, params=n_params, layers=cfg.num_layers,
+                                   S=PH15_MOE_TRAIN["S"], peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, lm = ssm15(torch, "bfloat16", dev)
+    metrics, times, opt = train_steps(torch, lm, TrainConfig(),
+                                      batches15(cfg.vocab_size, PH15_SSM_TRAIN["S"], PH15_SSM_TRAIN["steps"]))
+    one["mamba2-780m"] = dict(metrics=metrics, step_s=times, params=sum(p.numel() for p in lm.parameters()),
+                              layers=cfg.num_layers, S=PH15_SSM_TRAIN["S"],
+                              peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del lm, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, arch, dtype in (("deepseek-v2-236b", "deepseek-v2-236b", "bfloat16"),
+                             ("mamba2-780m bfloat16", "mamba2-780m", "bfloat16"),
+                             ("mamba2-780m float32", "mamba2-780m", "float32")):
+        want[key] = prefill15(torch, arch, dtype, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    routes = {}
+    for arch, dtype in (("deepseek-v2-236b", "bfloat16"), ("mamba2-780m", "bfloat16"), ("mamba2-780m", "float32")):
+        serve[f"{arch} {dtype}"], routes[f"{arch} {dtype}"] = serve15(torch, arch, dtype, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t1
+
+    ranks, ranks_s = card_ranks(phase15_rank, PH15["mesh"])
+    mesh = PH15["mesh"]
+    rows = (batch_specs(mesh, {"x": torch.zeros(PH15["B"])})["x"][0], None, None)
+    srows = (None, _decode_bspec(mesh, PH15_SERVE["B"]), None, None)
+    # per rank: (b) deepseek's 3 steps of two forwards an MLA layer (remat)
+    # and a backward, (d) one forward a layer a prefill; the dispatch by
+    # step: 2 gather and 1 a2a steps, two calls each (remat), the prefill
+    # and every serve step through the gather
+    moe_L = PH15_MOE["num_layers"]
+    routed = moe_L - 1
+    n_g, n_a = PH15_MOE_TRAIN["gather_steps"], PH15_MOE_TRAIN["a2a_steps"]
+    n_serve = PH15_SERVE["prompt"] + PH15_SERVE["decode"]
+    ssm_L, ssm_oL = PH15_SSM["num_layers"], PH15_SSM_ORACLE["num_layers"]
+    want_calls = {"mla_sharded": 2 * moe_L * (n_g + n_a) + moe_L, "mla_decode_sharded": moe_L * n_serve,
+                  "mamba_sharded": 2 * ssm_L * PH15_SSM_TRAIN["steps"] + 2 * ssm_L
+                  + 2 * ssm_oL * PH15_SSM_ORACLE["steps"],
+                  "moe_gather_sharded": routed * (2 * n_g + 1 + n_serve), "moe_a2a_sharded": 2 * routed * n_a}
+    # (e): the (step, row) pairs a bf16 near-tie at the top k sent to other experts under the mesh
+    # (the moe layer is the last: the difference reaches that step's logits of that row alone)
+    flips = {key: rerouted(one_routes, [r["routes"][key] for r in ranks]) for key, one_routes in routes.items()}
+    print(f"phase 15e (step, row) pairs routed to other experts than in one process: "
+          f"{ {k: sorted(v) for k, v in flips.items()} }")
+    per_rank = []
+    for r in ranks:
+        c = r["coords"]
+        check(r["backend"] == "gloo" and r["device"].startswith("cuda"), f"phase 15 rank {c}: {r['backend']} {r['device']}")
+        fams = {}
+        for arch in ("deepseek-v2-236b", "mamba2-780m"):
+            a, o = np.asarray(r["train"][arch]["metrics"]), np.asarray(one[arch]["metrics"])
+            check(bool(np.isfinite(a).all()), f"phase 15b {arch} rank {c} metrics not finite: {a.tolist()}")
+            rel = np.abs(a[:, :2] - o[:, :2]) / np.abs(o[:, :2])
+            check(bool((rel <= PH13_BF16_LOSS_RTOL).all()),
+                  f"phase 15b {arch} rank {c} bf16 losses and norms {a[:, :2].tolist()} vs one process {o[:, :2].tolist()}")
+            check(np.array_equal(a[:, 2].astype(np.float32), o[:, 2].astype(np.float32)), f"phase 15b {arch} rank {c} lr")
+            fams[arch] = dict(losses=a[:, 0].tolist(), grad_norms=a[:, 1].tolist(), max_rel_err=float(rel.max()),
+                              step_s=r["train"][arch]["step_s"], peak_gb=r["train"][arch]["peak_bytes"] / 1e9,
+                              block_params=r["train"][arch]["block_params"])
+        drops = r["train"]["deepseek-v2-236b"]["dropped"]
+        check(drops > 0, f"phase 15b rank {c}: the gather dispatch dropped no token at capacity factor 1.25")
+        errs = {}
+        for key, got in r["prefill"].items():
+            ref = rows_of(want[key], c, mesh, rows)
+            tol = PH13_PREFILL_TOL["float32" if key.endswith("float32") else "bfloat16"]
+            errs[key] = float(np.abs(got - ref).max() / np.abs(ref).max())
+            check(got.shape == ref.shape and errs[key] <= tol,
+                  f"phase 15d rank {c} {key} prefill: {errs[key]!r} of the largest logit (limit {tol})")
+        serr = {}
+        row0 = c["data"] * (PH15_SERVE["B"] // mesh["data"])
+        for key, ref_all in serve.items():
+            got, ref = r["serve"][key], rows_of(ref_all, c, mesh, srows)
+            check(got.shape == ref.shape and bool(np.isfinite(got).all()), f"phase 15e rank {c} {key}: {got.shape}")
+            same = np.array([[(t, row0 + j) not in flips[key] for j in range(got.shape[1])] for t in range(len(got))])
+            check(same.mean() >= 0.5, f"phase 15e rank {c} {key}: most rows routed otherwise {flips[key]}")
+            if key.endswith("float32"):
+                check(bool(np.all(np.abs(got - ref)[same] <= F32_TOL + F32_TOL * np.abs(ref)[same])),
+                      f"phase 15e rank {c} {key}: max |diff| {float(np.abs(got - ref)[same].max())!r}")
+                serr[key] = float(np.abs(got - ref)[same].max())
+            else:
+                serr[key] = bf16_close(got[same], ref[same], f"phase 15e rank {c} {key}")
+            if not same.all():
+                serr[f"{key} rerouted"] = float(np.abs(got - ref)[~same].max() / np.abs(ref).max())
+        # (f) every mla_sharded call launched the flash kernel's (192, 128)
+        # instance, every training layer its backward; the layer counters
+        fwd, bwd = r["launches"]["flash_attention"], r["launches"]["flash_attention_bwd"]
+        want_fwd, want_bwd = want_calls["mla_sharded"], moe_L * (n_g + n_a)
+        check(fwd == r["calls"]["mla_sharded"] == want_fwd and r["flash_pairs"] == {MLA_PAIR: want_fwd}
+              and r["bwd_pairs"] == {MLA_PAIR: want_bwd} and bwd == want_bwd,
+              f"phase 15 rank {c}: flash forward {r['flash_pairs']} backward {r['bwd_pairs']}, calls {r['calls']} "
+              f"(want {want_fwd} and {want_bwd})")
+        check({k: r["calls"][k] for k in want_calls} == want_calls,
+              f"phase 15 rank {c}: sharded layer calls {r['calls']}, want {want_calls}")
+        check(not any(r["padded"].values()), f"phase 15 rank {c} took the padded route {r['padded']}")
+        check(r["launches"]["decode_attention"] == 0, f"phase 15 rank {c} launched decode_attention")
+        per_rank.append(dict(coords=c, families=fams, dropped=drops, f32_step_s=r["f32"]["step_s"],
+                             f32_peak_gb=r["f32"]["peak_bytes"] / 1e9, prefill_rel_err=errs, serve_err=serr,
+                             serve_s={k: v for k, v in r["serve"].items() if k.endswith(" s")},
+                             flash_forward=fwd, flash_backward=bwd, calls=r["calls"], sharded_s=r["sharded_s"]))
+        print(f"phase 15 rank {c}: {json.dumps(per_rank[-1])}")
+    # (c): every rank's f32 metrics against rank 0's one-process steps
+    r0 = next(r for r in ranks if "oracle" in r)
+    ssm_oracle = r0["oracle"]
+    print(f"phase 15c one-process f32 mamba2-780m (rank 0, {r0['oracle_s']:.3f} s): {json.dumps(ssm_oracle)}")
+    want_m = np.asarray(ssm_oracle["metrics"])
+    check(want_m[0, 2] == 0.0 and want_m[1, 2] > 0, f"phase 15c learning rates {want_m[:, 2].tolist()}")
+    f32_rel = 0.0
+    for r in ranks:
+        got = np.asarray(r["f32"]["metrics"])
+        rel = np.abs(got[:, :2] - want_m[:, :2]) / np.abs(want_m[:, :2])
+        f32_rel = max(f32_rel, float(rel.max()))
+        check(bool((rel <= PH13_LOSS_RTOL).all()) and np.array_equal(got[:, 2], want_m[:, 2]),
+              f"phase 15c rank {r['coords']} f32 metrics {got.tolist()} vs one process {want_m.tolist()}")
+    check(ssm_oracle["worst_over_change"] <= PH13_PARAM_TOL
+          and ssm_oracle["worst_share_over_1e2"] <= PH13_PARAM_SHARE[1],
+          f"phase 15c parameters: {ssm_oracle['worst_over_change']!r} of a leaf's largest change (limit "
+          f"{PH13_PARAM_TOL}), {ssm_oracle['worst_share_over_1e2']!r} of a leaf beyond {PH13_PARAM_SHARE[0]} "
+          f"(limit {PH13_PARAM_SHARE[1]})")
+    # the four ranks' counts and (a)'s kernel route's, in this process
+    launches = summed([r["launches"] for r in ranks] + [oracle["launches"]])
+    pairs = summed([r["flash_pairs"] for r in ranks] + [oracle["pairs"]])
+    bwd_pairs = summed([r["bwd_pairs"] for r in ranks] + [oracle["bwd_pairs"]])
+    out = dict(oracle=oracle, one_process=one, ranks=per_rank, mamba_f32=ssm_oracle, mamba_f32_max_rel=f32_rel,
+               rerouted={k: len(v) for k, v in flips.items()},
+               launches=launches, flash_pairs=pairs, bwd_pairs=bwd_pairs, oracle_s=oracle_s, one_process_s=one_s,
+               ranks_s=ranks_s, wall_s=time.perf_counter() - t0)
+    print(f"phase 15 one-process bf16 references: {json.dumps(one)}")
+    print(f"phase 15 four ranks on one card (2 x 2 mesh, gloo, collectives staged through host memory): the step "
+          f"times above are four processes time-sharing one card, not the sharded step's speed, and are held to no "
+          f"bound; (a) oracle {oracle_s:.3f} s, one-process references {one_s:.3f} s, ranks {ranks_s:.3f} s, "
+          f"phase {out['wall_s']:.3f} s, launches {launches}, flash by instance {pairs}, backward by instance "
+          f"{bwd_pairs}; mamba2-780m f32 metrics max relative difference {f32_rel!r}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4321,6 +4879,19 @@ def main() -> int:
           f"instance {ph14_pairs}, flash backward by instance {ph14_bwd_pairs}")
     check(set(ph14_pairs) == set(ph14_bwd_pairs) == set(PH14_PAIRS.values()),
           f"phase 14 instances {ph14_pairs} {ph14_bwd_pairs}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phase 15's path: (a) here, with the counters at 0 before each of its
+    # parts and read after, and four spawned ranks, each with its counters
+    # at 0 before its parts and read after; these are their sums.
+    zero_counts(all_counters)
+    t0 = time.perf_counter()
+    ms = phase_sharded_moe_ssm(torch)
+    ph15_launches, ph15_pairs, ph15_bwd_pairs = ms["launches"], ms["flash_pairs"], ms["bwd_pairs"]
+    print(f"phase 15 in {time.perf_counter() - t0:.3f} s, launches (oracle and four ranks) {ph15_launches}, flash by "
+          f"instance {ph15_pairs}, flash backward by instance {ph15_bwd_pairs}")
+    check(set(ph15_pairs) == set(ph15_bwd_pairs) == {MLA_PAIR}, f"phase 15 instances {ph15_pairs} {ph15_bwd_pairs}")
 
     meta = {
         "cost_matrix_f32": ("src/repro_torch/kernels/cost_matrix/csrc/cost_matrix.cu",
@@ -4350,13 +4921,15 @@ def main() -> int:
             launches_ph9=ph9_launches[name], launches_ph10=ph10_launches[name],
             launches_ph11=ph11_launches[name], launches_ph12=ph12_launches[name],
             launches_ph13=ph13_launches[name], launches_ph14=ph14_launches[name],
+            launches_ph15=ph15_launches[name],
             **({"wrapper_ms": r["wrapper_ms"]} if "wrapper_ms" in r else {}),
         ))
     # The flash rows split the wrapper's counts by instance: "flash_attention"
     # counts the instances with v as wide as q and k, "flash_attention
     # (192, 128)" MLA's, each per phase as measured (``launches_by_pair``).
     phase_pairs = {"main": serving["pairs"], "sim": sim_pairs, "p2p": p2p_pairs, "ph8": ph8_pairs, "ph9": ph9_pairs,
-                   "ph10": ph10_pairs, "ph11": ph11_pairs, "ph12": ph12_pairs, "ph13": ph13_pairs, "ph14": ph14_pairs}
+                   "ph10": ph10_pairs, "ph11": ph11_pairs, "ph12": ph12_pairs, "ph13": ph13_pairs, "ph14": ph14_pairs,
+                   "ph15": ph15_pairs}
     source, replaces = attn_meta["flash_attention"]
     for name, mla, r in (("flash_attention", False, attn["flash_attention"]),
                          ("flash_attention (192, 128)", True, attn["flash_attention_mla"])):
@@ -4366,7 +4939,7 @@ def main() -> int:
             launches_sim=counts["sim"], launches_p2p=counts["p2p"], launches_ph8=counts["ph8"],
             launches_ph9=counts["ph9"], launches_ph10=counts["ph10"], launches_ph11=counts["ph11"],
             launches_ph12=counts["ph12"], launches_ph13=counts["ph13"], launches_ph14=counts["ph14"],
-            launches_by_pair={ph: {key: n for key, n in pairs.items() if (key == MLA_PAIR) == mla}
+            launches_ph15=counts["ph15"], launches_by_pair={ph: {key: n for key, n in pairs.items() if (key == MLA_PAIR) == mla}
                               for ph, pairs in phase_pairs.items()},
             launches_padded={} if mla else {"ph9": ph9_padded["flash_attention"],
                                             "ph10": ph10_padded["flash_attention"]}, **r))
@@ -4377,7 +4950,7 @@ def main() -> int:
                      launches_ph9=ph9_launches["decode_attention"], launches_ph10=ph10_launches["decode_attention"],
                      launches_ph11=ph11_launches["decode_attention"],
                      launches_ph12=ph12_launches["decode_attention"], launches_ph13=ph13_launches["decode_attention"],
-                     launches_ph14=ph14_launches["decode_attention"],
+                     launches_ph14=ph14_launches["decode_attention"], launches_ph15=ph15_launches["decode_attention"],
                      launches_ph12_range_entry=sharded["range_launches"], range_entry=sharded["range_entry"],
                      **attn["decode_attention"]))
     # The backward has no Pallas twin (the reference differentiates jnp
@@ -4394,7 +4967,9 @@ def main() -> int:
                      launches_ph12=ph12_launches["flash_attention_bwd"],
                      launches_ph13=ph13_launches["flash_attention_bwd"],
                      launches_ph14=ph14_launches["flash_attention_bwd"],
-                     launches_by_pair={"ph10": ph10_bwd_pairs, "ph13": ph13_bwd_pairs, "ph14": ph14_bwd_pairs},
+                     launches_ph15=ph15_launches["flash_attention_bwd"],
+                     launches_by_pair={"ph10": ph10_bwd_pairs, "ph13": ph13_bwd_pairs, "ph14": ph14_bwd_pairs,
+                                       "ph15": ph15_bwd_pairs},
                      launches_padded={"ph10": ph10_padded["flash_attention_bwd"]}, **bwd_row))
     for k in line:
         k["bound_share"] = k["bound_ms"] / k["ms"]

@@ -70,7 +70,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["make_production_mesh", "mesh_from_arg", "make_mesh", "make_mesh_from_ranks", "mesh_shape_from_ranks",
-           "Mesh", "placed", "all_reduce", "sum_shares", "all_gather", "gather_dims", "all_to_all", "run_ranks", "AXES"]
+           "Mesh", "placed", "all_reduce", "sum_shares", "all_gather", "gather_dims", "spec_axes", "all_to_all",
+           "run_ranks", "AXES"]
 
 AXES = ("pod", "data", "model")
 
@@ -241,13 +242,23 @@ class _AllGather(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.index * ctx.block, ctx.block).clone(), None, None, None, None
 
 
-def all_gather(x: torch.Tensor, axis: str, mesh: Mesh, dim: int) -> torch.Tensor:
+def all_gather(x: torch.Tensor, axis, mesh: Mesh, dim: int) -> torch.Tensor:
     """The ranks' blocks along ``axis`` concatenated on ``dim`` in
-    coordinate order (``jax.lax.all_gather(x, axis, axis=dim, tiled=True)``)."""
-    n = mesh[axis]
+    coordinate order (``jax.lax.all_gather(x, axis, axis=dim, tiled=True)``);
+    with ``axis`` None every rank's block, in rank order (the mesh's
+    row-major order)."""
+    n = _size(mesh, axis)
     if n == 1:
         return x
-    return _AllGather.apply(x, mesh.groups[axis], n, mesh.coords[axis], dim % x.dim())
+    index = dist.get_rank() if axis is None else mesh.coords[axis]
+    return _AllGather.apply(x, _group(mesh, axis), n, index, dim % x.dim())
+
+
+def spec_axes(entry) -> tuple:
+    """The mesh axes of one spec entry: a name, a tuple of names, or None."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
 
 
 def gather_dims(x: torch.Tensor, spec: tuple, mesh: Mesh, axes=None) -> torch.Tensor:
@@ -259,7 +270,7 @@ def gather_dims(x: torch.Tensor, spec: tuple, mesh: Mesh, axes=None) -> torch.Te
     gradient comes back through the gathers: the block of the sum over the
     axes gathered."""
     for dim, entry in enumerate(spec):
-        names = () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+        names = spec_axes(entry)
         if not names or (axes is not None and not set(names) <= set(axes)):
             continue
         for ax in reversed(names):

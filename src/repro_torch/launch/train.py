@@ -26,10 +26,10 @@ runs the sharded step (``runtime.train.build_train_step(...,
 mesh=...)``). A save gathers the whole tensors a leaf at a time onto rank
 0's host (``runtime.sharding.gather_blocks``) and rank 0 writes them in
 the one-device format, so either reads the other's checkpoints; a
-restore reads them on the host and cuts the blocks again. The dense,
-hybrid, vlm and encdec families train under a mesh (the vlm's and
-encdec's zero embeddings cut by rows with the batch); moe and ssm refuse
-(ROADMAP A12.6c). Rank 0 prints.
+restore reads them on the host and cuts the blocks again. Every family
+trains under a mesh (the vlm's and encdec's zero embeddings cut by rows
+with the batch; the moe family's experts by ``param_specs``, its aux loss
+counted once). Rank 0 prints.
 """
 import argparse
 import os

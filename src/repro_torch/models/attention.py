@@ -59,7 +59,7 @@ from torch import nn
 from .._device import warm_host_math
 from ..kernels.decode_attention.ops import decode_attention as decode_attention_kernel
 from ..kernels.flash_attention.ops import flash_attention
-from ..launch.mesh import all_gather, all_reduce, gather_dims
+from ..launch.mesh import all_gather, all_reduce, gather_dims, spec_axes
 from .common import ModelConfig
 from .layers import init_linear_, linear, mlp_hidden, rope, row_parallel, softcap
 
@@ -344,14 +344,15 @@ def _decode_bspec(mesh, B: int):
 def _psum_proj(x, w, d: int, mesh, axis: str = "data"):
     """Weight-stationary projection: x (B, 1, d) at full d times w
     (d_loc, …), this rank's shard of the input dimension over ``axis``,
-    summed over the axis: only the (B, 1, ·) products move. x must hold
-    the same rows on every rank of ``axis`` (gather the batch first)."""
+    summed over the axis (``layers.row_parallel``: float32 partials, one
+    rounding): only the (B, 1, ·) products move. x must hold the same rows
+    on every rank of ``axis`` (gather the batch first)."""
     d_loc = w.shape[0]
-    if d_loc != d:
-        r = mesh.coords[axis]
-        x = x[..., r * d_loc:(r + 1) * d_loc]
-    y = linear(x, w.reshape(d_loc, -1)).reshape(*x.shape[:-1], *w.shape[1:])
-    return y if d_loc == d else all_reduce(y, axis, mesh)
+    if d_loc == d:
+        return linear(x, w.reshape(d, -1)).reshape(*x.shape[:-1], *w.shape[1:])
+    r = mesh.coords[axis]
+    y = row_parallel(x[..., r * d_loc:(r + 1) * d_loc], w.reshape(d_loc, -1), mesh, axis)
+    return y.reshape(*x.shape[:-1], *w.shape[1:])
 
 
 def _gather_batch(x, bspec, mesh):
@@ -473,7 +474,7 @@ def decode_attention_sharded(params, x_t: torch.Tensor, cache_k: torch.Tensor, c
     if H_loc != H:
         r = mesh.coords["model"]
         o_slice = og[:, :, r * H_loc:(r + 1) * H_loc]
-        y = all_reduce(linear(o_slice.reshape(*og.shape[:2], H_loc * D), wo.reshape(H_loc * D, -1)), "model", mesh)
+        y = row_parallel(o_slice.reshape(*og.shape[:2], H_loc * D), wo.reshape(H_loc * D, -1), mesh)
     else:
         y = linear(og.reshape(*og.shape[:2], H * D), wo.reshape(H * D, -1))
     if y.shape[-1] != d:
@@ -517,9 +518,8 @@ def decode_mlp_sharded(p, x: torch.Tensor, cfg: ModelConfig, *, batch: int) -> t
     else:
         raise ValueError(kind)
     wdn = p["w_down"]                                   # (f_loc, d_loc)
-    y = linear(act, wdn)
-    if wdn.shape[0] != cfg.d_ff:                        # f was sharded over 'model'
-        y = all_reduce(y, "model", mesh)
+    # f sharded over 'model': the row-parallel sum
+    y = row_parallel(act, wdn, mesh) if wdn.shape[0] != cfg.d_ff else linear(act, wdn)
     if y.shape[-1] != d:
         y = all_gather(y, "data", mesh, dim=2)
     row0 = _batch_row_start(mesh, bspec, Bl)
@@ -586,14 +586,17 @@ def attention_sharded(params, x: torch.Tensor, cfg: ModelConfig, mesh, specs: di
     return linear(o, wo) if H_loc == H else row_parallel(o, wo, mesh)
 
 
-def mlp_sharded(p, x: torch.Tensor, cfg: ModelConfig, mesh, specs: dict) -> torch.Tensor:
-    """The MLP of a rank's rows x (B_loc, S, d) on its blocks, cut by
-    ``specs``: the 'data' blocks gathered whole along d, the rank's ff
-    columns, the row-parallel w_down's partial output summed over 'model'."""
+def mlp_sharded(p, x: torch.Tensor, cfg: ModelConfig, mesh, specs: dict, *, kind: str | None = None) -> torch.Tensor:
+    """The MLP (``kind``, by default ``cfg.mlp``; the moe family's shared
+    experts are a SwiGLU MLP) of a rank's rows x (B_loc, S, d) on its
+    blocks, cut by ``specs``: the 'data' blocks gathered whole along d, the
+    rank's ff columns, the row-parallel w_down's partial output summed
+    over 'model' (a width the rules leave whole runs whole)."""
     mlp_sharded.calls += 1
     w = {n: gather_dims(p[n], specs[n], mesh, axes=("data",)) for n in specs}
-    h = mlp_hidden(w, x, cfg.mlp)
-    return linear(h, w["w_down"]) if w["w_down"].shape[0] == cfg.d_ff else row_parallel(h, w["w_down"], mesh)
+    h = mlp_hidden(w, x, kind or cfg.mlp)
+    cut = "model" in spec_axes(specs["w_down"][0]) and mesh.get("model", 1) > 1
+    return row_parallel(h, w["w_down"], mesh) if cut else linear(h, w["w_down"])
 
 
 attention_sharded.calls = 0   # calls of the sharded full-sequence attention (remat's recompute too), this process

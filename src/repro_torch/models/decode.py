@@ -34,9 +34,21 @@ the reference leaves outside its ``shard_map`` bodies, run on the rank's
 rows with whole weights. ``init_cache`` then allocates only the rank's
 block of each cache (``cache_blocks``), and ``param_blocks`` gives the
 specs by which a rank's parameters are cut (``runtime.serve`` cuts them).
-The moe family (MLA in its absorbed form) and the ssm family, whose
-decode the reference leaves to XLA's SPMD partitioner under a mesh, raise
-(ROADMAP.md, queue A12.6).
+
+The moe and ssm families, whose decode the reference leaves to XLA's
+SPMD partitioner under a mesh, run so too. An MLA block takes
+``mla.mla_decode_sharded`` where the cache's global length allows the
+sharded decode (its latent caches cut as ``mla_decode_specs`` reads them,
+rows over the batch axes and S over 'model'), its dense MLP the sharded
+MLP, and its routed experts the gather dispatch of the sharded batch
+(``moe.moe_gather_sharded``: the one-token step's global capacity and
+slots; the a2a never applies to one token), the experts cut as
+``runtime.sharding.param_specs`` cuts them for training, the shared
+experts whole on the rank's rows. The Mamba-2 blocks run on the rank's
+rows with whole weights, as the hybrid's RG-LRU blocks do: their ``conv``
+and ``state`` caches (like the hybrid's ``conv`` and ``h``) are cut by
+rows only, where the reference's ``cache_specs`` would also cut ``state``
+along N and ``conv`` along its channels over 'model'.
 """
 from __future__ import annotations
 
@@ -44,14 +56,15 @@ from typing import Any
 
 import torch
 
-from ..launch.mesh import placed
+from ..launch.mesh import placed, spec_axes
 from .attention import (_decode_bspec, _rows, _sharded_decode_applicable, _sharded_mlp_applicable, cross_decode,
                         cross_kv, current_mesh, decode_attention, decode_attention_sharded, decode_attention_specs,
                         decode_mlp_sharded, decode_mlp_specs)
 from .common import ModelConfig
 from .layers import mlp, rms_norm
-from .lm import hybrid_periods
-from .mla import init_mla_cache, mla_decode
+from .lm import MLABlock, hybrid_periods
+from .mla import init_mla_cache, mla_decode, mla_decode_sharded, mla_decode_specs
+from .moe import _shared, moe_gather_sharded
 from .rglru import init_rglru_state, rglru_decode
 from .ssm import init_mamba_cache, mamba_decode
 
@@ -84,10 +97,29 @@ def _cross_block(p, x_t, ck, cv, cfg: ModelConfig):
     return x + mlp(p.mlp, rms_norm(x, p.ln2), cfg.mlp)
 
 
-def _mla_block(p, x_t, c_kv, k_rope, pos: int, cfg: ModelConfig):
-    a, _, _ = mla_decode(p.attn, rms_norm(x_t, p.ln1), c_kv, k_rope, pos, cfg)
+def _mla_block(p, x_t, c_kv, k_rope, pos: int, cfg: ModelConfig, *, batch: int | None = None,
+               S: int | None = None, experts: dict | None = None):
+    """One MLA block; under a placed mesh (``batch``, the global batch,
+    given) the sharded MLA decode where the caches' global length ``S``
+    allows it, the sharded MLP, and the routed experts' gather dispatch
+    of the sharded batch on the blocks ``experts`` specifies."""
+    h = rms_norm(x_t, p.ln1)
+    if batch is not None and _sharded_decode_applicable(S):
+        a, _, _ = mla_decode_sharded(p.attn, h, c_kv, k_rope, pos, cfg, batch=batch)
+    else:
+        a, _, _ = mla_decode(p.attn, h, c_kv, k_rope, pos, cfg)
     x = x_t + a
-    return x + p.ffn(rms_norm(x, p.ln2), cfg)[0]
+    h2 = rms_norm(x, p.ln2)
+    if batch is None:
+        return x + p.ffn(h2, cfg)[0]
+    if p.moe is not None:
+        routed = {w: p.moe[w] for w in ("router", "router_bias", "w_gate", "w_up", "w_down") if w in p.moe}
+        y, _ = moe_gather_sharded(routed, h2, cfg, current_mesh(), experts, _decode_bspec(current_mesh(), batch))
+        B, _, d = h2.shape
+        return x + _shared(p.moe, h2.reshape(B, d), y.reshape(B, d)).view(B, 1, d)
+    if _sharded_mlp_applicable():
+        return x + decode_mlp_sharded(p.mlp, h2, cfg, batch=batch)
+    return x + mlp(p.mlp, h2, cfg.mlp)
 
 
 def _rec_block(p, x_t, h, conv, cfg: ModelConfig):
@@ -126,17 +158,10 @@ def _cross_cache(blocks, src: torch.Tensor, cfg: ModelConfig, z, batch: int) -> 
 # cache init
 # ---------------------------------------------------------------------------
 
-def _placed_mesh(cfg: ModelConfig):
-    """The current mesh if it is placed over a process group, else None;
-    raises for the families whose sharded decode is not ported."""
+def _placed_mesh():
+    """The current mesh if it is placed over a process group, else None."""
     mesh = current_mesh()
-    if not placed(mesh):
-        return None
-    if cfg.family in ("moe", "ssm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family's decode under a mesh is XLA's SPMD partition of the whole step "
-            "in the reference (DTensor placement in the port: ROADMAP.md, queue A12.6)")
-    return mesh
+    return mesh if placed(mesh) else None
 
 
 def _self_attention_blocks(lm, max_len: int):
@@ -159,10 +184,20 @@ def _self_attention_blocks(lm, max_len: int):
     return []
 
 
+def _expert_specs(lm, mesh) -> dict:
+    """The specs of a moe layer's routed experts under ``mesh``, as
+    ``runtime.sharding.param_specs`` cuts them for training: over 'model'
+    × 'data' where E divides it, else E over 'model' and d over 'data'."""
+    from ..runtime.sharding import param_specs       # runtime imports the models
+
+    E, d, f = lm.cfg.num_experts, lm.cfg.d_model, lm.cfg.moe_d_ff
+    shapes = {"w_gate": (E, d, f), "w_up": (E, d, f), "w_down": (E, f, d)}
+    specs = param_specs(mesh, {f"moe_blocks.0.moe.{w}": s for w, s in shapes.items()}, zero3=True)
+    return {name.rpartition(".")[2]: spec for name, spec in specs.items()}
+
+
 def _same_spec(mesh, a: tuple, b: tuple) -> bool:
     """Two specs shard alike: the same axes of size > 1 on every dimension."""
-    from ..runtime.sharding import spec_axes          # runtime imports the models
-
     norm = lambda e: tuple(x for x in spec_axes(e) if mesh.get(x, 1) > 1)  # noqa: E731
     return len(a) == len(b) and all(norm(x) == norm(y) for x, y in zip(a, b))
 
@@ -179,18 +214,23 @@ def cache_blocks(lm, batch: int, max_len: int) -> dict:
 
     cfg = lm.cfg
     fam = cfg.family
-    mesh = _placed_mesh(cfg)
+    mesh = _placed_mesh()
     if mesh is None:
         raise ValueError("cache_blocks: no placed mesh is current (launch.mesh.make_mesh, pspec.logical_axis_rules)")
     bspec = _decode_bspec(mesh, batch)
     W = min(cfg.local_window, max_len)
 
-    def attn(lead: tuple, S: int, name: str) -> tuple:
-        """A self-attention cache (*lead, B, S, KV, D), lead its stacked layer axes."""
-        spec = (None,) * len(lead) + decode_attention_specs(cfg, mesh, batch)["cache"]
+    def attn(lead: tuple, S: int, name: str, tail: tuple | None = None) -> tuple:
+        """A self-attention cache (*lead, B, S, KV, D), lead its stacked layer
+        axes (with ``tail``, an MLA latent cache (*lead, B, S, *tail))."""
+        if tail is None:
+            tail, read = (cfg.num_kv_heads, cfg.head_dim_), decode_attention_specs(cfg, mesh, batch)["cache"]
+        else:
+            read = mla_decode_specs(cfg, mesh, batch)["cache"]
+        spec = (None,) * len(lead) + read
         if not _sharded_decode_applicable(S):
-            return (None,) * len(lead) + (bspec, None, None, None)
-        shape = lead + (batch, S, cfg.num_kv_heads, cfg.head_dim_)
+            return (None,) * len(lead) + (bspec, None) + (None,) * len(tail)
+        shape = lead + (batch, S) + tail
         want = cache_specs(mesh, torch.empty(shape, device="meta"), batch)
         if not _same_spec(mesh, want, spec):
             raise ValueError(f"{cfg.name}: cache {name} {shape} would be cut as {want} by "
@@ -222,6 +262,14 @@ def cache_blocks(lm, batch: int, max_len: int) -> dict:
     if fam == "encdec":
         sp = attn((cfg.num_layers,), max_len, "k")
         return {"k": sp, "v": sp, "cross_k": rows(1, 5), "cross_v": rows(1, 5)}
+    if fam == "moe":
+        parts = {"moe": cfg.num_layers - cfg.first_k_dense} | ({"dense": cfg.first_k_dense} if cfg.first_k_dense
+                                                              else {})
+        return {part: {"c_kv": attn((n,), max_len, f"{part}/c_kv", (cfg.kv_lora_rank,)),
+                       "k_rope": attn((n,), max_len, f"{part}/k_rope", (cfg.qk_rope_head_dim,))}
+                for part, n in parts.items()}
+    if fam == "ssm":
+        return {"conv": rows(1, 4), "state": rows(1, 5)}
     raise ValueError(fam)
 
 
@@ -232,13 +280,25 @@ def param_blocks(lm, batch: int, max_len: int) -> dict:
     sharded attention by ``decode_attention_specs``, every attention
     block's MLP by ``decode_mlp_specs`` where the sharded MLP applies, and
     every other parameter whole (the reference's shard_map in_specs, which
-    its decode step reshards to)."""
+    its decode step reshards to). An MLA block's projections by
+    ``mla_decode_specs`` where the sharded MLA decode applies, its dense
+    MLP by ``decode_mlp_specs``, its routed experts as training cuts them
+    (``_expert_specs``): no rank holds every expert."""
     cfg = lm.cfg
-    mesh = _placed_mesh(cfg)
+    mesh = _placed_mesh()
     if mesh is None:
         raise ValueError("param_blocks: no placed mesh is current (launch.mesh.make_mesh, pspec.logical_axis_rules)")
     specs = {name: (None,) * p.dim() for name, p in lm.named_parameters()}
     attn, mlp_specs = decode_attention_specs(cfg, mesh, batch), decode_mlp_specs(cfg, mesh, batch)
+    if cfg.family == "moe":
+        mla, experts = mla_decode_specs(cfg, mesh, batch), _expert_specs(lm, mesh)
+        for prefix, blk in ((n, b) for n, b in lm.named_modules() if isinstance(b, MLABlock)):
+            if _sharded_decode_applicable(max_len):
+                specs |= {f"{prefix}.attn.{w}": mla[w] for w in blk.attn}
+            if blk.moe is not None:
+                specs |= {f"{prefix}.moe.{w}": experts[w] for w in experts}
+            elif _sharded_mlp_applicable():
+                specs |= {f"{prefix}.mlp.{w}": mlp_specs[w] for w in blk.mlp}
     for prefix, S in _self_attention_blocks(lm, max_len):
         if _sharded_decode_applicable(S):
             for w in ("wq", "wk", "wv", "wo"):
@@ -267,14 +327,17 @@ def init_cache(lm, batch: int, max_len: int, *, image_embeds: torch.Tensor | Non
     fam = cfg.family
     KV, D = cfg.num_kv_heads, cfg.head_dim_
     dev = lm.device
-    mesh = _placed_mesh(cfg)
+    mesh = _placed_mesh()
     specs = None if mesh is None else cache_blocks(lm, batch, max_len)
 
     def z(name: str, *shape: int, dtype=cfg.cdtype) -> torch.Tensor:
         """Zeros for the cache ``name`` of the unsharded ``shape`` (under a
         mesh, of this rank's block of it)."""
         if specs is not None:
-            shape = local_block(torch.empty(shape, device="meta"), specs[name], mesh).shape
+            spec = specs
+            for key in name.split("/"):
+                spec = spec[key]
+            shape = local_block(torch.empty(shape, device="meta"), spec, mesh).shape
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     W = min(cfg.local_window, max_len)
@@ -292,12 +355,13 @@ def init_cache(lm, batch: int, max_len: int, *, image_embeds: torch.Tensor | Non
         return cache | _cross_cache(lm.cross_blocks, image_embeds.to(cfg.cdtype), cfg, z, batch)
     if fam == "moe":
         k = cfg.first_k_dense
-        cache = {"moe": init_mla_cache(cfg, batch, max_len, cfg.num_layers - k, device=dev)}
-        if k:
-            cache["dense"] = init_mla_cache(cfg, batch, max_len, k, device=dev)
-        return cache
+        parts = {"moe": cfg.num_layers - k} | ({"dense": k} if k else {})
+        cache = {part: init_mla_cache(cfg, batch, max_len, n, device="meta") for part, n in parts.items()}
+        return {part: {name: z(f"{part}/{name}", *t.shape, dtype=t.dtype) for name, t in leaves.items()}
+                for part, leaves in cache.items()}
     if fam == "ssm":
-        return init_mamba_cache(cfg, batch, cfg.num_layers, device=dev)
+        return {name: z(name, *t.shape, dtype=t.dtype)
+                for name, t in init_mamba_cache(cfg, batch, cfg.num_layers, device="meta").items()}
     if fam == "hybrid":
         n_p, rem = hybrid_periods(cfg)
         st = {k: t[0] for k, t in init_rglru_state(cfg, batch, 1, device="meta").items()}   # one layer's state
@@ -337,7 +401,7 @@ def decode_step(lm, tokens_t: torch.Tensor, cache: dict, pos: int, *, batch: int
     fam = cfg.family
     pos = int(pos)
     geo = lambda ring: {}  # noqa: E731
-    mesh = _placed_mesh(cfg)
+    mesh = _placed_mesh()
     if mesh is not None:
         if batch is None or max_len is None:
             raise ValueError("decode_step under a placed mesh takes the global batch and max_len")
@@ -374,9 +438,10 @@ def decode_step(lm, tokens_t: torch.Tensor, cache: dict, pos: int, *, batch: int
                                              is_global=True, ring=False, **geo(False))
             x = _cross_block(cross, x, cache["cross_k"][p], cache["cross_v"][p], cfg)
     elif fam == "moe":
+        kw = {} if mesh is None else dict(geo(False), experts=_expert_specs(lm, mesh))
         for part, blocks in (("dense", getattr(lm, "dense_blocks", ())), ("moe", lm.moe_blocks)):
             for i, blk in enumerate(blocks):
-                x = _mla_block(blk, x, cache[part]["c_kv"][i], cache[part]["k_rope"][i], pos, cfg)
+                x = _mla_block(blk, x, cache[part]["c_kv"][i], cache[part]["k_rope"][i], pos, cfg, **kw)
     elif fam == "ssm":
         for i, blk in enumerate(lm.blocks):
             y, _, _ = mamba_decode(blk.mix, rms_norm(x, blk.ln), cache["conv"][i], cache["state"][i], cfg)

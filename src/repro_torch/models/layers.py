@@ -81,14 +81,15 @@ class _ProductF32(torch.autograd.Function):
         return g @ w.t(), x.reshape(-1, x.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
 
 
-def row_parallel(x: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
+def row_parallel(x: torch.Tensor, w: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
     """x (..., k) · w (k, n), k this rank's slice of the contraction, summed
-    over 'model' (Megatron's row-parallel product): each rank's partial
-    product kept in float32 and the sum rounded once to x's type, as a
-    one-device product rounds its float32 accumulation once (rounding each
-    partial first would round twice)."""
+    over ``axis`` (Megatron's row-parallel product over 'model'; the
+    decode's weight-stationary projections over 'data'): each rank's
+    partial product kept in float32 and the sum rounded once to x's type,
+    as a one-device product rounds its float32 accumulation once (rounding
+    each partial first would round twice)."""
     y = linear(x, w) if x.dtype == torch.float32 else _ProductF32.apply(x, w)
-    return all_reduce(y, "model", mesh).to(x.dtype)
+    return all_reduce(y, axis, mesh).to(x.dtype)
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

@@ -40,17 +40,19 @@ An LM may hold one rank's blocks of its parameters under a mesh placed
 over a process group (``placement``, a ``Placement``: set by
 ``runtime.train.place_``, which the sharded training and prefill steps
 call). Its ``forward`` and ``loss`` then run on the rank's rows of the
-batch: the attention blocks through ``attention_sharded`` (causal or
-not, self or cross: the vlm's image layers, whisper's encoder and its
-decoder's cross layers, the tanh gate applied after the row-parallel
-sum), the RG-LRU blocks through ``rglru_sharded``, every MLP through
-``mlp_sharded``, the embedding (and the unembedding) gathered whole at
-use, the gradient flowing back through the gathers. ``loss`` is the
-global mean: the sums of nll and lse² and the count of unmasked labels
-are summed over the mesh before the division, each rank differentiating
-its share (``launch.mesh.sum_shares``). The dense, hybrid, vlm and
-encdec families run under a placement; moe and ssm refuse (ROADMAP
-A12.6c).
+batch, every family: the attention blocks through ``attention_sharded``
+(causal or not, self or cross: the vlm's image layers, whisper's encoder
+and its decoder's cross layers, the tanh gate applied after the
+row-parallel sum), MLA through ``mla_sharded``, the RG-LRU blocks through
+``rglru_sharded``, the Mamba-2 blocks through ``mamba_sharded``, every
+MLP through ``mlp_sharded``, the routed experts through
+``moe.moe_sharded`` (the gather dispatch of the sharded batch, or the
+a2a), the embedding (and the unembedding) gathered whole at use, the
+gradient flowing back through the gathers. ``loss`` is the global mean:
+the sums of nll and lse² and the count of unmasked labels are summed over
+the mesh before the division, each rank differentiating its share
+(``launch.mesh.sum_shares``); the moe family's aux, the same global value
+on every rank, is counted once: each rank's share is aux / world.
 """
 from __future__ import annotations
 
@@ -67,10 +69,10 @@ from ..launch.mesh import all_reduce, gather_dims, sum_shares
 from .attention import attention, attention_sharded, init_attention, init_attention_, mlp_sharded
 from .common import ModelConfig, layer_flags, torch_dtype
 from .layers import embed, init_embedding_, init_linear_, mlp, rms_norm, softcap
-from .mla import init_mla, init_mla_, mla_attention
-from .moe import MoEParams, init_moe_, moe_layer
+from .mla import init_mla, init_mla_, mla_attention, mla_sharded
+from .moe import MoEParams, init_moe_, moe_layer, moe_sharded
 from .rglru import init_rglru, init_rglru_, rglru_forward, rglru_sharded
-from .ssm import init_mamba, init_mamba_, mamba_forward
+from .ssm import init_mamba, init_mamba_, mamba_forward, mamba_sharded
 
 __all__ = ["LM", "Block", "MLABlock", "MambaBlock", "RGLRUBlock", "Placement"]
 
@@ -181,7 +183,15 @@ class MLABlock(nn.Module):
             return moe_layer(self.moe, h, cfg)
         return mlp(self.mlp, h, cfg.mlp), None
 
-    def forward(self, x: torch.Tensor, cfg: ModelConfig):
+    def forward(self, x: torch.Tensor, cfg: ModelConfig, *, mesh=None, specs: dict | None = None):
+        if mesh is not None:        # a rank's blocks, cut by ``specs``: the sharded MLA, MLP or experts
+            x = x + mla_sharded(self.attn, rms_norm(x, self.ln1), cfg, mesh, _under(specs, "attn"))
+            h = rms_norm(x, self.ln2)
+            if self.moe is not None:
+                y, aux = moe_sharded(self.moe, h, cfg, mesh, _under(specs, "moe"))
+            else:
+                y, aux = mlp_sharded(self.mlp, h, cfg, mesh, _under(specs, "mlp")), None
+            return x + y, aux
         x = x + mla_attention(self.attn, rms_norm(x, self.ln1), cfg)
         y, aux = self.ffn(rms_norm(x, self.ln2), cfg)
         return x + y, aux
@@ -200,7 +210,9 @@ class MambaBlock(nn.Module):
         self.ln.zero_()
         init_mamba_(self.mix, cfg, generator)
 
-    def forward(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cfg: ModelConfig, *, mesh=None, specs: dict | None = None) -> torch.Tensor:
+        if mesh is not None:        # a rank's blocks, cut by ``specs``: the sharded Mamba-2 mixer
+            return x + mamba_sharded(self.mix, rms_norm(x, self.ln), cfg, mesh, _under(specs, "mix"))
         return x + mamba_forward(self.mix, rms_norm(x, self.ln), cfg)
 
 
@@ -370,10 +382,6 @@ class LM(nn.Module):
         scan both reduce to this)."""
         cfg = self.cfg
         fam = cfg.family
-        place = self.placement
-        if place is not None and fam in ("moe", "ssm"):
-            raise NotImplementedError(f"LM: the {fam} family on a rank's blocks under a mesh is not ported "
-                                      "(ROADMAP A12.6c)")
         on = self._on
         table = self._whole("embed")
         x = self._embed(tokens, table)
@@ -390,14 +398,14 @@ class LM(nn.Module):
                     x = self._block(blk, x, cfg, **on(f"self_blocks.{p}.{j}"))
                 x = self._block(cross, x, cfg, causal=False, kv_x=img, **on(f"cross_blocks.{p}"))
         elif fam == "moe":
-            for blk in getattr(self, "dense_blocks", ()):
-                x, _ = self._block(blk, x, cfg)
-            for blk in self.moe_blocks:
-                x, a = self._block(blk, x, cfg)
+            for i, blk in enumerate(getattr(self, "dense_blocks", ())):
+                x, _ = self._block(blk, x, cfg, **on(f"dense_blocks.{i}"))
+            for i, blk in enumerate(self.moe_blocks):
+                x, a = self._block(blk, x, cfg, **on(f"moe_blocks.{i}"))
                 aux = aux + a
         elif fam == "ssm":
-            for blk in self.blocks:
-                x = self._block(blk, x, cfg)
+            for i, blk in enumerate(self.blocks):
+                x = self._block(blk, x, cfg, **on(f"blocks.{i}"))
         elif fam == "hybrid":
             for p, (recs, attn) in enumerate(zip(self.rec_blocks, self.attn_blocks)):
                 for j, blk in enumerate(recs):
@@ -469,7 +477,9 @@ class LM(nn.Module):
         batch's, the sums and the count are the whole
         mesh's, and the returned values are the global ones on every rank,
         whose gradients reach each rank's share: its rows' sums over the
-        global count, times 1/m (the 'model' ranks hold the same rows)."""
+        global count, times 1/m (the 'model' ranks hold the same rows). The
+        moe family's aux is the global one on every rank, and each rank's
+        share of it is aux / world."""
         cfg = self.cfg
         x, aux, table = self._backbone(batch["tokens"], image_embeds=batch.get("image_embeds"),
                                        audio_embeds=batch.get("audio_embeds"))
@@ -497,6 +507,8 @@ class LM(nn.Module):
         denom = torch.clamp(all_reduce(cnt, None, mesh) // m, min=1)
         ce = sum_shares(nll / denom / m, mesh)
         zloss = sum_shares(cfg.z_loss * (zsq / denom) / m, mesh)
+        if cfg.family == "moe":
+            aux = sum_shares(aux / math.prod(mesh.values()), mesh)
         return ce + zloss + aux, {"ce": ce, "z_loss": zloss, "aux": aux}
 
     def _chunk_ce(self, x_c: torch.Tensor, labels_c: torch.Tensor, table: torch.Tensor):

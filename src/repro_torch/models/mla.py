@@ -22,8 +22,17 @@ S, projections summed over 'data', the small absorbed W^UK/W^UV gathered
 once a layer, the shards' softmax states combined by a max and two sums.
 Its products are the reference's stock ones (the 576-wide latent key is no
 instance of the decode kernel). The reference's moe decode does not call
-it (its decode.py keeps the absorbed single-device form: "refuted"), and
-neither does the port's; it is held like the other sharded functions.
+it (its decode.py keeps the absorbed single-device form under XLA's
+partitioner: "refuted"); the port's decode step under a placed mesh does
+(``models.decode``), where the cache's global length allows it.
+
+``mla_sharded`` is the full-sequence MLA of training and prefill on a
+rank's rows and its blocks under a mesh (``runtime.sharding.param_specs``'
+cut): the latents whole on every rank of 'model' (wq_a and wkv_a gathered
+whole along d), the rank's H/m heads of wq_b and wkv_b through the flash
+kernel's (192, 128) instance forward and backward, wo's row-parallel
+output summed over 'model' in float32. A head count that does not divide
+'model' runs whole.
 """
 from __future__ import annotations
 
@@ -31,14 +40,14 @@ import torch
 from torch import nn
 
 from .._device import warm_host_math
-from ..launch.mesh import all_gather, all_reduce
+from ..launch.mesh import all_gather, all_reduce, gather_dims
 from .attention import (_attend, _batch_row_start, _decode_bspec, _gather_batch, _psum_proj, _rows,
                         current_mesh)
 from .common import ModelConfig
-from .layers import init_linear_, linear, rms_norm, rope
+from .layers import init_linear_, linear, rms_norm, rope, row_parallel
 
 __all__ = ["init_mla", "init_mla_", "mla_attention", "mla_decode", "init_mla_cache", "mla_decode_sharded",
-           "mla_decode_specs"]
+           "mla_decode_specs", "mla_sharded"]
 
 NEG_INF = -2.0e38
 
@@ -78,14 +87,17 @@ def init_mla_(p: nn.ParameterDict, cfg: ModelConfig, generator: torch.Generator)
 
 
 def _queries(params, x, cfg: ModelConfig, positions):
-    """x (B, S, d) → qn (B, S, H, dn), rotated qr (B, S, H, dr)."""
+    """x (B, S, d) → qn (B, S, H, dn), rotated qr (B, S, H, dr), H the
+    heads of wq_b (or wq): all of them, or a rank's."""
     B, S, _ = x.shape
-    H, dn = cfg.num_heads, cfg.qk_nope_head_dim
+    dn = cfg.qk_nope_head_dim
     dk = dn + cfg.qk_rope_head_dim
     if cfg.q_lora_rank:
+        H = params["wq_b"].shape[1]
         cq = rms_norm(linear(x, params["wq_a"]), params["q_norm"])
         q = linear(cq, params["wq_b"].reshape(cfg.q_lora_rank, H * dk))
     else:
+        H = params["wq"].shape[1]
         q = linear(x, params["wq"].reshape(cfg.d_model, H * dk))
     q = q.view(B, S, H, dk)
     return q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
@@ -106,9 +118,18 @@ def mla_attention(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     broadcast to every head, the reference's expansion) and v are two
     column ranges of one (B, S, H, dn + dr + dv) buffer, so that they
     share their strides as the flash kernel requires."""
+    H, dv = cfg.num_heads, cfg.v_head_dim
+    o = _prefill_heads(params, x, cfg)
+    return linear(o.reshape(*x.shape[:2], H * dv), params["wo"].reshape(H * dv, cfg.d_model))
+
+
+def _prefill_heads(params, x, cfg: ModelConfig) -> torch.Tensor:
+    """The attention output (B, S, H, dv) of the heads of wq_b (or wq) and
+    wkv_b, all of them or a rank's, over latents computed whole."""
     B, S, _ = x.shape
-    H, rkv = cfg.num_heads, cfg.kv_lora_rank
+    rkv = cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    H = params["wkv_b"].shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
     qn, qr = _queries(params, x, cfg, positions)
     c_kv, k_rope = _latents(params, x, cfg, positions)
@@ -117,9 +138,27 @@ def mla_attention(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     kvb[..., :dn] = kv[..., :dn]
     kvb[..., dn:dn + dr] = k_rope[:, :, None]
     kvb[..., dn + dr:] = kv[..., dn:]
-    o = _attend(torch.cat([qn, qr], dim=-1), kvb[..., :dn + dr], kvb[..., dn + dr:], cfg,
-                causal=True, window=0)
-    return linear(o.reshape(B, S, H * dv), params["wo"].reshape(H * dv, cfg.d_model))
+    return _attend(torch.cat([qn, qr], dim=-1), kvb[..., :dn + dr], kvb[..., dn + dr:], cfg,
+                   causal=True, window=0)
+
+
+def mla_sharded(params, x: torch.Tensor, cfg: ModelConfig, mesh, specs: dict) -> torch.Tensor:
+    """``mla_attention`` of a rank's rows x (B_loc, S, d) on its blocks, cut
+    by ``specs`` (name → spec): every 'data' block gathered whole along d,
+    the latents (c_kv, k_rope and the query's low-rank cq) computed whole,
+    the rank's heads of wq_b (or wq) and wkv_b through the flash kernel
+    (forward, and backward through ``FlashAttentionFn``), wo's row-parallel
+    output summed over 'model' → (B_loc, S, d), the same on every rank of
+    'model'. Heads the rules leave whole (they do not divide) run whole."""
+    mla_sharded.calls += 1
+    w = {n: gather_dims(t, specs[n], mesh, axes=("data",)) for n, t in params.items()}
+    H_loc, dv = w["wkv_b"].shape[1], cfg.v_head_dim
+    o = _prefill_heads(w, x, cfg).reshape(*x.shape[:2], H_loc * dv)
+    wo = w["wo"].reshape(H_loc * dv, cfg.d_model)
+    return linear(o, wo) if H_loc == cfg.num_heads else row_parallel(o, wo, mesh)
+
+
+mla_sharded.calls = 0   # calls of the sharded full-sequence MLA (remat's recompute too), this process
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, layers: int, dtype=None,
@@ -234,8 +273,10 @@ def mla_decode_sharded(params, x_t: torch.Tensor, c_kv_cache: torch.Tensor, k_ro
     M = all_reduce(s.amax(dim=-1), "model", mesh, op="max")       # (B_loc, H, 1)
     p = torch.exp(s - M[..., None])
     l = all_reduce(p.sum(dim=-1), "model", mesh)
-    lat = all_reduce(torch.einsum("bhqk,bkr->bqhr", p.to(c_kv_cache.dtype), c_kv_cache).float(), "model", mesh)
-    lat = (lat / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]).to(x_t.dtype)
+    # the probabilities normalised by the global sum and rounded to the cache's type, as the one-device
+    # decode's softmax is; each shard's latent sum kept in float32, rounded once after the sum over 'model'
+    p = (p / torch.clamp(l, min=1e-30)[..., None]).to(c_kv_cache.dtype)
+    lat = all_reduce(torch.einsum("bhqk,bkr->bqhr", p.float(), c_kv_cache.float()), "model", mesh).to(x_t.dtype)
     out = torch.einsum("bqhr,rhv->bqhv", lat, wkb[..., dn:])      # W^UV on the way out
     # output projection (weight-stationary)
     og = _gather_batch(out, bspec, mesh)
@@ -244,9 +285,13 @@ def mla_decode_sharded(params, x_t: torch.Tensor, c_kv_cache: torch.Tensor, k_ro
     if H_loc != H:
         r = mesh.coords["model"]
         o_slice = og[:, :, r * H_loc:(r + 1) * H_loc]
-        y = all_reduce(linear(o_slice.reshape(*og.shape[:2], H_loc * dv), wo.reshape(H_loc * dv, -1)), "model", mesh)
+        y = row_parallel(o_slice.reshape(*og.shape[:2], H_loc * dv), wo.reshape(H_loc * dv, -1), mesh)
     else:
         y = linear(og.reshape(*og.shape[:2], H * dv), wo.reshape(H * dv, -1))
     if y.shape[-1] != d:
         y = all_gather(y, "data", mesh, dim=2)
+    mla_decode_sharded.calls += 1
     return y[row0:row0 + Bl], c_kv_cache, k_rope_cache
+
+
+mla_decode_sharded.calls = 0   # layers run through the sharded MLA decode, this process

@@ -25,10 +25,27 @@ sequence over 'model'; experts over 'model' with their input dimension
 over 'data' (1-D EP, gathered once a layer), or over 'model' × 'data'
 when the experts divide it (2-D EP, no gather). A shapes-only mesh has no
 process group, so a2a is not applicable under it (the dry run's ``meta``
-programs). Under a placed mesh the gather dispatch of a sharded batch,
-which the reference leaves to XLA's SPMD partitioner, has no port yet
-(ROADMAP.md, queue A12.6), and ``moe_layer`` raises. The expert products
-stay stock batched products, as the reference's.
+programs).
+
+The gather dispatch of a sharded batch (``moe_gather_sharded``), which the
+reference leaves to XLA's SPMD partitioner, keeps the one-device
+dispatch's global semantics: the capacity C = max(8, ⌊T·K·cf/E⌋) of the
+global token count T, each (token, choice)'s slot counted in the global
+token order (the rows pod-major, then the sequence; k-major, the counts
+carried from k to k + 1) from every rank's expert ids gathered over the
+mesh, and the aux loss's global means. Each token is routed by one rank:
+the ranks that hold the same rows ('model', and any batch axis the rows
+do not split over) share them out. A rank writes its kept tokens into
+an (E, C, d) buffer of global slots; an all-to-all over the axes the
+experts are cut over (``param_specs``: 'model' × 'data' with 2-D EP, else
+'model') sends each owner its experts' slots, summed over the senders
+(exact: a slot has one sender), the owner runs its resident experts,
+and the outputs come back by the mirror all-to-all. ``moe_sharded`` is the
+moe block of training and prefill on a rank's rows: the gather dispatch,
+or the a2a on the rank's S/m block with y gathered over 'model' along S;
+the shared experts through ``attention.mlp_sharded``. Under a placed
+mesh ``moe_layer`` takes the a2a's layout for either dispatch. The
+expert products stay stock batched products, as the reference's.
 """
 from __future__ import annotations
 
@@ -39,12 +56,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import warm_host_math
-from ..launch.mesh import all_gather, all_reduce, all_to_all, placed
-from .attention import current_mesh
+from ..launch.mesh import all_gather, all_reduce, all_to_all, gather_dims, placed, spec_axes
+from .attention import _batch_row_start, current_mesh, mlp_sharded
 from .common import ModelConfig
 from .layers import init_linear_, linear
 
-__all__ = ["MoEParams", "init_moe_", "moe_layer", "set_moe_impl", "moe_a2a_specs"]
+__all__ = ["MoEParams", "init_moe_", "moe_layer", "set_moe_impl", "moe_a2a_specs", "moe_sharded",
+           "moe_gather_sharded", "moe_a2a_sharded"]
 
 # 'gather' — the GShard scatter/gather dispatch (the default);
 # 'a2a'    — expert parallelism with explicit all-to-alls over 'model'
@@ -149,10 +167,10 @@ def _positions_in_expert(idx: torch.Tensor, E: int) -> torch.Tensor:
     return torch.stack(cols, dim=1)
 
 
-def _a2a_applicable(cfg: ModelConfig, S: int) -> bool:
-    """The reference's rule on the current mesh and the global sequence
-    length S."""
-    mesh = current_mesh()
+def _a2a_applicable(cfg: ModelConfig, S: int, mesh=None) -> bool:
+    """The reference's rule on ``mesh`` (by default the current mesh) and
+    the global sequence length S."""
+    mesh = current_mesh() if mesh is None else mesh
     if mesh is None:
         return False
     m = mesh.get("model", 1)
@@ -162,16 +180,21 @@ def _a2a_applicable(cfg: ModelConfig, S: int) -> bool:
 def moe_layer(params, x: torch.Tensor, cfg: ModelConfig):
     """x (B, S, d) → (y (B, S, d), aux loss float32), dispatched by
     ``MOE_IMPL``. Under a placed mesh x is this rank's block (B_loc,
-    S_loc, d) and the a2a dispatch runs (its global S is S_loc times
-    'model'); elsewhere the gather dispatch runs on the whole batch."""
+    S_loc, d) of ``moe_a2a_specs`` (its global S is S_loc times 'model'),
+    the parameters its blocks, and the a2a dispatch runs where it applies,
+    else the gather dispatch of the sharded batch; elsewhere the gather
+    dispatch runs on the whole batch."""
     mesh = current_mesh()
     if placed(mesh):
-        if MOE_IMPL in ("a2a", "auto") and _a2a_applicable(cfg, x.shape[1] * mesh.get("model", 1)):
+        m = mesh.get("model", 1)
+        if MOE_IMPL in ("a2a", "auto") and _a2a_applicable(cfg, x.shape[1] * m, mesh):
             return _moe_a2a(params, x, cfg)
-        raise NotImplementedError(
-            f"moe_layer: under a placed mesh only the a2a dispatch runs (MOE_IMPL {MOE_IMPL!r}, "
-            f"{cfg.num_experts} experts, sequence {x.shape[1]} a rank, mesh {dict(mesh)}); the gather dispatch of "
-            "a sharded batch is XLA's SPMD partition in the reference (ROADMAP.md, queue A12.6)")
+        # the rows' whole sequence, as a sharded step holds it: the dispatch takes this rank's block back
+        Bl, Sl, d = x.shape
+        y, aux = moe_gather_sharded(params, all_gather(x, "model", mesh, dim=1), cfg, mesh, moe_a2a_specs(cfg, mesh),
+                                    _batch_axes(mesh))
+        r = mesh.coords.get("model", 0)
+        return _shared(params, x.reshape(Bl * Sl, d), y[:, r * Sl:(r + 1) * Sl].reshape(Bl * Sl, d)).view(x.shape), aux
     return _moe_gather(params, x, cfg)
 
 
@@ -199,18 +222,26 @@ def moe_a2a_specs(cfg: ModelConfig, mesh) -> dict:
 
 
 def _moe_a2a(params, x: torch.Tensor, cfg: ModelConfig):
-    """Expert parallelism on this rank's blocks (``moe_a2a_specs``):
+    """Expert parallelism on this rank's blocks (``moe_a2a_specs``) under
+    the current mesh: x (B_loc, S_loc, d) → (y (B_loc, S_loc, d), aux): the
+    routed experts (``_a2a_routed``), then the shared experts on this
+    rank's tokens with their whole weights."""
+    Bl, Sl, d = x.shape
+    y, aux = _a2a_routed(params, x, cfg, current_mesh())
+    return _shared(params, x.reshape(Bl * Sl, d), y.reshape(Bl * Sl, d)).view(Bl, Sl, d), aux
+
+
+def _a2a_routed(params, x: torch.Tensor, cfg: ModelConfig, mesh):
+    """The routed experts of the a2a dispatch on this rank's tokens
     x (B_loc, S_loc, d) → (y (B_loc, S_loc, d), aux). The rank routes its
     T_loc tokens into an (E, C_loc, d) buffer, C_loc = max(4, ⌊T_loc·K·cf/E⌋);
     an all-to-all over 'model' (then over 'data' with 2-D EP) swaps
     expert-major for sender-major, the local experts run on their resident
     weights (gathered over 'data' when ZeRO'd), and the reverse
-    all-to-alls bring the outputs back; the shared experts follow, on this
-    rank's tokens. aux comes from the mean of the global statistics, the
-    same on every rank: a global loss is the sum of the ranks' losses with
-    aux counted once (aux / world on each rank). Gradients flow through
-    both all-to-alls and the weight gathers."""
-    mesh = current_mesh()
+    all-to-alls bring the outputs back. aux comes from the mean of the
+    global statistics, the same on every rank: a global loss is the sum of
+    the ranks' losses with aux counted once (aux / world on each rank).
+    Gradients flow through both all-to-alls and the weight gathers."""
     m, dsz = mesh.get("model", 1), mesh.get("data", 1)
     E, K = cfg.num_experts, cfg.top_k
     ep2d = dsz > 1 and E % (m * dsz) == 0
@@ -240,15 +271,7 @@ def _moe_a2a(params, x: torch.Tensor, cfg: ModelConfig):
     else:
         b = all_to_all(buf.reshape(m, E_loc, C, d), "model", mesh)       # (m_src, E_loc, C, d)
         b = b.transpose(0, 1).reshape(E_loc, m * C, d)
-    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
-    if wg.shape[1] != d:                                        # ZeRO'd d: gather once a layer
-        wg = all_gather(wg, "data", mesh, dim=1)
-        wu = all_gather(wu, "data", mesh, dim=1)
-    if wd.shape[2] != d:
-        wd = all_gather(wd, "data", mesh, dim=2)
-    warm_host_math(b)
-    h = F.silu(torch.bmm(b, wg)) * torch.bmm(b, wu)
-    out = torch.bmm(h, wd)
+    out = _experts(params, b, d, mesh)
     # the return trip, the dispatch's mirror
     if ep2d:
         o = all_to_all(out.reshape(E_loc, m, dsz, C, d).permute(2, 1, 0, 3, 4), "data", mesh)
@@ -257,7 +280,150 @@ def _moe_a2a(params, x: torch.Tensor, cfg: ModelConfig):
         o = all_to_all(out.reshape(E_loc, m, C, d).transpose(0, 1), "model", mesh).reshape(E * C, d)
     flat = torch.cat([o, o.new_zeros((1, d))])
     y = (flat[slot].view(T, K, d) * (gates * keep).to(x.dtype)[..., None]).sum(dim=1)
-    return _shared(params, xt, y).view(Bl, Sl, d), aux
+    return y.view(Bl, Sl, d), aux
+
+
+def _experts(params, b: torch.Tensor, d: int, mesh) -> torch.Tensor:
+    """The rank's resident experts on their (E_loc, n, d) buffer: the
+    SwiGLU FFN as batched products, weights ZeRO'd along d gathered over
+    'data' once a layer."""
+    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
+    if wg.shape[1] != d:
+        wg = all_gather(wg, "data", mesh, dim=1)
+        wu = all_gather(wu, "data", mesh, dim=1)
+    if wd.shape[2] != d:
+        wd = all_gather(wd, "data", mesh, dim=2)
+    warm_host_math(b)
+    h = F.silu(torch.bmm(b, wg)) * torch.bmm(b, wu)
+    return torch.bmm(h, wd)
+
+
+def _batch_axes(mesh) -> tuple:
+    """The axes a sharded step's batch rows split over, pod-major
+    (``runtime.sharding.batch_axes``)."""
+    return tuple(a for a in ("pod", "data") if mesh.get(a, 1) > 1)
+
+
+def _gather_dispatch(params, xt: torch.Tensor, tok: torch.Tensor, live, T: int, cfg: ModelConfig, mesh,
+                     specs: dict):
+    """The gather dispatch's routed experts on this rank's share of the
+    global batch: xt (n, d) its tokens, ``tok`` (n,) their indices in the
+    global token order (−1 where ``live``, a boolean (n,) or None, marks a
+    padding token), T the global token count, every token routed by one
+    rank; the experts cut as ``specs`` gives them. → (y (n, d), aux)."""
+    n, d = xt.shape
+    E, K = cfg.num_experts, cfg.top_k
+    gates, idx, probs = _route(params, xt, cfg)
+    top1 = F.one_hot(idx[:, 0], E).float()
+    if live is not None:
+        top1, probs = top1 * live[:, None], probs * live[:, None]
+    f_e = all_reduce(top1.sum(dim=0), None, mesh) / T
+    p_e = all_reduce(probs.sum(dim=0), None, mesh) / T
+    aux = cfg.aux_loss_coef * E * torch.sum(f_e * p_e)
+    # every (token, choice)'s slot in the global order, from every rank's ids
+    C = max(8, int(T * K * cfg.capacity_factor / E))
+    with torch.no_grad():
+        every_tok, every_idx = all_gather(tok, None, mesh, 0), all_gather(idx, None, mesh, 0)
+        glob = torch.zeros((T, K), dtype=idx.dtype, device=idx.device)
+        own = every_tok >= 0
+        glob[every_tok[own]] = every_idx[own]
+        pos_all = _positions_in_expert(glob, E)
+        pos = pos_all[tok.clamp(min=0)]
+        moe_gather_sharded.dropped += int((pos_all >= C).sum())
+    keep = pos < C if live is None else (pos < C) & live[:, None]
+    slot = torch.where(keep, idx * C + pos, E * C).reshape(-1)  # E·C: the drop bin
+    buf = xt.new_zeros((E * C + 1, d))
+    buf[slot] = xt.repeat_interleave(K, dim=0)                  # kept slots are unique
+    buf = buf[: E * C].view(E, C, d)
+    # each owner's experts' slots, summed over the senders (one sender a slot)
+    eax = tuple(a for a in spec_axes(specs["w_gate"][0]) if mesh.get(a, 1) > 1)
+    for ax in eax:
+        k = mesh[ax]
+        buf = all_to_all(buf.reshape(k, buf.shape[0] // k, C, d), ax, mesh).sum(dim=0)
+    out = _experts(params, buf, d, mesh)
+    for ax in reversed(eax):       # every owner's outputs back to every sender
+        k = mesh[ax]
+        out = all_to_all(out.expand(k, *out.shape), ax, mesh).reshape(k * out.shape[0], C, d)
+    flat = torch.cat([out.reshape(E * C, d), out.new_zeros((1, d))])
+    y = (flat[slot].view(n, K, d) * (gates * keep).to(xt.dtype)[..., None]).sum(dim=1)
+    return y, aux
+
+
+def moe_gather_sharded(params, x: torch.Tensor, cfg: ModelConfig, mesh, specs: dict, bspec):
+    """The routed experts of the gather dispatch on a rank's rows x
+    (B_loc, S, d) of a global batch split over the axes ``bspec`` (a tuple,
+    or None), the same rows on every rank of the mesh's other axes, which
+    share their tokens out: each takes an S/n block of every row where n
+    divides S, else a block of the rows' tokens in order (the last padded).
+    ``params`` holds the router whole and the experts' blocks under
+    ``specs`` → (y (B_loc, S, d), aux), y the same on the ranks that share
+    the rows. ``.calls`` counts its calls (``moe_layer``'s under a placed
+    mesh too), ``.dropped`` the (token, choice) pairs past the capacity, of
+    the global batch, that they dropped."""
+    moe_gather_sharded.calls += 1
+    Bl, S, d = x.shape
+    bax = tuple(bspec or ())
+    rep = tuple(a for a in mesh if mesh[a] > 1 and a not in bax)
+    n = math.prod(mesh[a] for a in rep)
+    c = 0
+    for a in rep:
+        c = c * mesh[a] + mesh.coords[a]
+    row0 = _batch_row_start(mesh, bax, Bl)
+    T = Bl * math.prod(mesh[a] for a in bax) * S
+    dev = x.device
+    if S % n == 0:
+        Sn = S // n
+        xt = x[:, c * Sn:(c + 1) * Sn].reshape(Bl * Sn, d)
+        tok = ((row0 + torch.arange(Bl, device=dev))[:, None] * S + c * Sn
+               + torch.arange(Sn, device=dev)).reshape(-1)
+        y, aux = _gather_dispatch(params, xt, tok, None, T, cfg, mesh, specs)
+        return gather_dims(y.view(Bl, Sn, d), (None, rep or None, None), mesh), aux
+    Tr = Bl * S
+    Tn = -(-Tr // n)
+    xt = F.pad(x.reshape(Tr, d), (0, 0, 0, n * Tn - Tr))[c * Tn:(c + 1) * Tn]
+    loc = c * Tn + torch.arange(Tn, device=dev)
+    live = loc < Tr
+    y, aux = _gather_dispatch(params, xt, torch.where(live, row0 * S + loc, -1), live, T, cfg, mesh, specs)
+    return gather_dims(y, (rep or None, None), mesh)[:Tr].view(Bl, S, d), aux
+
+
+def moe_a2a_sharded(params, x: torch.Tensor, cfg: ModelConfig, mesh):
+    """The routed experts of the a2a dispatch on a rank's rows x (B_loc, S,
+    d), the same on every rank of 'model': the rank's S/m block through
+    ``_a2a_routed`` (the reference's x spec: rows over the batch axes, S
+    over 'model'), y gathered over 'model' along S (its gradient summed
+    over 'model' and cut back) → (y (B_loc, S, d), aux)."""
+    moe_a2a_sharded.calls += 1
+    S, m = x.shape[1], mesh["model"]
+    r = mesh.coords["model"]
+    y, aux = _a2a_routed(params, x[:, r * (S // m):(r + 1) * (S // m)], cfg, mesh)
+    return all_gather(y, "model", mesh, dim=1), aux
+
+
+def moe_sharded(params, x: torch.Tensor, cfg: ModelConfig, mesh, specs: dict):
+    """The moe block's second half on a rank's rows x (B_loc, S, d) of a
+    sharded step (training, prefill), on its blocks cut by ``specs``
+    (``param_specs``): the router gathered whole, the routed experts by
+    the a2a dispatch where ``MOE_IMPL`` asks for it and it applies, else by
+    the gather dispatch; the shared experts through ``mlp_sharded``
+    → (y (B_loc, S, d), aux), the same on every rank of 'model'."""
+    routed = {"router": gather_dims(params["router"], specs["router"], mesh)}
+    for w in ("w_gate", "w_up", "w_down", "router_bias"):
+        if w in params:
+            routed[w] = params[w]
+    if MOE_IMPL in ("a2a", "auto") and _a2a_applicable(cfg, x.shape[1], mesh):
+        y, aux = moe_a2a_sharded(routed, x, cfg, mesh)
+    else:
+        y, aux = moe_gather_sharded(routed, x, cfg, mesh, specs, _batch_axes(mesh))
+    if "shared" in params:
+        sh = {k[len("shared."):]: v for k, v in specs.items() if k.startswith("shared.")}
+        y = y + mlp_sharded(params["shared"], x, cfg, mesh, sh, kind="swiglu")
+    return y, aux
+
+
+moe_gather_sharded.calls = 0     # calls of the gather dispatch of a sharded batch (remat's recompute too)
+moe_gather_sharded.dropped = 0   # (token, choice) pairs of the global batch past the capacity, summed over calls
+moe_a2a_sharded.calls = 0        # calls of the a2a dispatch on a sharded step's rows
 
 
 def _shared(params, xt: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,18 @@ causal-conv cache, updated in place. The state, the step sizes and the
 decays are float32 and the products in the compute type, with the
 reference's casts in the reference's order. No kernel: every operation
 is a stock PyTorch one.
+
+``mamba_sharded`` runs the block on a rank's rows and its blocks under a
+mesh placed over a process group (training and prefill), cut by
+``runtime.sharding.param_specs``: in_proj (d, z | x | B | C | dt) by its
+columns over 'model' and d over 'data', conv_w by its channels, out_proj
+(din, d) by its rows. A contiguous cut of in_proj crosses its sections,
+so in_proj and conv_w are gathered whole (their gradients
+reduce-scattered back) and each rank takes the columns of its H/m heads
+of z, x and dt and the groups of B and C that they read: it convolves
+and scans those heads, sums the gated norm's float32 squares over
+'model', and applies its rows of out_proj row-parallel. A head count
+that does not divide 'model' runs whole on every rank.
 """
 from __future__ import annotations
 
@@ -20,10 +32,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import warm_host_math
+from ..launch.mesh import all_reduce, gather_dims, spec_axes
 from .common import ModelConfig
-from .layers import init_linear_, rms_norm
+from .layers import init_linear_, rms_norm, row_parallel
 
-__all__ = ["init_mamba", "init_mamba_", "mamba_forward", "mamba_decode", "init_mamba_cache"]
+__all__ = ["init_mamba", "init_mamba_", "mamba_forward", "mamba_decode", "init_mamba_cache", "mamba_sharded"]
 
 
 def init_mamba(cfg: ModelConfig, device) -> nn.ParameterDict:
@@ -91,22 +104,35 @@ def _rep(x: torch.Tensor, rep: int, dim: int) -> torch.Tensor:
 def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Chunked SSD. x (B, S, d) → (B, S, d). S must divide by the chunk
     min(ssm_chunk, S)."""
-    Bsz, S, _ = x.shape
-    din, H, P, N, G = cfg.d_inner, cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_ngroups
+    warm_host_math(x)
+    zxbcdt = x @ params["in_proj"]
+    z, xBC, dt_raw = _split(cfg, zxbcdt)
+    xBC = _causal_conv(xBC, params["conv_w"], params["conv_b"])
+    y = _ssd(xBC, dt_raw, params["A_log"], params["D"], params["dt_bias"], cfg)
+    y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["norm"])
+    return y @ params["out_proj"]
+
+
+def _ssd(xBC: torch.Tensor, dt_raw: torch.Tensor, A_log, D, dt_bias, cfg: ModelConfig) -> torch.Tensor:
+    """The chunked SSD of H heads (H = dt_raw's width) reading G groups of
+    B and C (head h the group h // (H / G)): the conv outputs xBC
+    (B, S, H·P + 2·G·N), the step sizes' pre-activations dt_raw (B, S, H)
+    and the heads' A_log, D, dt_bias (H,) → y (B, S, H·P) before the gate."""
+    Bsz, S, _ = xBC.shape
+    P, N = cfg.ssm_head_dim, cfg.ssm_state
+    H = dt_raw.shape[-1]
+    din = H * P
+    G = (xBC.shape[-1] - din) // (2 * N)
     Q = min(cfg.ssm_chunk, S)
     if S % Q:                       # the reference's assertion, kept under -O
         raise ValueError(f"mamba_forward: S {S} is not a multiple of the chunk {Q}")
     nc = S // Q
-    dt_x = x.dtype
-    warm_host_math(x)
+    dt_x = xBC.dtype
 
-    zxbcdt = x @ params["in_proj"]
-    z, xBC, dt_raw = _split(cfg, zxbcdt)
-    xBC = _causal_conv(xBC, params["conv_w"], params["conv_b"])
     xs, Bmat, Cmat = xBC[..., :din], xBC[..., din:din + G * N], xBC[..., din + G * N:]
     xs = xs.reshape(Bsz, S, H, P)
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])                       # (B, S, H)
-    A = -torch.exp(params["A_log"])                                          # (H,)
+    dt = F.softplus(dt_raw.float() + dt_bias)                                 # (B, S, H)
+    A = -torch.exp(A_log)                                                    # (H,)
     dA = dt * A[None, None, :]                                               # (B, S, H)
 
     # chunk everything: (B, nc, Q, ...)
@@ -133,7 +159,7 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
                           xdt * decay_to_end[..., None].to(dt_x))  # (B, nc, H, P, N)
     chunk_decay = torch.exp(seg_end[:, :, -1, :])                  # (B, nc, H)
 
-    carry = torch.zeros((Bsz, H, P, N), dtype=dt_x, device=x.device)
+    carry = torch.zeros((Bsz, H, P, N), dtype=dt_x, device=xBC.device)
     prev = []
     for c in range(nc):                                            # the state BEFORE chunk c
         prev.append(carry)
@@ -147,10 +173,50 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     y_off = y_off * decay_from_start[..., None].to(dt_x)
 
     y = (y_diag + y_off).reshape(Bsz, S, H, P)
-    y = y + xs * params["D"][None, None, :, None].to(dt_x)
-    y = y.reshape(Bsz, S, din)
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["norm"])
-    return y @ params["out_proj"]
+    y = y + xs * D[None, None, :, None].to(dt_x)
+    return y.reshape(Bsz, S, din)
+
+
+def mamba_sharded(params, x: torch.Tensor, cfg: ModelConfig, mesh, specs: dict) -> torch.Tensor:
+    """``mamba_forward`` of a rank's rows x (B_loc, S, d) on its blocks, cut
+    by ``specs`` (name → spec): in_proj and conv_w gathered whole, the
+    rank's H/m heads' columns of z, x and dt and the B and C groups they
+    read convolved and scanned, the gated norm's mean square over din from
+    the float32 sums of squares summed over 'model', the rank's rows of
+    out_proj row-parallel → (B_loc, S, d), the same on every rank of
+    'model'. Where H does not divide 'model' (or a rank's heads would
+    straddle the groups of B and C) the block runs whole on every rank."""
+    mamba_sharded.calls += 1
+    din, H, P, N, G = cfg.d_inner, cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_ngroups
+    m = mesh.get("model", 1)
+    rep = H // G
+    H_loc = H // m
+    if H % m or "model" not in spec_axes(specs["out_proj"][0]) or (H_loc % rep and rep % H_loc):
+        return mamba_forward({n: gather_dims(t, specs[n], mesh) for n, t in params.items()}, x, cfg)
+    h0 = mesh.coords["model"] * H_loc
+    g0, g1 = h0 // rep, (h0 + H_loc - 1) // rep + 1
+    dev = x.device
+    heads = torch.arange(h0 * P, (h0 + H_loc) * P, device=dev)
+    groups = torch.arange(g0 * N, g1 * N, device=dev)
+    conv_cols = torch.cat([heads, din + groups, din + G * N + groups])
+    cols = torch.cat([heads, din + conv_cols, 2 * din + 2 * G * N + torch.arange(h0, h0 + H_loc, device=dev)])
+    w_in = gather_dims(params["in_proj"], specs["in_proj"], mesh).index_select(1, cols)
+    w_conv = gather_dims(params["conv_w"], specs["conv_w"], mesh).index_select(1, conv_cols)
+    warm_host_math(x)
+    zxbcdt = x @ w_in
+    c_loc = H_loc * P
+    z, xBC, dt_raw = zxbcdt[..., :c_loc], zxbcdt[..., c_loc:-H_loc], zxbcdt[..., -H_loc:]
+    xBC = _causal_conv(xBC, w_conv, params["conv_b"][conv_cols])
+    hs = slice(h0, h0 + H_loc)
+    y = _ssd(xBC, dt_raw, params["A_log"][hs], params["D"][hs], params["dt_bias"][hs], cfg)
+    # the gated rms_norm over the whole din: float32 squares summed over 'model'
+    g = (y * F.silu(z.float()).to(y.dtype)).float()
+    var = all_reduce(torch.sum(torch.square(g), dim=-1, keepdim=True), "model", mesh) / din
+    g = (g * torch.rsqrt(var + 1e-6) * (1.0 + params["norm"][h0 * P:(h0 + H_loc) * P].float())).to(y.dtype)
+    return row_parallel(g, gather_dims(params["out_proj"], specs["out_proj"], mesh, axes=("data",)), mesh)
+
+
+mamba_sharded.calls = 0   # calls of the sharded Mamba-2 block (remat's recompute too), this process
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, layers: int, dtype=None, device=None) -> dict:

@@ -45,7 +45,7 @@ from typing import Any, Optional
 
 import torch
 
-from ..launch.mesh import gather_dims
+from ..launch.mesh import gather_dims, spec_axes
 from ..optim.adamw import stack_position
 
 __all__ = ["param_specs", "opt_specs", "opt8_specs", "batch_specs", "cache_specs", "needs_zero3",
@@ -243,13 +243,6 @@ def cache_specs(mesh: dict, cache, batch_size: int):
         return tuple(assign)
 
     return tree_map(spec, cache)
-
-
-def spec_axes(entry) -> tuple:
-    """The mesh axes of one spec entry: a name, a tuple of names, or None."""
-    if entry is None:
-        return ()
-    return entry if isinstance(entry, tuple) else (entry,)
 
 
 def block_index(mesh, entry, coords: dict) -> tuple[int, int]:

@@ -12,13 +12,15 @@ axis, as in the reference, which compresses only across more than one
 pod.
 
 With a mesh placed over a process group (``launch.mesh.make_mesh``;
-every rank calls the step's constructor with the whole ``lm``), the dense,
-hybrid, vlm and encdec families' steps run on each rank's blocks, as the reference's run under XLA's
-partitioner with the TP × ZeRO-3 rules of ``runtime.sharding``.
+every rank calls the step's constructor with the whole ``lm``), every
+family's steps (dense, vlm, moe, ssm, hybrid, encdec) run on each rank's
+blocks, as the reference's run under XLA's partitioner with the TP ×
+ZeRO-3 rules of ``runtime.sharding``.
 ``place_`` replaces ``lm``'s parameters by this rank's blocks
 (``param_specs``: training ZeRO-shards, serving as ``needs_zero3``
 decides) and sets its ``placement``; the model then runs the sharded
-attention, RG-LRU and MLP on the rank's rows (``shard_batch``: the global
+attention, MLA, RG-LRU, Mamba-2, MLP and experts on the rank's rows
+(``shard_batch``: the global
 batch over ('pod', 'data'), which it must divide; every key of it, the
 image or audio embeddings too). The train step has one
 body (``_step``) on one device and under a mesh; under a mesh it:
@@ -40,9 +42,9 @@ body (``_step``) on one device and under a mesh; under a mesh it:
   along it, updated whole, and the parameter's block taken back.
 
 ``init_opt_state`` of a placed model allocates the rank's blocks of the
-zero state. A step under a mesh refuses the moe and ssm families
-(ROADMAP A12.6c) and ``compress_pod_grads`` with a pod axis (A12.8; the
-reference's own path CHECK-fails in XLA's partitioner).
+zero state. A step under a mesh refuses ``compress_pod_grads`` with a pod
+axis (ROADMAP A12.8; the reference's own path CHECK-fails in XLA's
+partitioner).
 """
 from __future__ import annotations
 
@@ -127,13 +129,9 @@ def _grad(p: torch.Tensor) -> torch.Tensor:
 
 def _check_mesh(lm: LM, mesh, what: str) -> None:
     """What a step under ``mesh`` refuses: a shapes-only mesh, a model that
-    holds blocks already or lies on another device, a family not ported."""
+    holds blocks already or lies on another device."""
     if not placed(mesh):
         raise ValueError(f"{what}: the mesh must be placed over a process group (launch.mesh.make_mesh)")
-    fam = lm.cfg.family
-    if fam in ("moe", "ssm"):
-        raise NotImplementedError(f"{what}: the {fam} family under a mesh is not ported (ROADMAP A12.6c); "
-                                  "dense, hybrid, vlm and encdec run sharded")
     if lm.placement is not None:
         raise ValueError(f"{what}: the model holds a rank's blocks already; pass the whole model")
     if lm.device != mesh.device:

@@ -14,7 +14,11 @@ against ``decode_attention`` (linear) and ``_ring_decode`` (ring),
 against ``mla_decode``, ``moe_layer`` under ``set_moe_impl("a2a")`` and
 ``("gather")`` with the aux loss and ``jax.grad`` of Σ y² + aux — and the
 unsharded ``decode_step`` of four families (dense, hybrid, vlm, encdec)
-over a given cache.
+over a given cache. ``serve`` runs the reference's own
+``build_serve_step(lm, mesh, B, max_len)`` under a mesh (the moe and ssm
+families' decode, XLA's partition of the whole step), its inputs placed
+by the step's shardings, and ``drops`` counts the (token, choice) pairs
+the reference's one-device gather dispatch drops on a function's way.
 """
 import json
 import os
@@ -134,6 +138,68 @@ def decode_step(key, case, inp, out):
         out[f"naive/{key}/logits{pos}"] = np.asarray(logits)
     for k, v in cache.items():
         out[f"naive/{key}/cache_after/{k}"] = np.asarray(v)
+
+
+def drops(cfg, fn) -> int:
+    """The (token, choice) pairs past the capacity that the reference's
+    gather dispatch drops in ``fn()`` (jitted, on one device): its
+    ``_positions_in_expert`` spied on, each call's count sent back by a
+    debug callback."""
+    counts = []
+    orig = moe._positions_in_expert
+
+    def spy(idx, E):
+        pos = orig(idx, E)
+        T, K = idx.shape
+        C = max(8, int(T * K * cfg.capacity_factor / E))
+        jax.debug.callback(lambda p: counts.append(int((np.asarray(p) >= C).sum())), pos)
+        return pos
+
+    moe._positions_in_expert = spy
+    try:
+        jax.block_until_ready(fn())
+        jax.effects_barrier()
+    finally:
+        moe._positions_in_expert = orig
+    return sum(counts)
+
+
+def serve(key, case, inp, out):
+    """The reference's ``build_serve_step`` under the case's mesh: the
+    parameters, the cache (drawn in the inputs) and each step's tokens
+    placed by its shardings; each step's logits and the cache after."""
+    from repro.runtime.serve import build_serve_step
+
+    cfg, B, max_len = config(case), case["B"], case["max_len"]
+    lm = LM(cfg)
+    moe.set_moe_impl(case.get("moe_impl", "gather"))
+    shape = case["mesh"]
+    mesh = jax.make_mesh(tuple(shape.values()), tuple(shape), axis_types=(jax.sharding.AxisType.Auto,) * len(shape))
+    toks = inp[f"{key}/tokens"]
+    try:
+        with mesh, logical_axis_rules(mesh):
+            step_fn, (psh, csh, tsh, pos_sh), _ = build_serve_step(lm, mesh, B, max_len)
+            params = jax.device_put(tree(inp, f"{key}/params/"), psh)
+            cache = jax.device_put(tree(inp, f"{key}/cache/"), csh)
+            step = jax.jit(step_fn)
+            for n, pos in enumerate(case["steps"]):
+                logits, cache = step(params, cache, jax.device_put(jnp.asarray(toks[:, n:n + 1]), tsh),
+                                     jax.device_put(jnp.int32(pos), pos_sh))
+                out[f"serve/{key}/logits{pos}"] = np.asarray(logits)
+        flat(cache, f"serve/{key}/cache_after/", out)
+        if cfg.family == "moe":
+            params = tree(inp, f"{key}/params/")
+            one = jax.jit(lambda p, t, c, pos: decode.decode_step(lm, p, t, c, pos))
+
+            def steps():
+                c = tree(inp, f"{key}/cache/")
+                for n, pos in enumerate(case["steps"]):
+                    logits, c = one(params, jnp.asarray(toks[:, n:n + 1]), c, jnp.int32(pos))
+                return logits
+
+            out[f"serve/{key}/drops"] = np.asarray(drops(cfg, steps))
+    finally:
+        moe.set_moe_impl("gather")
 
 
 RUN = {"linear": attention, "ring": attention, "mlp": mlp_case, "mla": mla, "moe": moe_case}

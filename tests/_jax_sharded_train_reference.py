@@ -14,7 +14,11 @@ reference CLI places them (``repro.launch.train``); each step's loss, grad
 norm and learning rate, and the global parameters and (for adamw8) the
 moments' codes and scales after the last step. For a prefill case:
 ``build_prefill_step(lm, mesh)``'s logits, the parameters placed by the
-step's own shardings.
+step's own shardings. A case's ``moe_impl`` is set by ``set_moe_impl``
+before its step is traced; a case with ``drops`` also counts the (token,
+choice) pairs the one-device gather dispatch drops in the loss of its
+first batch. A ``serve`` case runs ``_jax_sharded_reference.serve``: the
+reference's ``build_serve_step`` under the mesh.
 """
 import json
 import os
@@ -28,7 +32,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.configs import get_config  # noqa: E402
-from repro.models import LM  # noqa: E402
+from repro.models import LM, moe  # noqa: E402
 from repro.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro.optim.adamw8 import adamw8_init  # noqa: E402
 from repro.runtime import sharding as shlib  # noqa: E402
@@ -111,15 +115,36 @@ def prefill(key, case, inp, out):
     out[f"{key}/logits"] = np.asarray(logits, np.float32)
 
 
+def first_drops(key, case, inp, out):
+    """The pairs the one-device gather dispatch drops in the loss of the
+    case's first batch, from its initial parameters."""
+    from _jax_sharded_reference import drops
+
+    cfg = config(case)
+    lm = LM(cfg)
+    params = tree(inp, f"{key}/params/")
+    batch = {n: jnp.asarray(inp[f"{key}/{n}0"]) for n in BATCH_KEYS if f"{key}/{n}0" in inp}
+    out[f"{key}/drops"] = np.asarray(drops(cfg, lambda: jax.jit(lambda p, b: lm.loss(p, b)[0])(params, batch)))
+
+
 def main(workdir):
+    from _jax_sharded_reference import serve
+
     workdir = Path(workdir)
     cases = json.loads((workdir / "cases.json").read_text())
     inp = dict(np.load(workdir / "inputs.npz"))
     out = {}
     for key, case in cases.items():
-        run = {"train": train, "prefill": prefill}.get(case["kind"])
-        if run is not None:
+        run = {"train": train, "prefill": prefill, "serve": serve}.get(case["kind"])
+        if run is None:
+            continue
+        moe.set_moe_impl(case.get("moe_impl", "gather"))
+        try:
             run(key, case, inp, out)
+        finally:
+            moe.set_moe_impl("gather")
+        if case.get("drops") and case["kind"] != "serve":
+            first_drops(key, case, inp, out)
     np.savez(workdir / "reference.npz", **out)
     print("OK")
 

@@ -8,7 +8,9 @@ sharded functions' own specs, runs every case of this mesh's shape and
 returns its results as NumPy arrays, keyed as the reference's script
 keys its outputs: the test holds each rank's block against the same
 block of the reference's global result (``runtime.sharding.local_block``
-at the rank's coordinates).
+at the rank's coordinates). ``serve`` is ``build_serve_step`` under the
+mesh over a cache filled from the inputs, any family's (the moe family's
+nested caches too), shared with ``_torch_sharded_train_ranks``.
 """
 from __future__ import annotations
 
@@ -80,41 +82,45 @@ def _leaves(tree, prefix=""):
 
 
 def _moe(mesh, key, case, inp, out):
-    """The a2a dispatch, its aux and the gradients of Σ y² + aux: each
-    rank's loss is its tokens' Σ y² plus aux / world, so that the ranks'
-    losses sum to the global loss; a parameter's gradient is then summed
-    over the mesh axes its block is replicated on."""
+    """The a2a dispatch and the gather dispatch of the sharded batch
+    (``moe_layer`` under the placed mesh, the a2a's layout), each one's aux
+    and the gradients of Σ y² + aux: each rank's loss is its tokens' Σ y²
+    plus aux / world, so that the ranks' losses sum to the global loss; a
+    parameter's gradient is then summed over the mesh axes its block is
+    replicated on. The a2a's under ``key``, the gather's under
+    ``key/gather``."""
     cfg = config(case)
     specs = moe.moe_a2a_specs(cfg, mesh)
-    params = {}
-    for name, spec in _leaves({k: v for k, v in specs.items() if k != "x"}):
-        leaf = _cut(inp[f"{key}/{name}"], spec, mesh).requires_grad_(True)
-        *path, last = name.split("/")
-        node = params
-        for p in path:
-            node = node.setdefault(p, {})
-        node[last] = leaf
-    x = _cut(inp[f"{key}/x"], specs["x"], mesh)
     world = int(np.prod(list(mesh.values())))
-    moe.set_moe_impl("a2a")
-    try:
-        with logical_axis_rules(mesh):
-            y, aux = moe.moe_layer(params, x, cfg)
-            (torch.sum(torch.square(y)) + aux / world).backward()
-    finally:
-        moe.set_moe_impl("gather")
-    out[f"{key}/y"], out[f"{key}/aux"] = _np(y), _np(aux)
-    with torch.no_grad():
+    for impl, at in (("a2a", key), ("gather", f"{key}/gather")):
+        params = {}
         for name, spec in _leaves({k: v for k, v in specs.items() if k != "x"}):
+            leaf = _cut(inp[f"{key}/{name}"], spec, mesh).requires_grad_(True)
+            *path, last = name.split("/")
             node = params
-            for p in name.split("/"):
-                node = node[p]
-            g = node.grad
-            used = {a for e in spec for a in spec_axes(e)}
-            for ax in mesh:
-                if ax not in used:
-                    g = all_reduce(g, ax, mesh)
-            out[f"{key}/grad/{name}"] = _np(g)
+            for p in path:
+                node = node.setdefault(p, {})
+            node[last] = leaf
+        x = _cut(inp[f"{key}/x"], specs["x"], mesh)
+        moe.set_moe_impl(impl)
+        try:
+            with logical_axis_rules(mesh):
+                y, aux = moe.moe_layer(params, x, cfg)
+                (torch.sum(torch.square(y)) + aux / world).backward()
+        finally:
+            moe.set_moe_impl("gather")
+        out[f"{at}/y"], out[f"{at}/aux"] = _np(y), _np(aux)
+        with torch.no_grad():
+            for name, spec in _leaves({k: v for k, v in specs.items() if k != "x"}):
+                node = params
+                for p in name.split("/"):
+                    node = node[p]
+                g = node.grad
+                used = {a for e in spec for a in spec_axes(e)}
+                for ax in mesh:
+                    if ax not in used:
+                        g = all_reduce(g, ax, mesh)
+                out[f"{at}/grad/{name}"] = _np(g)
 
 
 def cross_inputs(cfg, case: dict, rows: int, device) -> dict:
@@ -140,6 +146,52 @@ def _tree(inp, prefix: str) -> dict:
             node = node.setdefault(p, {})
         node[last] = inp[k]
     return tree
+
+
+def _walk(tree, prefix=""):
+    """(flat '/' key, leaf) of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _walk(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _at(tree, key: str):
+    for k in key.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def serve(mesh, key, case, inp, out):
+    """build_serve_step under the mesh over a cache filled from the inputs
+    (nested caches by their '/' paths): each step's logits rows, the cache
+    blocks after the last step, and each step's sharded layers
+    (attention, MLP, MLA decode, the gather dispatch)."""
+    from repro_torch.models import attention, mla
+
+    cfg, B, max_len = config(case), case["B"], case["max_len"]
+    lm = LM(cfg, device="cpu")
+    lm.load_state_dict(params_from_reference(cfg, _tree(inp, f"{key}/params/")))
+    step, (psh, csh, tsh, _), _ = build_serve_step(lm, B, max_len, mesh=mesh)
+    with logical_axis_rules(mesh):
+        cache = decode.init_cache(lm, B, max_len)
+    for k, t in _walk(cache):
+        t.copy_(_cut(inp[f"{key}/cache/{k}"], _at(csh, k), mesh))
+    toks = inp[f"{key}/tokens"]
+    counters = (attention.decode_attention_sharded, attention.decode_mlp_sharded, mla.mla_decode_sharded,
+                moe.moe_gather_sharded)
+    calls = []
+    for n, pos in enumerate(case["steps"]):
+        before = [getattr(f, "calls", 0) for f in counters]
+        logits, cache = step(_cut(toks[:, n:n + 1], tsh, mesh), cache, pos)
+        calls.append([getattr(f, "calls", 0) - b for f, b in zip(counters, before)])
+        out[f"{key}/logits{pos}"] = _np(logits)
+    for k, t in _walk(cache):
+        out[f"{key}/cache_after/{k}"] = _np(t)
+    out[f"{key}/serve_calls"] = np.array(calls)
+    out[f"{key}/cache_specs"] = np.array(json.dumps(csh))
+    out[f"{key}/param_specs"] = np.array(json.dumps(psh))
 
 
 def _decode_step(mesh, key, case, inp, out):
@@ -171,16 +223,28 @@ def _decode_step(mesh, key, case, inp, out):
     out[f"{key}/cache_specs"] = np.array(json.dumps(csh))
 
 
+def _gather_runs(mesh, cfg):
+    """The gather dispatch of a sharded batch through ``moe_layer``, on
+    zero blocks of ``moe_a2a_specs``' layout."""
+    specs = moe.moe_a2a_specs(cfg, mesh)
+    whole = {"router": (cfg.d_model, cfg.num_experts), "w_gate": (cfg.num_experts, cfg.d_model, cfg.moe_d_ff),
+             "w_up": (cfg.num_experts, cfg.d_model, cfg.moe_d_ff), "w_down": (cfg.num_experts, cfg.moe_d_ff, cfg.d_model)}
+    params = {n: local_block(torch.zeros(s), specs[n], mesh) for n, s in whole.items()}
+    x = local_block(torch.zeros(2, 8, cfg.d_model), specs["x"], mesh)
+    moe.set_moe_impl("gather")
+    return moe.moe_layer(params, x, cfg)
+
+
 def _refusals(mesh, key, case, inp, out):
-    """What the port refuses under a placed mesh, as messages: a cache
-    layout that runtime.sharding.cache_specs would cut otherwise than the
-    sharded attention reads it (reduced gemma2 at B 2: the batch rule takes
-    its 2 periods for the batch), the gather dispatch of a sharded batch,
-    and the moe family's decode."""
+    """What the port refuses under a placed mesh, as messages (empty where
+    it runs): a cache layout that runtime.sharding.cache_specs would cut
+    otherwise than the sharded attention reads it (reduced gemma2 at B 2:
+    the batch rule takes its 2 periods for the batch), the gather dispatch
+    of a sharded batch, and the moe family's decode caches."""
     msgs = []
     with logical_axis_rules(mesh):
         for fn in (lambda: decode.init_cache(LM(config(case["dense"]), device="meta"), 2, 1024),
-                   lambda: moe.moe_layer({}, torch.zeros(1, 4, 8), config(case["moe"])),
+                   lambda: _gather_runs(mesh, config(case["moe"])),
                    lambda: decode.init_cache(LM(config(case["moe"]), device="meta"), 4, 1024)):
             try:
                 fn()

@@ -11,9 +11,12 @@ and rows, and returns NumPy arrays: each step's metrics, the rank's
 parameter blocks (and adamw8 codes and scales) after the last step and
 on the first rank the whole parameters gathered from them, the
 prefill's logits rows, and the sharded layers each step ran (and
-``rglru_sharded`` against ``rglru_forward`` where the width does not
-divide 'model'). ``cli`` runs the training CLI on a rank and returns its
-parameter blocks, and
+``rglru_sharded`` against ``rglru_forward``, ``mamba_sharded`` against
+``mamba_forward`` where the width does not divide 'model'); a case's
+``moe_impl`` is set while it runs, and a ``serve`` case runs
+``_torch_sharded_ranks.serve`` (``build_serve_step`` under the mesh).
+``cli`` runs the training CLI on a rank and returns its parameter blocks,
+and
 ``card_step`` a rank of the card test's sharded step
 (``tests/test_torch_cuda.py``). The helpers ``reference_tree``,
 ``batches``, ``TCFG`` and ``assert_within_change`` are shared with the
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.models import LM, attention, params_from_reference, rglru
+from repro_torch.models import LM, attention, mla, moe, params_from_reference, rglru, ssm
 from repro_torch.models.interop import STACKED
 from repro_torch.runtime.sharding import gather_blocks, local_block
 from repro_torch.runtime.train import TrainConfig, build_prefill_step, build_train_step, init_opt_state, shard_batch
@@ -187,21 +190,32 @@ def batch_of(inp, key: str, s: int) -> dict:
     return {n: inp[f"{key}/{n}{s}"] for n in BATCH_KEYS if f"{key}/{n}{s}" in inp}
 
 
+# the sharded layers' counters, in the order ``layer_calls`` reads them
+LAYERS = ((attention, "attention_sharded"), (attention, "mlp_sharded"), (rglru, "rglru_sharded"),
+          (mla, "mla_sharded"), (ssm, "mamba_sharded"), (moe, "moe_gather_sharded"), (moe, "moe_a2a_sharded"))
+
+
+def layer_calls() -> np.ndarray:
+    """Each sharded layer function's calls so far, this process (``LAYERS``)."""
+    return np.asarray([getattr(mod, name).calls for mod, name in LAYERS])
+
+
 def _train(mesh, key, case, inp, out):
     cfg, tcfg = config(case), tcfg_of(case)
     lm = model(cfg, inp, key)
     step, (psh, osh) = build_train_step(lm, tcfg, mesh=mesh)
     opt = init_opt_state(lm, tcfg.optimizer)
-    metrics, calls, rec = [], [], []
+    metrics, calls = [], []
     for s in range(case["steps"]):
-        before = attention.attention_sharded.calls, attention.mlp_sharded.calls, rglru.rglru_sharded.calls
+        before = layer_calls()
         m = step(opt, shard_batch(batch_of(inp, key, s), mesh))
-        calls.append((attention.attention_sharded.calls - before[0], attention.mlp_sharded.calls - before[1]))
-        rec.append(rglru.rglru_sharded.calls - before[2])
+        calls.append(layer_calls() - before)
         metrics.append([float(m["loss"]), float(m["grad_norm"]), float(m["lr"])])
+    calls = np.asarray(calls)
     out[f"{key}/metrics"] = np.asarray(metrics, np.float64)
-    out[f"{key}/calls"] = np.asarray(calls)
-    out[f"{key}/rglru_calls"] = np.asarray(rec)
+    out[f"{key}/calls"] = calls[:, :2]
+    out[f"{key}/rglru_calls"] = calls[:, 2]
+    out[f"{key}/layer_calls"] = calls
     for name, p in lm.named_parameters():
         out[f"{key}/params/{name}"] = _np(p)
     whole = gather_blocks(dict(lm.named_parameters()), psh, mesh, keep=not any(mesh.coords.values()))
@@ -219,16 +233,19 @@ def _train(mesh, key, case, inp, out):
 def _prefill(mesh, key, case, inp, out):
     cfg = config(case)
     step, psh = build_prefill_step(model(cfg, inp, key), mesh=mesh)
-    before = attention.attention_sharded.calls, rglru.rglru_sharded.calls
+    before = layer_calls()
     out[f"{key}/logits"] = _np(step(shard_batch(batch_of(inp, key, 0), mesh)))
-    out[f"{key}/calls"] = np.asarray(attention.attention_sharded.calls - before[0])
-    out[f"{key}/rglru_calls"] = np.asarray(rglru.rglru_sharded.calls - before[1])
+    calls = layer_calls() - before
+    out[f"{key}/calls"] = np.asarray(calls[0])
+    out[f"{key}/rglru_calls"] = np.asarray(calls[2])
+    out[f"{key}/layer_calls"] = calls
     out[f"{key}/specs"] = np.asarray(json.dumps(psh))
 
 
 def _refusals(mesh, key, case, inp, out):
-    """What the sharded steps refuse, as messages: each non-dense family's
-    train and prefill steps, and compress_pod_grads across a pod axis."""
+    """What the sharded steps refuse, as messages (empty where the step
+    builds): each listed family's train and prefill steps, and
+    compress_pod_grads across a pod axis."""
     msgs = []
     for arch in case["archs"]:
         for build in (lambda lm: build_train_step(lm, TrainConfig(), mesh=mesh),
@@ -259,6 +276,30 @@ def _rglru_whole(mesh, key, case, inp, out):
     out[f"{key}/specs"] = np.asarray(json.dumps(specs))
 
 
+def _mamba_whole(mesh, key, case, inp, out):
+    """``mamba_sharded`` on this rank's rows and blocks of a head count that
+    does not divide 'model', and ``mamba_forward`` of the whole block on
+    the same rows: both outputs."""
+    from repro_torch.runtime.sharding import param_specs
+
+    cfg = config(case)
+    p = {k: torch.from_numpy(np.ascontiguousarray(inp[f"{key}/mix/{k}"])) for k in ssm.init_mamba(cfg, "meta")}
+    specs = param_specs(mesh, p, zero3=True)
+    x = shard_batch({"x": inp[f"{key}/x"]}, mesh)["x"]
+    before = ssm.mamba_sharded.calls
+    got = ssm.mamba_sharded({k: local_block(t, specs[k], mesh) for k, t in p.items()}, x, cfg, mesh, specs)
+    out[f"{key}/got"] = _np(got)
+    out[f"{key}/want"] = _np(ssm.mamba_forward(p, x, cfg))
+    out[f"{key}/calls"] = np.asarray(ssm.mamba_sharded.calls - before)
+    out[f"{key}/specs"] = np.asarray(json.dumps(specs))
+
+
+def _serve(mesh, key, case, inp, out):
+    from _torch_sharded_ranks import serve
+
+    serve(mesh, key, case, inp, out)
+
+
 def _message(fn) -> str:
     try:
         fn()
@@ -267,7 +308,8 @@ def _message(fn) -> str:
         return f"{type(e).__name__}: {e}"
 
 
-RUN = {"train": _train, "prefill": _prefill, "refusals": _refusals, "rglru_whole": _rglru_whole}
+RUN = {"train": _train, "prefill": _prefill, "refusals": _refusals, "rglru_whole": _rglru_whole,
+       "mamba_whole": _mamba_whole, "serve": _serve}
 
 
 def run(mesh, workdir: str) -> dict:
@@ -277,7 +319,13 @@ def run(mesh, workdir: str) -> dict:
     out = {"coords": np.array([mesh.coords[a] for a in mesh])}
     for key, case in cases.items():
         if case["mesh"] == dict(mesh):
-            RUN[case["kind"]](mesh, key, case, inp, out)
+            moe.set_moe_impl(case.get("moe_impl", "gather"))
+            dropped = moe.moe_gather_sharded.dropped
+            try:
+                RUN[case["kind"]](mesh, key, case, inp, out)
+            finally:
+                moe.set_moe_impl("gather")
+            out[f"{key}/dropped"] = np.asarray(moe.moe_gather_sharded.dropped - dropped)
     return out
 
 
@@ -350,52 +398,127 @@ def card_step(mesh, arch: str = "gemma2-9b") -> dict:
     return out
 
 
+# card_layer's layers: (architecture, the layer's config overrides)
+CARD_LAYERS = {"rglru": ("recurrentgemma-2b", {}), "cross": ("llama-3.2-vision-11b", {}),
+               "mla": ("deepseek-v2-236b", {}), "mamba": ("mamba2-780m", {}),
+               "moe_gather": ("deepseek-v2-236b", dict(num_experts=16))}
+
+
+def _card_params(kind: str, cfg, dev, gen) -> dict:
+    """The layer's whole parameters, flat (a moe layer's under 'moe.',
+    the shared experts under 'moe.shared.', as ``param_specs`` reads them)."""
+    from repro_torch.models.attention import init_attention, init_attention_
+
+    if kind == "rglru":
+        p = rglru.init_rglru(cfg, dev)
+        rglru.init_rglru_(p, cfg, gen)
+        p["conv_b"].normal_(generator=gen).mul_(0.1)
+    elif kind == "cross":
+        p = init_attention(cfg, dev)
+        init_attention_(p, cfg, gen)
+    elif kind == "mla":
+        p = mla.init_mla(cfg, dev)
+        mla.init_mla_(p, cfg, gen)
+        for n in ("q_norm", "kv_norm"):
+            p[n].normal_(generator=gen).mul_(0.1)
+    elif kind == "mamba":
+        p = ssm.init_mamba(cfg, dev)
+        ssm.init_mamba_(p, cfg, gen)
+        for n in ("norm", "conv_b", "dt_bias"):
+            p[n].normal_(generator=gen).mul_(0.1)
+    else:
+        m = moe.MoEParams(cfg, dev)
+        moe.init_moe_(m, cfg, gen)
+        return {f"moe.{k}": t for k, t in m.named_parameters()}
+    return dict(p.items())
+
+
+def _nest(flat: dict) -> dict:
+    """A moe layer's flat 'moe.'-prefixed leaves as the nested mapping its
+    functions index ('shared' a dict); other layers' as they are."""
+    out: dict = {}
+    for k, t in flat.items():
+        parts = k.split(".")[1:] if k.startswith("moe.") else [k]
+        node = out
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = t
+    return out
+
+
 def card_layer(mesh, kind: str) -> dict:
     """One layer at a published width in float32 on the card, from a seed,
-    on a B 2 × S 256 batch: ``rglru`` recurrentgemma-2b's RG-LRU block
-    (2,560 channels), ``cross`` llama-3.2-vision-11b's cross attention over
-    1,601 image tokens (32 heads, 8 kv heads, D 128, non-causal). On one
+    on a B 2 × S 256 batch (512 for ``mamba``, two of its 256 chunks):
+    ``rglru`` recurrentgemma-2b's RG-LRU block (2,560 channels), ``cross``
+    llama-3.2-vision-11b's cross attention over 1,601 image tokens (32
+    heads, 8 kv heads, D 128, non-causal), ``mla`` deepseek-v2-236b's MLA
+    (128 heads, the (192, 128) instance, causal), ``mamba`` mamba2-780m's
+    SSD block (48 heads), ``moe_gather`` deepseek-v2-236b's moe layer with
+    16 of its experts on tokens that share a part (the gather dispatch,
+    capacity factor 1.25, some experts overflowing). On one
     process (``mesh`` None) the output and every parameter's gradient of
-    Σ y·g (g a seeded cotangent); on a rank of ``mesh`` its rows' output,
-    its blocks' gradients of its share Σ y·g / m summed over the axes the
-    block is replicated on, and the flash launches by instance."""
+    Σ y·g (+ aux) (g a seeded cotangent); on a rank of ``mesh`` its rows'
+    output, its blocks' gradients of its share Σ y·g / m (+ aux / world)
+    summed over the axes the block is replicated on, and the flash
+    launches by instance; the (token, choice) pairs the dispatch dropped."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch.mesh import all_reduce
-    from repro_torch.models.attention import attention, attention_sharded, init_attention, init_attention_
+    from repro_torch.models.attention import attention, attention_sharded
     from repro_torch.runtime.sharding import param_specs, spec_axes
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(5)
-    arch = "recurrentgemma-2b" if kind == "rglru" else "llama-3.2-vision-11b"
-    cfg = get_config(arch).replace(param_dtype="float32", compute_dtype="float32")
-    if kind == "rglru":
-        p = rglru.init_rglru(cfg, dev)
-        rglru.init_rglru_(p, cfg, gen)
-        p["conv_b"].normal_(generator=gen).mul_(0.1)
-    else:
-        p = init_attention(cfg, dev)
-        init_attention_(p, cfg, gen)
-    B, S = 2, 256
+    arch, over = CARD_LAYERS[kind]
+    cfg = get_config(arch).replace(param_dtype="float32", compute_dtype="float32", **over)
+    p = _card_params(kind, cfg, dev, gen)
+    B, S = 2, 512 if kind == "mamba" else 256
     x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
     kv = torch.randn((B, cfg.num_image_tokens, cfg.d_model), generator=gen, device=dev)
     g = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+    if kind == "moe_gather":        # a part every token shares: the router favours some experts, which overflow
+        x = x + torch.randn((1, 1, cfg.d_model), generator=gen, device=dev)
     whole = {k: t.detach() for k, t in p.items()}
+    dropped0 = moe.moe_gather_sharded.dropped
     if mesh is None:
         leaves = {k: t.clone().requires_grad_() for k, t in whole.items()}
-        y = rglru.rglru_forward(leaves, x, cfg) if kind == "rglru" else \
-            attention(leaves, x, cfg, causal=False, kv_x=kv)
-        (y * g).sum().backward()
-        return {"y": _np(y), "grads": {k: _np(t.grad) for k, t in leaves.items()}}
+        aux = 0.0
+        if kind == "rglru":
+            y = rglru.rglru_forward(leaves, x, cfg)
+        elif kind == "cross":
+            y = attention(leaves, x, cfg, causal=False, kv_x=kv)
+        elif kind == "mla":
+            y = mla.mla_attention(leaves, x, cfg)
+        elif kind == "mamba":
+            y = ssm.mamba_forward(leaves, x, cfg)
+        else:
+            y, aux = moe._moe_gather(_nest(leaves), x, cfg)
+        dropped = 0
+        if kind == "moe_gather":
+            with torch.no_grad():
+                _, idx, _ = moe._route(_nest(leaves), x.reshape(B * S, -1), cfg)
+                C = max(8, int(B * S * cfg.top_k * cfg.capacity_factor / cfg.num_experts))
+                dropped = int((moe._positions_in_expert(idx, cfg.num_experts) >= C).sum())
+        ((y * g).sum() + aux).backward()
+        return {"y": _np(y), "grads": {k: _np(t.grad) for k, t in leaves.items()}, "dropped": np.asarray(dropped)}
     specs = param_specs(mesh, whole, zero3=True)
     leaves = {k: local_block(t, specs[k], mesh).clone().requires_grad_() for k, t in whole.items()}
     rows = {k: shard_batch({k: t}, mesh)[k] for k, t in (("x", x), ("kv", kv), ("g", g))}
     fa_ops.flash_attention.by_pair, fa_ops.flash_attention_bwd.by_pair = {}, {}
+    sub = {k.split(".", 1)[1] if k.startswith("moe.") else k: s for k, s in specs.items()}
+    aux = 0.0
     if kind == "rglru":
         y = rglru.rglru_sharded(leaves, rows["x"], cfg, mesh, specs)
-    else:
+    elif kind == "cross":
         y = attention_sharded(leaves, rows["x"], cfg, mesh, specs, causal=False, kv_x=rows["kv"])
-    (y * rows["g"]).sum().div(mesh["model"]).backward()
+    elif kind == "mla":
+        y = mla.mla_sharded(leaves, rows["x"], cfg, mesh, specs)
+    elif kind == "mamba":
+        y = ssm.mamba_sharded(leaves, rows["x"], cfg, mesh, specs)
+    else:
+        y, aux = moe.moe_sharded(_nest(leaves), rows["x"], cfg, mesh, sub)
+        aux = aux / int(np.prod(list(mesh.values())))
+    ((y * rows["g"]).sum().div(mesh["model"]) + aux).backward()
     grads = {}
     for k, t in leaves.items():
         gk = t.grad
@@ -404,7 +527,7 @@ def card_layer(mesh, kind: str) -> dict:
         grads[k] = _np(gk)
     torch.cuda.synchronize()
     return {"coords": np.array([mesh.coords[a] for a in mesh]), "specs": np.asarray(json.dumps(specs)),
-            "y": _np(y), "grads": grads,
+            "y": _np(y), "grads": grads, "dropped": np.asarray(moe.moe_gather_sharded.dropped - dropped0),
             "pairs": np.asarray(json.dumps({f"{d}x{dv}": n for (d, dv), n in fa_ops.flash_attention.by_pair.items()})),
             "bwd_pairs": np.asarray(json.dumps({f"{d}x{dv}": n
                                                 for (d, dv), n in fa_ops.flash_attention_bwd.by_pair.items()}))}

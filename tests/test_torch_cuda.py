@@ -957,6 +957,7 @@ FLASH_BWD_CASES = [
     (2, 64, 64, 2, 2, 128, 128, True, 2, 50.0),
     (2, 64, 64, 2, 2, 32, 32, True, 1, 50.0),
     (2, 200, 77, 8, 2, 128, 128, False, 0, 0.0),
+    (1, 1024, 1024, 64, 64, 192, 128, True, 0, 0.0),    # a rank's MLA heads under the 2 × 2 mesh (smoke phase 15)
 ]
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -1148,17 +1149,23 @@ def test_sharded_train_step_on_the_card_equals_one_process(dev, arch):
             ranks.assert_within_change(r["params"][name], block, change, "adamw", f"{name} at {coords}")
 
 
-@pytest.mark.parametrize("kind", ["rglru", "cross"])
+@pytest.mark.parametrize("kind", ["rglru", "cross", "mla", "mamba", "moe_gather"])
 def test_sharded_layer_on_four_ranks_equals_one_process(dev, kind):
     """Four ranks of a 2 × 2 mesh on the one card, float32 at published
     width (``_torch_sharded_train_ranks.card_layer``): recurrentgemma-2b's
     RG-LRU block (``rglru_sharded``: 1,280 of 2,560 channels a rank, the xw
-    gather over 'model') or llama-3.2-vision-11b's cross attention over
+    gather over 'model'), llama-3.2-vision-11b's cross attention over
     1,601 image tokens (``attention_sharded``, non-causal, 16 heads and 4
     kv heads a rank through the (128, 128) flash kernels, forward and
-    backward). Each rank's output rows and its blocks' gradients (summed
-    over the axes a block is replicated on) against the one-process
-    layer's, within 1e-4 of the largest |value|."""
+    backward), deepseek-v2-236b's MLA (``mla_sharded``: 64 of 128 heads a
+    rank through the (192, 128) kernels, forward and backward),
+    mamba2-780m's SSD block (``mamba_sharded``: 24 of 48 heads a rank) or
+    deepseek-v2-236b's moe layer with 16 of its 160 experts
+    (``moe_sharded``: the gather dispatch of the sharded batch at the
+    capacity factor 1.25, dropping tokens, against the one-process
+    ``_moe_gather``). Each rank's output rows and its blocks' gradients
+    (summed over the axes a block is replicated on) against the
+    one-process layer's, within 1e-4 of the largest |value|."""
     import json
 
     from repro_torch.launch.mesh import run_ranks
@@ -1179,7 +1186,10 @@ def test_sharded_layer_on_four_ranks_equals_one_process(dev, kind):
             np.testing.assert_allclose(r["grads"][name], g, rtol=0, atol=1e-4 * np.abs(g).max(),
                                        err_msg=f"{name} at {coords}")
         pairs = (json.loads(str(r["pairs"])), json.loads(str(r["bwd_pairs"])))
-        assert pairs == (({}, {}) if kind == "rglru" else ({"128x128": 1}, {"128x128": 1})), pairs
+        pair = {"cross": "128x128", "mla": "192x128"}.get(kind)
+        assert pairs == (({pair: 1}, {pair: 1}) if pair else ({}, {})), pairs
+        if kind == "moe_gather":
+            assert int(r["dropped"]) == int(want["dropped"]) > 0
 
 
 # -- the meta route, the serve step and the smoke's bounds on the card --------------
