@@ -209,7 +209,10 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    from a seeded generator, steps at 0, 1, 4,095, 4,096, 4,097 and 8,191
    (across the 4,096 ring's wrap): in float32 with 2 layers each rank's
    logits rows within 2e-4 of the one-process ``decode_step`` and the same
-   argmax, in bf16 with 4 layers within 2e-2 of the logits' largest
+   argmax, twice: with the tables cut as serving cuts them at this depth
+   (vocab over 'model') and with serving's ZeRO forced (width over 'data'
+   too, as published gemma2-9b is served: the weight-stationary lookup
+   and logits); in bf16 with 4 layers within 2e-2 of the logits' largest
    magnitude and the same argmax but where the one-process logits' top two
    lie within that tolerance of each other; every step of every rank runs
    each layer through the sharded attention and MLP and launches the
@@ -295,6 +298,13 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    the dispatch counters equal the layers run. The kernels line's
    ``launches_ph15`` are (a)'s kernel route and the four ranks' sums.
 
+Phases 12-15 log each sharded step's bytes received on each rank
+(``launch.mesh.received``: in all, by collective kind, the most one call
+received) and print them per rank. The tables stay where they stand: no
+call of a training step receives more than the rank's (V/m, d) rows of a
+table, no call of a prefill or decode step as much, and no decode step as
+much in all.
+
 The attention wrappers count their padded calls too (``padded``): the
 flash and backward rows carry them for phases 9 and 10
 (``launches_padded``).
@@ -315,6 +325,7 @@ CUDA device or outside a checkout also exit non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import json
@@ -3188,6 +3199,9 @@ PH12 = dict(mesh={"data": 2, "model": 2}, B=4, max_len=8192, steps=(0, 1, 4095, 
 RANGE12 = dict(B=4, S=8192, H=16, KV=8, D=256, cap=50.0, ranges=4, positions=(8191, 4095))
 MLA12 = dict(B=4, max_len=8192, steps=(0, 4095, 4096, 8191))
 MOE12 = dict(B=2, S=512, capacity_factor=64.0)   # the dropless cut: neither dispatch drops a token
+# Phase 12 (b)'s serve passes: (name, dtype, serving's ZeRO forced). The third holds the weight-stationary
+# tables (vocab over 'model', width over 'data', as published gemma2-9b is served on 2 x 2) to float32's limits.
+PASSES12 = (("float32", "float32", False), ("bfloat16", "bfloat16", False), ("float32_zero3", "float32", True))
 F32_TOL = 2e-4        # the reference test's decode tolerance (tests/models/test_sharded_decode.py)
 BF16_REL = 2e-2       # bf16: max |sharded − one process| ≤ BF16_REL · max |one process|
 AUX_RTOL = 1e-3
@@ -3358,6 +3372,21 @@ def kernel_counters() -> dict:
                 cost_argmin_f64=cm_ops.cost_argmin_f64, priority_requeue=pr_ops.priority_requeue)
 
 
+@contextlib.contextmanager
+def serving_zero3(force: bool):
+    """Serving's ZeRO (the tables' width cut over 'data' too) forced inside
+    where ``force``: the port's serving budget set to 0 bytes."""
+    from repro_torch.runtime import sharding
+
+    held = sharding._SERVE_ZERO3_BUDGET
+    if force:
+        sharding._SERVE_ZERO3_BUDGET = 0
+    try:
+        yield
+    finally:
+        sharding._SERVE_ZERO3_BUDGET = held
+
+
 def phase12_rank(mesh) -> dict:
     """One rank of phase 12 (b)-(d), on its blocks; every kernel counter set
     to 0 before and read after. Returns this rank's outputs (its rows, its
@@ -3375,14 +3404,16 @@ def phase12_rank(mesh) -> dict:
     dev = mesh.device
     counters = kernel_counters()
     zero_counts(counters)
+    RECEIVED.clear()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = {"coords": dict(mesh.coords), "backend": mesh.backend, "device": str(dev)}
     B, max_len = PH12["B"], PH12["max_len"]
-    for dtype in ("float32", "bfloat16"):
+    for name, dtype, zero3 in PASSES12:
         cfg, lm = gemma12(torch, dtype, dev)
         toks = tokens12(cfg.vocab_size)
-        step, (psh, csh, tsh, _), _ = build_serve_step(lm, B, max_len, mesh=mesh)
+        with serving_zero3(zero3):
+            step, (psh, csh, tsh, _), _ = build_serve_step(lm, B, max_len, mesh=mesh)
         full = cache12(torch, lm)
         with logical_axis_rules(mesh):
             cache = decode.init_cache(lm, B, max_len)
@@ -3395,18 +3426,21 @@ def phase12_rank(mesh) -> dict:
             before = (attention.decode_attention_sharded.calls, attention.decode_mlp_sharded.calls,
                       da_ops.decode_attention.launches, da_ops.decode_attention.ranged)
             torch.cuda.synchronize()
+            zero_received()
             t1 = time.perf_counter()
             logits, cache = step(tok, cache, pos)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t1)
+            log_received("decode (serving's ZeRO)" if zero3 else "decode", cfg, mesh, n)
             counts.append(dict(attention=attention.decode_attention_sharded.calls - before[0],
                                mlp=attention.decode_mlp_sharded.calls - before[1],
                                decode_launches=da_ops.decode_attention.launches - before[2],
                                range_launches=da_ops.decode_attention.ranged - before[3]))
             rows.append(logits.float().cpu().numpy())
-        res[dtype] = dict(logits=np.stack(rows), counts=counts, step_s=times, layers=cfg.num_layers,
-                          cut_params=sum(any(e is not None for e in sp) for sp in psh.values()),
-                          cache_specs={k: [list(e) if isinstance(e, tuple) else e for e in v] for k, v in csh.items()})
+        res[name] = dict(logits=np.stack(rows), counts=counts, step_s=times, layers=cfg.num_layers,
+                         table_spec=list(psh["embed"]),
+                         cut_params=sum(any(e is not None for e in sp) for sp in psh.values()),
+                         cache_specs={k: [list(e) if isinstance(e, tuple) else e for e in v] for k, v in csh.items()})
         del lm, step, cache, logits
         gc.collect()
         torch.cuda.empty_cache()
@@ -3448,6 +3482,7 @@ def phase12_rank(mesh) -> dict:
     res["launches"] = {name: fn.launches for name, fn in counters.items()}
     res["flash_pairs"] = flash_pairs()
     res["range_launches"] = da_ops.decode_attention.ranged
+    res["received"] = list(RECEIVED)
     res["peak_bytes"] = torch.cuda.max_memory_allocated()
     res["wall_s"] = time.perf_counter() - t0
     return res
@@ -3493,6 +3528,56 @@ def card_ranks(fn, mesh: dict) -> tuple[list, float]:
             os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+
+
+# Phases 12-15's seconds when every rank gathered the tables whole at use (H100 80GB HBM3, 700.00 W), printed
+# beside this run's.
+GATHERED_TABLES_S = {12: 19.570, 13: 147.340, 14: 103.618, 15: 147.489}
+# In a rank: each sharded step's bytes received (launch.mesh.received), appended by log_received.
+RECEIVED: list = []
+
+
+def zero_received() -> None:
+    from repro_torch.launch.mesh import received
+
+    received.zero()
+
+
+def log_received(what: str, cfg, mesh, step: int) -> None:
+    """The bytes this rank received since ``zero_received``, in RECEIVED:
+    in all, by collective kind, the most one call received, and the rank's
+    (V/m, d) rows of a table of ``cfg`` in bytes."""
+    from repro_torch.launch.mesh import received
+
+    r = received.read()
+    RECEIVED.append(dict(what=what, model=f"{cfg.name} {cfg.param_dtype}", step=step, total=r["total"],
+                         by_kind=r["by_kind"], largest=r["largest"],
+                         rows=cfg.padded_vocab // mesh["model"] * cfg.d_model * cfg.pdtype.itemsize))
+
+
+def check_received(phase: str, c: dict, log: list) -> dict:
+    """A rank's RECEIVED, whatever collective moved the bytes: no call of a
+    training step receives more than the rank's (V/m, d) rows of a table
+    (its 'data' gather and that gather's backward receive at most them),
+    no call of a prefill or decode step as much (a table gathered over
+    'model' would receive them), and no decode step as much in all (no
+    table moves there). Returns the log by (what, model): each step's
+    (total, largest) bytes and its bytes by kind."""
+    check(bool(log), f"phase {phase} rank {c}: no sharded step logged its bytes")
+    out: dict = {}
+    for e in log:
+        at = f"phase {phase} rank {c} {e['what']} {e['model']} step {e['step']}"
+        what = e["what"].split()[0]
+        if what == "train":
+            check(e["largest"] <= e["rows"], f"{at}: one collective received {e['largest']} bytes, more than the "
+                                             f"rank's rows of a table ({e['rows']})")
+        else:
+            check(e["largest"] < e["rows"], f"{at}: one collective received {e['largest']} bytes, as much as the "
+                                            f"rank's rows of a table ({e['rows']})")
+        check(what != "decode" or e["total"] < e["rows"],
+              f"{at}: the step received {e['total']} bytes, as much as the rank's rows of a table ({e['rows']})")
+        out.setdefault(f"{e['what']} {e['model']}", []).append([e["total"], e["largest"], e["by_kind"]])
+    return out
 
 
 def phase_sharded(torch) -> dict:
@@ -3548,12 +3633,18 @@ def phase_sharded(torch) -> dict:
         c = r["coords"]
         check(r["backend"] == "gloo" and r["device"].startswith("cuda"),
               f"phase 12 rank {c}: {r['backend']} {r['device']}")
-        got = r["float32"]["logits"]
         ref = rows_of(want["float32"], c, mesh, (None,) + rows_spec)
-        f32_err = max_abs_err(torch, torch.from_numpy(got), torch.from_numpy(ref))
-        check(bool(np.all(np.abs(got - ref) <= F32_TOL + F32_TOL * np.abs(ref))),
-              f"phase 12b rank {c} float32 logits differ from the one-process step by {f32_err!r}")
-        check(np.array_equal(got.argmax(-1), ref.argmax(-1)), f"phase 12b rank {c} float32 argmax differs")
+        f32_errs = {}
+        for name in ("float32", "float32_zero3"):
+            got = r[name]["logits"]
+            f32_errs[name] = max_abs_err(torch, torch.from_numpy(got), torch.from_numpy(ref))
+            check(bool(np.all(np.abs(got - ref) <= F32_TOL + F32_TOL * np.abs(ref))),
+                  f"phase 12b rank {c} {name} logits differ from the one-process step by {f32_errs[name]!r}")
+            check(np.array_equal(got.argmax(-1), ref.argmax(-1)), f"phase 12b rank {c} {name} argmax differs")
+        f32_err = f32_errs["float32"]
+        for name, _, zero3 in PASSES12:
+            check(r[name]["table_spec"] == ["model", "data" if zero3 else None],
+                  f"phase 12b rank {c} {name}: the table's spec {r[name]['table_spec']}")
         got, ref = r["bfloat16"]["logits"], rows_of(want["bfloat16"], c, mesh, (None,) + rows_spec)
         bf_rel = bf16_close(got, ref, f"phase 12b rank {c} bf16 logits")
         # the same greedy token, but where the one-process logits' two largest
@@ -3564,23 +3655,25 @@ def phase_sharded(torch) -> dict:
         picked = np.take_along_axis(ref, got.argmax(-1)[..., None], -1)[..., 0]
         check(bool(np.all(same | (tie & (top2[..., 1] - picked <= BF16_REL * np.abs(ref).max())))),
               f"phase 12b rank {c} bf16 argmax differs outside a tie")
-        for dtype in ("float32", "bfloat16"):
-            L = r[dtype]["layers"]
-            for n, k in enumerate(r[dtype]["counts"]):
+        for name, _, _ in PASSES12:
+            L = r[name]["layers"]
+            for n, k in enumerate(r[name]["counts"]):
                 check(k == dict(attention=L, mlp=L, decode_launches=L, range_launches=L),
-                      f"phase 12b rank {c} {dtype} step {steps[n]}: {k}, want {L} of each")
+                      f"phase 12b rank {c} {name} step {steps[n]}: {k}, want {L} of each")
         mla_rel = bf16_close(r["mla"], rows_of(want["mla"], c, mesh, (None,) + rows_spec), f"phase 12c rank {c} MLA")
         moe_rel = bf16_close(r["moe"], rows_of(want["moe"], c, mesh, moe_spec), f"phase 12d rank {c} moe a2a")
         check(abs(r["moe_aux"] - want["moe_aux"]) <= AUX_RTOL * abs(want["moe_aux"]),
               f"phase 12d rank {c} aux {r['moe_aux']!r} vs {want['moe_aux']!r}")
         check(r["ep2d"], f"phase 12d rank {c}: not 2-D expert parallelism")
-        per_rank.append(dict(coords=c, f32_max_abs_err=f32_err, bf16_rel_err=bf_rel, bf16_ties=int(tie.sum()),
+        received = check_received("12", c, r["received"])
+        per_rank.append(dict(coords=c, f32_max_abs_err=f32_err, zero3_f32_max_abs_err=f32_errs["float32_zero3"],
+                             bf16_rel_err=bf_rel, bf16_ties=int(tie.sum()),
                              bf16_argmax_same=int(same.sum()), mla_rel_err=mla_rel, moe_rel_err=moe_rel,
                              aux=r["moe_aux"], peak_bytes=r["peak_bytes"], wall_s=r["wall_s"],
-                             step_s={d: r[d]["step_s"] for d in ("float32", "bfloat16")}, moe_s=r["moe_s"],
-                             counts={d: r[d]["counts"] for d in ("float32", "bfloat16")},
-                             cut_params={d: r[d]["cut_params"] for d in ("float32", "bfloat16")},
-                             cache_specs=r["bfloat16"]["cache_specs"]))
+                             step_s={d: r[d]["step_s"] for d, _, _ in PASSES12}, moe_s=r["moe_s"],
+                             counts={d: r[d]["counts"] for d, _, _ in PASSES12},
+                             cut_params={d: r[d]["cut_params"] for d, _, _ in PASSES12},
+                             cache_specs=r["bfloat16"]["cache_specs"], received=received))
         print(f"phase 12 rank {c}: {json.dumps(per_rank[-1])}")
     launches = summed([r["launches"] for r in ranks])
     pairs = summed([r["flash_pairs"] for r in ranks])
@@ -3645,8 +3738,8 @@ def train13(torch, lm, tcfg, S: int, mesh=None) -> tuple:
 
 def train_steps(torch, lm, tcfg, batches: list, mesh=None) -> tuple:
     """build_train_step over ``batches`` (global batches; under ``mesh`` this
-    rank's rows of each): (metrics a step, seconds a step ending in a
-    synchronize, the optimizer state)."""
+    rank's rows of each, each step's bytes received logged): (metrics a
+    step, seconds a step ending in a synchronize, the optimizer state)."""
     from repro_torch.runtime.train import build_train_step, init_opt_state, shard_batch
 
     step = build_train_step(lm, tcfg) if mesh is None else build_train_step(lm, tcfg, mesh=mesh)[0]
@@ -3654,15 +3747,28 @@ def train_steps(torch, lm, tcfg, batches: list, mesh=None) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()        # the whole model's storage, freed by the cut (four processes share the card)
     metrics, times = [], []
-    for b in batches:
+    for i, b in enumerate(batches):
         b = b if mesh is None else shard_batch(b, mesh)
         torch.cuda.synchronize()
+        zero_received()
         t0 = time.perf_counter()
         m = step(opt, b)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        if mesh is not None:
+            log_received("train", lm.cfg, mesh, i)
         metrics.append([float(m["loss"]), float(m["grad_norm"]), float(m["lr"])])
     return metrics, times, opt
+
+
+def prefill_logged(step, batch: dict, cfg, mesh) -> np.ndarray:
+    """The prefill step's logits of ``batch`` on the host; under ``mesh``
+    its bytes received logged."""
+    zero_received()
+    logits = step(batch)
+    if mesh is not None:
+        log_received("prefill", cfg, mesh, 0)
+    return logits.float().cpu().numpy()
 
 
 def prefill13(torch, dtype: str, dev, mesh=None) -> np.ndarray:
@@ -3678,7 +3784,7 @@ def prefill13(torch, dtype: str, dev, mesh=None) -> np.ndarray:
         batch = shard_batch(batch, mesh)
         gc.collect()
         torch.cuda.empty_cache()
-    return step(batch).float().cpu().numpy()
+    return prefill_logged(step, batch, lm.cfg, mesh)
 
 
 def oracle13(torch, dev, finals: dict) -> dict:
@@ -3733,6 +3839,7 @@ def phase13_rank(mesh) -> dict:
     res = {"coords": dict(mesh.coords), "backend": mesh.backend, "device": str(dev)}
     counters = kernel_counters()
     zero_counts(counters)
+    RECEIVED.clear()
     calls0 = attention.attention_sharded.calls, attention.mlp_sharded.calls
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3768,6 +3875,7 @@ def phase13_rank(mesh) -> dict:
     res["bwd_pairs"] = {f"{d}x{dv}": n for (d, dv), n in sorted(counters["flash_attention_bwd"].by_pair.items())}
     res["padded"] = padded_counts(counters)
     res["calls"] = (attention.attention_sharded.calls - calls0[0], attention.mlp_sharded.calls - calls0[1])
+    res["received"] = list(RECEIVED)
     gc.collect()
     torch.cuda.empty_cache()
     if finals:
@@ -3829,12 +3937,13 @@ def phase_sharded_train(torch) -> dict:
             errs[dtype] = float(np.abs(got - ref).max() / np.abs(ref).max())
             check(got.shape == ref.shape and errs[dtype] <= tol,
                   f"phase 13c rank {c} {dtype} prefill: {errs[dtype]!r} of the largest logit (limit {tol})")
+        received = check_received("13", c, r["received"])
         per_rank.append(dict(coords=c, bf16_losses=a[:, 0].tolist(), bf16_grad_norms=a[:, 1].tolist(),
                              bf16_loss_rel_err=bf_rel, bf16_step_s=r["bf16"]["step_s"],
                              bf16_peak_gb=r["bf16"]["peak_bytes"] / 1e9, f32_peak_gb=r["f32"]["peak_bytes"] / 1e9,
                              f32_step_s=r["f32"]["step_s"], prefill_rel_err=errs, flash_forward=fwd,
                              flash_backward=bwd, cut_params=r["bf16"]["cut"],
-                             block_params=r["bf16"]["block_params"], sharded_s=r["sharded_s"]))
+                             block_params=r["bf16"]["block_params"], sharded_s=r["sharded_s"], received=received))
         print(f"phase 13 rank {c}: {json.dumps(per_rank[-1])}")
     # (b): every rank's metrics against rank 0's one-process oracle
     oracle = next(r["oracle"] for r in ranks if "oracle" in r)
@@ -3956,8 +4065,11 @@ def oracle14(torch, arch: str) -> dict:
     return out
 
 
-def prefill14(torch, arch: str, dtype: str, mesh=None) -> np.ndarray:
-    """The prefill step's logits of (b)'s first batch (this rank's rows under ``mesh``)."""
+def prefill14(torch, arch: str, dtype: str, mesh=None, hidden: bool = False):
+    """The prefill step's logits of (b)'s first batch (this rank's rows under
+    ``mesh``); with ``hidden`` also the final position's hidden states
+    before the final norm, as the step hands them to ``LM._logits``:
+    (logits, hidden states)."""
     from repro_torch.runtime.train import build_prefill_step, shard_batch
 
     over, S = PH14_TRAIN[arch]
@@ -3970,7 +4082,15 @@ def prefill14(torch, arch: str, dtype: str, mesh=None) -> np.ndarray:
         batch = shard_batch(batch, mesh)
         gc.collect()
         torch.cuda.empty_cache()
-    return step(batch).float().cpu().numpy()
+    seen, logits_of = [], lm._logits
+    if hidden:
+        def capture(x, rows=None):
+            seen.append(x.float().cpu().numpy())
+            return logits_of(x, rows)
+
+        lm._logits = capture
+    logits = prefill_logged(step, batch, lm.cfg, mesh)
+    return (logits, seen[0]) if hidden else logits
 
 
 def whisper14(torch, mesh=None) -> tuple:
@@ -4004,6 +4124,7 @@ def phase14_rank(mesh) -> dict:
            "prefill": {}}
     counters = kernel_counters()
     zero_counts(counters)
+    RECEIVED.clear()
     calls0 = attention.attention_sharded.calls, rglru.rglru_sharded.calls
     t0 = time.perf_counter()
     for arch, (over, S) in PH14_TRAIN.items():
@@ -4017,7 +4138,10 @@ def phase14_rank(mesh) -> dict:
         del lm, opt
         gc.collect()
         torch.cuda.empty_cache()
-        res["prefill"][arch] = prefill14(torch, arch, "bfloat16", mesh)
+        if arch == "whisper-base":
+            res["prefill"][arch], res["whisper_hidden"] = prefill14(torch, arch, "bfloat16", mesh, hidden=True)
+        else:
+            res["prefill"][arch] = prefill14(torch, arch, "bfloat16", mesh)
         gc.collect()
         torch.cuda.empty_cache()
         part["part_s"] = time.perf_counter() - t1
@@ -4037,6 +4161,7 @@ def phase14_rank(mesh) -> dict:
     res["bwd_pairs"] = {f"{d}x{dv}": n for (d, dv), n in sorted(counters["flash_attention_bwd"].by_pair.items())}
     res["padded"] = padded_counts(counters)
     res["calls"] = (attention.attention_sharded.calls - calls0[0], rglru.rglru_sharded.calls - calls0[1])
+    res["received"] = list(RECEIVED)
     say(f"phase 14c rank 0 done at {res['sharded_s']:.3f} s: {metrics}", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4053,6 +4178,30 @@ def phase14_rank(mesh) -> dict:
                              worst_leaves=dict(sorted(by_leaf.items(), key=lambda kv: -kv[1]["over_change"])[:4]))
         res["oracle_s"] = time.perf_counter() - t1
     return res
+
+
+def whisper_split14(torch, ranks: list, want: np.ndarray, rows: tuple) -> dict:
+    """(d)'s whisper-base bf16 prefill error under the mesh, split: each
+    rank's final hidden states (its rows, last position) projected here by
+    the one process's whole table (``LM._logits``: the same product on the
+    same rows that a rank ran when it gathered the table whole) against the
+    one-process logits (the backbone's part) and against the rank's logits
+    (the vocab-parallel product's part), each over the largest |logit| of
+    the rank's rows, beside the total."""
+    cfg, lm = build_family(torch, "whisper-base", "bfloat16", **PH14_TRAIN["whisper-base"][0])
+    mesh = PH14["mesh"]
+    out = {}
+    for r in ranks:
+        c = r["coords"]
+        ref = rows_of(want, c, mesh, rows)
+        got = r["prefill"]["whisper-base"]
+        with torch.no_grad():
+            whole = lm._logits(torch.from_numpy(r["whisper_hidden"]).to(lm.device, cfg.cdtype)).float().cpu().numpy()
+        big = float(np.abs(ref).max())
+        out[str(c)] = dict(total=float(np.abs(got - ref).max()) / big, backbone=float(np.abs(whole - ref).max()) / big,
+                           logits=float(np.abs(got - whole).max()) / big)
+    del lm
+    return out
 
 
 def phase_sharded_families(torch) -> dict:
@@ -4138,10 +4287,14 @@ def phase_sharded_families(torch) -> dict:
         check(r["calls"][1] == rec_want, f"phase 14 rank {c}: rglru_sharded ran {r['calls'][1]} times, not {rec_want}")
         check(not any(r["padded"].values()), f"phase 14 rank {c} took the padded route {r['padded']}")
         check(r["launches"]["decode_attention"] == 0, f"phase 14 rank {c} launched decode_attention")
+        received = check_received("14", c, r["received"])
         per_rank.append(dict(coords=c, families=fams, f32_step_s=r["f32"]["step_s"],
                              f32_peak_gb=r["f32"]["peak_bytes"] / 1e9, prefill_rel_err=errs, flash_forward=fwd,
-                             flash_backward=bwd, rglru_calls=r["calls"][1], sharded_s=r["sharded_s"]))
+                             flash_backward=bwd, rglru_calls=r["calls"][1], sharded_s=r["sharded_s"],
+                             received=received))
         print(f"phase 14 rank {c}: {json.dumps(per_rank[-1])}")
+    split = whisper_split14(torch, ranks, want["whisper-base"], rows)
+    print(f"phase 14d whisper-base bf16 prefill error over the largest |logit|, split: {json.dumps(split)}")
     # (c): every rank's f32 metrics against rank 0's one-process steps
     r0 = next(r for r in ranks if "oracle" in r)
     oracle = r0["oracle"]
@@ -4163,6 +4316,7 @@ def phase_sharded_families(torch) -> dict:
     pairs = summed([r["flash_pairs"] for r in ranks] + [o["pairs"] for o in oracles.values()])
     bwd_pairs = summed([r["bwd_pairs"] for r in ranks] + [o["bwd_pairs"] for o in oracles.values()])
     out = dict(oracles=oracles, one_process=one, ranks=per_rank, whisper_f32=oracle, whisper_f32_max_rel=f32_rel,
+               whisper_bf16_split=split,
                launches=launches, flash_pairs=pairs, bwd_pairs=bwd_pairs, oracle_s=oracle_s, one_process_s=one_s,
                ranks_s=ranks_s, wall_s=time.perf_counter() - t0)
     print(f"phase 14 one-process bf16 references: {json.dumps(one)}")
@@ -4346,10 +4500,13 @@ def moe15_steps(torch, lm, mesh=None) -> tuple:
                 moe.set_moe_impl("a2a")
             b = b if mesh is None else shard_batch(b, mesh)
             torch.cuda.synchronize()
+            zero_received()
             t0 = time.perf_counter()
             m = step(opt, b)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
+            if mesh is not None:
+                log_received("train", cfg, mesh, i)
             metrics.append([float(m["loss"]), float(m["grad_norm"]), float(m["lr"])])
     finally:
         moe.set_moe_impl("gather")
@@ -4376,7 +4533,7 @@ def prefill15(torch, arch: str, dtype: str, dev, mesh=None) -> np.ndarray:
         batch = shard_batch(batch, mesh)
         gc.collect()
         torch.cuda.empty_cache()
-    return step(batch).float().cpu().numpy()
+    return prefill_logged(step, batch, lm.cfg, mesh)
 
 
 def serve15(torch, arch: str, dtype: str, dev, mesh=None) -> tuple:
@@ -4418,8 +4575,11 @@ def serve15(torch, arch: str, dtype: str, dev, mesh=None) -> tuple:
     try:
         for pos in range(n):
             rows_of_call.clear()
+            zero_received()
             (logits, cache), ids = routed_ids(torch, lambda: step(
                 cut(torch.as_tensor(toks[:, pos:pos + 1], device=dev)), cache, pos))
+            if mesh is not None:
+                log_received("decode", cfg, mesh, pos)
             logits_by_step.append(logits.float().cpu().numpy())
             routes.append([(rows_of_call[i] if rows_of_call else np.arange(B), e.numpy()) for i, e in enumerate(ids)])
     finally:
@@ -4476,6 +4636,7 @@ def phase15_rank(mesh) -> dict:
     cfg, lm = moe15(torch, "bfloat16", dev)
     check(cfg.remat, "phase 15b trains with remat")
     dropped = layer_counts()["dropped"]
+    RECEIVED.clear()
     metrics, times = moe15_steps(torch, lm, mesh)
     res["train"]["deepseek-v2-236b"] = dict(metrics=metrics, step_s=times, peak_bytes=torch.cuda.max_memory_allocated(),
                                             block_params=sum(p.numel() for p in lm.parameters()),
@@ -4527,6 +4688,7 @@ def phase15_rank(mesh) -> dict:
     res["bwd_pairs"] = {f"{d}x{dv}": n for (d, dv), n in sorted(counters["flash_attention_bwd"].by_pair.items())}
     res["padded"] = padded_counts(counters)
     res["calls"] = {k: v - calls0[k] for k, v in layer_counts().items()}
+    res["received"] = list(RECEIVED)
     say(f"phase 15 rank 0 sharded parts done at {res['sharded_s']:.3f} s", flush=True)
     if finals:
         t1 = time.perf_counter()
@@ -4667,10 +4829,12 @@ def phase_sharded_moe_ssm(torch) -> dict:
               f"phase 15 rank {c}: sharded layer calls {r['calls']}, want {want_calls}")
         check(not any(r["padded"].values()), f"phase 15 rank {c} took the padded route {r['padded']}")
         check(r["launches"]["decode_attention"] == 0, f"phase 15 rank {c} launched decode_attention")
+        received = check_received("15", c, r["received"])
         per_rank.append(dict(coords=c, families=fams, dropped=drops, f32_step_s=r["f32"]["step_s"],
                              f32_peak_gb=r["f32"]["peak_bytes"] / 1e9, prefill_rel_err=errs, serve_err=serr,
                              serve_s={k: v for k, v in r["serve"].items() if k.endswith(" s")},
-                             flash_forward=fwd, flash_backward=bwd, calls=r["calls"], sharded_s=r["sharded_s"]))
+                             flash_forward=fwd, flash_backward=bwd, calls=r["calls"], sharded_s=r["sharded_s"],
+                             received=received))
         print(f"phase 15 rank {c}: {json.dumps(per_rank[-1])}")
     # (c): every rank's f32 metrics against rank 0's one-process steps
     r0 = next(r for r in ranks if "oracle" in r)
@@ -4848,7 +5012,8 @@ def main() -> int:
     sharded = phase_sharded(torch)
     sharded["range_entry"] = entry
     ph12_launches, ph12_pairs = sharded["launches"], sharded["flash_pairs"]
-    print(f"phase 12 in {time.perf_counter() - t0:.3f} s, launches (four ranks) {ph12_launches}, flash by instance "
+    print(f"phase 12 in {time.perf_counter() - t0:.3f} s (tables gathered whole: {GATHERED_TABLES_S[12]} s), "
+          f"launches (four ranks) {ph12_launches}, flash by instance "
           f"{ph12_pairs}, key-range launches {sharded['range_launches']}")
     check(ph12_launches["decode_attention"] > 0 and sharded["range_launches"] == ph12_launches["decode_attention"],
           "phase 12 never launched decode_attention's key-range entry, or launched another")
@@ -4861,7 +5026,8 @@ def main() -> int:
     t0 = time.perf_counter()
     strain = phase_sharded_train(torch)
     ph13_launches, ph13_pairs, ph13_bwd_pairs = strain["launches"], strain["flash_pairs"], strain["bwd_pairs"]
-    print(f"phase 13 in {time.perf_counter() - t0:.3f} s, launches (four ranks) {ph13_launches}, flash by instance "
+    print(f"phase 13 in {time.perf_counter() - t0:.3f} s (tables gathered whole: {GATHERED_TABLES_S[13]} s), "
+          f"launches (four ranks) {ph13_launches}, flash by instance "
           f"{ph13_pairs}, flash backward by instance {ph13_bwd_pairs}")
     check(ph13_launches["flash_attention"] > 0 and ph13_launches["flash_attention_bwd"] > 0,
           "phase 13 never launched the flash forward or backward")
@@ -4875,7 +5041,8 @@ def main() -> int:
     t0 = time.perf_counter()
     fams = phase_sharded_families(torch)
     ph14_launches, ph14_pairs, ph14_bwd_pairs = fams["launches"], fams["flash_pairs"], fams["bwd_pairs"]
-    print(f"phase 14 in {time.perf_counter() - t0:.3f} s, launches (oracles and four ranks) {ph14_launches}, flash by "
+    print(f"phase 14 in {time.perf_counter() - t0:.3f} s (tables gathered whole: {GATHERED_TABLES_S[14]} s), "
+          f"launches (oracles and four ranks) {ph14_launches}, flash by "
           f"instance {ph14_pairs}, flash backward by instance {ph14_bwd_pairs}")
     check(set(ph14_pairs) == set(ph14_bwd_pairs) == set(PH14_PAIRS.values()),
           f"phase 14 instances {ph14_pairs} {ph14_bwd_pairs}")
@@ -4889,7 +5056,8 @@ def main() -> int:
     t0 = time.perf_counter()
     ms = phase_sharded_moe_ssm(torch)
     ph15_launches, ph15_pairs, ph15_bwd_pairs = ms["launches"], ms["flash_pairs"], ms["bwd_pairs"]
-    print(f"phase 15 in {time.perf_counter() - t0:.3f} s, launches (oracle and four ranks) {ph15_launches}, flash by "
+    print(f"phase 15 in {time.perf_counter() - t0:.3f} s (tables gathered whole: {GATHERED_TABLES_S[15]} s), "
+          f"launches (oracle and four ranks) {ph15_launches}, flash by "
           f"instance {ph15_pairs}, flash backward by instance {ph15_bwd_pairs}")
     check(set(ph15_pairs) == set(ph15_bwd_pairs) == {MLA_PAIR}, f"phase 15 instances {ph15_pairs} {ph15_bwd_pairs}")
 

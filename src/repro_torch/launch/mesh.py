@@ -40,8 +40,10 @@ a replicated activation's gradient is a partial whose sum over 'model'
 is the whole. This is used in place of Megatron's f/g pair (an identity
 with a summing backward, a sum with an identity backward) because it
 needs no second form of any collective inside the model: the gathers
-of ZeRO-3 and of the embedding (``gather_dims``) keep their one
-backward, the reduce-scatter, whichever axes they run over. The one
+of ZeRO-3 (``gather_dims``) keep their one backward, the reduce-scatter,
+whichever axes they run over, and the vocab-parallel embedding's sum
+over 'model' (``models.layers.vocab_embed``) gives every rank the whole
+gradient of its rows. The one
 exception is the loss itself: ``sum_shares`` adds the ranks' shares into
 the total every rank reports, and passes the gradient to each rank's
 share unchanged.
@@ -49,6 +51,16 @@ share unchanged.
 ``gather_dims`` rebuilds a whole tensor from a block (the inverse of
 ``runtime.sharding.local_block``), differentiably; ``make_mesh_from_ranks``
 is the training CLI's mesh over every rank of the process group.
+
+``received`` counts the bytes this rank receives in the collectives above
+and their backwards, by kind (``all_reduce``, ``all_gather``,
+``all_to_all``, each with ``.backward``), and the most one call received;
+it moves no data of its own. It counts as a ring does: an all-reduce of n
+bytes over g ranks receives 2(g − 1)/g · n (a reduce-scatter, then an
+all-gather: NCCL's bus-bandwidth accounting), an all-gather of blocks of
+b bytes (g − 1) · b, an all-to-all of n bytes (g − 1)/g · n.
+``received.zero()`` sets every count to 0 and ``received.read()`` returns
+them, as the kernels' launch counters are zeroed and read.
 
 The backend is the caller's choice (``nccl`` on a pod, one rank a card;
 ``gloo`` for ranks on the host or several ranks sharing one card, where
@@ -71,7 +83,7 @@ import torch.distributed as dist
 
 __all__ = ["make_production_mesh", "mesh_from_arg", "make_mesh", "make_mesh_from_ranks", "mesh_shape_from_ranks",
            "Mesh", "placed", "all_reduce", "sum_shares", "all_gather", "gather_dims", "spec_axes", "all_to_all",
-           "run_ranks", "AXES"]
+           "run_ranks", "received", "AXES"]
 
 AXES = ("pod", "data", "model")
 
@@ -160,6 +172,39 @@ def make_mesh_from_ranks(*, device_type: str = "cuda") -> Mesh:
     return make_mesh(mesh_shape_from_ranks(dist.get_world_size()), device_type=device_type)
 
 
+# -- bytes received ---------------------------------------------------------------
+
+class Received:
+    """Bytes this rank received in the collectives of this module since
+    ``zero()``: ``by_kind``, and ``largest``, the most one call received."""
+
+    def __init__(self):
+        self.zero()
+
+    def zero(self) -> None:
+        self.by_kind: dict = {}
+        self.largest = 0
+
+    def add(self, kind: str, nbytes: int) -> None:
+        self.by_kind[kind] = self.by_kind.get(kind, 0) + nbytes
+        self.largest = max(self.largest, nbytes)
+
+    def read(self) -> dict:
+        """{"total", "by_kind", "largest"}, copies."""
+        return {"total": sum(self.by_kind.values()), "by_kind": dict(self.by_kind), "largest": self.largest}
+
+
+received = Received()
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _count_reduce(x: torch.Tensor, g: int, kind: str) -> None:
+    received.add(kind, 2 * (g - 1) * _nbytes(x) // g)
+
+
 # -- collectives along one axis ---------------------------------------------------
 
 def _group(mesh: Mesh, axis):
@@ -172,43 +217,48 @@ def _size(mesh: Mesh, axis) -> int:
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
         out = x.clone()
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        _count_reduce(out, n, "all_reduce")
         return out
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
         dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
-        return g, None
+        _count_reduce(g, ctx.n, "all_reduce.backward")
+        return g, None, None
 
 
 def all_reduce(x: torch.Tensor, axis, mesh: Mesh, op: str = "sum") -> torch.Tensor:
     """The sum (or max) of ``x`` over the ranks along ``axis`` (over the
     whole mesh with None), on every one of them; ``x`` is left as it is."""
-    if _size(mesh, axis) == 1:
+    n = _size(mesh, axis)
+    if n == 1:
         return x
     if op == "sum":
-        return _AllReduceSum.apply(x, _group(mesh, axis))
+        return _AllReduceSum.apply(x, _group(mesh, axis), n)
     if op != "max":
         raise ValueError(f"all_reduce: op {op!r} is 'sum' or 'max'")
     out = x.detach().clone()
     dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_group(mesh, axis))
+    _count_reduce(out, n, "all_reduce")
     return out
 
 
 class _SumShares(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(ctx, x, group, n):
         out = x.clone()
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        _count_reduce(out, n, "all_reduce")
         return out
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 def sum_shares(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -216,28 +266,31 @@ def sum_shares(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     its gradient reaches each rank's share as it is (Megatron's g): a loss
     whose ranks' shares sum to the total reports the total, and each rank
     differentiates its share."""
-    if _size(mesh, None) == 1:
+    n = _size(mesh, None)
+    if n == 1:
         return x
-    return _SumShares.apply(x, None)
+    return _SumShares.apply(x, None, n)
 
 
 def _gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=group)
+    received.add("all_gather", (n - 1) * _nbytes(x))
     return torch.cat(parts, dim=dim)
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, n, index, dim):
-        ctx.group, ctx.index, ctx.dim, ctx.block = group, index, dim, x.shape[dim]
+        ctx.group, ctx.n, ctx.index, ctx.dim, ctx.block = group, n, index, dim, x.shape[dim]
         return _gather(x, group, n, dim)
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
         dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        _count_reduce(g, ctx.n, "all_gather.backward")
         # a copy of the block, so that the whole sum is freed here
         return g.narrow(ctx.dim, ctx.index * ctx.block, ctx.block).clone(), None, None, None, None
 
@@ -278,22 +331,23 @@ def gather_dims(x: torch.Tensor, spec: tuple, mesh: Mesh, axes=None) -> torch.Te
     return x
 
 
-def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+def _exchange(x: torch.Tensor, group, n: int, kind: str) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group)
+    received.add(kind, (n - 1) * _nbytes(x) // n)
     return out
 
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _exchange(x, group)
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return _exchange(x, group, n, "all_to_all")
 
     @staticmethod
     def backward(ctx, g):
-        return _exchange(g, ctx.group), None
+        return _exchange(g, ctx.group, ctx.n, "all_to_all.backward"), None, None
 
 
 def all_to_all(x: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:
@@ -305,7 +359,7 @@ def all_to_all(x: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:
         raise ValueError(f"all_to_all: dimension 0 of {tuple(x.shape)} does not divide over {axis!r} ({n})")
     if n == 1:
         return x
-    return _AllToAll.apply(x, mesh.groups[axis])
+    return _AllToAll.apply(x, mesh.groups[axis], n)
 
 
 # -- ranks of one mesh on this host ---------------------------------------------

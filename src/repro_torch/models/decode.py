@@ -29,11 +29,20 @@ through ``_attn_decode_block`` takes the sharded attention
 (``attention.decode_attention_sharded``, through the decode kernel's
 key-range entry) where ``_sharded_decode_applicable`` holds for its cache's
 global length, and the sharded MLP where ``_sharded_mlp_applicable`` holds;
-the embedding, norms, logits, cross layers and recurrent blocks, which
-the reference leaves outside its ``shard_map`` bodies, run on the rank's
-rows with whole weights. ``init_cache`` then allocates only the rank's
-block of each cache (``cache_blocks``), and ``param_blocks`` gives the
-specs by which a rank's parameters are cut (``runtime.serve`` cuts them).
+the norms, cross layers and recurrent blocks, which the reference leaves
+outside its ``shard_map`` bodies, run on the rank's rows with whole
+weights. The embedding and the unembedding stay cut as the reference's
+serve step holds them (``runtime.sharding.param_specs(..., serve=True)``:
+vocab over 'model', and width over 'data' where serving's ZeRO applies):
+the lookup is vocab-parallel (``layers.vocab_embed``), the logits each
+rank's (…, V/m) block gathered along V over 'model', and where the width
+is cut too both run weight-stationary, as ``attention._psum_proj`` does:
+the one-token rows gathered over the batch axes, the rank's (V/m, d/n)
+block contracted, the float32 partials summed over 'data' with one
+rounding, the rank's rows kept. No table moves in a decode step.
+``init_cache`` then allocates only the rank's block of each cache
+(``cache_blocks``), and ``param_blocks`` gives the specs by which a
+rank's parameters are cut (``runtime.serve`` cuts them).
 
 The moe and ssm families, whose decode the reference leaves to XLA's
 SPMD partitioner under a mesh, run so too. An MLA block takes
@@ -56,13 +65,13 @@ from typing import Any
 
 import torch
 
-from ..launch.mesh import placed, spec_axes
-from .attention import (_decode_bspec, _rows, _sharded_decode_applicable, _sharded_mlp_applicable, cross_decode,
-                        cross_kv, current_mesh, decode_attention, decode_attention_sharded, decode_attention_specs,
-                        decode_mlp_sharded, decode_mlp_specs)
+from ..launch.mesh import all_gather, placed, spec_axes
+from .attention import (_batch_row_start, _decode_bspec, _gather_batch, _psum_proj, _rows, _sharded_decode_applicable,
+                        _sharded_mlp_applicable, cross_decode, cross_kv, current_mesh, decode_attention,
+                        decode_attention_sharded, decode_attention_specs, decode_mlp_sharded, decode_mlp_specs)
 from .common import ModelConfig
 from .layers import mlp, rms_norm
-from .lm import MLABlock, hybrid_periods
+from .lm import MLABlock, TableRows, hybrid_periods
 from .mla import init_mla_cache, mla_decode, mla_decode_sharded, mla_decode_specs
 from .moe import _shared, moe_gather_sharded
 from .rglru import init_rglru_state, rglru_decode
@@ -273,22 +282,37 @@ def cache_blocks(lm, batch: int, max_len: int) -> dict:
     raise ValueError(fam)
 
 
+def table_specs(lm, mesh) -> dict:
+    """The specs of the embedding (and the unembedding) of the whole model
+    ``lm`` under ``mesh`` as the reference's serve step cuts them:
+    ``runtime.sharding.param_specs`` with serving's ZeRO where
+    ``needs_zero3(..., serve=True)`` finds the TP-only blocks too large
+    (vocab over 'model', and width over 'data' then)."""
+    from ..runtime.sharding import needs_zero3, param_specs       # runtime imports the models
+
+    specs = param_specs(mesh, lm, needs_zero3(mesh, lm, serve=True))
+    return {n: specs[n] for n in ("embed", "unembed") if n in specs}
+
+
 def param_blocks(lm, batch: int, max_len: int) -> dict:
     """The spec of a rank's block of every parameter of ``lm`` under the
     current (placed) mesh for the global batch ``batch`` and caches of
     ``max_len``: the attention projections of a block that takes the
     sharded attention by ``decode_attention_specs``, every attention
-    block's MLP by ``decode_mlp_specs`` where the sharded MLP applies, and
-    every other parameter whole (the reference's shard_map in_specs, which
-    its decode step reshards to). An MLA block's projections by
-    ``mla_decode_specs`` where the sharded MLA decode applies, its dense
-    MLP by ``decode_mlp_specs``, its routed experts as training cuts them
-    (``_expert_specs``): no rank holds every expert."""
+    block's MLP by ``decode_mlp_specs`` where the sharded MLP applies, the
+    embedding and the unembedding cut as the reference's serve step holds
+    them (``table_specs``), and every other parameter whole (the
+    reference's shard_map in_specs, which its decode step reshards to). An
+    MLA block's projections by ``mla_decode_specs`` where the sharded MLA
+    decode applies, its dense MLP by ``decode_mlp_specs``, its routed
+    experts as training cuts them (``_expert_specs``): no rank holds every
+    expert."""
     cfg = lm.cfg
     mesh = _placed_mesh()
     if mesh is None:
         raise ValueError("param_blocks: no placed mesh is current (launch.mesh.make_mesh, pspec.logical_axis_rules)")
     specs = {name: (None,) * p.dim() for name, p in lm.named_parameters()}
+    specs |= table_specs(lm, mesh)
     attn, mlp_specs = decode_attention_specs(cfg, mesh, batch), decode_mlp_specs(cfg, mesh, batch)
     if cfg.family == "moe":
         mla, experts = mla_decode_specs(cfg, mesh, batch), _expert_specs(lm, mesh)
@@ -382,9 +406,54 @@ def init_cache(lm, batch: int, max_len: int, *, image_embeds: torch.Tensor | Non
 # decode step
 # ---------------------------------------------------------------------------
 
+def _table_rows(lm, name: str, mesh, specs: dict) -> tuple[TableRows, bool]:
+    """(``name``'s ``TableRows`` on this rank, whether its width is cut over
+    'data') under ``mesh``, by its spec in ``specs`` (none: the whole
+    table)."""
+    spec = specs.get(name, (None, None))
+    return TableRows.of(getattr(lm, name), spec, mesh), spec[1] == "data"
+
+
+def _rank_rows(x: torch.Tensor, mesh, bspec, rows: int) -> torch.Tensor:
+    """This rank's ``rows`` of x, whose leading dimension holds every row of
+    the batch axes ``bspec``."""
+    r0 = _batch_row_start(mesh, bspec, rows)
+    return x[r0:r0 + rows]
+
+
+def _lookup(lm, tokens_t: torch.Tensor, mesh, batch: int, specs: dict) -> torch.Tensor:
+    """The embedding of this rank's tokens under ``mesh``: vocab-parallel
+    over 'model' on the rank's rows; where the width is cut over 'data' on
+    every row of the batch axes, the (B, 1, d/n) blocks gathered along d
+    over 'data', the rank's rows kept."""
+    rows, wide = _table_rows(lm, "embed", mesh, specs)
+    if not wide:
+        return lm._embed(tokens_t, rows)
+    bspec = _decode_bspec(mesh, batch)
+    x = all_gather(lm._embed(_gather_batch(tokens_t, bspec, mesh), rows), "data", mesh, dim=-1)
+    return _rank_rows(x, mesh, bspec, tokens_t.shape[0])
+
+
+def _head_logits(lm, x: torch.Tensor, mesh, batch: int, specs: dict) -> torch.Tensor:
+    """This rank's rows' logits under ``mesh``, whole along V: the rank's
+    (…, V/m) block gathered over 'model'; where the width is cut over
+    'data', weight-stationary: the normed rows of the batch axes gathered,
+    the rank's (V/m, d/n) block contracted, the float32 partials summed
+    over 'data' and rounded once (``attention._psum_proj``), the rank's
+    rows kept."""
+    name = "embed" if lm.cfg.tie_embeddings else "unembed"
+    rows, wide = _table_rows(lm, name, mesh, specs)
+    if not wide:
+        return lm._logits(x, rows)
+    bspec = _decode_bspec(mesh, batch)
+    h = _gather_batch(rms_norm(x, lm.final_norm), bspec, mesh)
+    logits = _psum_proj(h, rows.table.t(), lm.cfg.d_model, mesh).to(torch.float32)
+    return lm._vocab_logits(_rank_rows(logits, mesh, bspec, x.shape[0]), rows.mesh)
+
+
 @torch.no_grad()
 def decode_step(lm, tokens_t: torch.Tensor, cache: dict, pos: int, *, batch: int | None = None,
-                max_len: int | None = None):
+                max_len: int | None = None, specs: dict | None = None):
     """tokens_t (B, 1) integer; pos an int → (logits (B, 1, V) float32,
     cache), the cache updated in place. Layers run in the reference's
     order: with local dense layers period by period, locals before
@@ -393,10 +462,12 @@ def decode_step(lm, tokens_t: torch.Tensor, cache: dict, pos: int, *, batch: int
     its routed ones; the hybrid's two recurrent blocks before its
     attention block in each period, then the trailing ones.
 
-    Under a placed mesh: ``lm`` holds this rank's parameter blocks
-    (``param_blocks``), ``cache`` its cache blocks (``init_cache``),
-    tokens_t its rows of the global batch ``batch``, and the logits are
-    those rows'; ``max_len`` is the caches' global length."""
+    Under a placed mesh: ``lm`` holds this rank's parameter blocks, cut
+    by ``specs`` (``param_blocks``, the tables cut too; a table without a
+    spec there is whole), ``cache`` its cache blocks
+    (``init_cache``), tokens_t its rows of the global batch ``batch``, and
+    the logits are those rows', whole along V; ``max_len`` is the caches'
+    global length."""
     cfg: ModelConfig = lm.cfg
     fam = cfg.family
     pos = int(pos)
@@ -410,7 +481,7 @@ def decode_step(lm, tokens_t: torch.Tensor, cache: dict, pos: int, *, batch: int
                              f"{_decode_bspec(mesh, batch)}")
         W = min(cfg.local_window, max_len)
         geo = lambda ring: {"batch": batch, "S": W if ring else max_len}  # noqa: E731
-    x = lm._embed(tokens_t)
+    x = lm._embed(tokens_t) if mesh is None else _lookup(lm, tokens_t, mesh, batch, specs or {})
     if fam == "dense":
         blocks = lm.blocks
         if _uses_rings(cfg):
@@ -461,4 +532,4 @@ def decode_step(lm, tokens_t: torch.Tensor, cache: dict, pos: int, *, batch: int
             x = _cross_block(cross, x, cache["cross_k"][i], cache["cross_v"][i], cfg)
     else:
         raise ValueError(fam)
-    return lm._logits(x), cache
+    return (lm._logits(x) if mesh is None else _head_logits(lm, x, mesh, batch, specs or {})), cache

@@ -19,7 +19,7 @@ from ..launch.mesh import all_reduce
 
 __all__ = [
     "softcap", "rms_norm", "init_linear_", "init_embedding_", "linear", "embed",
-    "rope", "mlp", "mlp_hidden", "row_parallel",
+    "rope", "mlp", "mlp_hidden", "row_parallel", "vocab_embed",
 ]
 
 
@@ -98,6 +98,20 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     an accumulating ``index_put_``, adds them in thread order on the host
     and differs from run to run)."""
     return F.embedding(tokens, table)
+
+
+def vocab_embed(tokens: torch.Tensor, block: torch.Tensor, v0: int, mesh, axis: str = "model") -> torch.Tensor:
+    """table[tokens] from this rank's rows [v0, v0 + n) of the table
+    (``block`` (n, d), Megatron's vocab-parallel embedding): each rank looks
+    up the tokens that fall in its rows and gives zeros for the others, and
+    the rows are summed over ``axis``. One rank adds a nonzero row, so the
+    sum equals ``embed`` on the whole table exactly. Its backward gives
+    every rank the whole gradient of the rows (the sum's backward), which
+    it scatters into its own rows of the table."""
+    local = tokens - v0
+    inside = (local >= 0) & (local < block.shape[0])
+    x = embed(torch.where(inside, local, 0), block)
+    return all_reduce(torch.where(inside[..., None], x, 0), axis, mesh)
 
 
 # -- RoPE -------------------------------------------------------------------

@@ -47,34 +47,45 @@ row-parallel sum), MLA through ``mla_sharded``, the RG-LRU blocks through
 ``rglru_sharded``, the Mamba-2 blocks through ``mamba_sharded``, every
 MLP through ``mlp_sharded``, the routed experts through
 ``moe.moe_sharded`` (the gather dispatch of the sharded batch, or the
-a2a), the embedding (and the unembedding) gathered whole at use, the
-gradient flowing back through the gathers. ``loss`` is the global mean:
-the sums of nll and lse² and the count of unmasked labels are summed over
-the mesh before the division, each rank differentiating its share
-(``launch.mesh.sum_shares``); the moe family's aux, the same global value
-on every rank, is counted once: each rank's share is aux / world.
+a2a). The embedding and the unembedding are used where they stand, as the
+reference's rules cut them (vocab over 'model', width over 'data'):
+each rank gathers its block over 'data' alone (ZeRO-3's gather) into its
+rows [v0, v0 + V/m) of the table and never the table (``_table``), looks
+tokens up in them (``layers.vocab_embed``, Megatron's vocab-parallel
+embedding), computes its (…, V/m) block of the logits, gathered along V
+over 'model' where whole rows are asked for (``forward``), and runs the
+loss's chunks vocab-parallel (``_chunk_ce``: the max and the float32 sum
+of exponentials and the picked logit over 'model'). Where the spec does
+not cut the vocab over 'model' (m = 1, or V not divisible by it), the
+table is whole after the 'data' gather and every path is the one
+device's. ``loss`` is the global mean: the sums of nll and lse² and the
+count of unmasked labels are summed over the mesh before the division,
+each rank differentiating its share (``launch.mesh.sum_shares``); the
+moe family's aux, the same global value on every rank, is counted once:
+each rank's share is aux / world.
 """
 from __future__ import annotations
 
 import functools
 import math
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from .._device import resolve_device
-from ..launch.mesh import all_reduce, gather_dims, sum_shares
+from ..launch.mesh import all_gather, all_reduce, gather_dims, sum_shares
 from .attention import attention, attention_sharded, init_attention, init_attention_, mlp_sharded
 from .common import ModelConfig, layer_flags, torch_dtype
-from .layers import embed, init_embedding_, init_linear_, mlp, rms_norm, softcap
+from .layers import embed, init_embedding_, init_linear_, mlp, rms_norm, softcap, vocab_embed
 from .mla import init_mla, init_mla_, mla_attention, mla_sharded
 from .moe import MoEParams, init_moe_, moe_layer, moe_sharded
 from .rglru import init_rglru, init_rglru_, rglru_forward, rglru_sharded
 from .ssm import init_mamba, init_mamba_, mamba_forward, mamba_sharded
 
-__all__ = ["LM", "Block", "MLABlock", "MambaBlock", "RGLRUBlock", "Placement"]
+__all__ = ["LM", "Block", "MLABlock", "MambaBlock", "RGLRUBlock", "Placement", "TableRows"]
 
 
 @dataclass(frozen=True)
@@ -89,6 +100,24 @@ class Placement:
     def under(self, prefix: str) -> dict:
         """The specs of module ``prefix``'s parameters, by their names in it."""
         return _under(self.specs, prefix)
+
+
+class TableRows(NamedTuple):
+    """A table (the embedding or the unembedding) as a rank uses it: its
+    rows [v0, v0 + n) whole in d, and the mesh whose 'model' ranks hold the
+    others (None: ``table`` is the whole table, v0 0)."""
+    table: torch.Tensor
+    v0: int = 0
+    mesh: object = None
+
+    @classmethod
+    def of(cls, t: torch.Tensor, spec: tuple, mesh) -> "TableRows":
+        """A rank's table ``t``, whole in d, held under ``spec``: its rows
+        of the vocab where the spec cuts it over 'model', else the whole
+        table."""
+        if mesh is None or spec[0] != "model":
+            return cls(t)
+        return cls(t, mesh.coords["model"] * t.shape[0], mesh)
 
 
 def _under(specs: dict, prefix: str) -> dict:
@@ -333,32 +362,50 @@ class LM(nn.Module):
         return self
 
     # ---------------- embedding / head ----------------
-    def _whole(self, name: str) -> torch.Tensor:
-        """Parameter ``name`` whole: under a placement gathered from this
-        rank's block (its gradient comes back through the gathers)."""
+    def _table(self, name: str) -> TableRows:
+        """Parameter ``name`` (``embed`` or ``unembed``) as this rank uses it:
+        without a placement the whole table; under one the rank's block
+        gathered over 'data' alone (its gradient comes back through the
+        gather), which is its rows of the table where the spec cuts the
+        vocab over 'model', and the whole table where it does not."""
         t = getattr(self, name)
-        if self.placement is None:
-            return t
-        return gather_dims(t, self.placement.specs[name], self.placement.mesh)
+        place = self.placement
+        if place is None:
+            return TableRows(t)
+        spec = place.specs[name]
+        return TableRows.of(gather_dims(t, spec, place.mesh, axes=("data",)), spec, place.mesh)
 
-    def _head(self, table: torch.Tensor | None) -> torch.Tensor:
-        """The output projection's table: the embedding's (``table``, already
-        whole) when tied, else the unembedding whole."""
-        return table if self.cfg.tie_embeddings else self._whole("unembed")
+    def _head(self, rows: TableRows) -> TableRows:
+        """The output projection's table: the embedding's ``rows`` when tied,
+        else the unembedding's."""
+        return rows if self.cfg.tie_embeddings else self._table("unembed")
 
-    def _embed(self, tokens: torch.Tensor, table: torch.Tensor | None = None) -> torch.Tensor:
+    def _embed(self, tokens: torch.Tensor, rows: TableRows | None = None) -> torch.Tensor:
         cfg = self.cfg
-        x = embed(tokens, self.embed if table is None else table).to(cfg.cdtype)
+        table, v0, mesh = rows or TableRows(self.embed)
+        if mesh is None:
+            x = embed(tokens, table)
+        else:
+            x = vocab_embed(tokens, table, v0, mesh)
+        x = x.to(cfg.cdtype)
         # the scale is rounded to the compute type first (√3584 → 59.75 in bf16)
         return x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype, device=x.device)
 
-    def _logits(self, x: torch.Tensor, table: torch.Tensor | None = None) -> torch.Tensor:
-        cfg = self.cfg
-        x = rms_norm(x, self.final_norm)
-        if table is None:
-            table = self.embed if cfg.tie_embeddings else self.unembed
-        logits = torch.matmul(x, table.t()).to(torch.float32)   # product in the compute type
-        return softcap(logits, cfg.final_logit_softcap)
+    def _logits(self, x: torch.Tensor, rows: TableRows | None = None) -> torch.Tensor:
+        """Float32 logits of the hidden states ``x`` (before the final
+        norm), whole along V: under ``rows``' mesh the rank's block of
+        them, gathered over 'model'."""
+        table, _, mesh = rows or TableRows(self.embed if self.cfg.tie_embeddings else self.unembed)
+        h = rms_norm(x, self.final_norm)
+        return self._vocab_logits(torch.matmul(h, table.t()).to(torch.float32), mesh)   # product in the compute type
+
+    def _vocab_logits(self, logits: torch.Tensor, mesh=None) -> torch.Tensor:
+        """Soft-capped logits; under ``mesh`` the ranks' blocks along V
+        (this rank's ``logits``) gathered over 'model', in coordinate order."""
+        logits = softcap(logits, self.cfg.final_logit_softcap)
+        if mesh is None:
+            return logits
+        return all_gather(logits, "model", mesh, dim=-1)
 
     # ---------------- forward (prefill) ----------------
     @torch.no_grad()
@@ -369,22 +416,22 @@ class LM(nn.Module):
         (serving prefill) emits the final position's logits only, so the
         (B, S, V) tensor never exists. aux_loss is the float32 sum of the
         moe layers' load-balance losses (zero for the other families)."""
-        x, aux, table = self._backbone(tokens, image_embeds=image_embeds, audio_embeds=audio_embeds)
+        x, aux, rows = self._backbone(tokens, image_embeds=image_embeds, audio_embeds=audio_embeds)
         if last_only:
             x = x[:, -1:]
-        return self._logits(x, self._head(table)), aux
+        return self._logits(x, self._head(rows)), aux
 
     def _backbone(self, tokens: torch.Tensor, *, image_embeds=None, audio_embeds=None):
         """tokens (B, S) → (final hidden states (B, S, d) before the final
-        norm, aux loss, the embedding table used), the layers in the
+        norm, aux loss, the embedding's ``TableRows`` used), the layers in the
         reference's order. Dense layers run in order with their per-layer
         global flag (the reference's period-grouped L…G scan and its flag
         scan both reduce to this)."""
         cfg = self.cfg
         fam = cfg.family
         on = self._on
-        table = self._whole("embed")
-        x = self._embed(tokens, table)
+        rows = self._table("embed")
+        x = self._embed(tokens, rows)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if fam == "dense":
             for i, (blk, is_global) in enumerate(zip(self.blocks, self.flags["is_global"])):
@@ -421,7 +468,7 @@ class LM(nn.Module):
                     h = s(h, cfg, **on(f"dec_self.{i}"))
                     return c(h, cfg, causal=False, kv_x=enc, **on(f"dec_cross.{i}"))
                 x = self._block(layer, x)
-        return x, aux, table
+        return x, aux, rows
 
     def _on(self, prefix: str) -> dict:
         """The keywords that run module ``prefix`` on this rank's blocks under
@@ -479,11 +526,12 @@ class LM(nn.Module):
         whose gradients reach each rank's share: its rows' sums over the
         global count, times 1/m (the 'model' ranks hold the same rows). The
         moe family's aux is the global one on every rank, and each rank's
-        share of it is aux / world."""
+        share of it is aux / world. Each chunk's logits are the rank's
+        (…, V/m) block where the vocab is cut over 'model' (``_chunk_ce``)."""
         cfg = self.cfg
-        x, aux, table = self._backbone(batch["tokens"], image_embeds=batch.get("image_embeds"),
-                                       audio_embeds=batch.get("audio_embeds"))
-        table = self._head(table)
+        x, aux, rows = self._backbone(batch["tokens"], image_embeds=batch.get("image_embeds"),
+                                      audio_embeds=batch.get("audio_embeds"))
+        table, v0, vmesh = self._head(rows)
         labels = batch["labels"]
         B, S, _ = x.shape
         place = self.placement
@@ -493,8 +541,8 @@ class LM(nn.Module):
         nll = zsq = torch.zeros((), dtype=torch.float32, device=x.device)
         cnt = 0
         for i in range(n):
-            a, b, c = checkpoint(self._chunk_ce, x[:, i * C:(i + 1) * C], labels[:, i * C:(i + 1) * C], table,
-                                 use_reentrant=False)
+            a, b, c = checkpoint(self._chunk_ce, x[:, i * C:(i + 1) * C], labels[:, i * C:(i + 1) * C], table, v0,
+                                 vmesh, use_reentrant=False)
             nll, zsq, cnt = nll + a, zsq + b, cnt + c
         cnt = torch.as_tensor(cnt, device=x.device)
         if place is None:
@@ -511,17 +559,39 @@ class LM(nn.Module):
             aux = sum_shares(aux / math.prod(mesh.values()), mesh)
         return ce + zloss + aux, {"ce": ce, "z_loss": zloss, "aux": aux}
 
-    def _chunk_ce(self, x_c: torch.Tensor, labels_c: torch.Tensor, table: torch.Tensor):
+    def _chunk_ce(self, x_c: torch.Tensor, labels_c: torch.Tensor, table: torch.Tensor, v0: int = 0, mesh=None):
         """One chunk's (Σ nll, Σ lse², count of unmasked labels), ``table``
-        the output projection's (V, d)."""
+        the output projection's (V, d); under ``mesh`` its rows [v0, v0 +
+        V/m), the logits the rank's block of them and the lse and the
+        picked logit summed over 'model' (``vocab_lse``)."""
         cfg = self.cfg
         h = rms_norm(x_c, self.final_norm)
         logits = torch.matmul(h, table.t()).to(torch_dtype(cfg.logits_dtype))
         logits = softcap(logits, cfg.final_logit_softcap)
         mask = (labels_c >= 0) & (labels_c < cfg.vocab_size)
-        safe = torch.where(mask, labels_c, 0).long()
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = torch.gather(logits, -1, safe[..., None])[..., 0]
+        if mesh is None:
+            safe = torch.where(mask, labels_c, 0).long()
+            lse = torch.logsumexp(logits, dim=-1)
+            picked = torch.gather(logits, -1, safe[..., None])[..., 0]
+        else:
+            lse, picked = vocab_lse(logits, labels_c, mask, v0, mesh)
         nll = torch.where(mask, lse - picked, 0.0)
         zsq = torch.where(mask, torch.square(lse), 0.0)
         return nll.sum(), zsq.sum(), mask.sum()
+
+
+def vocab_lse(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor, v0: int, mesh):
+    """(lse, picked logit) over the whole vocab from this rank's block of
+    the logits (…, n), its columns [v0, v0 + n) (Megatron's vocab-parallel
+    cross entropy): the max over 'model' (detached: the lse does not depend
+    on the shift), the float32 sum of exponentials below it summed over
+    'model', lse = max + log(sum); the picked logit the rank's own where the
+    label (unmasked) falls in its columns, else 0, summed over 'model'."""
+    mx = all_reduce(logits.detach().amax(dim=-1), "model", mesh, op="max").float()
+    total = all_reduce(torch.exp(logits.float() - mx[..., None]).sum(dim=-1), "model", mesh)
+    lse = (mx + torch.log(total)).to(logits.dtype)
+    local = labels - v0
+    inside = mask & (local >= 0) & (local < logits.shape[-1])
+    own = torch.gather(logits, -1, torch.where(inside, local, 0).long()[..., None])[..., 0]
+    picked = all_reduce(torch.where(inside, own, 0.0), "model", mesh)
+    return lse, picked

@@ -75,8 +75,10 @@ def build_serve_step(lm: LM, batch: int, max_len: int, *, mesh=None):
     ``decode.init_cache`` under ``runtime.pspec.logical_axis_rules(mesh)``
     allocates them) → the logits of its rows. ``params_sh`` maps every
     parameter name to the spec of the block the step holds
-    (``decode.param_blocks``, cut from ``lm`` once, here); ``pos_sh`` is
-    () (replicated); ``cache_abs`` is the global cache tree on ``meta``."""
+    (``decode.param_blocks``, cut from ``lm`` once, here: the embedding
+    and the unembedding as the reference's ``param_specs(..., serve=True)``
+    cuts them); ``pos_sh`` is () (replicated); ``cache_abs`` is the global
+    cache tree on ``meta``."""
     if mesh is None:
         def serve_step(tokens_t: torch.Tensor, cache: dict, pos: int):
             return decode.decode_step(lm, tokens_t, cache, pos)
@@ -92,6 +94,6 @@ def build_serve_step(lm: LM, batch: int, max_len: int, *, mesh=None):
 
     def sharded_step(tokens_t: torch.Tensor, cache: dict, pos: int):
         with logical_axis_rules(mesh):
-            return decode.decode_step(rank_lm, tokens_t, cache, pos, batch=batch, max_len=max_len)
+            return decode.decode_step(rank_lm, tokens_t, cache, pos, batch=batch, max_len=max_len, specs=params_sh)
 
     return sharded_step, (params_sh, cache_sh, tok_sh, pos_sh), abstract_cache(lm, batch, max_len)

@@ -348,7 +348,9 @@ def build_prefill_step(lm: LM, *, mesh=None):
     ``lm``'s parameters become this rank's blocks under serving's specs
     (``param_specs(..., serve=True)``: ZeRO-sharded over 'data' only where
     ``needs_zero3`` finds the TP-only blocks too large), and the step maps
-    this rank's rows of the batch (``shard_batch``) to their logits."""
+    this rank's rows of the batch (``shard_batch``) to their logits, whole
+    along V: the tables are used where they stand (the rank's vocab rows,
+    its block of the logits gathered over 'model' at the end)."""
     if mesh is not None:
         _check_mesh(lm, mesh, "build_prefill_step")
         pspecs = param_specs(mesh, lm, needs_zero3(mesh, lm, serve=True))

@@ -18,7 +18,10 @@ step's own shardings. A case's ``moe_impl`` is set by ``set_moe_impl``
 before its step is traced; a case with ``drops`` also counts the (token,
 choice) pairs the one-device gather dispatch drops in the loss of its
 first batch. A ``serve`` case runs ``_jax_sharded_reference.serve``: the
-reference's ``build_serve_step`` under the mesh.
+reference's ``build_serve_step`` under the mesh. A case's
+``serve_zero3_budget`` stands in for ``runtime.sharding``'s serving
+budget while it runs (0: serving's ZeRO forced), and the embedding's
+serving spec under it is written too.
 """
 import json
 import os
@@ -139,10 +142,16 @@ def main(workdir):
         if run is None:
             continue
         moe.set_moe_impl(case.get("moe_impl", "gather"))
+        budget = shlib._SERVE_ZERO3_BUDGET
+        shlib._SERVE_ZERO3_BUDGET = case.get("serve_zero3_budget", budget)
         try:
             run(key, case, inp, out)
+            if "serve_zero3_budget" in case:
+                specs = shlib.param_specs(make_mesh(case["mesh"]), LM(config(case)).abstract_params(), serve=True)
+                out[f"{key}/embed_spec"] = np.asarray(json.dumps(list(specs["embed"])))
         finally:
             moe.set_moe_impl("gather")
+            shlib._SERVE_ZERO3_BUDGET = budget
         if case.get("drops") and case["kind"] != "serve":
             first_drops(key, case, inp, out)
     np.savez(workdir / "reference.npz", **out)

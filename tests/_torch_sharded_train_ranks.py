@@ -13,7 +13,9 @@ on the first rank the whole parameters gathered from them, the
 prefill's logits rows, and the sharded layers each step ran (and
 ``rglru_sharded`` against ``rglru_forward``, ``mamba_sharded`` against
 ``mamba_forward`` where the width does not divide 'model'); a case's
-``moe_impl`` is set while it runs, and a ``serve`` case runs
+``moe_impl`` is set while it runs, its ``serve_zero3_budget`` stands in
+for ``runtime.sharding``'s serving budget (0: serving's ZeRO forced), and
+a ``serve`` case runs
 ``_torch_sharded_ranks.serve`` (``build_serve_step`` under the mesh).
 ``cli`` runs the training CLI on a rank and returns its parameter blocks,
 and
@@ -33,6 +35,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.models import LM, attention, mla, moe, params_from_reference, rglru, ssm
 from repro_torch.models.interop import STACKED
+from repro_torch.runtime import sharding
 from repro_torch.runtime.sharding import gather_blocks, local_block
 from repro_torch.runtime.train import TrainConfig, build_prefill_step, build_train_step, init_opt_state, shard_batch
 
@@ -321,10 +324,13 @@ def run(mesh, workdir: str) -> dict:
         if case["mesh"] == dict(mesh):
             moe.set_moe_impl(case.get("moe_impl", "gather"))
             dropped = moe.moe_gather_sharded.dropped
+            budget = sharding._SERVE_ZERO3_BUDGET
+            sharding._SERVE_ZERO3_BUDGET = case.get("serve_zero3_budget", budget)
             try:
                 RUN[case["kind"]](mesh, key, case, inp, out)
             finally:
                 moe.set_moe_impl("gather")
+                sharding._SERVE_ZERO3_BUDGET = budget
             out[f"{key}/dropped"] = np.asarray(moe.moe_gather_sharded.dropped - dropped)
     return out
 

@@ -1192,6 +1192,45 @@ def test_sharded_layer_on_four_ranks_equals_one_process(dev, kind):
             assert int(r["dropped"]) == int(want["dropped"]) > 0
 
 
+def test_vocab_parallel_lookup_and_chunk_on_two_ranks(dev):
+    """Two ranks of a 1 × 2 mesh on the one card over gloo
+    (``tests/_torch_vocab_ranks.py``, as ``tests/test_torch_vocab_parallel.py``
+    runs them on the host): the vocab-parallel lookup equal to
+    ``F.embedding`` on the whole table bit for bit (float32 and bfloat16)
+    and its block's gradient within 1e-6; a loss chunk's sums within 1e-6
+    relative of one process's and its gradients within 1e-6, with and
+    without soft-cap, the labels −1, vocab_size, a padded id and the
+    blocks' edges among them; CUDA tensors."""
+    from repro_torch.launch.mesh import run_ranks
+
+    import _torch_vocab_ranks as ranks
+
+    cases = ["lookup/float32", "lookup/bfloat16", "chunk/0.0/0.0001", "chunk/30.0/0.0001"]
+    for r in run_ranks(ranks.run, {"data": 1, "model": 2}, backend="gloo", args=(cases,), timeout=600):
+        assert r["device"].startswith("cuda"), r["device"]
+        for case in cases:
+            if case.startswith("lookup"):
+                ranks.assert_lookup(r["coords"], r[case], case.split("/")[1])
+            else:
+                ranks.assert_chunk(r["coords"], r[case])
+
+
+def test_serving_zero3_decode_and_prefill_on_four_ranks(dev):
+    """Four ranks of a 2 × 2 mesh on the one card over gloo, serving's ZeRO
+    forced (``tests/_torch_vocab_ranks.py``'s ``zero3``, as
+    ``tests/test_torch_vocab_parallel.py`` runs it on the host): reduced
+    gemma2-9b's decode steps and prefill with the tables cut over
+    ('model', 'data'), the weight-stationary lookup and logits, within
+    1e-5 of one process's largest logit; CUDA tensors."""
+    from repro_torch.launch.mesh import run_ranks
+
+    import _torch_vocab_ranks as ranks
+
+    for r in run_ranks(ranks.run, {"data": 2, "model": 2}, backend="gloo", args=(["zero3"],), timeout=600):
+        assert r["device"].startswith("cuda"), r["device"]
+        ranks.assert_zero3(r["coords"], r["zero3"])
+
+
 # -- the meta route, the serve step and the smoke's bounds on the card --------------
 
 def _work_of(fn):

@@ -276,7 +276,9 @@ def test_decode_step_under_the_mesh_equals_the_reference(runs):
     """``build_serve_step(..., mesh=...)``: each rank's logits rows against
     the reference's own serve step under the mesh and the port's unsharded
     decode step within 2e-4, and its blocks of the conv and state caches
-    after the last step, cut by rows only, the Mamba-2 weights whole."""
+    after the last step, cut by rows only, the Mamba-2 weights whole and
+    the tied table cut as ``param_specs(..., serve=True)`` cuts it (vocab
+    over 'model')."""
     ref, port, inp = runs
     key = "mamba_serve"
     c, cfg = CASES[key], _cfg(key)
@@ -297,7 +299,8 @@ def test_decode_step_under_the_mesh_equals_the_reference(runs):
     for r, coords in rs:
         csh = json.loads(str(r[f"{key}/cache_specs"]))
         psh = json.loads(str(r[f"{key}/param_specs"]))
-        assert all(all(e is None for e in s) for s in psh.values())
+        assert all(all(e is None for e in s) for name, s in psh.items() if name != "embed")
+        assert tuple(psh["embed"]) == sharding.param_specs(MESH, lm, serve=True)["embed"] == ("model", None)
         for k in ("conv", "state"):
             spec = tuple(tuple(e) if isinstance(e, list) else e for e in csh[k])
             assert spec == (None, bspec) + (None,) * (len(spec) - 2), (k, spec)
