@@ -234,7 +234,7 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    mesh=...)``: Megatron over 'model', ZeRO-3 over 'data'). (a) bf16 with
    remat and ``TrainConfig``'s defaults, train_4k's batch cut to a global
    B 2 × S 2,048 (one row a data rank) from ``SyntheticLMDataset(256000,
-   2048, seed=1)``, 3 steps: every loss within 2e-2 relative of the
+   2048, seed=1)``, 2 steps (3 before phase 16 came): every loss within 2e-2 relative of the
    one-process step's (here, first) and the same learning rates; every
    sharded attention call launches the flash kernel (2 a layer a step
    with remat) and every layer its backward, at the (256, 256) instance,
@@ -242,7 +242,7 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    grad norm within 1e-5 relative of rank 0's one-process step from the
    same parameters and data (run after the sharded parts), the learning
    rate equal, and every parameter, gathered whole to rank 0, within 1e-1
-   of its leaf's largest change over the 3 steps, at most 1e-6 of a leaf's
+   of its leaf's largest change over the 2 steps, at most 1e-6 of a leaf's
    elements beyond 1e-2 of it (AdamW magnifies the order of summation: the
    one-process step against itself in two microbatches spreads as far). (c) the prefill step
    under the mesh (B 2 × S 2,048): each rank's logits rows within 1e-4
@@ -298,7 +298,31 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    the dispatch counters equal the layers run. The kernels line's
    ``launches_ph15`` are (a)'s kernel route and the four ranks' sums.
 
-Phases 12-15 log each sharded step's bytes received on each rank
+16. The int8 pod-compressed training step (``compress_pod_grads``) and
+   the per-rank dry run, four ranks on the one card over gloo with mesh
+   {"pod": 2, "data": 1, "model": 2}: gemma2-9b at phase 13's cut (2 layers, bf16,
+   remat), a global B 2 × S 2,048, AdamW with no warmup, labels unmasked.
+   (a) From one state, a compressed and an uncompressed step: the losses
+   within 2e-2 relative, the grad norms within the quantization bound
+   (each element within (1/n)·Σ_p (s_p/2 + 127·|s̄ − s_p|) of the pods'
+   mean: the reference dequantizes every pod's codes with the mean scale
+   s̄) plus 2e-2, and each rank's parameters the two steps moved the same
+   way within one learning rate beyond one bf16 unit in the last place
+   (AdamW's first step bounds it; an element whose codes summed to 0
+   moves by weight decay alone; the shares moved alike and opposite, and
+   beyond 1e-2 and 1e-1 of lr, are printed). (b) Each rank's synced
+   gradient of the reference's blocks/attn/wk (both layers, one scale)
+   bit for bit a NumPy twin of the reference's arithmetic fed the pods'
+   gradients gathered whole. (c) A counted compressed step, and a counted
+   step of phase 13's cell on the 2 × 2 ('data', 'model') mesh of the same
+   ranks, against the per-rank ``meta`` dry run of each cell run in this
+   process (``launch.dryrun.analyze_rank_step``): bytes received by kind
+   and the largest call to the byte, FLOPs and argument bytes exactly;
+   phase 13's logged steps against its cell's meta run too. Prints the
+   int32 bytes received over 'pod' beside the uncompressed step's bf16
+   bytes. The kernels line's ``launches_ph16`` are the four ranks' sums.
+
+Phases 12-16 log each sharded step's bytes received on each rank
 (``launch.mesh.received``: in all, by collective kind, the most one call
 received) and print them per rank. The tables stay where they stand: no
 call of a training step receives more than the rank's (V/m, d) rows of a
@@ -3103,8 +3127,8 @@ def dry_cell(torch, lm_card, sh, args: dict, *, reps: int) -> dict:
     with OpAnalysis() as mode:
         step(args)
         torch.cuda.synchronize()
-    check(mode.cost.flops == rec["cost"]["program_flops"],
-          f"phase 11 {sh.name}: FLOPs on the card {mode.cost.flops} != dry run's {rec['cost']['program_flops']}")
+    check(mode.cost.flops == rec["cost"]["hlo_flops"],
+          f"phase 11 {sh.name}: FLOPs on the card {mode.cost.flops} != dry run's {rec['cost']['hlo_flops']}")
     check(mode.cost.by_kernel == rec["kernels"], f"phase 11 {sh.name}: kernel work {mode.cost.by_kernel} != "
                                                   f"dry run's {rec['kernels']}")
     gc.collect()
@@ -3693,12 +3717,13 @@ def phase_sharded(torch) -> dict:
 # phase 12), gemma2-9b at its published width with the depth cut to 2 of 42
 # layers (one local, one global) and train_4k's batch cut from 256 x 4,096
 # to a global B 2 x S 2,048 (one row a data rank). (a) bf16 with remat and
-# TrainConfig's defaults (phase 10's dtypes), 3 steps: 1.314 B parameters
+# TrainConfig's defaults (phase 10's dtypes), 2 steps (cut from 3 to leave
+# phase 16 its time): 1.314 B parameters
 # (917.5 M of them the tied embedding), about 16 GB of state over the four
 # ranks, plus each rank's gathered table (1.8 GB), its gradient and its
 # float32 cross-entropy chunk (2.1 GB); (b) the f32 oracle at S 512 against
 # the one-process step; (c) the prefill, f32 and bf16.
-PH13 = dict(mesh={"data": 2, "model": 2}, layers=2, B=2, S=2048, steps=3, oracle_S=512, seed=13, data_seed=1)
+PH13 = dict(mesh={"data": 2, "model": 2}, layers=2, B=2, S=2048, steps=2, oracle_S=512, seed=13, data_seed=1)
 # Each parameter after the steps against the one-process step's, in units of
 # its leaf's largest change: AdamW's m/√v magnifies a gradient's last-place
 # difference (another order of summation) where |g| is near it. The
@@ -3713,12 +3738,18 @@ PH13_PREFILL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}   # of the largest |logit
 PH13_ORACLE = dict(warmup_steps=1, total_steps=10)      # lr > 0 from step 1
 
 
-def gemma13(torch, dtype: str, dev):
-    """gemma2-9b at published width, 2 layers (L, G), from PH13's seed."""
+def gemma13_cfg(dtype: str):
+    """gemma2-9b at published width, 2 layers (L, G), in ``dtype``."""
     from repro_torch.configs import get_config
+
+    return get_config("gemma2-9b").replace(num_layers=PH13["layers"], param_dtype=dtype, compute_dtype=dtype)
+
+
+def gemma13(torch, dtype: str, dev):
+    """``gemma13_cfg(dtype)`` and its model from PH13's seed."""
     from repro_torch.models import LM
 
-    cfg = get_config("gemma2-9b").replace(num_layers=PH13["layers"], param_dtype=dtype, compute_dtype=dtype)
+    cfg = gemma13_cfg(dtype)
     return cfg, LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(PH13["seed"]))
 
 
@@ -4871,6 +4902,328 @@ def phase_sharded_moe_ssm(torch) -> dict:
     return out
 
 
+# -- phase 16: the int8 pod-compressed training step, and the per-rank dry run --
+#
+# Four ranks on the one card over gloo, mesh {"pod": 2, "data": 1, "model": 2}
+# (a pod's mesh cut to 2 pods of 2; NCCL refuses two ranks a card): gemma2-9b at
+# phase 13's cut (2 of 42 layers, bf16, remat), a global B 2 × S 2,048 (a
+# row a pod), AdamW with no warmup (the first step moves the parameters),
+# labels unmasked (every pod counts as many). (a) From one initial state, one
+# compressed step (``compress_pod_grads``) and one uncompressed step: the
+# losses within phase 13's bf16 limit; the grad norms within the
+# quantization bound plus phase 13's bf16 limit (the reference's sum
+# dequantizes every pod's codes with the mean scale s̄, so an element lies
+# within (1/n)·Σ_p (s_p/2 + 127·|s̄ − s_p|) of the pods' mean; the norms
+# differ by at most the root of Σ over the leaves of their size times that
+# squared); the parameters: AdamW's first step moves an element by
+# lr·(g/(|g| + ε) + wd·p), so where both steps moved it the same way
+# their results differ by less than lr beyond one bf16 unit in the last
+# place (each result is rounded to bf16), which is held. Phase 13's limits
+# (1e-1 and 1e-2 of the change) cannot hold: an element whose int8 codes
+# summed to 0 moves by weight decay alone, one whose |g| is near ε by
+# another share of lr, and bf16's unit exceeds lr where |p| > 0.04; the
+# shares moved alike and opposite, and beyond 1e-2 and 1e-1 of lr, are
+# printed. (b) On each rank the
+# synced gradient of one leaf (the reference's blocks/attn/wk, both layers:
+# its scale is the stacked leaf's) bit for bit a NumPy twin of the
+# reference's arithmetic fed the per-pod gradients gathered whole (float32,
+# then the leaf's bf16). (c) One more compressed step and one step of phase
+# 13's cell (the 2 × 2 ('data', 'model') mesh over the same ranks), each
+# counted under ``OpAnalysis`` with ``received`` zeroed, against the
+# per-rank ``meta`` dry run of the same cell in this process: bytes received
+# by kind and the largest call to the byte, FLOPs and the rank's argument
+# bytes exactly. Prints the int32 bytes the compressed step receives over
+# 'pod' beside the bf16 bytes the uncompressed one does.
+# The mesh is a pod's cut to 2 pods of 2 'model' ranks ('data' 1: a mesh's axes are a suffix of (pod, data, model)).
+PH16 = dict(mesh={"pod": 2, "data": 1, "model": 2}, cell13={"data": 2, "model": 2}, B=2, S=2048,
+            leaf="blocks/attn/wk")
+PH16_TCFG = dict(warmup_steps=0, total_steps=10)     # lr = peak at step 0
+
+
+def ph16_shapes():
+    from repro_torch.configs.shapes import Shape
+
+    return Shape("phase16", PH16["S"], PH16["B"], "train")
+
+
+def ph16_meta(torch) -> dict:
+    """The per-rank meta dry run of phase 16's compressed cell and of phase
+    13's cell (rank 0 each), in this process: FLOPs, bytes received by kind,
+    the largest call, the argument bytes by group (held and by the rules),
+    seconds."""
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for name, shape, compress in (("ph16", PH16["mesh"], True), ("ph13", PH16["cell13"], False)):
+        t0 = time.perf_counter()
+        cost, coll, whole, held, _, _, _ = dryrun.analyze_rank_step(
+            gemma13_cfg("bfloat16"), Shape("phase16", PH16["S"], PH16["B"], "train"), shape,
+            compress_pod_grads=compress)
+        out[name] = dict(flops=int(cost.flops), by_kind=coll["by_kind"], largest=coll["largest"], held=held,
+                         rules=dryrun.argument_bytes(shape, whole, "train"), top=coll["top"][:3],
+                         s=time.perf_counter() - t0)
+    return out
+
+
+def pod_bytes(calls: dict) -> dict:
+    """Bytes received over 'pod', by type, from ``received.calls``."""
+    out: dict = {}
+    for desc, (count, nbytes) in calls.items():
+        _, axis, rest = desc.split(" ", 2)
+        if axis == "pod":
+            dtype = rest.split("[", 1)[0]
+            out[dtype] = out.get(dtype, 0) + count * nbytes
+    return out
+
+
+def sync_twin(per_pod: np.ndarray) -> np.ndarray:
+    """The reference's ``sync`` of one leaf (src/repro/runtime/train.py:108-114)
+    in NumPy, over its pods' float32 gradients stacked on axis 0."""
+    n = per_pod.shape[0]
+    qs, scales = [], []
+    for x in per_pod:
+        scale = np.maximum(np.max(np.abs(x)), np.float32(1e-12)) / np.float32(127.0)
+        qs.append(np.clip(np.rint(x / scale), -127, 127).astype(np.int8).astype(np.int32))
+        scales.append(scale)
+    summed, scale_sum = sum(qs), np.float32(sum(scales))
+    return (summed.astype(np.float32) * (scale_sum / np.float32(n))) / np.float32(n)
+
+
+def ph16_twin(torch, seen: dict, names: list, psh: dict, mesh) -> list:
+    """(b): the pods' whole gradients of phase 16's leaf gathered, the
+    NumPy twin's sync of them, and each layer's count of bf16 elements of
+    the rank's synced block that differ from the twin's."""
+    from repro_torch.launch.mesh import all_gather, gather_dims
+    from repro_torch.runtime.sharding import local_block
+
+    with torch.no_grad():
+        pods = [all_gather(gather_dims(seen["before"][k], psh[k], mesh)[None], "pod", mesh, dim=0) for k in names]
+    per_pod = np.stack([t.float().cpu().numpy() for t in pods], axis=1)      # (pods, layers, ...)
+    want = torch.from_numpy(sync_twin(per_pod)).to(torch.bfloat16)
+    return [int((seen["after"][k].cpu().view(torch.int16) != local_block(want[i], psh[k], mesh).view(torch.int16))
+                .sum()) for i, k in enumerate(names)]
+
+
+def ph16_step(torch, mesh, compress: bool, *, steps: int = 1, count: bool = False, keep: bool = False) -> dict:
+    """gemma2-9b at phase 13's cut on this rank under ``mesh``: ``steps``
+    steps of phase 16's batch, compressed or not (the first step's bytes
+    received kept; compressed under a pod axis, (b) on phase 16's leaf),
+    then with ``count`` one more under ``OpAnalysis`` with ``received``
+    zeroed; with ``keep`` the parameter blocks before and after on the card."""
+    from repro_torch.launch.mesh import received
+    from repro_torch.launch.op_analysis import OpAnalysis
+    from repro_torch.optim.adamw import stack_position
+    from repro_torch.runtime import train
+    from repro_torch.runtime.train import TrainConfig, build_train_step, init_opt_state, shard_batch
+
+    _, lm = gemma13(torch, "bfloat16", mesh.device)
+    tcfg = TrainConfig(compress_pod_grads=compress, **PH16_TCFG)
+    step, (psh, _) = build_train_step(lm, tcfg, mesh=mesh)
+    opt = init_opt_state(lm, tcfg.optimizer)
+    batch = shard_batch(batches13(PH16["S"])[0], mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res: dict = {"held": {"params": sum(p.numel() * p.element_size() for p in lm.parameters()),
+                          "opt": tree_bytes(opt), "batch": tree_bytes(batch)}}
+    if keep:     # on the host (four ranks share the card's memory)
+        res["before"] = {k: p.detach().to("cpu", copy=True) for k, p in lm.named_parameters()}
+    names = [k for k, _ in lm.named_parameters() if stack_position(k)
+             and "/".join(stack_position(k)[0]) == PH16["leaf"]] if compress and "pod" in mesh else []
+    orig, seen = train._int8_pod_sum, {}
+
+    def capture(grads, layout, m):
+        seen["before"] = {k: grads[k].detach().clone() for k in names}
+        info = orig(grads, layout, m)
+        seen["after"] = {k: grads[k].detach().clone() for k in names}
+        seen["scales"] = {leaf: [float(a), float(b)] for leaf, (a, b) in info.items()}
+        return info
+
+    train._int8_pod_sum = capture
+    try:
+        metrics, times = [], []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            received.zero()
+            t0 = time.perf_counter()
+            m = step(opt, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            metrics.append([float(m["loss"]), float(m["grad_norm"]), float(m["lr"])])
+            if i == 0:
+                res["pod_bytes"], res["received"] = pod_bytes(received.calls), received.read()
+    finally:
+        train._int8_pod_sum = orig
+    res.update(metrics=metrics, step_s=times)
+    if names:
+        res["twin_mismatches"] = ph16_twin(torch, seen, names, psh, mesh)
+        res["twin_layers"] = len(names)
+        res["scales"] = seen["scales"]
+    seen.clear()
+    if keep:
+        res["after"] = {k: p.detach().to("cpu", copy=True) for k, p in lm.named_parameters()}
+    if count:
+        torch.cuda.synchronize()
+        received.zero()
+        with OpAnalysis() as mode:
+            step(opt, batch)
+        torch.cuda.synchronize()
+        r = received.read()
+        res["count"] = dict(flops=int(mode.cost.flops), by_kind=r["by_kind"], largest=r["largest"])
+    del lm, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def moved_alike(torch, comp: dict, plain: dict, dev, lr: float, chunk: int = 1 << 25) -> dict:
+    """(a)'s parameters, leaf by leaf on the card from the host copies, in
+    chunks of ``chunk`` elements (four ranks share the card's memory; both
+    steps start from the same seed's parameters): the share of elements the
+    two steps moved the same way, the share they moved opposite ways, and
+    where they moved the same way |compressed − uncompressed| less one bf16
+    unit in the last place of the larger result (each result is rounded to
+    bf16), in units of the learning rate: worst, and shares beyond 1e-2
+    and 1e-1."""
+    out = {}
+    for k, b0 in comp["before"].items():
+        n, same_n, flip_n, over2, over1, worst = b0.numel(), 0, 0, 0, 0, 0.0
+        flats = [t.reshape(-1) for t in (b0, plain["after"][k], comp["after"][k])]
+        for i in range(0, n, chunk):
+            b, au, ac = (t[i:i + chunk].to(dev).float() for t in flats)
+            du, dc = au - b, ac - b
+            su, sc = torch.sign(du), torch.sign(dc)
+            same = (su == sc) & (su != 0)
+            same_n += int(same.sum())
+            flip_n += int(((su == -sc) & (su != 0)).sum())
+            _, e = torch.frexp(torch.maximum(au.abs(), ac.abs()))
+            d = (((dc - du).abs() - torch.ldexp(torch.ones_like(au), e - 8)).clamp_(min=0) / lr)[same]  # bf16: 8 bits
+            if d.numel():
+                worst = max(worst, float(d.max()))
+                over2 += int((d > 1e-2).sum())
+                over1 += int((d > 1e-1).sum())
+        out[k] = dict(same_share=same_n / n, flip_share=flip_n / n, worst=worst,
+                      share_over_1e2=over2 / max(same_n, 1), share_over_1e1=over1 / max(same_n, 1))
+    return out
+
+
+def phase16_rank(mesh) -> dict:
+    """One rank of phase 16: (a)-(b) the compressed and uncompressed steps,
+    (c) the counted steps of both cells (phase 13's on the ('data',
+    'model') mesh of the same ranks); every kernel counter at 0 before and
+    read after."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = kernel_counters()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    comp = ph16_step(torch, mesh, True, count=True, keep=True)
+    plain = ph16_step(torch, mesh, False, keep=True)
+    params = moved_alike(torch, comp, plain, mesh.device, plain["metrics"][0][2])
+    for r in (comp, plain):
+        r.pop("before", None)
+        del r["after"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    ph13 = ph16_step(torch, make_mesh(PH16["cell13"], device_type="cuda"), False, steps=0, count=True)
+    return {"coords": dict(mesh.coords), "backend": mesh.backend, "device": str(mesh.device),
+            "wall_s": time.perf_counter() - t0, "comp": comp, "plain": plain, "ph13": ph13, "params": params,
+            "launches": {name: fn.launches for name, fn in counters.items()}, "flash_pairs": flash_pairs(),
+            "bwd_pairs": {f"{d}x{dv}": n for (d, dv), n in sorted(counters["flash_attention_bwd"].by_pair.items())}}
+
+
+def phase_pod_compress(torch, strain: dict) -> dict:
+    """Phase 16: the per-rank meta dry runs here, then four ranks on the
+    card; (c) also holds phase 13's logged bytes to its cell's meta run."""
+    from repro_torch.models import LM
+    from repro_torch.optim.adamw import stack_position
+
+    t0 = time.perf_counter()
+    meta = ph16_meta(torch)
+    meta_s = time.perf_counter() - t0
+    ranks, ranks_s = card_ranks(phase16_rank, PH16["mesh"])
+    sizes: dict = {}
+    for name, p in LM(gemma13_cfg("bfloat16"), device="meta").named_parameters():
+        pos = stack_position(name)
+        key = "/".join(pos[0] if pos else (name,))
+        sizes[key] = sizes.get(key, 0) + p.numel()
+    scales: dict = {}
+    for r in ranks:
+        for leaf, (own, _) in r["comp"]["scales"].items():
+            scales.setdefault(leaf, {})[r["coords"]["pod"]] = own
+    P = PH16["mesh"]["pod"]
+    bound_sq = 0.0
+    for leaf, by_pod in scales.items():
+        sc = [by_pod[p] for p in range(P)]
+        mean = sum(sc) / P
+        bound_sq += sizes[leaf] * (sum(s / 2 + 127 * abs(mean - s) for s in sc) / P) ** 2
+    qbound = math.sqrt(bound_sq)
+    per_rank = []
+    for r in ranks:        # printed first, held after
+        per_rank.append(dict(
+            coords=r["coords"], loss=[r["comp"]["metrics"][0][0], r["plain"]["metrics"][0][0]],
+            grad_norm=[r["comp"]["metrics"][0][1], r["plain"]["metrics"][0][1]], quantization_bound=qbound,
+            step_s=[r["comp"]["step_s"], r["plain"]["step_s"]],
+            pod_bytes={"compressed": r["comp"]["pod_bytes"], "uncompressed": r["plain"]["pod_bytes"]},
+            params={k: max(v[k] for v in r["params"].values())
+                    for k in ("same_share", "flip_share", "worst", "share_over_1e2", "share_over_1e1")},
+            params_same_share_min=min(v["same_share"] for v in r["params"].values()),
+            twin_mismatches=r["comp"]["twin_mismatches"], received=r["comp"]["received"]["total"],
+            counts={"ph16": r["comp"]["count"], "ph13": r["ph13"]["count"]},
+            held={"ph16": r["comp"]["held"], "ph13": r["ph13"]["held"]}, wall_s=r["wall_s"]))
+        print(f"phase 16 rank {r['coords']}: {json.dumps(per_rank[-1])}")
+    print(f"phase 16 meta dry run (this process, {meta_s:.3f} s): " + json.dumps(
+        {k: {kk: v[kk] for kk in ("flops", "by_kind", "largest", "held", "rules", "top", "s")}
+         for k, v in meta.items()}))
+    print(f"phase 16 ranks {ranks_s:.3f} s")
+    for r, e in zip(ranks, per_rank):
+        c = r["coords"]
+        check(r["backend"] == "gloo" and r["device"].startswith("cuda"), f"phase 16 rank {c}: {r['backend']}")
+        (lc, nc, lrc), (lu, nu, lru) = r["comp"]["metrics"][0], r["plain"]["metrics"][0]
+        check(all(math.isfinite(v) for v in (lc, nc, lu, nu)), f"phase 16a rank {c}: metrics not finite")
+        check(abs(lc - lu) <= PH13_BF16_LOSS_RTOL * abs(lu), f"phase 16a rank {c}: losses {lc!r} (compressed) vs {lu!r}")
+        check(lrc == lru > 0, f"phase 16a rank {c}: learning rates {lrc!r} {lru!r}")
+        check(abs(nc - nu) <= qbound + PH13_BF16_LOSS_RTOL * nu,
+              f"phase 16a rank {c}: grad norms {nc!r} vs {nu!r}, quantization bound {qbound!r}")
+        check(e["params"]["worst"] < 1.0,
+              f"phase 16a rank {c}: parameters the two steps moved the same way differ by {e['params']['worst']!r} "
+              f"learning rates beyond a bf16 unit (AdamW's first step bounds it below 1)")
+        check(r["comp"]["twin_mismatches"] and not any(r["comp"]["twin_mismatches"]),
+              f"phase 16b rank {c}: the synced {PH16['leaf']} differs from the NumPy twin on "
+              f"{r['comp']['twin_mismatches']} elements")
+        for cell, got in e["counts"].items():
+            want = meta[cell]
+            check(got["by_kind"] == want["by_kind"] and got["largest"] == want["largest"],
+                  f"phase 16c rank {c} {cell}: received {got['by_kind']} largest {got['largest']} on the card, "
+                  f"{want['by_kind']} largest {want['largest']} on meta")
+            check(got["flops"] == want["flops"], f"phase 16c rank {c} {cell}: {got['flops']} FLOPs on the card, "
+                                                 f"{want['flops']} on meta")
+        for cell, got in e["held"].items():
+            check(got == meta[cell]["held"] == meta[cell]["rules"],
+                  f"phase 16c rank {c} {cell}: argument bytes {got} on the card, {meta[cell]['held']} held on meta, "
+                  f"{meta[cell]['rules']} by the rules")
+    # (c) phase 13's four ranks logged their bf16 training steps' bytes: each step against its cell's meta run
+    for r13 in strain["ranks"]:
+        for total, largest, by_kind in r13["received"]["train gemma2-9b bfloat16"]:
+            check(by_kind == meta["ph13"]["by_kind"] and largest == meta["ph13"]["largest"],
+                  f"phase 16c: phase 13 rank {r13['coords']} logged {by_kind} (largest {largest}), its cell's meta "
+                  f"run {meta['ph13']['by_kind']} (largest {meta['ph13']['largest']})")
+    launches = summed([r["launches"] for r in ranks])
+    pairs, bwd_pairs = summed([r["flash_pairs"] for r in ranks]), summed([r["bwd_pairs"] for r in ranks])
+    check(set(pairs) == set(bwd_pairs) == {"256x256"}, f"phase 16 instances {pairs} {bwd_pairs}")
+    r0 = per_rank[0]
+    print(f"phase 16 over 'pod' a compressed step receives {r0['pod_bytes']['compressed']} bytes, an uncompressed "
+          f"one {r0['pod_bytes']['uncompressed']} (int32 codes: 4 bytes an element, bf16 gradients: 2)")
+    out = dict(ranks=per_rank, meta=meta, launches=launches, flash_pairs=pairs, bwd_pairs=bwd_pairs, ranks_s=ranks_s,
+               meta_s=meta_s, wall_s=time.perf_counter() - t0)
+    print(f"phase 16 four ranks on one card (pod 2 x data 1 x model 2 over gloo): ranks {ranks_s:.3f} s, phase "
+          f"{out['wall_s']:.3f} s, launches {launches}, flash by instance {pairs}, backward by instance {bwd_pairs}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5060,6 +5413,19 @@ def main() -> int:
           f"launches (oracle and four ranks) {ph15_launches}, flash by "
           f"instance {ph15_pairs}, flash backward by instance {ph15_bwd_pairs}")
     check(set(ph15_pairs) == set(ph15_bwd_pairs) == {MLA_PAIR}, f"phase 15 instances {ph15_pairs} {ph15_bwd_pairs}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phase 16's path runs in four spawned ranks: each sets its counters to 0
+    # before its parts and reads them after; these are their sums.
+    zero_counts(all_counters)
+    t0 = time.perf_counter()
+    pod = phase_pod_compress(torch, strain)
+    ph16_launches, ph16_pairs, ph16_bwd_pairs = pod["launches"], pod["flash_pairs"], pod["bwd_pairs"]
+    print(f"phase 16 in {time.perf_counter() - t0:.3f} s, launches (four ranks) {ph16_launches}, flash by instance "
+          f"{ph16_pairs}, flash backward by instance {ph16_bwd_pairs}")
+    check(ph16_launches["flash_attention"] > 0 and ph16_launches["flash_attention_bwd"] > 0,
+          "phase 16 never launched the flash forward or backward")
 
     meta = {
         "cost_matrix_f32": ("src/repro_torch/kernels/cost_matrix/csrc/cost_matrix.cu",
@@ -5089,7 +5455,7 @@ def main() -> int:
             launches_ph9=ph9_launches[name], launches_ph10=ph10_launches[name],
             launches_ph11=ph11_launches[name], launches_ph12=ph12_launches[name],
             launches_ph13=ph13_launches[name], launches_ph14=ph14_launches[name],
-            launches_ph15=ph15_launches[name],
+            launches_ph15=ph15_launches[name], launches_ph16=ph16_launches[name],
             **({"wrapper_ms": r["wrapper_ms"]} if "wrapper_ms" in r else {}),
         ))
     # The flash rows split the wrapper's counts by instance: "flash_attention"
@@ -5097,7 +5463,7 @@ def main() -> int:
     # (192, 128)" MLA's, each per phase as measured (``launches_by_pair``).
     phase_pairs = {"main": serving["pairs"], "sim": sim_pairs, "p2p": p2p_pairs, "ph8": ph8_pairs, "ph9": ph9_pairs,
                    "ph10": ph10_pairs, "ph11": ph11_pairs, "ph12": ph12_pairs, "ph13": ph13_pairs, "ph14": ph14_pairs,
-                   "ph15": ph15_pairs}
+                   "ph15": ph15_pairs, "ph16": ph16_pairs}
     source, replaces = attn_meta["flash_attention"]
     for name, mla, r in (("flash_attention", False, attn["flash_attention"]),
                          ("flash_attention (192, 128)", True, attn["flash_attention_mla"])):
@@ -5107,7 +5473,7 @@ def main() -> int:
             launches_sim=counts["sim"], launches_p2p=counts["p2p"], launches_ph8=counts["ph8"],
             launches_ph9=counts["ph9"], launches_ph10=counts["ph10"], launches_ph11=counts["ph11"],
             launches_ph12=counts["ph12"], launches_ph13=counts["ph13"], launches_ph14=counts["ph14"],
-            launches_ph15=counts["ph15"], launches_by_pair={ph: {key: n for key, n in pairs.items() if (key == MLA_PAIR) == mla}
+            launches_ph15=counts["ph15"], launches_ph16=counts["ph16"], launches_by_pair={ph: {key: n for key, n in pairs.items() if (key == MLA_PAIR) == mla}
                               for ph, pairs in phase_pairs.items()},
             launches_padded={} if mla else {"ph9": ph9_padded["flash_attention"],
                                             "ph10": ph10_padded["flash_attention"]}, **r))
@@ -5119,6 +5485,7 @@ def main() -> int:
                      launches_ph11=ph11_launches["decode_attention"],
                      launches_ph12=ph12_launches["decode_attention"], launches_ph13=ph13_launches["decode_attention"],
                      launches_ph14=ph14_launches["decode_attention"], launches_ph15=ph15_launches["decode_attention"],
+                     launches_ph16=ph16_launches["decode_attention"],
                      launches_ph12_range_entry=sharded["range_launches"], range_entry=sharded["range_entry"],
                      **attn["decode_attention"]))
     # The backward has no Pallas twin (the reference differentiates jnp
@@ -5136,8 +5503,9 @@ def main() -> int:
                      launches_ph13=ph13_launches["flash_attention_bwd"],
                      launches_ph14=ph14_launches["flash_attention_bwd"],
                      launches_ph15=ph15_launches["flash_attention_bwd"],
+                     launches_ph16=ph16_launches["flash_attention_bwd"],
                      launches_by_pair={"ph10": ph10_bwd_pairs, "ph13": ph13_bwd_pairs, "ph14": ph14_bwd_pairs,
-                                       "ph15": ph15_bwd_pairs},
+                                       "ph15": ph15_bwd_pairs, "ph16": ph16_bwd_pairs},
                      launches_padded={"ph10": ph10_padded["flash_attention_bwd"]}, **bwd_row))
     for k in line:
         k["bound_share"] = k["bound_ms"] / k["ms"]

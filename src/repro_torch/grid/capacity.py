@@ -18,14 +18,17 @@ from dataclasses import dataclass, field
 from pathlib import Path
 
 __all__ = ["PodCapacity", "capacity_from_artifact", "capacity_from_roofline",
-           "PEAK_FLOPS", "HBM_BW", "NVLINK_BW"]
+           "PEAK_FLOPS", "HBM_BW", "NVLINK_BW", "NVLINK_RX_BW"]
 
 # NVIDIA H100 SXM data sheet, per card: dense BF16 on the tensor cores
-# (no sparsity), HBM3 bandwidth, and NVLink (900 GB/s to the other cards
-# of the host, 450 GB/s each way).
+# (no sparsity), HBM3 bandwidth, and NVLink 4 (900 GB/s to the other
+# cards of the host, both directions together; NVLINK_RX_BW is the 450
+# GB/s a card receives, the rate the dry run's collective term divides
+# a rank's received bytes by).
 PEAK_FLOPS = 989e12
 HBM_BW = 3.35e12
 NVLINK_BW = 900e9
+NVLINK_RX_BW = 450e9
 
 
 @dataclass

@@ -30,9 +30,11 @@ cache's range takes pos' = min(pos, W − 1) and no window.
 
 A ``meta`` tensor takes the card's route up to the launch (checks,
 padding, the output's allocation) and stops there, returning an empty
-output; no counter moves. On the card and on ``meta`` alike a call
-charges its kernel's work (``work``, at the instance launched) to the
-active counters of ``repro_torch._counting``. ``launcher`` raises on
+output; no counter moves. On the card, on ``meta`` and on the host
+alike a call charges its kernel's work (``work``, at the instance
+launched) to the active counters of ``repro_torch._counting`` (the
+host's plain version inside ``_counting.host``, hidden from them).
+``launcher`` raises on
 anything but CUDA tensors.
 """
 from __future__ import annotations
@@ -131,7 +133,9 @@ def decode_attention(q, k, v, pos: int, *, window: int = 0, softcap: float = 0.0
     if window < 0 or softcap < 0:
         raise ValueError("decode_attention: window and softcap must be ≥ 0")
     if dev.type == "cpu":
-        return decode_attention_ref(q, k, v, pos, window=window, softcap=softcap, key0=key0, lse=lse)
+        with _counting.host("decode_attention", *work(B, H, KV, instance(D) or D, pos, window=window,
+                                                      itemsize=q.element_size(), key0=key0, S=S, lse=lse)):
+            return decode_attention_ref(q, k, v, pos, window=window, softcap=softcap, key0=key0, lse=lse)
     rep = H // KV
     Dk = instance(D)
     if Dk is None or rep > MAX_REP:

@@ -38,10 +38,12 @@ its launches in ``flash_attention_bwd.launches``,
 A ``meta`` tensor takes the card's route up to the launch, checks,
 padding and output allocation included, and stops there: the outputs
 (o, lse, dq, dk, dv) come back empty in the kernel's shapes and types,
-and no launch or padded counter moves. On the card and on ``meta`` alike
-a call charges its kernel's work, ``work``/``bwd_work`` at the instance
-launched, to the active counters of ``repro_torch._counting`` (the dry
-run's ``launch.op_analysis``); ``visible_pairs`` is the (query, key)
+and no launch or padded counter moves. On the card, on ``meta`` and on
+the host alike a call charges its kernel's work, ``work``/``bwd_work`` at
+the instance launched, to the active counters of
+``repro_torch._counting`` (the dry run's ``launch.op_analysis``; the
+host's plain version runs inside ``_counting.host``, hidden from them);
+``visible_pairs`` is the (query, key)
 pairs the masks let through, in closed form. ``launcher`` and
 ``bwd_launcher`` raise on anything but CUDA tensors.
 """
@@ -191,12 +193,15 @@ def _forward(q, k, v, causal, window, softcap, lse: bool = False):
     kernel (counted) on the card, empty outputs on ``meta``; returns
     (o, lse or None), lse (B, H, Sq) float32 when asked for (off the host a
     view of a (B, H, lse_stride(Sq)) buffer)."""
-    if q.device.type == "cpu":
-        out = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap, return_lse=lse)
-        return out if lse else (out, None)
     B, Sq, H, D = q.shape
     Dv = v.shape[3]
     pair = instance(D, Dv)
+    if q.device.type == "cpu":
+        with _counting.host("flash_attention", *work(B, Sq, k.shape[1], H, k.shape[2], *(pair or (D, Dv)),
+                                                     causal=causal, window=window, itemsize=q.element_size(),
+                                                     lse=lse)):
+            out = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap, return_lse=lse)
+        return out if lse else (out, None)
     scale = 1.0 / math.sqrt(D)
     padded = pair != (D, Dv)
     if padded:
@@ -257,7 +262,10 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window: int = 0,
                                                     or lse.device != dev):
         raise ValueError(f"flash_attention_bwd: lse must be a ({B}, {H}, {Sq}) tensor on {dev}")
     if dev.type == "cpu":
-        return flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window, softcap=softcap, lse=lse)
+        with _counting.host("flash_attention_bwd", *bwd_work(B, Sq, Sk, H, KV, *(instance(D, Dv) or (D, Dv)),
+                                                             causal=causal, window=window,
+                                                             itemsize=q.element_size())):
+            return flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window, softcap=softcap, lse=lse)
     ld = lse_stride(Sq)
     if lse.dtype != torch.float32 or lse.stride() != (H * ld, ld, 1):
         buf = torch.empty((B, H, ld), dtype=torch.float32, device=dev)

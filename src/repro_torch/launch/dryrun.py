@@ -22,16 +22,37 @@ every key of the reference's record, with
                           device holds under ``runtime.sharding``'s rules
   memory.temp_bytes       the high-water mark of storage the step creates
   roofline_terms          against ``grid.capacity``'s H100 peaks
-                          (989 TFLOP/s bf16, 3.35 TB/s), collective_s 0
+                          (989 TFLOP/s bf16, 3.35 TB/s, NVLink 450 GB/s
+                          received), collective_s 0 on one device
 
 A decode cell is one ``decode_step`` at the last position, max_len − 1,
-of a max_len cache. On a mesh of more than one device the argument bytes
-follow the rules, while the compute and memory terms are those of the
-one-device program divided by the number of devices
-(``per_device_terms``): the sharded decode paths run only on a mesh
-placed over a process group, which a ``meta`` program has not, so the dry
-run counts no sharded step and no collective until a per-rank ``meta`` run
-(ROADMAP.md, queue A12.8). The artifacts load through
+of a max_len cache.
+
+On a mesh of more than one device the record is rank 0's program: the
+cell's sharded step (``build_train_step(lm, tcfg, mesh=...)``,
+``build_prefill_step(lm, mesh=...)`` or ``build_serve_step(lm, B,
+max_len, mesh=...)``) built on a whole ``meta`` ``LM`` over
+``launch.mesh.meta_rank_mesh`` (torch's ``fake`` process group, whose
+collectives move nothing) and run once on the rank's blocks and rows
+(``shard_batch``) under ``OpAnalysis(trips=True)``. Its FLOPs, bytes and
+high-water mark are the rank's, and ``collectives`` what
+``launch.mesh.received`` counted: the bytes the rank receives (ring
+accounting, each microbatch's calls counted once a trip), by kind and
+count, and the largest calls. A collective's buffers also count as HBM
+bytes, as the reference adds a collective's operands and result to its
+``hbm_bytes``. ``collective_s`` is those bytes over one H100's NVLink 4
+receive rate (``grid.capacity.NVLINK_RX_BW``); a mesh wider than one
+NVLink domain of 8 cards crosses slower links, so there the term is a
+lower bound (``collective_link``). One rank stands for all: the rules cut
+only dimensions that divide, so every rank's blocks have the same shapes.
+``memory.argument_bytes`` is the rules' count (``runtime.sharding``),
+and ``memory.held_groups`` the bytes of the blocks the rank holds, by
+group: equal for training and prefill (checked); a decode step holds
+whole what its sharded layers do not cut (a cache too short for the
+sharded decode, the parameters outside its sharded layers), so there
+it may hold more (ROADMAP C12). ``--moe-impl
+a2a|auto`` and ``--compress-pod-grads`` (the pod axis's int8 gradient
+sum) run on that mesh. The artifacts load through
 ``grid.capacity_from_roofline`` as the reference's do.
 """
 from __future__ import annotations
@@ -47,22 +68,22 @@ import torch
 
 from repro_torch.configs import get_config, list_archs
 from repro_torch.configs.shapes import SHAPES, Shape, cells, input_specs
-from repro_torch.grid.capacity import HBM_BW, PEAK_FLOPS
-from repro_torch.launch.mesh import mesh_from_arg
+from repro_torch.grid.capacity import HBM_BW, NVLINK_RX_BW, PEAK_FLOPS
+from repro_torch.launch.mesh import mesh_from_arg, meta_rank_mesh, received
 from repro_torch.launch.op_analysis import OpAnalysis
-from repro_torch.models import LM
-from repro_torch.models.moe import set_moe_impl
+from repro_torch.models import LM, moe
 from repro_torch.runtime import sharding as shlib
 from repro_torch.runtime.serve import abstract_cache, build_serve_step
-from repro_torch.runtime.train import TrainConfig, build_prefill_step, build_train_step, init_opt_state
+from repro_torch.runtime.train import TrainConfig, build_prefill_step, build_train_step, init_opt_state, shard_batch
 
-__all__ = ["run_cell", "count_params", "auto_microbatches", "analyze_step", "step_arguments", "make_step",
-           "argument_bytes", "DEVICE_BYTES", "PER_DEVICE_TERMS"]
+__all__ = ["run_cell", "count_params", "auto_microbatches", "analyze_step", "analyze_rank_step", "rank_step",
+           "step_arguments", "make_step", "argument_bytes", "DEVICE_BYTES", "COLLECTIVE_LINK"]
 
 # One H100's memory, the data sheet's 80 GB: a cell fits where its
 # argument and temporary bytes a device stay within it.
 DEVICE_BYTES = 80e9
-PER_DEVICE_TERMS = "single-device program / n_devices (no per-rank sharded program until A12.8)"
+COLLECTIVE_LINK = ("NVLink 4, 450 GB/s received per H100 (grid.capacity.NVLINK_RX_BW); on a mesh wider than one "
+                   "NVLink domain of 8 cards collective_s is a lower bound")
 
 # activation budget steering the automatic microbatch count
 _CARRY_BUDGET = 4 * 2**30  # per-device live residual-carry bytes
@@ -205,14 +226,69 @@ def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _leaves(tree) if isinstance(t, torch.Tensor))
 
 
+def _spec_bytes(tree, specs, mesh) -> int:
+    """Bytes of a rank's blocks of ``tree`` (tensors) under ``specs``."""
+    return sum(math.prod(shlib.block_shape(t.shape, s, mesh)) * t.element_size()
+               for t, s in zip(_leaves(tree), _leaves(specs)))
+
+
+def rank_step(lm: LM, sh: Shape, mesh, *, microbatches: int = 1, optimizer: str = "adamw",
+              compress_pod_grads: bool = False, fill=None):
+    """The cell's sharded step on this rank of ``mesh`` (placed over a
+    process group), built from the whole ``lm`` on the rank's device:
+    (``step()``, the bytes of the blocks the rank holds by group, the whole
+    arguments on ``meta``). The rank's rows of the batch (``shard_batch``)
+    and its cache blocks are cut from ``step_arguments``' ``meta`` tensors,
+    ``fill`` mapping each batch tensor and each cache block to one with
+    values on the rank's device (None: the ``meta`` tensors as they are)."""
+    put = fill or (lambda t: t)
+    whole = step_arguments(LM(lm.cfg, device="meta"), sh, optimizer=optimizer)
+    blocks = lambda tree: shard_batch({k: put(v) for k, v in tree.items()}, mesh)  # noqa: E731
+    if sh.kind == "train":
+        tcfg = TrainConfig(microbatches=microbatches, optimizer=optimizer, compress_pod_grads=compress_pod_grads)
+        train, _ = build_train_step(lm, tcfg, mesh=mesh)
+        held = {"params": dict(lm.named_parameters()), "opt": init_opt_state(lm, optimizer),
+                "batch": blocks(whole["batch"])}
+        return (lambda: train(held["opt"], held["batch"])), {k: _nbytes(v) for k, v in held.items()}, whole
+    if sh.kind == "prefill":
+        prefill, _ = build_prefill_step(lm, mesh=mesh)
+        held = {"params": dict(lm.named_parameters()), "batch": blocks(whole["batch"])}
+        return (lambda: prefill(held["batch"])), {k: _nbytes(v) for k, v in held.items()}, whole
+    serve, (psh, csh, tsh, _), _ = build_serve_step(lm, sh.global_batch, sh.seq_len, mesh=mesh)
+    cache = shlib.tree_map(put, shlib.local_blocks(whole["cache"], csh, mesh))
+    tokens = put(shlib.local_block(whole["batch"]["tokens"], tsh, mesh))
+    held = {"params": _spec_bytes(whole["params"], psh, mesh), "batch": _nbytes(tokens), "cache": _nbytes(cache)}
+    return (lambda: serve(tokens, cache, sh.seq_len - 1)), held, whole
+
+
+def analyze_rank_step(cfg, sh: Shape, mesh_shape: dict, *, rank: int = 0, microbatches: int = 1,
+                      optimizer: str = "adamw", compress_pod_grads: bool = False):
+    """Rank ``rank``'s sharded step of the cell (``rank_step``), built on a
+    whole ``meta`` ``LM`` over ``meta_rank_mesh(mesh_shape, rank)`` and run
+    once under ``OpAnalysis(trips=True)`` with ``received`` zeroed: (its
+    OpCost, ``received``'s counts and calls, the whole arguments, the bytes
+    of the blocks the rank holds by group, the outputs, seconds, (total,
+    active) parameters)."""
+    with meta_rank_mesh(mesh_shape, rank) as mesh:
+        lm = LM(cfg, device="meta")
+        params = count_params(lm, cfg)
+        step, held, whole = rank_step(lm, sh, mesh, microbatches=microbatches, optimizer=optimizer,
+                                      compress_pod_grads=compress_pod_grads)
+        received.zero()
+        t0 = time.perf_counter()
+        with OpAnalysis(trips=True) as mode:
+            outs = step()
+        secs = time.perf_counter() - t0
+        coll = received.read()
+        coll["calls"] = {d: list(c) for d, c in received.calls.items()}
+    return mode.cost, coll, whole, held, outs, secs, params
+
+
 def run_cell(arch: str, shape_name: str, mesh_arg: str, *, reduced: bool = False,
              microbatches: int | None = None, remat_policy: str | None = None, optimizer: str = "adamw",
-             compress_pod_grads: bool = False, memo: dict | None = None) -> dict:
-    """The cell's record (module note). ``memo`` shares one analysis
-    between meshes that run the same one-device program."""
-    if compress_pod_grads:
-        raise ValueError("--compress-pod-grads: the pod axis's gradient compression waits for a per-rank meta "
-                         "run of the sharded programs (ROADMAP.md, A12.8)")
+             compress_pod_grads: bool = False) -> dict:
+    """The cell's record (module note): the one-device program on a mesh of
+    one, rank 0's sharded program on a larger one."""
     cfg = get_config(arch, reduced=reduced)
     if remat_policy:
         cfg = cfg.replace(remat_policy=remat_policy)
@@ -224,26 +300,45 @@ def run_cell(arch: str, shape_name: str, mesh_arg: str, *, reduced: bool = False
     mb = 1
     if sh.kind == "train":
         mb = microbatches if microbatches is not None else auto_microbatches(cfg, sh, mesh)
-    key = (arch, sh, reduced, mb, optimizer, cfg.remat_policy)
-    if memo is not None and key in memo:
-        cost, args, outs, secs, total_p, active_p = memo[key]
-    else:
+    if math.prod(mesh.values()) == 1:
         lm = LM(cfg, device="meta")
         cost, args, outs, secs = analyze_step(lm, sh, microbatches=mb, optimizer=optimizer)
-        total_p, active_p = count_params(lm, cfg)
-        if memo is not None:
-            memo[key] = (cost, args, outs, secs, total_p, active_p)
+        params = count_params(lm, cfg)
+        coll = held = None
+    else:
+        cost, coll, args, held, outs, secs, params = analyze_rank_step(
+            cfg, sh, mesh, microbatches=mb, optimizer=optimizer, compress_pod_grads=compress_pod_grads)
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_arg, "reduced": reduced,
-           "compile_seconds": round(secs, 1), **cell_record(cfg, sh, mesh, cost, args, outs, total_p, active_p)}
+           "compile_seconds": round(secs, 1), **cell_record(cfg, sh, mesh, cost, args, outs, *params, coll=coll)}
+    if held is not None:
+        rec["memory"]["held_groups"] = held
+        # a decode step holds whole what its sharded layers do not cut (ROADMAP C12)
+        if sh.kind != "decode" and held != rec["memory"]["argument_groups"]:
+            raise AssertionError(f"{arch} {shape_name} {mesh_arg}: the rank holds {held} bytes, the rules count "
+                                 f"{rec['memory']['argument_groups']}")
     if sh.kind == "train":
         rec["microbatches"] = mb
         rec["optimizer"] = optimizer
+        rec["compress_pod_grads"] = compress_pod_grads
     return rec
 
 
-def cell_record(cfg, sh: Shape, mesh: dict, cost, args: dict, outs, total_p: float, active_p: float) -> dict:
+def _collectives(coll: dict | None) -> dict:
+    """The record's ``collectives`` from ``received``'s counts and calls:
+    bytes received in all, by kind (count and bytes), the largest calls."""
+    if coll is None:
+        return {"total_bytes": 0.0, "by_op": {}, "top": []}
+    by_op = {k: {"count": 0, "bytes": b} for k, b in coll["by_kind"].items()}
+    for desc, (count, _) in coll["calls"].items():
+        by_op[desc.split(" ", 1)[0]]["count"] += count
+    return {"total_bytes": coll["total"], "by_op": by_op, "top": coll["top"], "largest": coll["largest"]}
+
+
+def cell_record(cfg, sh: Shape, mesh: dict, cost, args: dict, outs, total_p: float, active_p: float, *,
+                coll: dict | None = None) -> dict:
     """The record of one analysed step (``run_cell``'s keys but the cell's
-    names), for ``mesh``."""
+    names) on ``mesh``: ``cost`` and ``coll`` (``received``'s counts) are
+    one device's program, ``args`` the whole arguments."""
     n_dev = math.prod(mesh.values())
     kind = sh.kind
     tokens = sh.global_batch * (sh.seq_len if cfg.family != "encdec" else 448)
@@ -256,15 +351,15 @@ def cell_record(cfg, sh: Shape, mesh: dict, cost, args: dict, outs, total_p: flo
         alias = groups["params"] + groups["opt"]
         out_b = alias + _nbytes(outs)                       # the step's metrics
     elif kind == "prefill":
-        alias, out_b = 0, _nbytes(outs) // n_dev
+        alias, out_b = 0, _nbytes(outs)
     else:
         alias = groups["cache"]
-        out_b = alias + _nbytes(outs[0]) // n_dev
-    temp_b = cost.peak_bytes // n_dev
-    flops = cost.flops / n_dev
-    hbm = cost.hbm_bytes / n_dev
+        out_b = alias + _nbytes(outs[0])
+    colls = _collectives(coll)
+    flops, hbm, temp_b = cost.flops, cost.hbm_bytes, cost.peak_bytes
     model_flops = flops_mult * active_p * tokens
-    terms = {"compute_s": flops / PEAK_FLOPS, "memory_s": hbm / HBM_BW, "collective_s": 0.0}
+    terms = {"compute_s": flops / PEAK_FLOPS, "memory_s": hbm / HBM_BW,
+             "collective_s": colls["total_bytes"] / NVLINK_RX_BW}
     dominant = max(terms, key=terms.get)
     bound = max(terms.values())
     rec = {
@@ -277,28 +372,28 @@ def cell_record(cfg, sh: Shape, mesh: dict, cost, args: dict, outs, total_p: flo
         "cost": {
             "hlo_flops": flops, "hlo_bytes": hbm,
             # the aten operators' part alone, the kernels' charges left out
-            "xla_raw_flops": cost.aten_flops / n_dev, "xla_raw_bytes": cost.aten_bytes / n_dev,
-            "program_flops": cost.flops, "program_bytes": cost.hbm_bytes, "ops": cost.ops,
+            "xla_raw_flops": cost.aten_flops, "xla_raw_bytes": cost.aten_bytes, "ops": cost.ops,
         },
-        "collectives": {"total_bytes": 0.0, "by_op": {}, "top": []},
-        "top_hbm_ops": [f"{b / n_dev / 2**30:.2f}GiB {d}" for b, d in cost.top_hbm],
+        "collectives": colls,
+        "top_hbm_ops": [f"{b / 2**30:.2f}GiB {d}" for b, d in cost.top_hbm],
         "kernels": cost.by_kernel,
         "params": {"total": total_p, "active": active_p},
         "tokens_per_step": tokens,
         "model_flops_per_device": model_flops / n_dev,
         "useful_flops_ratio": (model_flops / n_dev) / flops if flops else 0.0,
         "roofline_terms": terms,
-        "memory_s_kernelized": (cost.hbm_bytes - cost.score_hbm_bytes) / n_dev / HBM_BW,
+        "memory_s_kernelized": (hbm - cost.score_hbm_bytes) / HBM_BW,
         "dominant_term": dominant,
         "step_time_lower_bound_s": bound,
         "roofline_fraction": (model_flops / n_dev) / PEAK_FLOPS / bound if bound > 0 else 0.0,
-        "device": "H100", "peaks": {"flops_per_s": PEAK_FLOPS, "hbm_bytes_per_s": HBM_BW},
+        "device": "H100", "peaks": {"flops_per_s": PEAK_FLOPS, "hbm_bytes_per_s": HBM_BW,
+                                    "nvlink_rx_bytes_per_s": NVLINK_RX_BW},
         "fits_device_memory": arg_b + temp_b <= DEVICE_BYTES,
     }
     if kind == "decode":
         rec["decode_pos"] = sh.seq_len - 1
     if n_dev > 1:
-        rec["per_device_terms"] = PER_DEVICE_TERMS
+        rec["collective_link"] = COLLECTIVE_LINK
     return rec
 
 
@@ -312,23 +407,22 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true", help="smoke mode: reduced configs + shrunken shapes")
     ap.add_argument("--microbatches", type=int, default=None)
     ap.add_argument("--moe-impl", default=None, choices=["gather", "a2a", "auto"],
-                    help="MoE dispatch (models.moe.set_moe_impl); a2a and auto need a placed mesh, which the "
-                         "meta programs have not (A12.8)")
+                    help="MoE dispatch (models.moe.set_moe_impl); a2a and auto apply on a mesh of more than one "
+                         "device")
     ap.add_argument("--remat-policy", default=None, choices=["full", "dots"])
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "adamw8"])
     ap.add_argument("--compress-pod-grads", action="store_true",
-                    help="not in the port yet: waits for a per-rank meta run (A12.8)")
+                    help="int8 gradient sum over the pod axis (runtime.train; a no-op without one)")
     args = ap.parse_args(argv)
-    if args.moe_impl not in (None, "gather"):
-        ap.error(f"--moe-impl {args.moe_impl}: the a2a dispatch runs on a mesh placed over a process group, and "
-                 "the dry run's meta programs have none (a shapes-only mesh has no process group), so a2a is not "
-                 "applicable there; its per-device count needs a per-rank meta run (ROADMAP.md, A12.8)")
-    if args.moe_impl is not None:
-        set_moe_impl(args.moe_impl)
-    if args.compress_pod_grads:
-        ap.error("--compress-pod-grads: the pod axis's gradient compression waits for a per-rank meta run of "
-                 "the sharded programs (ROADMAP.md, A12.8)")
+    prev_impl = moe.MOE_IMPL
+    moe.set_moe_impl(args.moe_impl or prev_impl)
+    try:
+        _sweep(ap, args)
+    finally:
+        moe.set_moe_impl(prev_impl)
 
+
+def _sweep(ap, args) -> None:
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
@@ -342,12 +436,12 @@ def main(argv=None):
     failures = []
     t_all = time.perf_counter()
     for arch, shape in todo:
-        memo: dict = {}
         for mesh_arg in meshes:
             tag = f"{arch}__{shape}__{mesh_arg}{'__reduced' if args.reduced else ''}"
             try:
                 rec = run_cell(arch, shape, mesh_arg, reduced=args.reduced, microbatches=args.microbatches,
-                               remat_policy=args.remat_policy, optimizer=args.optimizer, memo=memo)
+                               remat_policy=args.remat_policy, optimizer=args.optimizer,
+                               compress_pod_grads=args.compress_pod_grads)
                 (out / f"{tag}.json").write_text(json.dumps(rec, indent=1))
                 t = rec["roofline_terms"]
                 print(f"[ok] {tag}: dominant={rec['dominant_term']} compute={t['compute_s']:.6f}s "

@@ -54,13 +54,29 @@ is the training CLI's mesh over every rank of the process group.
 
 ``received`` counts the bytes this rank receives in the collectives above
 and their backwards, by kind (``all_reduce``, ``all_gather``,
-``all_to_all``, each with ``.backward``), and the most one call received;
-it moves no data of its own. It counts as a ring does: an all-reduce of n
-bytes over g ranks receives 2(g − 1)/g · n (a reduce-scatter, then an
-all-gather: NCCL's bus-bandwidth accounting), an all-gather of blocks of
-b bytes (g − 1) · b, an all-to-all of n bytes (g − 1)/g · n.
-``received.zero()`` sets every count to 0 and ``received.read()`` returns
-them, as the kernels' launch counters are zeroed and read.
+``all_to_all``, each with ``.backward``), the most one call received, and
+each distinct call (its kind, axis, type, shape and group size g, as the
+reference's dry run lists ``"{op} {dtype}[{shape}] g={g}"``); it moves no
+data of its own. It counts as a ring does: an all-reduce of n bytes over
+g ranks receives 2(g − 1)/g · n (a reduce-scatter, then an all-gather:
+NCCL's bus-bandwidth accounting), an all-gather of blocks of b bytes
+(g − 1) · b, an all-to-all of n bytes (g − 1)/g · n. Inside a loop of
+counted trips (``_counting.trips`` under a trip-counting analysis: the
+training step's microbatches in the dry run) a call counts once for each
+trip the body stands for. ``received.zero()`` sets every count to 0 and
+``received.read()`` returns them, as the kernels' launch counters are
+zeroed and read.
+
+``meta_rank_mesh(shape, rank)`` is one rank's mesh on the ``meta``
+device, over torch's ``fake`` process group, whose collectives move
+nothing: the sharded steps run on it as on a placed mesh, computing only
+shapes, and ``received`` counts what the rank would receive (the dry
+run's per-rank programs). The ``fake`` backend serves ``meta`` only: a
+mesh over it holds no other device, a mesh over a real backend no
+``meta`` device, and every collective refuses a tensor off its mesh's
+kind of device. ``sub_mesh`` is the mesh of some of a mesh's axes through
+this rank (the compressed training step's pod, its ('data', 'model')
+ranks), whose whole-mesh collectives span that slice only.
 
 The backend is the caller's choice (``nccl`` on a pod, one rank a card;
 ``gloo`` for ranks on the host or several ranks sharing one card, where
@@ -71,6 +87,8 @@ rank's function returned.
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import math
 import multiprocessing
 import queue
@@ -81,9 +99,11 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 
+from .. import _counting
+
 __all__ = ["make_production_mesh", "mesh_from_arg", "make_mesh", "make_mesh_from_ranks", "mesh_shape_from_ranks",
            "Mesh", "placed", "all_reduce", "sum_shares", "all_gather", "gather_dims", "spec_axes", "all_to_all",
-           "run_ranks", "received", "AXES"]
+           "run_ranks", "received", "AXES", "meta_rank_mesh", "sub_mesh"]
 
 AXES = ("pod", "data", "model")
 
@@ -113,16 +133,21 @@ class Mesh(dict):
     shapes-only mesh is), and for each axis ``groups[axis]``, the process
     group of the ranks that differ from this one only on that axis, and
     ``coords[axis]``, this rank's coordinate on it. ``device`` is this
-    rank's device, ``backend`` the process group's, ``device_mesh`` the
-    ``DeviceMesh`` the groups come from."""
+    rank's device, ``backend`` the process group's; ``whole`` is the group
+    of the mesh's every rank (None: the default group) and ``rank`` this
+    rank's place in it, row-major."""
 
-    def __init__(self, shape: dict, device_mesh, device: torch.device, backend: str):
+    def __init__(self, shape: dict, groups: dict, coords: dict, device: torch.device, backend: str, *,
+                 whole=None, rank: int | None = None):
         super().__init__(shape)
-        self.device_mesh = device_mesh
+        if (backend == "fake") != (device.type == "meta"):
+            raise ValueError(f"Mesh: the fake backend serves the meta device only, not {backend!r} on {device}")
+        self.groups = {ax: groups[ax] for ax in shape}
+        self.coords = {ax: coords[ax] for ax in shape}
         self.device = device
         self.backend = backend
-        self.groups = {ax: device_mesh.get_group(ax) for ax in shape}
-        self.coords = dict(zip(shape, device_mesh.get_coordinate()))
+        self.whole = whole
+        self.rank = dist.get_rank() if rank is None else rank
 
 
 def placed(mesh) -> bool:
@@ -136,7 +161,8 @@ def make_mesh(shape: dict, *, device_type: str = "cuda") -> Mesh:
     "data", "model")) over the initialised default process group, whose
     world size must be the mesh's size; ranks are laid out row-major (the
     last axis fastest), each on the card unless ``device_type`` says
-    otherwise. Collective: every rank calls it."""
+    otherwise (``meta`` over the ``fake`` backend alone). Collective:
+    every rank calls it."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: initialise the process group first (torch.distributed.init_process_group)")
     names = tuple(shape)
@@ -155,7 +181,49 @@ def make_mesh(shape: dict, *, device_type: str = "cuda") -> Mesh:
     else:
         device = torch.device(device_type)
     dm = DeviceMesh(device_type, torch.arange(world).reshape(tuple(shape.values())), mesh_dim_names=names)
-    return Mesh(shape, dm, device, dist.get_backend())
+    return Mesh(shape, {ax: dm.get_group(ax) for ax in names}, dict(zip(names, dm.get_coordinate())), device,
+                dist.get_backend())
+
+
+def sub_mesh(mesh: Mesh, axes: tuple) -> Mesh:
+    """The mesh of ``mesh``'s ``axes`` through this rank: the ranks that
+    share its coordinates on the other axes, with their groups along
+    ``axes`` (those of ``mesh``) and a whole group of their own, so that a
+    collective over the whole mesh (``axis=None``) spans this slice alone.
+    Collective: every rank of ``mesh`` calls it (each slice's group is
+    made on every rank, in one order)."""
+    axes = tuple(a for a in mesh if a in axes)
+    rest = tuple(a for a in mesh if a not in axes)
+    grid = torch.arange(math.prod(mesh.values())).reshape(tuple(mesh.values()))
+    whole = None
+    for at in itertools.product(*(range(mesh[a]) for a in rest)):
+        index = tuple(at[rest.index(a)] if a in rest else slice(None) for a in mesh)
+        ranks = grid[index].reshape(-1).tolist()
+        group = dist.new_group(ranks)
+        if all(mesh.coords[a] == c for a, c in zip(rest, at)):
+            whole, rank = group, ranks.index(mesh.rank)
+    return Mesh({a: mesh[a] for a in axes}, mesh.groups, mesh.coords, mesh.device, mesh.backend, whole=whole,
+                rank=rank)
+
+
+@contextlib.contextmanager
+def meta_rank_mesh(shape: dict, rank: int = 0):
+    """Rank ``rank``'s mesh of ``shape`` on the ``meta`` device, over a
+    ``fake`` default process group made for it and destroyed after the
+    block (module note). Refuses to run while a process group is
+    initialised."""
+    if dist.is_initialized():
+        raise RuntimeError("meta_rank_mesh: a process group is initialised; a meta rank's mesh needs its own")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    world = math.prod(shape.values())
+    if not 0 <= rank < world:
+        raise ValueError(f"meta_rank_mesh: rank {rank} outside a mesh of {world}")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
+    try:
+        yield make_mesh(shape, device_type="meta")
+    finally:
+        dist.destroy_process_group()
 
 
 def mesh_shape_from_ranks(world: int) -> dict:
@@ -176,7 +244,8 @@ def make_mesh_from_ranks(*, device_type: str = "cuda") -> Mesh:
 
 class Received:
     """Bytes this rank received in the collectives of this module since
-    ``zero()``: ``by_kind``, and ``largest``, the most one call received."""
+    ``zero()``: ``by_kind``, ``largest``, the most one call received, and
+    ``calls``, each distinct call's description → [count, bytes a call]."""
 
     def __init__(self):
         self.zero()
@@ -184,14 +253,31 @@ class Received:
     def zero(self) -> None:
         self.by_kind: dict = {}
         self.largest = 0
+        self.calls: dict = {}
 
-    def add(self, kind: str, nbytes: int) -> None:
-        self.by_kind[kind] = self.by_kind.get(kind, 0) + nbytes
+    def add(self, kind: str, nbytes: int, axis, x: torch.Tensor, g: int) -> None:
+        """One call of ``kind`` over ``axis`` (None: the whole mesh) and
+        ``g`` ranks that received ``nbytes``, ``x`` its buffer; it counts
+        once for each trip the running body stands for."""
+        k = _counting.trip_scale()
+        self.by_kind[kind] = self.by_kind.get(kind, 0) + k * nbytes
         self.largest = max(self.largest, nbytes)
+        desc = (f"{kind} {axis or 'mesh'} {str(x.dtype).removeprefix('torch.')}"
+                f"[{','.join(str(n) for n in x.shape)}] g={g}")
+        rec = self.calls.setdefault(desc, [0, nbytes])
+        rec[0] += k
+
+    def top(self, n: int = 10) -> list:
+        """The ``n`` calls that received most, as the reference's dry run
+        lists them: "{MiB} {kind} {axis} {dtype}[{shape}] g={g}", with
+        their count."""
+        calls = sorted(self.calls.items(), key=lambda kv: (-kv[1][1], kv[0]))[:n]
+        return [f"{b / 2**20:.1f}MiB {desc} x{c}" for desc, (c, b) in calls]
 
     def read(self) -> dict:
-        """{"total", "by_kind", "largest"}, copies."""
-        return {"total": sum(self.by_kind.values()), "by_kind": dict(self.by_kind), "largest": self.largest}
+        """{"total", "by_kind", "largest", "top"}, copies."""
+        return {"total": sum(self.by_kind.values()), "by_kind": dict(self.by_kind), "largest": self.largest,
+                "top": self.top()}
 
 
 received = Received()
@@ -201,35 +287,42 @@ def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
 
 
-def _count_reduce(x: torch.Tensor, g: int, kind: str) -> None:
-    received.add(kind, 2 * (g - 1) * _nbytes(x) // g)
+def _count_reduce(x: torch.Tensor, g: int, kind: str, axis) -> None:
+    received.add(kind, 2 * (g - 1) * _nbytes(x) // g, axis, x, g)
 
 
 # -- collectives along one axis ---------------------------------------------------
 
 def _group(mesh: Mesh, axis):
-    return None if axis is None else mesh.groups[axis]
+    return mesh.whole if axis is None else mesh.groups[axis]
 
 
 def _size(mesh: Mesh, axis) -> int:
     return math.prod(mesh.values()) if axis is None else mesh[axis]
 
 
+def _on_mesh(x: torch.Tensor, mesh: Mesh, what: str) -> None:
+    """Refuse a tensor off the mesh's kind of device: a ``meta`` one on a
+    real backend's mesh, any other on the ``fake`` backend's."""
+    if (x.device.type == "meta") != (mesh.device.type == "meta"):
+        raise ValueError(f"{what}: a tensor on {x.device} on a mesh of {mesh.device} ({mesh.backend})")
+
+
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, n):
-        ctx.group, ctx.n = group, n
+    def forward(ctx, x, group, n, axis):
+        ctx.group, ctx.n, ctx.axis = group, n, axis
         out = x.clone()
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-        _count_reduce(out, n, "all_reduce")
+        _count_reduce(out, n, "all_reduce", axis)
         return out
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
         dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
-        _count_reduce(g, ctx.n, "all_reduce.backward")
-        return g, None, None
+        _count_reduce(g, ctx.n, "all_reduce.backward", ctx.axis)
+        return g, None, None, None
 
 
 def all_reduce(x: torch.Tensor, axis, mesh: Mesh, op: str = "sum") -> torch.Tensor:
@@ -238,13 +331,14 @@ def all_reduce(x: torch.Tensor, axis, mesh: Mesh, op: str = "sum") -> torch.Tens
     n = _size(mesh, axis)
     if n == 1:
         return x
+    _on_mesh(x, mesh, "all_reduce")
     if op == "sum":
-        return _AllReduceSum.apply(x, _group(mesh, axis), n)
+        return _AllReduceSum.apply(x, _group(mesh, axis), n, axis)
     if op != "max":
         raise ValueError(f"all_reduce: op {op!r} is 'sum' or 'max'")
     out = x.detach().clone()
     dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_group(mesh, axis))
-    _count_reduce(out, n, "all_reduce")
+    _count_reduce(out, n, "all_reduce", axis)
     return out
 
 
@@ -253,7 +347,7 @@ class _SumShares(torch.autograd.Function):
     def forward(ctx, x, group, n):
         out = x.clone()
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-        _count_reduce(out, n, "all_reduce")
+        _count_reduce(out, n, "all_reduce", None)
         return out
 
     @staticmethod
@@ -269,30 +363,31 @@ def sum_shares(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     n = _size(mesh, None)
     if n == 1:
         return x
-    return _SumShares.apply(x, None, n)
+    _on_mesh(x, mesh, "sum_shares")
+    return _SumShares.apply(x, mesh.whole, n)
 
 
-def _gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+def _gather(x: torch.Tensor, group, n: int, dim: int, axis) -> torch.Tensor:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=group)
-    received.add("all_gather", (n - 1) * _nbytes(x))
+    received.add("all_gather", (n - 1) * _nbytes(x), axis, x, n)
     return torch.cat(parts, dim=dim)
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, n, index, dim):
-        ctx.group, ctx.n, ctx.index, ctx.dim, ctx.block = group, n, index, dim, x.shape[dim]
-        return _gather(x, group, n, dim)
+    def forward(ctx, x, group, n, index, dim, axis):
+        ctx.group, ctx.n, ctx.index, ctx.dim, ctx.block, ctx.axis = group, n, index, dim, x.shape[dim], axis
+        return _gather(x, group, n, dim, axis)
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
         dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
-        _count_reduce(g, ctx.n, "all_gather.backward")
+        _count_reduce(g, ctx.n, "all_gather.backward", ctx.axis)
         # a copy of the block, so that the whole sum is freed here
-        return g.narrow(ctx.dim, ctx.index * ctx.block, ctx.block).clone(), None, None, None, None
+        return g.narrow(ctx.dim, ctx.index * ctx.block, ctx.block).clone(), None, None, None, None, None
 
 
 def all_gather(x: torch.Tensor, axis, mesh: Mesh, dim: int) -> torch.Tensor:
@@ -303,8 +398,9 @@ def all_gather(x: torch.Tensor, axis, mesh: Mesh, dim: int) -> torch.Tensor:
     n = _size(mesh, axis)
     if n == 1:
         return x
-    index = dist.get_rank() if axis is None else mesh.coords[axis]
-    return _AllGather.apply(x, _group(mesh, axis), n, index, dim % x.dim())
+    _on_mesh(x, mesh, "all_gather")
+    index = mesh.rank if axis is None else mesh.coords[axis]
+    return _AllGather.apply(x, _group(mesh, axis), n, index, dim % x.dim(), axis)
 
 
 def spec_axes(entry) -> tuple:
@@ -331,23 +427,23 @@ def gather_dims(x: torch.Tensor, spec: tuple, mesh: Mesh, axes=None) -> torch.Te
     return x
 
 
-def _exchange(x: torch.Tensor, group, n: int, kind: str) -> torch.Tensor:
+def _exchange(x: torch.Tensor, group, n: int, kind: str, axis) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group)
-    received.add(kind, (n - 1) * _nbytes(x) // n)
+    received.add(kind, (n - 1) * _nbytes(x) // n, axis, x, n)
     return out
 
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, n):
-        ctx.group, ctx.n = group, n
-        return _exchange(x, group, n, "all_to_all")
+    def forward(ctx, x, group, n, axis):
+        ctx.group, ctx.n, ctx.axis = group, n, axis
+        return _exchange(x, group, n, "all_to_all", axis)
 
     @staticmethod
     def backward(ctx, g):
-        return _exchange(g, ctx.group, ctx.n, "all_to_all.backward"), None, None
+        return _exchange(g, ctx.group, ctx.n, "all_to_all.backward", ctx.axis), None, None, None
 
 
 def all_to_all(x: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:
@@ -359,7 +455,8 @@ def all_to_all(x: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:
         raise ValueError(f"all_to_all: dimension 0 of {tuple(x.shape)} does not divide over {axis!r} ({n})")
     if n == 1:
         return x
-    return _AllToAll.apply(x, mesh.groups[axis], n)
+    _on_mesh(x, mesh, "all_to_all")
+    return _AllToAll.apply(x, mesh.groups[axis], n, axis)
 
 
 # -- ranks of one mesh on this host ---------------------------------------------

@@ -10,7 +10,9 @@ device alike. ``OpAnalysis`` counts over the block it is entered for:
                      (mm, addmm, bmm, baddbmm, convolutions, attention
                      ops) over every operator, plus the FLOPs the
                      attention kernels charge (``kernels._work``: a
-                     kernel launch is a ctypes call no mode sees)
+                     kernel launch is a ctypes call no mode sees; on
+                     the host their plain versions run hidden from the
+                     mode, ``_counting.host``)
   hbm_bytes        — operand and result bytes of every operator that
                      moves data (view and allocation operators move none;
                      an indexing operator streams only the rows it
@@ -27,8 +29,13 @@ device alike. ``OpAnalysis`` counts over the block it is entered for:
                      that creates it until it is freed (storages that
                      existed before the block do not count), the stand-in
                      for ``memory_analysis().temp_size_in_bytes``
-  collective_bytes — 0: the port has no collective until the sharded
-                     paths (ROADMAP.md, queue A12.5)
+
+A collective (a ``c10d`` operator, on a placed mesh or on the ``fake``
+backend of a ``meta`` rank) is an operator like any other here: its
+buffers count as HBM bytes, as the reference adds a collective's operands
+and result to its ``hbm_bytes``. The bytes a rank receives over the links
+are not counted here but by ``launch.mesh.received``, which the dry run
+zeroes and reads around the step.
 
 ``by_kernel`` counts each kernel's charged calls, FLOPs and bytes, and
 ``aten_flops``/``aten_bytes`` the operators' part alone. Field names are
@@ -85,9 +92,6 @@ class OpCost:
     flops: int = 0
     hbm_bytes: int = 0
     score_hbm_bytes: int = 0
-    collective_bytes: int = 0
-    by_coll: dict = field(default_factory=dict)
-    top_colls: list = field(default_factory=list)
     top_hbm: list = field(default_factory=list)
     peak_bytes: int = 0
     aten_flops: int = 0

@@ -324,12 +324,13 @@ def _gather_dispatch(params, xt: torch.Tensor, tok: torch.Tensor, live, T: int, 
     C = max(8, int(T * K * cfg.capacity_factor / E))
     with torch.no_grad():
         every_tok, every_idx = all_gather(tok, None, mesh, 0), all_gather(idx, None, mesh, 0)
-        glob = torch.zeros((T, K), dtype=idx.dtype, device=idx.device)
-        own = every_tok >= 0
-        glob[every_tok[own]] = every_idx[own]
-        pos_all = _positions_in_expert(glob, E)
+        # row T takes the padding tokens' choices and is dropped: shapes only, so it runs on meta too
+        glob = torch.zeros((T + 1, K), dtype=idx.dtype, device=idx.device)
+        glob[torch.where(every_tok >= 0, every_tok, T)] = every_idx
+        pos_all = _positions_in_expert(glob[:T], E)
         pos = pos_all[tok.clamp(min=0)]
-        moe_gather_sharded.dropped += int((pos_all >= C).sum())
+        if pos_all.device.type != "meta":
+            moe_gather_sharded.dropped += int((pos_all >= C).sum())
     keep = pos < C if live is None else (pos < C) & live[:, None]
     slot = torch.where(keep, idx * C + pos, E * C).reshape(-1)  # E·C: the drop bin
     buf = xt.new_zeros((E * C + 1, d))

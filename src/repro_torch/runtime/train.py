@@ -42,9 +42,24 @@ body (``_step``) on one device and under a mesh; under a mesh it:
   along it, updated whole, and the parameter's block taken back.
 
 ``init_opt_state`` of a placed model allocates the rank's blocks of the
-zero state. A step under a mesh refuses ``compress_pod_grads`` with a pod
-axis (ROADMAP A12.8; the reference's own path CHECK-fails in XLA's
-partitioner).
+zero state.
+
+``compress_pod_grads`` with a pod axis runs the reference's ``per_pod``
+body (``repro.runtime.train``, whose own path CHECK-fails in XLA's
+partitioner: ROADMAP C11): the model runs on the pod's ('data', 'model')
+sub-mesh (``launch.mesh.sub_mesh``), so its loss is the mean of the pod's
+rows (the count, the moe aux, T, the capacity and the gather dispatch's
+slots the pod's), and the microbatches are the pod's rows cut again
+(rows [p·B/P + i·B/(P·n), …)). Its gradient blocks are summed in float
+over the pod's replica axes, then each leaf is synced over 'pod' in int8
+(``_int8_pod_sum``): one per-tensor scale max(amax, 1e-12)/127 from the
+amax of the reference's whole leaf (a family's layers stacked in one),
+codes clamp(round(x/scale), −127, 127), the codes
+summed as int32 and the scales summed over 'pod', the gradient
+summed·(scale_sum/n)/n in the leaf's type. The loss is averaged over
+'pod'; the norm, the schedule and the update follow as without
+compression. The int32 sum moves 4 bytes an element over 'pod', as the
+reference's HLO would.
 """
 from __future__ import annotations
 
@@ -56,10 +71,11 @@ import torch
 from torch import nn
 
 from .._counting import trips
-from ..launch.mesh import all_reduce, gather_dims, placed
+from ..launch.mesh import all_reduce, gather_dims, placed, sub_mesh
 from ..models import LM
 from ..models.lm import Placement
 from ..optim import AdamWConfig, adamw_init, adamw_update, clip_by_global_norm, linear_warmup_cosine
+from ..optim.adamw import stack_position
 from ..optim.adamw8 import adamw8_init, adamw8_update
 from .sharding import (batch_axes, batch_specs, block_shape, local_block, needs_zero3, opt_state_specs,
                        param_specs, spec_axes)
@@ -75,7 +91,7 @@ class TrainConfig:
     total_steps: int = 10_000
     max_grad_norm: float = 1.0
     microbatches: int = 1
-    compress_pod_grads: bool = False   # EF-int8 cross-pod all-reduce (refused with a pod axis: A12.8)
+    compress_pod_grads: bool = False   # int8 cross-pod gradient sum (a no-op without a pod axis)
     optimizer: str = "adamw"           # 'adamw' | 'adamw8' (int8 moments)
     adamw: AdamWConfig = AdamWConfig()
 
@@ -171,7 +187,8 @@ def shard_batch(batch: dict, mesh) -> dict:
 def _microbatches(batch: dict, n: int, mesh):
     """This rank's rows of the i-th of the global batch's ``n`` microbatches
     (rows [i·B/n, (i+1)·B/n), the reference's reshape), from its rows of the
-    global batch: gathered whole over the batch axes and cut again."""
+    global batch: gathered whole over the batch axes and cut again (on a
+    pod's sub-mesh, the pod's rows)."""
     axes = batch_axes(mesh)
     shards = math.prod(mesh[a] for a in axes)
     whole = {k: gather_dims(v, (axes or None,) + (None,) * (v.dim() - 1), mesh) for k, v in batch.items()}
@@ -232,6 +249,49 @@ def _global_norm(grads: dict, layout: dict, mesh) -> torch.Tensor:
 
 
 @torch.no_grad()
+def _int8_pod_sum(grads: dict, layout: dict, mesh) -> dict:
+    """Each gradient (a pod's, whole over the pod's replica axes) replaced,
+    in place, by the reference's int8 sum over 'pod'
+    (``repro.runtime.train``'s ``sync``): a per-tensor scale from the amax
+    of the reference's whole leaf (its blocks' max over the axes that shard
+    it, and over the layers of a stacked leaf: ``adamw.stack_position``),
+    the int8 codes of ``x.float()``, summed as int32 over 'pod' with the
+    scales, then summed·(scale_sum/n)/n in the gradient's type. Returns
+    each leaf's ('/'-joined path) (this pod's scale, the pods' scale sum),
+    float32 0-d tensors."""
+    leaves: dict = {}
+    for name in grads:
+        pos = stack_position(name)
+        leaves.setdefault(pos[0] if pos else (name,), []).append(name)
+    by_axes: dict = {}
+    for leaf, names in leaves.items():
+        by_axes.setdefault(layout[names[0]]["shard"], []).append(leaf)
+    amax: dict = {}
+    for axes, group in by_axes.items():
+        m = torch.stack([torch.stack([grads[k].float().abs().amax() for k in leaves[leaf]]).amax()
+                         for leaf in group])
+        for ax in axes:
+            m = all_reduce(m, ax, mesh, op="max")
+        amax.update(zip(group, m))
+    order = list(leaves)
+    # divisors on the device: a host scalar divisor is a reciprocal product on the card (ROADMAP C2)
+    c127, n_t = (torch.full((), v, dtype=torch.float32, device=amax[order[0]].device)
+                 for v in (127.0, mesh["pod"]))
+    scales = torch.clamp(torch.stack([amax[leaf] for leaf in order]), min=1e-12) / c127
+    sums = all_reduce(scales, "pod", mesh)
+    means = sums / n_t
+    for leaf, scale, mean in zip(order, scales, means):
+        for name in leaves[leaf]:
+            g = grads[name]
+            # the int8 codes, held as int32 for the sum (in place: a leaf's float copies are its largest buffers)
+            q = g.float().div_(scale).round_().clamp_(-127, 127).to(torch.int32)
+            summed = all_reduce(q, "pod", mesh)
+            del q
+            grads[name] = summed.float().mul_(mean).div_(n_t).to(g.dtype)
+    return {"/".join(leaf): (scale, total) for leaf, scale, total in zip(order, scales, sums)}
+
+
+@torch.no_grad()
 def _adamw8_blocks(grads: dict, opt: dict, params: dict, lr, cfg: AdamWConfig, layout: dict, mesh) -> None:
     """adamw8 on the rank's blocks of the whole state; a leaf whose moments
     are whole along its last dimension (``layout``'s ``drop``) is updated
@@ -252,9 +312,10 @@ def _adamw8_blocks(grads: dict, opt: dict, params: dict, lr, cfg: AdamWConfig, l
 def _step(lm: LM, params: dict, tcfg: TrainConfig, microbatch, reduce, norm, update):
     """The train step's one body: the gradients of ``lm.loss`` (over
     ``tcfg.microbatches`` microbatches, ``microbatch(batch, n)`` giving the
-    i-th, accumulated in float32), ``reduce``'d in place, clipped by the
-    norm ``norm`` gives (None: ``clip_by_global_norm``'s own), the learning
-    rate, then ``update(grads, opt, lr)``."""
+    i-th, accumulated in float32), ``reduce(grads, loss)``'d in place (it
+    returns the loss the step reports), clipped by the norm ``norm`` gives
+    (None: ``clip_by_global_norm``'s own), the learning rate, then
+    ``update(grads, opt, lr)``."""
 
     def backward(batch) -> torch.Tensor:
         for p in params.values():
@@ -282,7 +343,7 @@ def _step(lm: LM, params: dict, tcfg: TrainConfig, microbatch, reduce, norm, upd
 
     def train_step(opt: dict, batch: dict) -> dict:
         grads, loss = grads_of(_on(lm.device, batch))
-        reduce(grads)
+        loss = reduce(grads, loss)
         grads, gnorm = clip_by_global_norm(grads, tcfg.max_grad_norm, norm=norm(grads))
         lr = linear_warmup_cosine(opt["step"], tcfg.warmup_steps, tcfg.total_steps, tcfg.peak_lr)
         update(grads, opt, lr)
@@ -317,17 +378,17 @@ def build_train_step(lm: LM, tcfg: TrainConfig = TrainConfig(), *, mesh=None):
         lm.requires_grad_(True)
         params = dict(lm.named_parameters())
         update = adamw8_update if tcfg.optimizer == "adamw8" else adamw_update
-        return _step(lm, params, tcfg, _reshaped, lambda g: None, lambda g: None,
+        return _step(lm, params, tcfg, _reshaped, lambda g, loss: loss, lambda g: None,
                      lambda g, opt, lr: update(g, opt, params, lr, cfg))
     _check_mesh(lm, mesh, "build_train_step")
-    if tcfg.compress_pod_grads and mesh.get("pod", 1) > 1:
-        raise NotImplementedError("build_train_step: compress_pod_grads across a pod axis is not ported (ROADMAP "
-                                  "A12.8; the reference's own path CHECK-fails in XLA's partitioner)")
     whole, opt_whole = abstract_train_state(lm, tcfg.optimizer)
     pspecs = param_specs(mesh, whole, zero3=True)
     ospecs = opt_state_specs(mesh, opt_whole, pspecs, tcfg.optimizer)
     layout = _layout(mesh, pspecs, whole, ospecs, tcfg.optimizer)
-    place_(lm, pspecs, mesh, trainable=True)
+    compress = tcfg.compress_pod_grads and mesh.get("pod", 1) > 1
+    # under compression the model sees its pod alone, as the reference's per_pod body
+    run = sub_mesh(mesh, ("data", "model")) if compress else mesh
+    place_(lm, pspecs, run, trainable=True)
     params = dict(lm.named_parameters())
     if tcfg.optimizer == "adamw8":
         def update(g, opt, lr):
@@ -335,8 +396,19 @@ def build_train_step(lm: LM, tcfg: TrainConfig = TrainConfig(), *, mesh=None):
     else:
         def update(g, opt, lr):
             adamw_update(g, opt, params, lr, cfg)
-    step = _step(lm, params, tcfg, lambda batch, n: _microbatches(batch, n, mesh),
-                 lambda g: _sum_replicas(g, layout, mesh), lambda g: _global_norm(g, layout, mesh), update)
+    if compress:
+        pod_layout = _layout(run, pspecs, whole, ospecs, tcfg.optimizer)
+
+        def reduce(g, loss):
+            _sum_replicas(g, pod_layout, run)
+            _int8_pod_sum(g, layout, mesh)
+            return all_reduce(loss, "pod", mesh) / mesh["pod"]
+    else:
+        def reduce(g, loss):
+            _sum_replicas(g, layout, mesh)
+            return loss
+    step = _step(lm, params, tcfg, lambda batch, n: _microbatches(batch, n, run), reduce,
+                 lambda g: _global_norm(g, layout, mesh), update)
     return step, (pspecs, ospecs)
 
 

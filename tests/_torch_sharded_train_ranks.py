@@ -247,8 +247,8 @@ def _prefill(mesh, key, case, inp, out):
 
 def _refusals(mesh, key, case, inp, out):
     """What the sharded steps refuse, as messages (empty where the step
-    builds): each listed family's train and prefill steps, and
-    compress_pod_grads across a pod axis."""
+    builds): each listed family's train and prefill steps, and the
+    compressed step (compress_pod_grads) across a pod axis."""
     msgs = []
     for arch in case["archs"]:
         for build in (lambda lm: build_train_step(lm, TrainConfig(), mesh=mesh),

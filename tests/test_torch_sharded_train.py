@@ -27,10 +27,10 @@ the leaf's largest change over the steps: every element within 1e-2
 adamw8 codes and scales.
 The prefill's logits rows within 1e-4 of the largest logit. Also the
 training CLI on 4 gloo ranks with a restart that continues bit for bit
-(gemma2-9b, whisper-base and deepseek-v2-236b), and the one refusal left:
-compress_pod_grads across a pod axis (the moe and ssm families' steps
-build under the mesh: ``test_torch_sharded_moe.py``,
-``test_torch_sharded_ssm.py``).
+(gemma2-9b, whisper-base and deepseek-v2-236b), and that the moe and ssm
+families' steps and the compressed step across a pod axis build under the
+mesh (``test_torch_sharded_moe.py``, ``test_torch_sharded_ssm.py``,
+``test_torch_pod_compress.py``).
 """
 import json
 
@@ -265,15 +265,14 @@ def test_prefill_step_equals_the_reference(runs):
 
 
 def test_refusals_under_a_placed_mesh(runs):
-    """compress_pod_grads across a pod axis refuses by name (ROADMAP A12.8);
-    the moe and ssm families' train and prefill steps build under the
-    mesh."""
+    """Nothing refuses any more: the moe and ssm families' train and prefill
+    steps and the compressed step across a pod axis build under the mesh
+    (the compressed step's values: ``test_torch_pod_compress.py``)."""
     for r, _ in _ranks(runs[1], CASES["refusals"]):
         msgs = [str(m) for m in r["refusals/messages"]]
         assert len(msgs) == 2 * len(SHARDED_LAST) + 1
         assert {get_config(a).family for a in SHARDED_LAST} == {"moe", "ssm"}
-        assert msgs[:-1] == [""] * 2 * len(SHARDED_LAST), msgs[:-1]
-        assert msgs[-1].startswith("NotImplementedError") and "A12.8" in msgs[-1]
+        assert msgs == [""] * (2 * len(SHARDED_LAST) + 1), msgs
 
 
 def test_a_shapes_only_mesh_is_refused():
