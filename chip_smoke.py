@@ -216,7 +216,10 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    magnitude and the same argmax but where the one-process logits' top two
    lie within that tolerance of each other; every step of every rank runs
    each layer through the sharded attention and MLP and launches the
-   decode kernel once a layer, through the key-range entry; (c) one
+   decode kernel once a layer, through the key-range entry; each rank's
+   parameter and cache storage equals the rules' bytes
+   (``launch.dryrun.argument_bytes``), printed beside what the rule
+   before them held; (c) one
    deepseek-v2-236b MLA layer, ``mla_decode_sharded`` against ``mla_decode``
    (bf16, 2e-2 of the largest magnitude); (d) one deepseek-v2-236b moe
    layer, the a2a dispatch (2-D EP: 160 experts over the 4 ranks) on
@@ -266,8 +269,19 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    learning rates; (c) whisper-base in float32, 3 steps at S 448 against
    rank 0's one-process steps to phase 13's f32 limits; (d) each
    family's prefill under the mesh on (b)'s first batch within 1e-2 of
-   the largest one-process logit (whisper-base in float32 too, 1e-4).
-   Every sharded attention call launches the flash kernel and every
+   the largest one-process logit (whisper-base in float32 too, 1e-4);
+   (e) ``build_serve_step(..., mesh=...)`` in float32, B 4 over max_len
+   1,024, 3 steps: recurrentgemma-2b (3 layers), llama-3.2-vision-11b (5)
+   and whisper-base, ``init_cache`` under the mesh over the seeded image
+   embeddings and 1,500 audio frames (whisper's encoder on the rank's
+   blocks, each cross layer's block of K/V), every other cache from a
+   seed: each rank's logits rows within 2e-4 of one process's and the
+   same argmax, every layer through its sharded body (the RG-LRU
+   channel-parallel; whisper's cross K/V cut along N through the
+   key-range entry, vision's 1,601 image tokens along D through the
+   float32 partial scores), and each rank's parameter and cache storage
+   equal to the rules' bytes, beside the rule before them. (f) Every
+   sharded attention call of (b)-(d) launches the flash kernel and every
    training layer its backward, each at its family's instance, none
    padded; ``rglru_sharded`` runs once a recurrent layer a forward. The
    kernels line's ``launches_ph14`` are (a)'s kernel route and the four
@@ -292,7 +306,10 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    mesh (mamba2 in float32 too); (e) ``build_serve_step(..., mesh=...)``,
    B 4 over max_len 1,024, a prompt then decode steps: deepseek-v2-236b in
    bf16 (``mla_decode_sharded``, the gather dispatch of one token a row)
-   and mamba2-780m in bf16 and float32, within phase 12's limits; (f)
+   and mamba2-780m in bf16 and float32, within phase 12's limits, each
+   rank's storage equal to the rules' bytes (beside the rule before them)
+   and every Mamba-2 layer through ``mamba_decode_sharded`` (its state cut
+   along N); (f)
    every ``mla_sharded`` call launches the (192, 128) instance and every
    training layer its backward, none padded, and ``mamba_sharded`` and
    the dispatch counters equal the layers run. The kernels line's
@@ -3411,6 +3428,112 @@ def serving_zero3(force: bool):
         sharding._SERVE_ZERO3_BUDGET = held
 
 
+# -- a sharded serve step's holdings ----------------------------------------------
+#
+# Phases 12 (b), 14 (e) and 15 (e) read each rank's parameter and cache storage
+# and hold it to the rules' bytes (launch.dryrun.argument_bytes: param_specs(...,
+# serve=True) and cache_specs), printed beside the bytes the rule before them
+# held (the attention, MLA and MLP blocks the sharded decode bodies read by their
+# own specs, the tables as serving cuts them, every other parameter whole; a
+# self-attention cache cut along S where S/m >= 128, every other cache by rows).
+
+def _leaf_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_leaf_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def rules_holding(torch, cfg, mesh_shape: dict, B: int, max_len: int, frames=None) -> dict:
+    """The bytes a rank holds of the serve step's parameters and caches under
+    the rules (``launch.dryrun.argument_bytes``), from ``meta`` tensors."""
+    from repro_torch.launch.dryrun import argument_bytes
+    from repro_torch.models import LM
+    from repro_torch.runtime.serve import abstract_cache
+
+    lm = LM(cfg, device="meta")
+    args = {"params": dict(lm.named_parameters()), "cache": abstract_cache(lm, B, max_len, frames=frames),
+            "batch": {"tokens": torch.empty((B, 1), dtype=torch.int32, device="meta")}}
+    groups = argument_bytes(mesh_shape, args, "decode")
+    return {"params": groups["params"], "cache": groups["cache"]}
+
+
+def parent_holding(torch, cfg, mesh_shape: dict, B: int, max_len: int, frames=None) -> dict:
+    """The bytes a rank held under the rule before the rules' blocks (see above)."""
+    from repro_torch.models import LM
+    from repro_torch.models.attention import _decode_bspec, decode_attention_specs, decode_mlp_specs
+    from repro_torch.models.mla import mla_decode_specs
+    from repro_torch.runtime.serve import abstract_cache
+    from repro_torch.runtime.sharding import block_shape, param_specs
+
+    lm = LM(cfg, device="meta")
+    m, W = mesh_shape.get("model", 1), min(cfg.local_window, max_len)
+    sharded = lambda S: m > 1 and S % m == 0 and S // m >= 128  # noqa: E731
+    rules = param_specs(mesh_shape, lm, serve=True)
+    specs = {n: rules[n] if n in ("embed", "unembed") else (None,) * p.dim() for n, p in lm.named_parameters()}
+    attn, mlp = decode_attention_specs(cfg, mesh_shape, B), decode_mlp_specs(cfg, mesh_shape, B)
+    fam, L = cfg.family, cfg.num_layers
+    if fam == "dense":
+        pat = cfg.layer_pattern * (L // len(cfg.layer_pattern))
+        selfs = [(f"blocks.{i}", W if c == "L" and cfg.local_window else max_len) for i, c in enumerate(pat)]
+    elif fam == "vlm":
+        k = cfg.cross_attn_every
+        selfs = [(f"self_blocks.{p}.{j}", max_len) for p in range(L // k) for j in range(k - 1)]
+    elif fam == "hybrid":
+        selfs = [(f"attn_blocks.{p}", W) for p in range(L // 3)]
+    elif fam == "encdec":
+        selfs = [(f"dec_self.{i}", max_len) for i in range(L)]
+    else:
+        selfs = []
+    for prefix, S in selfs:
+        for w in ("wq", "wk", "wv", "wo"):
+            if sharded(S):
+                specs[f"{prefix}.attn.{w}"] = attn[w]
+        for w in ("w_gate", "w_up", "w_down"):
+            if m > 1 and f"{prefix}.mlp.{w}" in specs:
+                specs[f"{prefix}.mlp.{w}"] = mlp[w]
+    if fam == "moe":
+        mla = mla_decode_specs(cfg, mesh_shape, B)
+        experts = param_specs(mesh_shape, lm, zero3=True)
+        for n in specs:
+            parts = n.split(".")
+            if parts[0] not in ("dense_blocks", "moe_blocks"):
+                continue
+            if parts[2] == "attn" and sharded(max_len):
+                specs[n] = mla[parts[3]]
+            elif parts[2] == "moe" and parts[3] in ("w_gate", "w_up", "w_down"):
+                specs[n] = experts[n]
+            elif parts[2] == "mlp" and m > 1:
+                specs[n] = mlp[parts[3]]
+    params = sum(math.prod(block_shape(lm.get_parameter(n).shape, sp, mesh_shape)) * lm.get_parameter(n).element_size()
+                 for n, sp in specs.items())
+    bspec = _decode_bspec(mesh_shape, B)
+    attn_caches = {"k", "v", "local_k", "local_v", "global_k", "global_v", "ring_k", "ring_v", "c_kv", "k_rope"}
+
+    def cache_bytes(name, t, lead):
+        spec = [None] * t.dim()
+        spec[lead] = bspec
+        if name in attn_caches and sharded(t.shape[lead + 1]):
+            spec[lead + 1] = "model"
+        return math.prod(block_shape(t.shape, tuple(spec), mesh_shape)) * t.element_size()
+
+    lead2 = {"dense": ("local_k", "local_v", "global_k", "global_v"), "vlm": ("k", "v"), "hybrid": ("h", "conv")}
+    cache = 0
+    for name, t in abstract_cache(lm, B, max_len, frames=frames).items():
+        for leaf, u in (t.items() if isinstance(t, dict) else [(name, t)]):
+            cache += cache_bytes(leaf, u, 2 if leaf in lead2.get(fam, ()) else 1)
+    return {"params": params, "cache": cache}
+
+
+def holding(torch, step, cache, cfg, mesh, B: int, max_len: int, what: str, frames=None) -> dict:
+    """This rank's parameter storage (``serve_step.lm``) and cache storage
+    against the rules' bytes (equal, checked) and the parent rule's."""
+    held = {"params": sum(p.numel() * p.element_size() for p in step.lm.parameters()), "cache": _leaf_bytes(cache)}
+    shape = dict(mesh)
+    rules = rules_holding(torch, cfg, shape, B, max_len, frames)
+    check(held == rules, f"{what} rank {dict(mesh.coords)}: holds {held} bytes, the rules count {rules}")
+    return dict(held=held, rules=rules, parent=parent_holding(torch, cfg, shape, B, max_len, frames))
+
+
 def phase12_rank(mesh) -> dict:
     """One rank of phase 12 (b)-(d), on its blocks; every kernel counter set
     to 0 before and read after. Returns this rank's outputs (its rows, its
@@ -3444,6 +3567,8 @@ def phase12_rank(mesh) -> dict:
         for k in cache:
             cache[k].copy_(local_block(full[k], csh[k], mesh))
         del full
+        with serving_zero3(zero3):
+            held = holding(torch, step, cache, cfg, mesh, B, max_len, f"phase 12b {name}")
         rows, counts, times = [], [], []
         for n, pos in enumerate(PH12["steps"]):
             tok = local_block(torch.as_tensor(toks[:, n:n + 1], device=dev), tsh, mesh)
@@ -3463,7 +3588,7 @@ def phase12_rank(mesh) -> dict:
             rows.append(logits.float().cpu().numpy())
         res[name] = dict(logits=np.stack(rows), counts=counts, step_s=times, layers=cfg.num_layers,
                          table_spec=list(psh["embed"]),
-                         cut_params=sum(any(e is not None for e in sp) for sp in psh.values()),
+                         cut_params=sum(any(e is not None for e in sp) for sp in psh.values()), holding=held,
                          cache_specs={k: [list(e) if isinstance(e, tuple) else e for e in v] for k, v in csh.items()})
         del lm, step, cache, logits
         gc.collect()
@@ -3697,6 +3822,7 @@ def phase_sharded(torch) -> dict:
                              step_s={d: r[d]["step_s"] for d, _, _ in PASSES12}, moe_s=r["moe_s"],
                              counts={d: r[d]["counts"] for d, _, _ in PASSES12},
                              cut_params={d: r[d]["cut_params"] for d, _, _ in PASSES12},
+                             holding={d: r[d]["holding"] for d, _, _ in PASSES12},
                              cache_specs=r["bfloat16"]["cache_specs"], received=received))
         print(f"phase 12 rank {c}: {json.dumps(per_rank[-1])}")
     launches = summed([r["launches"] for r in ranks])
@@ -4030,6 +4156,12 @@ PH14_TRAIN = {"recurrentgemma-2b": (dict(num_layers=5), 2048), "llama-3.2-vision
               "whisper-base": ({}, WHISPER_TOKENS)}
 PH14_PAIRS = {"recurrentgemma-2b": "256x256", "llama-3.2-vision-11b": "128x128", "whisper-base": "64x64"}
 PH14_GRAD_TOL = 1e-3     # (a): each gradient leaf within 1e-3 of its max |g|, as phase 10.2
+# (e): build_serve_step under the mesh in float32, B 4 over max_len 1,024 (the ring 1,024 too), 3 steps from
+# caches filled from a seed but the cross K/V, which init_cache computes on the rank's blocks (whisper over its
+# 1,500 frames: N over 'model', the key-range entry; vision over 1,601 image tokens, which do not divide: D)
+PH14_SERVE = dict(B=4, max_len=1024, positions=(0, 511, 1023), seed=14,
+                  layers={"recurrentgemma-2b": dict(num_layers=3), "llama-3.2-vision-11b": dict(num_layers=5),
+                          "whisper-base": {}})
 
 
 def family_layers(cfg) -> tuple[int, int]:
@@ -4136,6 +4268,91 @@ def whisper14(torch, mesh=None) -> tuple:
     return metrics, times, lm, before
 
 
+def serve14(torch, arch: str, mesh=None) -> dict:
+    """(e) for one family: ``build_serve_step`` in float32 (under ``mesh`` on
+    this rank's rows and blocks), B 4 over max_len 1,024: ``init_cache`` over
+    the family's seeded image embeddings or audio frames (under ``mesh`` the
+    rank's rows: whisper's encoder on the rank's blocks, each cross layer's
+    block of its K/V), every other cache from a seeded generator, steps at
+    PH14_SERVE's positions → {"logits": this rank's rows by step}, and under
+    ``mesh`` each step's layers by body and decode launches, the cross
+    caches' cut and the rank's holding against the rules' bytes."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.models import attention, decode, rglru
+    from repro_torch.runtime.pspec import logical_axis_rules
+    from repro_torch.runtime.serve import abstract_cache, build_serve_step
+    from repro_torch.runtime.sharding import local_block
+
+    cfg, lm = build_family(torch, arch, "float32", **PH14_SERVE["layers"][arch])
+    B, max_len = PH14_SERVE["B"], PH14_SERVE["max_len"]
+    emb = family_inputs(torch, cfg, B)
+    frames = emb["audio_embeds"].shape[1] if "audio_embeds" in emb else None
+    whole = abstract_cache(lm, B, max_len, frames=frames)
+    if mesh is None:
+        step, _ = build_serve_step(lm, B, max_len, frames=frames)
+        cache = decode.init_cache(lm, B, max_len, **emb)
+        csh, tsh = None, None
+    else:
+        step, (_, csh, tsh, _), _ = build_serve_step(lm, B, max_len, mesh=mesh, frames=frames)
+        with logical_axis_rules(mesh):
+            cache = decode.init_cache(lm, B, max_len, **{k: local_block(v, (tsh[0], None, None), mesh)
+                                                         for k, v in emb.items()})
+    gen = torch.Generator(device="cuda").manual_seed(PH14_SERVE["seed"])
+    for k in sorted(k for k in cache if not k.startswith("cross")):
+        full = torch.randn(whole[k].shape, generator=gen, device="cuda").to(cache[k].dtype)
+        cache[k].copy_(full if csh is None else local_block(full, csh[k], mesh))
+        del full
+    out = {}
+    if mesh is not None:
+        out["holding"] = holding(torch, step, cache, cfg, mesh, B, max_len, f"phase 14e {arch}", frames)
+        out["cross_cut"] = next((i for i, e in enumerate(csh["cross_k"][1:]) if e == "model"), None) \
+            if "cross_k" in csh else None
+    del lm                      # the step holds this rank's blocks (the whole ones shared)
+    gc.collect()
+    torch.cuda.empty_cache()
+    toks = np.random.default_rng(PH14_SERVE["seed"]).integers(0, cfg.vocab_size, (B, len(PH14_SERVE["positions"])))
+    counters = (attention.decode_attention_sharded, attention.cross_decode_sharded, rglru.rglru_decode_sharded,
+                attention.decode_mlp_sharded, decode.gathered_layer)
+    rows, counts, times = [], [], []
+    for n, pos in enumerate(PH14_SERVE["positions"]):
+        tok = torch.as_tensor(toks[:, n:n + 1], device="cuda")
+        before = [f.calls for f in counters] + [da_ops.decode_attention.launches, da_ops.decode_attention.ranged]
+        torch.cuda.synchronize()
+        zero_received()
+        t1 = time.perf_counter()
+        logits, cache = step(tok if tsh is None else local_block(tok, tsh, mesh), cache, pos)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        after = [f.calls for f in counters] + [da_ops.decode_attention.launches, da_ops.decode_attention.ranged]
+        counts.append(dict(zip(("attention", "cross", "rglru", "mlp", "gathered", "decode_launches",
+                                "range_launches"), (a - b for a, b in zip(after, before)))))
+        if mesh is not None:
+            log_received("decode", cfg, mesh, n)
+        rows.append(logits.float().cpu().numpy())
+    del step, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(out, logits=np.stack(rows), counts=counts, step_s=times, layers=cfg.num_layers)
+
+
+def serve14_want(cfg, cross_cut) -> dict:
+    """(e)'s layers by body a step: each self-attention layer's cache cut
+    along S (the decode kernel's key-range entry), each cross layer through
+    the key-range entry where its K/V are cut along N, the plain partial
+    scores where along D; every MLP sharded, nothing gathered at use."""
+    L = cfg.num_layers
+    if cfg.family == "hybrid":
+        attn, cross, rec = L // 3, 0, L - L // 3
+    elif cfg.family == "vlm":
+        cross = L // cfg.cross_attn_every
+        attn, rec = L - cross, 0
+    else:
+        attn, cross, rec = L, L, 0
+    launch = attn + (cross if cross_cut != 3 else 0)
+    return dict(attention=attn, cross=cross, rglru=rec, mlp=L * (2 if cfg.family == "encdec" else 1), gathered=0,
+                decode_launches=launch, range_launches=attn + (cross if cross_cut == 1 else 0))
+
+
 def phase14_rank(mesh) -> dict:
     """One rank of phase 14 on its blocks: (b) each family's bf16 steps and
     (d) its bf16 prefill, (c) whisper-base's f32 steps with their final
@@ -4185,6 +4402,15 @@ def phase14_rank(mesh) -> dict:
     finals = gather_blocks(dict(lm.named_parameters()), lm.placement.specs, mesh, keep=first) or {}
     del lm
     res["prefill"]["whisper-base f32"] = prefill14(torch, "whisper-base", "float32", mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (e) the serve steps under the mesh
+    res["serve"] = {}
+    for arch in PH14_SERVE["layers"]:
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        res["serve"][arch] = serve14(torch, arch, mesh)
+        res["serve"][arch].update(part_s=time.perf_counter() - t1, peak_bytes=torch.cuda.max_memory_allocated())
     torch.cuda.synchronize()
     res["sharded_s"] = time.perf_counter() - t0
     res["launches"] = {name: fn.launches for name, fn in counters.items()}
@@ -4240,6 +4466,7 @@ def phase_sharded_families(torch) -> dict:
     one-process bf16 steps and prefill logits (and whisper-base's f32
     prefill), then four ranks on the card, each held to them (and rank 0 to
     its own one-process f32 steps of (c))."""
+    from repro_torch.models.attention import _decode_bspec
     from repro_torch.runtime.sharding import batch_specs
     from repro_torch.runtime.train import TrainConfig
 
@@ -4269,6 +4496,7 @@ def phase_sharded_families(torch) -> dict:
     want["whisper-base f32"] = prefill14(torch, "whisper-base", "float32")
     gc.collect()
     torch.cuda.empty_cache()
+    serve_want = {arch: serve14(torch, arch)["logits"] for arch in PH14_SERVE["layers"]}
     one_s = time.perf_counter() - t1
 
     ranks, ranks_s = card_ranks(phase14_rank, PH14["mesh"])
@@ -4282,6 +4510,8 @@ def phase_sharded_families(torch) -> dict:
     steps, wsteps, (wL, _) = PH14["steps"], PH14["oracle_steps"], layers["whisper-base"]
     fwd_want = {PH14_PAIRS[a]: 2 * steps * L + L for a, (L, _) in layers.items()}
     fwd_want["64x64"] += 2 * wsteps * wL + wL
+    # (e): init_cache under the mesh runs whisper's encoder as the sharded prefill does, a flash launch a layer
+    fwd_want["64x64"] += get_config("whisper-base").replace(**PH14_SERVE["layers"]["whisper-base"]).num_encoder_layers
     bwd_want = {PH14_PAIRS[a]: steps * L for a, (L, _) in layers.items()}
     bwd_want["64x64"] += wsteps * wL
     rec_want = sum((2 * steps + 1) * R for _, R in layers.values())
@@ -4317,10 +4547,31 @@ def phase_sharded_families(torch) -> dict:
               f"(want {bwd_want}), sharded attention calls {r['calls'][0]}")
         check(r["calls"][1] == rec_want, f"phase 14 rank {c}: rglru_sharded ran {r['calls'][1]} times, not {rec_want}")
         check(not any(r["padded"].values()), f"phase 14 rank {c} took the padded route {r['padded']}")
-        check(r["launches"]["decode_attention"] == 0, f"phase 14 rank {c} launched decode_attention")
+        # (e) each serve step's rows within float32's limit of one process, the same greedy token; every layer
+        # through its sharded body, the key-range entry for every self layer and N-cut cross layer
+        srows = (None, _decode_bspec(mesh, PH14_SERVE["B"]), None, None)
+        serve_err, launched = {}, 0
+        for arch, sv in r["serve"].items():
+            got, ref = sv["logits"], rows_of(serve_want[arch], c, mesh, srows)
+            serve_err[arch] = max_abs_err(torch, torch.from_numpy(got), torch.from_numpy(ref))
+            check(got.shape == ref.shape and bool(np.all(np.abs(got - ref) <= F32_TOL + F32_TOL * np.abs(ref))),
+                  f"phase 14e rank {c} {arch}: logits differ from one process by {serve_err[arch]!r}")
+            check(np.array_equal(got.argmax(-1), ref.argmax(-1)), f"phase 14e rank {c} {arch} argmax differs")
+            cfg = get_config(arch).replace(**PH14_SERVE["layers"][arch])
+            want_k = serve14_want(cfg, sv["cross_cut"])
+            check(all(k == want_k for k in sv["counts"]), f"phase 14e rank {c} {arch}: {sv['counts']}, want {want_k}")
+            check(arch != "whisper-base" or sv["cross_cut"] == 1,
+                  f"phase 14e rank {c}: whisper's cross K/V cut along {sv['cross_cut']}, not N")
+            launched += sum(k["decode_launches"] for k in sv["counts"])
+        check(r["launches"]["decode_attention"] == launched,
+              f"phase 14 rank {c} launched decode_attention {r['launches']['decode_attention']} times, (e) {launched}")
         received = check_received("14", c, r["received"])
         per_rank.append(dict(coords=c, families=fams, f32_step_s=r["f32"]["step_s"],
-                             f32_peak_gb=r["f32"]["peak_bytes"] / 1e9, prefill_rel_err=errs, flash_forward=fwd,
+                             f32_peak_gb=r["f32"]["peak_bytes"] / 1e9, prefill_rel_err=errs,
+                             serve_max_abs_err=serve_err,
+                             serve={a: dict(holding=v["holding"], cross_cut=v["cross_cut"], step_s=v["step_s"],
+                                            part_s=v["part_s"], peak_gb=v["peak_bytes"] / 1e9, counts=v["counts"][0])
+                                    for a, v in r["serve"].items()}, flash_forward=fwd,
                              flash_backward=bwd, rglru_calls=r["calls"][1], sharded_s=r["sharded_s"],
                              received=received))
         print(f"phase 14 rank {c}: {json.dumps(per_rank[-1])}")
@@ -4430,8 +4681,8 @@ def routed_ids(torch, fn) -> tuple:
 
     ids, orig = [], moe._route
 
-    def spy(params, xt, cfg):
-        gates, idx, probs = orig(params, xt, cfg)
+    def spy(params, xt, cfg, logits=None):
+        gates, idx, probs = orig(params, xt, cfg, logits)
         ids.append(idx.cpu())
         return gates, idx, probs
 
@@ -4572,7 +4823,8 @@ def serve15(torch, arch: str, dtype: str, dev, mesh=None) -> tuple:
     over PH15_SERVE's prompt and decode steps from empty caches: (each
     step's logits (this rank's rows), stacked; each step's routings, as
     (the global rows routed, their expert ids) on the host, under ``mesh``
-    the rows this rank routed)."""
+    the rows this rank routed; under ``mesh`` the rank's holding against
+    the rules' bytes (``holding``), else None)."""
     from repro_torch.models import decode, moe
     from repro_torch.runtime.pspec import logical_axis_rules
     from repro_torch.runtime.serve import build_serve_step
@@ -4591,6 +4843,7 @@ def serve15(torch, arch: str, dtype: str, dev, mesh=None) -> tuple:
         with logical_axis_rules(mesh):
             cache = decode.init_cache(lm, B, max_len)
         cut = lambda t: local_block(t, tsh, mesh)  # noqa: E731
+    held = None if mesh is None else holding(torch, step, cache, cfg, mesh, B, max_len, f"phase 15e {arch} {dtype}")
     del lm                      # the step holds this rank's blocks (the whole ones shared)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4616,7 +4869,7 @@ def serve15(torch, arch: str, dtype: str, dev, mesh=None) -> tuple:
     finally:
         moe._gather_dispatch = orig
     del step, cache
-    return np.stack(logits_by_step), routes
+    return np.stack(logits_by_step), routes, held
 
 
 def rerouted(one_routes: list, rank_routes: list) -> set:
@@ -4634,11 +4887,12 @@ def rerouted(one_routes: list, rank_routes: list) -> set:
 
 def layer_counts() -> dict:
     """The sharded layers' calls so far, this process."""
-    from repro_torch.models import mla, moe, ssm
+    from repro_torch.models import decode, mla, moe, ssm
 
     return {"mla_sharded": mla.mla_sharded.calls, "mla_decode_sharded": mla.mla_decode_sharded.calls,
             "mamba_sharded": ssm.mamba_sharded.calls, "moe_gather_sharded": moe.moe_gather_sharded.calls,
-            "moe_a2a_sharded": moe.moe_a2a_sharded.calls, "dropped": moe.moe_gather_sharded.dropped}
+            "moe_a2a_sharded": moe.moe_a2a_sharded.calls, "dropped": moe.moe_gather_sharded.dropped,
+            "mamba_decode_sharded": ssm.mamba_decode_sharded.calls, "gathered_layer": decode.gathered_layer.calls}
 
 
 def phase15_rank(mesh) -> dict:
@@ -4705,10 +4959,11 @@ def phase15_rank(mesh) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     # (e) the serve steps
-    res["routes"] = {}
+    res["routes"], res["holding"] = {}, {}
     for arch, dtype in (("deepseek-v2-236b", "bfloat16"), ("mamba2-780m", "bfloat16"), ("mamba2-780m", "float32")):
         t1 = time.perf_counter()
-        res["serve"][f"{arch} {dtype}"], res["routes"][f"{arch} {dtype}"] = serve15(torch, arch, dtype, dev, mesh)
+        res["serve"][f"{arch} {dtype}"], res["routes"][f"{arch} {dtype}"], res["holding"][f"{arch} {dtype}"] = \
+            serve15(torch, arch, dtype, dev, mesh)
         res["serve"][f"{arch} {dtype} s"] = time.perf_counter() - t1
         gc.collect()
         torch.cuda.empty_cache()
@@ -4782,7 +5037,7 @@ def phase_sharded_moe_ssm(torch) -> dict:
         torch.cuda.empty_cache()
     routes = {}
     for arch, dtype in (("deepseek-v2-236b", "bfloat16"), ("mamba2-780m", "bfloat16"), ("mamba2-780m", "float32")):
-        serve[f"{arch} {dtype}"], routes[f"{arch} {dtype}"] = serve15(torch, arch, dtype, dev)
+        serve[f"{arch} {dtype}"], routes[f"{arch} {dtype}"], _ = serve15(torch, arch, dtype, dev)
         gc.collect()
         torch.cuda.empty_cache()
     one_s = time.perf_counter() - t1
@@ -4803,7 +5058,8 @@ def phase_sharded_moe_ssm(torch) -> dict:
     want_calls = {"mla_sharded": 2 * moe_L * (n_g + n_a) + moe_L, "mla_decode_sharded": moe_L * n_serve,
                   "mamba_sharded": 2 * ssm_L * PH15_SSM_TRAIN["steps"] + 2 * ssm_L
                   + 2 * ssm_oL * PH15_SSM_ORACLE["steps"],
-                  "moe_gather_sharded": routed * (2 * n_g + 1 + n_serve), "moe_a2a_sharded": 2 * routed * n_a}
+                  "moe_gather_sharded": routed * (2 * n_g + 1 + n_serve), "moe_a2a_sharded": 2 * routed * n_a,
+                  "mamba_decode_sharded": 2 * ssm_L * n_serve, "gathered_layer": 0}
     # (e): the (step, row) pairs a bf16 near-tie at the top k sent to other experts under the mesh
     # (the moe layer is the last: the difference reaches that step's logits of that row alone)
     flips = {key: rerouted(one_routes, [r["routes"][key] for r in ranks]) for key, one_routes in routes.items()}
@@ -4864,6 +5120,7 @@ def phase_sharded_moe_ssm(torch) -> dict:
         per_rank.append(dict(coords=c, families=fams, dropped=drops, f32_step_s=r["f32"]["step_s"],
                              f32_peak_gb=r["f32"]["peak_bytes"] / 1e9, prefill_rel_err=errs, serve_err=serr,
                              serve_s={k: v for k, v in r["serve"].items() if k.endswith(" s")},
+                             serve_holding=r["holding"],
                              flash_forward=fwd, flash_backward=bwd, calls=r["calls"], sharded_s=r["sharded_s"],
                              received=received))
         print(f"phase 15 rank {c}: {json.dumps(per_rank[-1])}")

@@ -43,14 +43,17 @@ bytes, as the reference adds a collective's operands and result to its
 ``hbm_bytes``. ``collective_s`` is those bytes over one H100's NVLink 4
 receive rate (``grid.capacity.NVLINK_RX_BW``); a mesh wider than one
 NVLink domain of 8 cards crosses slower links, so there the term is a
-lower bound (``collective_link``). One rank stands for all: the rules cut
+lower bound (``collective_link``). A decode cell's
+``collectives.parameter_gathers`` lists the calls that gather a block of
+a parameter (``parameter_gathers``), each with its count and bytes: a
+decode step moves only activations but where the gather dispatch
+gathers a held expert block (ROADMAP Next 3). One rank stands for all: the rules cut
 only dimensions that divide, so every rank's blocks have the same shapes.
 ``memory.argument_bytes`` is the rules' count (``runtime.sharding``),
 and ``memory.held_groups`` the bytes of the blocks the rank holds, by
-group: equal for training and prefill (checked); a decode step holds
-whole what its sharded layers do not cut (a cache too short for the
-sharded decode, the parameters outside its sharded layers), so there
-it may hold more (ROADMAP C12). ``--moe-impl
+group: equal for every kind (checked; a decode step's caches are cut on
+their batch dimension where the rules would cut a stacked layer axis as
+long as the batch, ROADMAP C13, the same bytes). ``--moe-impl
 a2a|auto`` and ``--compress-pod-grads`` (the pod axis's int8 gradient
 sum) run on that mesh. The artifacts load through
 ``grid.capacity_from_roofline`` as the reference's do.
@@ -58,6 +61,7 @@ sum) run on that mesh. The artifacts load through
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import sys
@@ -69,7 +73,7 @@ import torch
 from repro_torch.configs import get_config, list_archs
 from repro_torch.configs.shapes import SHAPES, Shape, cells, input_specs
 from repro_torch.grid.capacity import HBM_BW, NVLINK_RX_BW, PEAK_FLOPS
-from repro_torch.launch.mesh import mesh_from_arg, meta_rank_mesh, received
+from repro_torch.launch.mesh import mesh_from_arg, meta_rank_mesh, received, spec_axes
 from repro_torch.launch.op_analysis import OpAnalysis
 from repro_torch.models import LM, moe
 from repro_torch.runtime import sharding as shlib
@@ -77,7 +81,7 @@ from repro_torch.runtime.serve import abstract_cache, build_serve_step
 from repro_torch.runtime.train import TrainConfig, build_prefill_step, build_train_step, init_opt_state, shard_batch
 
 __all__ = ["run_cell", "count_params", "auto_microbatches", "analyze_step", "analyze_rank_step", "rank_step",
-           "step_arguments", "make_step", "argument_bytes", "DEVICE_BYTES", "COLLECTIVE_LINK"]
+           "step_arguments", "make_step", "argument_bytes", "parameter_gathers", "DEVICE_BYTES", "COLLECTIVE_LINK"]
 
 # One H100's memory, the data sheet's 80 GB: a cell fits where its
 # argument and temporary bytes a device stay within it.
@@ -261,6 +265,23 @@ def rank_step(lm: LM, sh: Shape, mesh, *, microbatches: int = 1, optimizer: str 
     return (lambda: serve(tokens, cache, sh.seq_len - 1)), held, whole
 
 
+def parameter_gathers(lm: LM, specs: dict, mesh: dict, calls) -> list:
+    """The calls among ``calls`` (``launch.mesh.received``'s descriptions)
+    that gather a parameter: an ``all_gather`` whose buffer has a
+    parameter's type and the shape of its block under ``specs`` gathered
+    over any of the mesh axes that cut it (none, some or all of them)."""
+    blocks = set()
+    for name, p in lm.named_parameters():
+        spec = specs[name]
+        axes = sorted({a for e in spec for a in spec_axes(e) if mesh.get(a, 1) > 1})
+        dtype = str(p.dtype).removeprefix("torch.")
+        for k in range(len(axes) + 1):
+            for cut in itertools.combinations(axes, k):
+                sub = tuple(tuple(a for a in spec_axes(e) if a in cut) or None for e in spec)
+                blocks.add(f"{dtype}[{','.join(str(n) for n in shlib.block_shape(p.shape, sub, mesh))}]")
+    return sorted(d for d in calls if d.startswith("all_gather ") and d.split(" ")[2] in blocks)
+
+
 def analyze_rank_step(cfg, sh: Shape, mesh_shape: dict, *, rank: int = 0, microbatches: int = 1,
                       optimizer: str = "adamw", compress_pod_grads: bool = False):
     """Rank ``rank``'s sharded step of the cell (``rank_step``), built on a
@@ -268,7 +289,8 @@ def analyze_rank_step(cfg, sh: Shape, mesh_shape: dict, *, rank: int = 0, microb
     once under ``OpAnalysis(trips=True)`` with ``received`` zeroed: (its
     OpCost, ``received``'s counts and calls, the whole arguments, the bytes
     of the blocks the rank holds by group, the outputs, seconds, (total,
-    active) parameters)."""
+    active) parameters). A decode step's counts also list the calls that
+    gather a block of a parameter (``parameter_gathers``)."""
     with meta_rank_mesh(mesh_shape, rank) as mesh:
         lm = LM(cfg, device="meta")
         params = count_params(lm, cfg)
@@ -281,6 +303,9 @@ def analyze_rank_step(cfg, sh: Shape, mesh_shape: dict, *, rank: int = 0, microb
         secs = time.perf_counter() - t0
         coll = received.read()
         coll["calls"] = {d: list(c) for d, c in received.calls.items()}
+        if sh.kind == "decode":
+            coll["parameter_gathers"] = parameter_gathers(lm, shlib.param_specs(mesh, lm, serve=True), mesh,
+                                                          coll["calls"])
     return mode.cost, coll, whole, held, outs, secs, params
 
 
@@ -312,8 +337,7 @@ def run_cell(arch: str, shape_name: str, mesh_arg: str, *, reduced: bool = False
            "compile_seconds": round(secs, 1), **cell_record(cfg, sh, mesh, cost, args, outs, *params, coll=coll)}
     if held is not None:
         rec["memory"]["held_groups"] = held
-        # a decode step holds whole what its sharded layers do not cut (ROADMAP C12)
-        if sh.kind != "decode" and held != rec["memory"]["argument_groups"]:
+        if held != rec["memory"]["argument_groups"]:
             raise AssertionError(f"{arch} {shape_name} {mesh_arg}: the rank holds {held} bytes, the rules count "
                                  f"{rec['memory']['argument_groups']}")
     if sh.kind == "train":
@@ -325,13 +349,18 @@ def run_cell(arch: str, shape_name: str, mesh_arg: str, *, reduced: bool = False
 
 def _collectives(coll: dict | None) -> dict:
     """The record's ``collectives`` from ``received``'s counts and calls:
-    bytes received in all, by kind (count and bytes), the largest calls."""
+    bytes received in all, by kind (count and bytes), the largest calls,
+    and for a decode step the calls that gather a parameter's block, each
+    with its count and bytes a call."""
     if coll is None:
         return {"total_bytes": 0.0, "by_op": {}, "top": []}
     by_op = {k: {"count": 0, "bytes": b} for k, b in coll["by_kind"].items()}
     for desc, (count, _) in coll["calls"].items():
         by_op[desc.split(" ", 1)[0]]["count"] += count
-    return {"total_bytes": coll["total"], "by_op": by_op, "top": coll["top"], "largest": coll["largest"]}
+    out = {"total_bytes": coll["total"], "by_op": by_op, "top": coll["top"], "largest": coll["largest"]}
+    if "parameter_gathers" in coll:
+        out["parameter_gathers"] = {d: coll["calls"][d] for d in coll["parameter_gathers"]}
+    return out
 
 
 def cell_record(cfg, sh: Shape, mesh: dict, cost, args: dict, outs, total_p: float, active_p: float, *,

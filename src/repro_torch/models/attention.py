@@ -24,10 +24,14 @@ in_specs (``decode_attention_specs``, ``decode_mlp_specs``), and a
 the axis's process group (``launch.mesh``). Projections are partial
 products over the weights' 'data' shard of the input dimension, summed
 over 'data': weights never move, only the (B, 1, ·) decode activations,
-the (B, H) and (B, H, D) softmax states cross ranks. The cache stays
-sharded over 'model' along S; each rank attends over its range through
-the decode kernel's key-range entry (``key0``, ``lse``) and the ranks
-combine their (out, lse) pairs.
+the (B, H) and (B, H, D) softmax states cross ranks. A layer's cache
+stays where the rules cut it: a self-attention cache along S, where each
+rank attends over its range through the decode kernel's key-range entry
+(``key0``, ``lse``) and the ranks combine their (out, lse) pairs
+(``decode_attention_block``). ``cross_decode_sharded`` reads a cross
+cache, every key visible, the same way along N; along its rows the
+kernel runs on the rank's rows and the one-token outputs are gathered;
+along D the float32 partial scores are summed. Any other cut raises.
 
 The sharded full-sequence attention and MLP (``attention_sharded``,
 ``mlp_sharded``; training and prefill) run on a rank's rows of the batch
@@ -67,6 +71,7 @@ __all__ = [
     "init_attention", "init_attention_", "attention", "decode_attention", "cross_decode",
     "cross_kv", "init_kv_cache", "rope_theta", "CHUNKED_THRESHOLD", "decode_attention_sharded",
     "decode_mlp_sharded", "decode_attention_specs", "decode_mlp_specs", "attention_sharded", "mlp_sharded",
+    "cross_decode_sharded", "decode_attention_block", "col_proj", "row_proj", "sharded_decode_on",
 ]
 
 NEG_INF = -2.0e38
@@ -315,17 +320,11 @@ def current_mesh():
     return _current()
 
 
-def _sharded_decode_applicable(S: int) -> bool:
-    """The reference's rule on the current mesh and the cache's global
-    length S (a rank's shard times 'model'), with its baseline knob:
-    ``REPRO_SHARDED_DECODE=0`` turns the sharded decode off."""
-    if os.environ.get("REPRO_SHARDED_DECODE", "1") == "0":
-        return False
-    mesh = current_mesh()
-    if mesh is None:
-        return False
-    m = mesh.get("model", 1)
-    return m > 1 and S % m == 0 and S // m >= 128
+def sharded_decode_on() -> bool:
+    """The reference's baseline switch: ``REPRO_SHARDED_DECODE=0`` turns the
+    sharded decode bodies off (``models.decode`` then gathers a layer's
+    blocks at use)."""
+    return os.environ.get("REPRO_SHARDED_DECODE", "1") != "0"
 
 
 def _decode_bspec(mesh, B: int):
@@ -372,11 +371,34 @@ def _batch_row_start(mesh, bspec, B_loc: int) -> int:
     return idx * B_loc
 
 
-def _sharded_mlp_applicable() -> bool:
-    if os.environ.get("REPRO_SHARDED_DECODE", "1") == "0":
-        return False
-    mesh = current_mesh()
-    return mesh is not None and mesh.get("model", 1) > 1
+def _own_rows(y, mesh, bspec, B_loc: int):
+    """This rank's rows of y, which holds every row of the batch axes."""
+    r0 = _batch_row_start(mesh, bspec, B_loc)
+    return y[r0:r0 + B_loc]
+
+
+def col_proj(x, ws, d: int, mesh, bspec) -> list:
+    """x (B_loc, 1, d), this rank's rows, times each w of ``ws`` (d_loc, …),
+    held whole along d or cut over 'data': a cut one weight-stationary
+    (``_psum_proj`` on the rows of the batch axes, gathered once, and the
+    rank's rows kept), so that no weight moves."""
+    if all(w.shape[0] == d for w in ws):
+        return [_psum_proj(x, w, d, mesh) for w in ws]
+    xg = _gather_batch(x, bspec, mesh)
+    return [_own_rows(_psum_proj(xg, w, d, mesh), mesh, bspec, x.shape[0]) for w in ws]
+
+
+def row_proj(y, w, d: int, mesh, bspec, *, cut: bool):
+    """y (B_loc, 1, k) times w (k, d_loc): row-parallel where ``cut`` (k is
+    this rank's block over 'model'; the float32 partial products summed
+    over 'model' and rounded once, ``layers.row_parallel``); where w's
+    output dimension is cut over 'data', on the rows of the batch axes and
+    gathered back along d over 'data', the rank's rows kept → (B_loc, 1, d)."""
+    prod = (lambda a: row_parallel(a, w, mesh)) if cut else (lambda a: linear(a, w))  # noqa: E731
+    if w.shape[-1] == d:
+        return prod(y)
+    z = all_gather(prod(_gather_batch(y, bspec, mesh)), "data", mesh, dim=-1)
+    return _own_rows(z, mesh, bspec, y.shape[0])
 
 
 def _rows(mesh, batch: int, bspec) -> int:
@@ -393,8 +415,8 @@ def decode_attention_specs(cfg: ModelConfig, mesh, B: int) -> dict:
     (the input dimension over 'data' where it divides, the heads over
     'model' where they divide; wo the other way round) and of each cache
     (B, S, KV, D): rows over the batch axes, S over 'model' (the QK-norm
-    scales are whole). The function reads its blocks by them, and the
-    serve step cuts them by them."""
+    scales are whole). The function reads its blocks by them; the serve
+    step holds the rules' blocks, which a body reads through views."""
     bspec = _decode_bspec(mesh, B)
     m, dsz = mesh.get("model", 1), mesh.get("data", 1)
     d_ax = "data" if (dsz > 1 and cfg.d_model % dsz == 0) else None
@@ -404,46 +426,130 @@ def decode_attention_specs(cfg: ModelConfig, mesh, B: int) -> dict:
             "wv": (d_ax, kv_ax, None), "wo": (h_ax, None, d_ax), "cache": (bspec, "model", None, None)}
 
 
-def decode_attention_sharded(params, x_t: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
-                             cfg: ModelConfig, *, batch: int, is_global: bool = True, ring: bool = False):
-    """Weight-stationary, sequence-parallel decode attention on this rank's
-    blocks (``decode_attention_specs`` for the global batch ``batch``):
-    x_t (B_loc, 1, d), the projections' blocks in ``params``, and this
-    layer's cache shard (B_loc, S_loc, KV, D), the keys of positions
-    coordinate('model') · S_loc onward (of a ring: its slots). Writes the
-    token's key and value into the shard that owns its slot, in place, and
-    returns (out (B_loc, 1, d), cache_k, cache_v).
+def _whole_heads(q, n: int, mesh):
+    """q (B_loc, 1, n_loc, D), this rank's heads of n, gathered over 'model'."""
+    return q if q.shape[2] == n else all_gather(q, "model", mesh, dim=2)
 
-    The attention over the shard runs through the decode kernel's
-    key-range entry (on the host its plain version); the ranks along
-    'model' combine their (out, lse) pairs: M = max lse, w = e^(lse − M),
-    out = Σ w·out / Σ w, the reference's pmax and two psums."""
+
+def _write_block(cache, t, slot: int, cut, mesh) -> None:
+    """Write the token's row t (B_loc, …) at global ``slot`` into this
+    rank's block of a layer's cache (B, S, …), whole (``cut`` None) or cut
+    along S over 'model' (``cut`` 1), where only the shard that owns the
+    slot writes."""
+    if cut is None:
+        cache[:, slot] = t.to(cache.dtype)
+        return
+    s = slot - mesh.coords["model"] * cache.shape[1]
+    if 0 <= s < cache.shape[1]:
+        cache[:, s] = t.to(cache.dtype)
+
+
+def decode_attention_block(q, ck, cv, pos: int, cut, mesh, *, window: int = 0, softcap: float = 0.0):
+    """One-token attention of this rank's rows' queries q (B_loc, H, D),
+    whole, over its block ck, cv of a layer's cache (B_loc, S, KV, D),
+    whole (``cut`` None: the decode kernel) or cut along S over 'model'
+    (``cut`` 1: keys coordinate('model') · S_loc onward through the
+    kernel's key-range entry (``key0``, ``lse``), the ranks' (out, lse)
+    pairs combined, M = max lse, w = e^(lse − M), out = Σ w·out / Σ w, the
+    reference's pmax and two psums) → (B_loc, H, D) in q's type, the same
+    on every rank of 'model'. Only one-token results move."""
+    if cut is None:
+        return decode_attention_kernel(q, ck, cv, pos, window=window, softcap=softcap)
+    if cut != 1:
+        raise ValueError(f"decode_attention_block: a cache cut along dimension {cut} over 'model' (S is 1)")
+    o, lse = decode_attention_kernel(q, ck, cv, pos, window=window, softcap=softcap,
+                                     key0=mesh.coords["model"] * ck.shape[1], lse=True)
+    M = all_reduce(lse, "model", mesh, op="max")
+    M = torch.where(torch.isfinite(M), M, torch.zeros_like(M))
+    w = torch.exp(lse - M)
+    l = all_reduce(w, "model", mesh)
+    acc = all_reduce(w[..., None] * o, "model", mesh)
+    return (acc / l[..., None]).to(q.dtype)
+
+
+def _cross_block_attention(q, ck, cv, cut, mesh):
+    """A cross layer's one-token attention of q (B_loc, H, D), whole, over
+    its fixed keys and values (B_loc, N, KV, D) as this rank's block, every
+    key visible, cut over 'model' along dimension ``cut`` → (B_loc, H, D):
+
+      None, 1  whole or along N: ``decode_attention_block``;
+      0        the rank's rows: the kernel on them, the outputs gathered;
+      3        the rank's slice of D: float32 partial scores summed over
+               'model', the softmax, and the rank's slice of the output
+               gathered along D (no kernel, as the reference has none)."""
+    if cut in (None, 1):
+        return decode_attention_block(q, ck, cv, ck.shape[1] * (mesh.get("model", 1) if cut else 1) - 1, cut, mesh)
+    r = mesh.coords["model"]
+    if cut == 0:
+        n = ck.shape[0]
+        return all_gather(decode_attention_kernel(q[r * n:(r + 1) * n], ck, cv, ck.shape[1] - 1), "model", mesh,
+                          dim=0)
+    if cut != 3:
+        raise ValueError(f"cross_decode_sharded: a cross cache cut along dimension {cut} over 'model' "
+                         f"(no sharded body reads it)")
+    B, H, D = q.shape
+    KV, Dl = ck.shape[2], ck.shape[3]
+    rep = H // KV
+    qg = q[..., r * Dl:(r + 1) * Dl].reshape(B, KV, rep, Dl)
+    s = all_reduce(torch.einsum("bgrd,bkgd->bgrk", qg.float(), ck.float()), "model", mesh) * D ** -0.5
+    warm_host_math(s)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.einsum("bgrk,bkgd->bgrd", p, cv.to(q.dtype)).reshape(B, H, Dl)
+    return all_gather(o, "model", mesh, dim=2)
+
+
+def _out_proj(wo, o, d: int, mesh, bspec):
+    """The attention output o (B_loc, 1, H, D), whole on every rank of
+    'model', through this rank's block of wo (H_loc, D, d_loc): its heads
+    row-parallel (``row_proj``) → (B_loc, 1, d)."""
+    H, D = o.shape[2], o.shape[3]
+    H_loc = wo.shape[0]
+    if H_loc != H:
+        r = mesh.coords["model"]
+        o = o[:, :, r * H_loc:(r + 1) * H_loc]
+    return row_proj(o.reshape(*o.shape[:2], H_loc * D), wo.reshape(H_loc * D, -1), d, mesh, bspec, cut=H_loc != H)
+
+
+def _check_rows(what: str, mesh, batch: int, bspec, x_t, cache, cut) -> int:
+    """This rank's rows of the global batch; raises where x_t or the cache
+    block (its rows cut over 'model' too where ``cut`` is 0) holds others."""
+    Bl = _rows(mesh, batch, bspec)
+    want = Bl // mesh.get("model", 1) if cut == 0 else Bl
+    if x_t.shape[0] != Bl or cache.shape[0] != want:
+        raise ValueError(f"{what}: rows {x_t.shape[0]} and a cache of {cache.shape[0]} rows, for a global batch "
+                         f"{batch} over {bspec}")
+    return Bl
+
+
+def decode_attention_sharded(params, x_t: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
+                             cfg: ModelConfig, *, batch: int, is_global: bool = True, ring: bool = False,
+                             cut: int | None = 1):
+    """Weight-stationary decode attention on this rank's blocks
+    (``decode_attention_specs`` for the global batch ``batch``): x_t
+    (B_loc, 1, d), the projections' blocks in ``params``, and this layer's
+    cache block of (B, S, KV, D), whole (``cut`` None) or cut along S over
+    'model' (``cut`` 1, the reference's layout: keys coordinate('model') ·
+    S_loc onward, of a ring its slots; any other cut raises). Writes the token's key and value into the
+    block that holds them, in place, and returns (out (B_loc, 1, d),
+    cache_k, cache_v).
+
+    The projections' partial products are summed over the weights' 'data'
+    shard of d and the heads gathered over 'model' (one-token rows only);
+    the attention runs on the block (``decode_attention_block``: along S
+    through the decode kernel's key-range entry and the ranks' (out, lse)
+    pairs combined), and wo row-parallel over the heads."""
     mesh = current_mesh()
-    specs = decode_attention_specs(cfg, mesh, batch)
-    bspec = specs["x"][0]
-    Bl, S_loc = cache_k.shape[0], cache_k.shape[1]
-    if Bl != _rows(mesh, batch, bspec) or x_t.shape[0] != Bl:
-        raise ValueError(f"decode_attention_sharded: rows {x_t.shape[0]} and a cache of {Bl} rows, for a global "
-                         f"batch {batch} over {bspec}")
+    if cut not in (None, 1):
+        raise ValueError(f"decode_attention_sharded: a self-attention cache cut along dimension {cut} over "
+                         f"'model' (no sharded body reads it; S is 1)")
+    bspec = _decode_bspec(mesh, batch)
+    Bl = _check_rows("decode_attention_sharded", mesh, batch, bspec, x_t, cache_k, cut)
     H, KV, D, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, cfg.d_model
-    S = S_loc * mesh["model"]
+    S = cache_k.shape[1] * (mesh.get("model", 1) if cut == 1 else 1)
     if pos < 0 or (not ring and pos >= S):
         raise ValueError(f"decode_attention_sharded: pos {pos} outside a {'ring' if ring else 'linear cache'} of {S}")
-    wq, wk, wv, wo = params["wq"], params["wk"], params["wv"], params["wo"]
-    # projections: weights stay put; the batch rows gather (tiny), partial
-    # products sum over the weights' d-shard axis
-    xg = _gather_batch(x_t, bspec, mesh)                # (B, 1, d)
-    q = _psum_proj(xg, wq, d, mesh)                     # (B, 1, H_loc, D)
-    kt = _psum_proj(xg, wk, d, mesh)
-    vt = _psum_proj(xg, wv, d, mesh)
-    if q.shape[2] != H:
-        q = all_gather(q, "model", mesh, dim=2)
-    if kt.shape[2] != KV:
-        kt = all_gather(kt, "model", mesh, dim=2)
-        vt = all_gather(vt, "model", mesh, dim=2)
-    # back to this rank's rows (the cache is batch-sharded)
-    row0 = _batch_row_start(mesh, bspec, Bl)
-    q, kt, vt = (a[row0:row0 + Bl] for a in (q, kt, vt))
+    q, kt, vt = col_proj(x_t, [params["wq"], params["wk"], params["wv"]], d, mesh, bspec)
+    q, kt, vt = _whole_heads(q, H, mesh), _whole_heads(kt, KV, mesh), _whole_heads(vt, KV, mesh)
     if cfg.qk_norm:
         q = _qk_norm(q, params["q_norm"])
         kt = _qk_norm(kt, params["k_norm"])
@@ -451,83 +557,77 @@ def decode_attention_sharded(params, x_t: torch.Tensor, cache_k: torch.Tensor, c
     posb = torch.full((Bl, 1), pos, dtype=torch.int64, device=x_t.device)
     q = rope(q, posb, theta)[:, 0]
     kt = rope(kt, posb, theta)
-    # the single-row write, on the shard that owns the slot (a ring's slot wraps)
-    start = mesh.coords["model"] * S_loc
-    slot = (pos % S if ring else pos) - start
-    if 0 <= slot < S_loc:
-        cache_k[:, slot] = kt[:, 0].to(cache_k.dtype)
-        cache_v[:, slot] = vt[:, 0].to(cache_v.dtype)
+    slot = pos % S if ring else pos                    # a ring's slot wraps
+    _write_block(cache_k, kt[:, 0], slot, cut, mesh)
+    _write_block(cache_v, vt[:, 0], slot, cut, mesh)
     # a ring's slot j holds position pos − ((pos − j) mod W): visible iff j ≤ min(pos, W − 1)
     read, window = (min(pos, S - 1), 0) if ring else (pos, 0 if is_global else cfg.local_window)
-    o, lse = decode_attention_kernel(q, cache_k, cache_v, read, window=window, softcap=cfg.attn_logit_softcap,
-                                     key0=start, lse=True)
-    M = all_reduce(lse, "model", mesh, op="max")
-    M = torch.where(torch.isfinite(M), M, torch.zeros_like(M))
-    w = torch.exp(lse - M)
-    l = all_reduce(w, "model", mesh)
-    acc = all_reduce(w[..., None] * o, "model", mesh)
-    out = (acc / l[..., None]).to(q.dtype)[:, None]    # (B_loc, 1, H, D)
-    # output projection: heads over 'model' (row-parallel), d over 'data';
-    # every row again, so that the d-column gather collects the same rows
-    og = _gather_batch(out, bspec, mesh)
-    H_loc = wo.shape[0]
-    if H_loc != H:
-        r = mesh.coords["model"]
-        o_slice = og[:, :, r * H_loc:(r + 1) * H_loc]
-        y = row_parallel(o_slice.reshape(*og.shape[:2], H_loc * D), wo.reshape(H_loc * D, -1), mesh)
-    else:
-        y = linear(og.reshape(*og.shape[:2], H * D), wo.reshape(H * D, -1))
-    if y.shape[-1] != d:
-        y = all_gather(y, "data", mesh, dim=2)
+    o = decode_attention_block(q, cache_k, cache_v, read, cut, mesh, window=window,
+                               softcap=cfg.attn_logit_softcap)
     decode_attention_sharded.calls += 1
-    return y[row0:row0 + Bl], cache_k, cache_v
+    return _out_proj(params["wo"], o[:, None], d, mesh, bspec), cache_k, cache_v
 
 
-def decode_mlp_specs(cfg: ModelConfig, mesh, B: int) -> dict:
+def cross_decode_sharded(params, x_t: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, cfg: ModelConfig, *,
+                         batch: int, cut: int | None):
+    """``cross_decode`` on this rank's blocks: x_t (B_loc, 1, d), wq and wo
+    cut as ``decode_attention_specs`` reads them (heads over 'model'), and
+    the cross layer's fixed keys and values (B, N, KV, D) as this rank's
+    block, cut over 'model' along dimension ``cut`` (``_cross_block_attention``:
+    along N through the key-range entry, along the rows or along D, every
+    key visible) → (B_loc, 1, d).
+    No rotary embedding, QK-norm or soft-cap, as the reference's cross
+    decode has none."""
+    mesh = current_mesh()
+    bspec = _decode_bspec(mesh, batch)
+    _check_rows("cross_decode_sharded", mesh, batch, bspec, x_t, ck, cut)
+    H, d = cfg.num_heads, cfg.d_model
+    q = _whole_heads(col_proj(x_t, [params["wq"]], d, mesh, bspec)[0], H, mesh)
+    o = _cross_block_attention(q[:, 0], ck, cv, cut, mesh)
+    cross_decode_sharded.calls += 1
+    return _out_proj(params["wo"], o[:, None], d, mesh, bspec)
+
+
+def decode_mlp_specs(cfg: ModelConfig, mesh, B: int, d_ff: int | None = None) -> dict:
     """The reference's in_specs of ``decode_mlp_sharded``'s body: x
     (B, 1, d) by rows; w_gate, w_up (d, f) with d over 'data' and f over
-    'model' where they divide; w_down (f, d) the other way round."""
+    'model' where they divide; w_down (f, d) the other way round. ``d_ff``
+    is f where it is not ``cfg.d_ff`` (the moe family's shared experts)."""
     bspec = _decode_bspec(mesh, B)
     m, dsz = mesh.get("model", 1), mesh.get("data", 1)
     d_ax = "data" if (dsz > 1 and cfg.d_model % dsz == 0) else None
-    f_ax = "model" if (m > 1 and cfg.d_ff % m == 0) else None
+    f_ax = "model" if (m > 1 and (d_ff or cfg.d_ff) % m == 0) else None
     return {"x": (bspec, None, None), "w_gate": (d_ax, f_ax), "w_up": (d_ax, f_ax), "w_down": (f_ax, d_ax)}
 
 
-def decode_mlp_sharded(p, x: torch.Tensor, cfg: ModelConfig, *, batch: int) -> torch.Tensor:
+def decode_mlp_sharded(p, x: torch.Tensor, cfg: ModelConfig, *, batch: int, kind: str | None = None,
+                       d_ff: int | None = None) -> torch.Tensor:
     """Weight-stationary decode MLP on this rank's blocks
     (``decode_mlp_specs``): x (B_loc, 1, d) → (B_loc, 1, d). The 2-D-sharded
     weights stay where they are; only (B, 1, ·) activations are summed or
-    gathered across the mesh."""
+    gathered across the mesh. ``kind`` and ``d_ff`` where they are not the
+    config's (the moe family's shared experts: SwiGLU of their width)."""
     mesh = current_mesh()
-    d = cfg.d_model
+    d, f, kind = cfg.d_model, d_ff or cfg.d_ff, kind or cfg.mlp
     bspec = _decode_bspec(mesh, batch)
-    Bl = x.shape[0]
-    if Bl != _rows(mesh, batch, bspec):
-        raise ValueError(f"decode_mlp_sharded: {Bl} rows for a global batch {batch} over {bspec}")
-    kind = cfg.mlp
-    xg = _gather_batch(x, bspec, mesh)                  # (B, 1, d)
-    warm_host_math(xg)
+    if x.shape[0] != _rows(mesh, batch, bspec):
+        raise ValueError(f"decode_mlp_sharded: {x.shape[0]} rows for a global batch {batch} over {bspec}")
+    warm_host_math(x)
     if kind in ("swiglu", "geglu"):
-        g = _psum_proj(xg, p["w_gate"], d, mesh)
-        u = _psum_proj(xg, p["w_up"], d, mesh)
+        g, u = col_proj(x, [p["w_gate"], p["w_up"]], d, mesh, bspec)
         act = (F.silu(g) if kind == "swiglu" else F.gelu(g, approximate="tanh")) * u
     elif kind in ("squared_relu", "gelu"):
-        u = _psum_proj(xg, p["w_up"], d, mesh)
+        u, = col_proj(x, [p["w_up"]], d, mesh, bspec)
         act = torch.square(F.relu(u)) if kind == "squared_relu" else F.gelu(u, approximate="tanh")
     else:
         raise ValueError(kind)
-    wdn = p["w_down"]                                   # (f_loc, d_loc)
-    # f sharded over 'model': the row-parallel sum
-    y = row_parallel(act, wdn, mesh) if wdn.shape[0] != cfg.d_ff else linear(act, wdn)
-    if y.shape[-1] != d:
-        y = all_gather(y, "data", mesh, dim=2)
-    row0 = _batch_row_start(mesh, bspec, Bl)
+    wdn = p["w_down"]                                   # (f_loc, d_loc): f over 'model', the row-parallel sum
     decode_mlp_sharded.calls += 1
-    return y[row0:row0 + Bl]
+    return row_proj(act, wdn, d, mesh, bspec, cut=wdn.shape[0] != f)
 
 
 decode_attention_sharded.calls = 0   # layers run through the sharded attention, this process
+cross_decode_sharded.calls = 0       # cross layers run through the sharded cross attention, this process
 decode_mlp_sharded.calls = 0
 
 

@@ -22,119 +22,76 @@ Ring, linear and cross layers all go through the decode-attention kernel
 take the absorbed form in stock products (``mla.mla_decode``).
 
 Under a mesh placed over a process group (``launch.mesh.make_mesh``, the
-current mesh of ``runtime.pspec.logical_axis_rules``) each rank runs the
-step on its rows of the global batch (``attention._decode_bspec``), as the
-reference's sharded step does: every block that the reference runs
-through ``_attn_decode_block`` takes the sharded attention
-(``attention.decode_attention_sharded``, through the decode kernel's
-key-range entry) where ``_sharded_decode_applicable`` holds for its cache's
-global length, and the sharded MLP where ``_sharded_mlp_applicable`` holds;
-the norms, cross layers and recurrent blocks, which the reference leaves
-outside its ``shard_map`` bodies, run on the rank's rows with whole
-weights. The embedding and the unembedding stay cut as the reference's
-serve step holds them (``runtime.sharding.param_specs(..., serve=True)``:
-vocab over 'model', and width over 'data' where serving's ZeRO applies):
-the lookup is vocab-parallel (``layers.vocab_embed``), the logits each
-rank's (…, V/m) block gathered along V over 'model', and where the width
-is cut too both run weight-stationary, as ``attention._psum_proj`` does:
-the one-token rows gathered over the batch axes, the rank's (V/m, d/n)
-block contracted, the float32 partials summed over 'data' with one
-rounding, the rank's rows kept. No table moves in a decode step.
-``init_cache`` then allocates only the rank's block of each cache
-(``cache_blocks``), and ``param_blocks`` gives the specs by which a
-rank's parameters are cut (``runtime.serve`` cuts them).
+current mesh of ``runtime.pspec.logical_axis_rules``) each rank holds the
+blocks of the reference's serve step and nothing more: every parameter
+cut by ``runtime.sharding.param_specs(mesh, lm, serve=True)``
+(``param_blocks``) and every cache by ``runtime.sharding.cache_spec``
+(``cache_blocks``: rows over the batch axes, the longest dimension that
+divides over 'model'; where the reference's rule would take a stacked
+layer axis as long as the batch for the batch, the batch dimension
+itself, ROADMAP C13). It runs the step on its rows of the global batch
+(``attention._decode_bspec``) and each layer on its blocks where they
+lie, so that only one-token activations, log-sum-exps and partial sums
+cross ranks, but for the routed experts where the gather dispatch
+gathers a held block over 'data' (an expert count that does not divide
+over the EP axes, deepseek-v2's 160 at 16 × 16; ROADMAP Next 3):
 
-The moe and ssm families, whose decode the reference leaves to XLA's
-SPMD partitioner under a mesh, run so too. An MLA block takes
-``mla.mla_decode_sharded`` where the cache's global length allows the
-sharded decode (its latent caches cut as ``mla_decode_specs`` reads them,
-rows over the batch axes and S over 'model'), its dense MLP the sharded
-MLP, and its routed experts the gather dispatch of the sharded batch
-(``moe.moe_gather_sharded``: the one-token step's global capacity and
-slots; the a2a never applies to one token), the experts cut as
-``runtime.sharding.param_specs`` cuts them for training, the shared
-experts whole on the rank's rows. The Mamba-2 blocks run on the rank's
-rows with whole weights, as the hybrid's RG-LRU blocks do: their ``conv``
-and ``state`` caches (like the hybrid's ``conv`` and ``h``) are cut by
-rows only, where the reference's ``cache_specs`` would also cut ``state``
-along N and ``conv`` along its channels over 'model'.
+  attention  ``attention.decode_attention_sharded``: the projections
+             weight-stationary, the cache read along S, where the rules
+             cut it (the decode kernel's key-range entry and the ranks'
+             (out, lse) pairs combined, whatever S/m is)
+  cross      ``attention.cross_decode_sharded``: the same without a write,
+             every key visible (N cut: the key-range entry; rows over
+             'model': the rank's rows, gathered; D cut: float32 partial
+             scores summed)
+  MLP        ``attention.decode_mlp_sharded`` (the shared experts too)
+  MLA        ``mla.mla_decode_sharded`` on latent caches cut along S
+  experts    ``moe.moe_gather_sharded``, the gather dispatch of the
+             sharded batch on the held experts (the router's logits
+             weight-stationary where its d is cut)
+  RG-LRU     ``rglru.rglru_decode_sharded``, channel-parallel on the
+             rank's width block of ``h`` and ``conv``
+  Mamba-2    ``ssm.mamba_decode_sharded`` on the rank's blocks of ``conv``
+             and ``state``
+
+A body reads the held blocks through views where its own specs
+(``decode_attention_specs``, ``decode_mlp_specs``, ``mla_decode_specs``)
+cut more than the rules (d over 'data' under TP-only serving). A layer
+whose blocks no body reads (a self-attention cache not cut along S, an
+MLA layer whose two latent caches are not both cut along S) raises,
+naming the layer and its blocks. Where ``REPRO_SHARDED_DECODE=0`` turns
+the sharded bodies off, every layer gathers its blocks at use, runs the
+one-device layer on the rank's rows and writes its cache blocks back
+(``gathered_layer.calls`` counts them). The embedding and the
+unembedding stay cut as the rules cut them: the lookup is
+vocab-parallel (``layers.vocab_embed``), the logits each rank's (…, V/m)
+block gathered along V over 'model', and where the width is cut too both
+run weight-stationary, as ``attention._psum_proj`` does. ``init_cache``
+allocates only the rank's block of each cache; a cross cache is
+projected on the rank's block alone, and whisper's encoder runs as the
+sharded prefill runs it (``attention.attention_sharded``, non-causal,
+and ``attention.mlp_sharded`` on the rank's blocks).
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
 
-from ..launch.mesh import all_gather, placed, spec_axes
-from .attention import (_batch_row_start, _decode_bspec, _gather_batch, _psum_proj, _rows, _sharded_decode_applicable,
-                        _sharded_mlp_applicable, cross_decode, cross_kv, current_mesh, decode_attention,
-                        decode_attention_sharded, decode_attention_specs, decode_mlp_sharded, decode_mlp_specs)
+from ..launch.mesh import all_gather, gather_dims, placed, spec_axes
+from .attention import (_batch_row_start, _decode_bspec, _gather_batch, _heads, _psum_proj, _rows, col_proj,
+                        cross_decode, cross_decode_sharded, current_mesh, decode_attention, decode_attention_sharded,
+                        decode_attention_specs, decode_mlp_sharded, decode_mlp_specs, sharded_decode_on)
 from .common import ModelConfig
 from .layers import mlp, rms_norm
-from .lm import MLABlock, TableRows, hybrid_periods
+from .lm import Placement, TableRows, hybrid_periods
 from .mla import init_mla_cache, mla_decode, mla_decode_sharded, mla_decode_specs
-from .moe import _shared, moe_gather_sharded
-from .rglru import init_rglru_state, rglru_decode
-from .ssm import init_mamba_cache, mamba_decode
+from .moe import moe_gather_sharded
+from .rglru import init_rglru_state, rglru_decode, rglru_decode_sharded
+from .ssm import init_mamba_cache, mamba_decode, mamba_decode_sharded
 
-__all__ = ["init_cache", "decode_step", "cache_blocks", "param_blocks"]
-
-
-def _attn_decode_block(p, x_t, kc, vc, pos: int, cfg: ModelConfig, *, is_global: bool, ring: bool,
-                       batch: int | None = None, S: int | None = None):
-    """One attention block; under a placed mesh (``batch``, the global
-    batch, given) the sharded attention where the cache's global length
-    ``S`` allows it and the sharded MLP, as the reference's block does."""
-    h = rms_norm(x_t, p.ln1)
-    if batch is not None and _sharded_decode_applicable(S):
-        a, kc, vc = decode_attention_sharded(p.attn, h, kc, vc, pos, cfg, batch=batch, is_global=is_global,
-                                             ring=ring)
-    else:
-        a, kc, vc = decode_attention(p.attn, h, kc, vc, pos, cfg, is_global=is_global, ring=ring)
-    x = x_t + a
-    h2 = rms_norm(x, p.ln2)
-    if batch is not None and _sharded_mlp_applicable():
-        return x + decode_mlp_sharded(p.mlp, h2, cfg, batch=batch), kc, vc
-    return x + mlp(p.mlp, h2, cfg.mlp), kc, vc
-
-
-def _cross_block(p, x_t, ck, cv, cfg: ModelConfig):
-    h = cross_decode(p.attn, rms_norm(x_t, p.ln1), ck, cv, cfg)
-    if p.xgate is not None:
-        h = h * torch.tanh(p.xgate).to(h.dtype)
-    x = x_t + h
-    return x + mlp(p.mlp, rms_norm(x, p.ln2), cfg.mlp)
-
-
-def _mla_block(p, x_t, c_kv, k_rope, pos: int, cfg: ModelConfig, *, batch: int | None = None,
-               S: int | None = None, experts: dict | None = None):
-    """One MLA block; under a placed mesh (``batch``, the global batch,
-    given) the sharded MLA decode where the caches' global length ``S``
-    allows it, the sharded MLP, and the routed experts' gather dispatch
-    of the sharded batch on the blocks ``experts`` specifies."""
-    h = rms_norm(x_t, p.ln1)
-    if batch is not None and _sharded_decode_applicable(S):
-        a, _, _ = mla_decode_sharded(p.attn, h, c_kv, k_rope, pos, cfg, batch=batch)
-    else:
-        a, _, _ = mla_decode(p.attn, h, c_kv, k_rope, pos, cfg)
-    x = x_t + a
-    h2 = rms_norm(x, p.ln2)
-    if batch is None:
-        return x + p.ffn(h2, cfg)[0]
-    if p.moe is not None:
-        routed = {w: p.moe[w] for w in ("router", "router_bias", "w_gate", "w_up", "w_down") if w in p.moe}
-        y, _ = moe_gather_sharded(routed, h2, cfg, current_mesh(), experts, _decode_bspec(current_mesh(), batch))
-        B, _, d = h2.shape
-        return x + _shared(p.moe, h2.reshape(B, d), y.reshape(B, d)).view(B, 1, d)
-    if _sharded_mlp_applicable():
-        return x + decode_mlp_sharded(p.mlp, h2, cfg, batch=batch)
-    return x + mlp(p.mlp, h2, cfg.mlp)
-
-
-def _rec_block(p, x_t, h, conv, cfg: ModelConfig):
-    y, _, _ = rglru_decode(p.mix, rms_norm(x_t, p.ln1), h, conv, cfg)
-    x = x_t + y
-    return x + mlp(p.mlp, rms_norm(x, p.ln2), cfg.mlp)
+__all__ = ["init_cache", "decode_step", "cache_blocks", "param_blocks", "layer_specs", "gathered_layer"]
 
 
 def _pattern_period(cfg: ModelConfig) -> tuple[int, str]:
@@ -148,190 +105,330 @@ def _uses_rings(cfg: ModelConfig) -> bool:
     return "L" in cfg.layer_pattern and cfg.local_window > 0
 
 
-def _cross_cache(blocks, src: torch.Tensor, cfg: ModelConfig, z, batch: int) -> dict:
-    """Each cross layer's keys and values over ``src`` (B, N, d), stacked:
-    (n, B, N, KV, D), allocated by ``init_cache``'s ``z`` for the global
-    ``batch`` (under a mesh, ``src`` holds this rank's rows of it)."""
-    N = src.shape[1]
-    cache = {name: z(name, len(blocks), batch, N, cfg.num_kv_heads, cfg.head_dim_, dtype=src.dtype)
-             for name in ("cross_k", "cross_v")}
-    if cache["cross_k"].shape[1] != src.shape[0]:
-        raise ValueError(f"{cfg.name}: {src.shape[0]} rows of cross-attention input for a cache of "
-                         f"{cache['cross_k'].shape[1]} rows")
-    for i, b in enumerate(blocks):
-        cache["cross_k"][i], cache["cross_v"][i] = cross_kv(b.attn, src, cfg)
-    return cache
-
-
-# ---------------------------------------------------------------------------
-# cache init
-# ---------------------------------------------------------------------------
-
 def _placed_mesh():
     """The current mesh if it is placed over a process group, else None."""
     mesh = current_mesh()
     return mesh if placed(mesh) else None
 
 
-def _self_attention_blocks(lm, max_len: int):
-    """(parameter prefix, global cache length) of every block the decode
-    step runs through ``_attn_decode_block``."""
-    cfg = lm.cfg
-    fam = cfg.family
-    W = min(cfg.local_window, max_len)
-    if fam == "dense":
-        if _uses_rings(cfg):
-            n_p, pat = _pattern_period(cfg)
-            return [(f"blocks.{i}", W if c == "L" else max_len) for i, c in enumerate(pat * n_p)]
-        return [(f"blocks.{i}", max_len) for i in range(cfg.num_layers)]
-    if fam == "vlm":
-        return [(f"self_blocks.{p}.{j}", max_len) for p, selfs in enumerate(lm.self_blocks) for j in range(len(selfs))]
-    if fam == "hybrid":
-        return [(f"attn_blocks.{p}", W) for p in range(len(lm.attn_blocks))]
-    if fam == "encdec":
-        return [(f"dec_self.{i}", max_len) for i in range(cfg.num_layers)]
-    return []
+def _model_dim(spec: tuple, mesh) -> int | None:
+    """The dimension that ``spec`` cuts over 'model' (None: none, or a
+    'model' axis of one rank)."""
+    if mesh.get("model", 1) == 1:
+        return None
+    return next((i for i, e in enumerate(spec) if "model" in spec_axes(e)), None)
 
 
-def _expert_specs(lm, mesh) -> dict:
-    """The specs of a moe layer's routed experts under ``mesh``, as
-    ``runtime.sharding.param_specs`` cuts them for training: over 'model'
-    × 'data' where E divides it, else E over 'model' and d over 'data'."""
-    from ..runtime.sharding import param_specs       # runtime imports the models
+def _view(t: torch.Tensor, held: tuple, want: tuple, mesh) -> torch.Tensor:
+    """The block under ``want`` of ``t``, the rank's block under ``held``,
+    as a view: a body's spec may cut a dimension the rules hold whole (d
+    over 'data' under TP-only serving), never the other way round."""
+    for dim, (h, w) in enumerate(zip(held, want)):
+        ha = tuple(a for a in spec_axes(h) if mesh.get(a, 1) > 1)
+        wa = tuple(a for a in spec_axes(w) if mesh.get(a, 1) > 1)
+        if ha == wa:
+            continue
+        if ha:
+            raise ValueError(f"a block held under {held} is cut where the body reads {want}")
+        idx, n = 0, 1
+        for a in wa:
+            idx, n = idx * mesh[a] + mesh.coords[a], n * mesh[a]
+        size = t.shape[dim] // n
+        t = t.narrow(dim, idx * size, size)
+    return t
 
-    E, d, f = lm.cfg.num_experts, lm.cfg.d_model, lm.cfg.moe_d_ff
-    shapes = {"w_gate": (E, d, f), "w_up": (E, d, f), "w_down": (E, f, d)}
-    specs = param_specs(mesh, {f"moe_blocks.0.moe.{w}": s for w, s in shapes.items()}, zero3=True)
-    return {name.rpartition(".")[2]: spec for name, spec in specs.items()}
+
+# ---------------------------------------------------------------------------
+# the blocks
+# ---------------------------------------------------------------------------
+
+def _attn_block(ops, p, prefix: str, x, kc, vc, pos: int, cfg: ModelConfig, cut, *, is_global: bool, ring: bool):
+    h = ops.attention(p.attn, f"{prefix}.attn", rms_norm(x, p.ln1), kc, vc, pos, cfg, cut, is_global=is_global,
+                      ring=ring)
+    x = x + h
+    return x + ops.mlp(p.mlp, f"{prefix}.mlp", rms_norm(x, p.ln2), cfg)
 
 
-def _same_spec(mesh, a: tuple, b: tuple) -> bool:
-    """Two specs shard alike: the same axes of size > 1 on every dimension."""
-    norm = lambda e: tuple(x for x in spec_axes(e) if mesh.get(x, 1) > 1)  # noqa: E731
-    return len(a) == len(b) and all(norm(x) == norm(y) for x, y in zip(a, b))
+def _cross_block(ops, p, prefix: str, x, ck, cv, cfg: ModelConfig, cut):
+    h = ops.cross(p.attn, f"{prefix}.attn", rms_norm(x, p.ln1), ck, cv, cfg, cut)
+    if p.xgate is not None:
+        h = h * torch.tanh(p.xgate).to(h.dtype)
+    x = x + h
+    return x + ops.mlp(p.mlp, f"{prefix}.mlp", rms_norm(x, p.ln2), cfg)
 
 
-def cache_blocks(lm, batch: int, max_len: int) -> dict:
+def _mla_block(ops, p, prefix: str, x, c_kv, k_rope, pos: int, cfg: ModelConfig, cuts):
+    x = x + ops.mla(p.attn, f"{prefix}.attn", rms_norm(x, p.ln1), c_kv, k_rope, pos, cfg, cuts)
+    return x + ops.ffn(p, prefix, rms_norm(x, p.ln2), cfg)
+
+
+def _rec_block(ops, p, prefix: str, x, h, conv, cfg: ModelConfig, cuts):
+    x = x + ops.rglru(p.mix, f"{prefix}.mix", rms_norm(x, p.ln1), h, conv, cfg, cuts)
+    return x + ops.mlp(p.mlp, f"{prefix}.mlp", rms_norm(x, p.ln2), cfg)
+
+
+class _OneDevice:
+    """The step's layers on one device (no placed mesh): the reference's."""
+
+    def cut(self, name: str, lead: int):
+        return None
+
+    def attention(self, p, prefix, h, kc, vc, pos, cfg, cut, *, is_global, ring):
+        return decode_attention(p, h, kc, vc, pos, cfg, is_global=is_global, ring=ring)[0]
+
+    def cross(self, p, prefix, h, ck, cv, cfg, cut):
+        return cross_decode(p, h, ck, cv, cfg)
+
+    def mlp(self, p, prefix, h, cfg):
+        return mlp(p, h, cfg.mlp)
+
+    def mla(self, p, prefix, h, c_kv, k_rope, pos, cfg, cuts):
+        return mla_decode(p, h, c_kv, k_rope, pos, cfg)[0]
+
+    def ffn(self, blk, prefix, h, cfg):
+        return blk.ffn(h, cfg)[0]
+
+    def rglru(self, p, prefix, h, hc, conv, cfg, cuts):
+        return rglru_decode(p, h, hc, conv, cfg)[0]
+
+    def mamba(self, p, prefix, h, conv, state, cfg, cuts):
+        return mamba_decode(p, h, conv, state, cfg)[0]
+
+
+def gathered_layer(fn, params, specs: dict, caches, mesh):
+    """``fn(whole params, *whole caches)`` on this rank's rows: each
+    parameter's blocks (``specs``) gathered over every axis, each cache
+    (block, the dimension it is cut over 'model' along or None) gathered
+    over 'model', and the caches' blocks of the updated wholes written
+    back. The decode's baseline, where ``REPRO_SHARDED_DECODE=0`` turns
+    the sharded bodies off; ``.calls`` counts its layers."""
+    gathered_layer.calls += 1
+    whole = {n: gather_dims(t, specs[n], mesh) for n, t in params.items() if t is not None}
+    full = [c if cut is None else all_gather(c, "model", mesh, dim=cut) for c, cut in caches]
+    out = fn(whole, *full)
+    r = mesh.coords.get("model", 0)
+    for (c, cut), f in zip(caches, full):
+        if cut is not None:
+            c.copy_(f.narrow(cut, r * c.shape[cut], c.shape[cut]))
+    return out
+
+
+gathered_layer.calls = 0   # layers that gathered their blocks at use, this process
+
+
+def layer_specs(specs: dict) -> dict:
+    """``specs`` (parameter name → spec) grouped under every dotted prefix
+    of the names: prefix → {the rest of the name → spec}, each layer's
+    parameters' specs by the names its own module gives them."""
+    out: dict = {}
+    for name, spec in specs.items():
+        for i, c in enumerate(name):
+            if c == ".":
+                out.setdefault(name[:i], {})[name[i + 1:]] = spec
+    return out
+
+
+class _Rank:
+    """The step's layers on this rank's blocks under a placed mesh: the
+    global ``batch``, every parameter's spec (``param_blocks``, grouped by
+    layer in ``layers``, ``layer_specs``) and the caches' (``cache_blocks``,
+    the cache tree's structure). A layout that no sharded body reads
+    raises, naming the layer."""
+
+    def __init__(self, mesh, batch: int, layers: dict, cache_specs: dict):
+        self.mesh, self.batch, self.layers, self.cache_specs = mesh, batch, layers, cache_specs
+        self.bspec = _decode_bspec(mesh, batch)
+        self.sharded = sharded_decode_on()
+
+    def cut(self, name: str, lead: int):
+        """The dimension of one layer's block of cache ``name`` ('/' for a
+        nested one) cut over 'model', its ``lead`` stacked axes dropped."""
+        spec = self.cache_specs
+        for key in name.split("/"):
+            spec = spec[key]
+        return _model_dim(spec[lead:], self.mesh)
+
+    def _refuse(self, prefix: str, cuts):
+        raise ValueError(f"decode under {dict(self.mesh)}: {prefix}'s blocks {self.layers[prefix]} and caches cut "
+                         f"over 'model' along {cuts}: no sharded body reads this layout")
+
+    def _views(self, p, prefix: str, body: dict) -> dict:
+        held = self.layers[prefix]
+        return {n: _view(t, held[n], body.get(n, held[n]), self.mesh) for n, t in p.items() if t is not None}
+
+    def _gathered(self, fn, p, prefix: str, caches=()):
+        return gathered_layer(fn, dict(p.items()), self.layers[prefix], caches, self.mesh)
+
+    def attention(self, p, prefix, h, kc, vc, pos, cfg, cut, *, is_global, ring):
+        if not self.sharded:
+            return self._gathered(lambda w, k, v: decode_attention(w, h, k, v, pos, cfg, is_global=is_global,
+                                                                   ring=ring)[0], p, prefix, [(kc, cut), (vc, cut)])
+        w = self._views(p, prefix, decode_attention_specs(cfg, self.mesh, self.batch))
+        return decode_attention_sharded(w, h, kc, vc, pos, cfg, batch=self.batch, is_global=is_global, ring=ring,
+                                        cut=cut)[0]
+
+    def cross(self, p, prefix, h, ck, cv, cfg, cut):
+        if not self.sharded:
+            return self._gathered(lambda w, k, v: cross_decode(w, h, k, v, cfg), p, prefix, [(ck, cut), (cv, cut)])
+        w = self._views(p, prefix, decode_attention_specs(cfg, self.mesh, self.batch))
+        return cross_decode_sharded(w, h, ck, cv, cfg, batch=self.batch, cut=cut)
+
+    def mlp(self, p, prefix, h, cfg, *, kind: str | None = None, d_ff: int | None = None):
+        if not self.sharded:
+            return self._gathered(lambda w: mlp(w, h, kind or cfg.mlp), p, prefix)
+        w = self._views(p, prefix, decode_mlp_specs(cfg, self.mesh, self.batch, d_ff=d_ff))
+        return decode_mlp_sharded(w, h, cfg, batch=self.batch, kind=kind, d_ff=d_ff)
+
+    def mla(self, p, prefix, h, c_kv, k_rope, pos, cfg, cuts):
+        """On latent caches both cut along S (or a 'model' axis of one rank):
+        ``c_kv`` and ``k_rope`` are cut by their own specs."""
+        if not self.sharded:
+            return self._gathered(lambda w, c, r: mla_decode(w, h, c, r, pos, cfg)[0], p, prefix,
+                                  [(c_kv, cuts[0]), (k_rope, cuts[1])])
+        if cuts != (1, 1) and self.mesh.get("model", 1) > 1:
+            self._refuse(prefix, cuts)
+        w = self._views(p, prefix, mla_decode_specs(cfg, self.mesh, self.batch))
+        return mla_decode_sharded(w, h, c_kv, k_rope, pos, cfg, batch=self.batch)[0]
+
+    def ffn(self, blk, prefix, h, cfg):
+        """An MLA block's second half: its dense MLP, or the routed experts'
+        gather dispatch on the held experts and the shared experts' MLP."""
+        if blk.moe is None:
+            return self.mlp(blk.mlp, f"{prefix}.mlp", h, cfg)
+        p, mesh = blk.moe, self.mesh
+        routed = {w: p[w] for w in ("router", "router_bias", "w_gate", "w_up", "w_down") if w in p}
+        logits = None
+        if p.router.shape[0] != cfg.d_model:        # the router's d cut over 'data': its logits weight-stationary
+            logits, = col_proj(h.float(), [p.router], cfg.d_model, mesh, self.bspec)
+        y, _ = moe_gather_sharded(routed, h, cfg, mesh, self.layers[f"{prefix}.moe"], self.bspec, logits=logits)
+        if p.shared is None:
+            return y
+        return y + self.mlp(p.shared, f"{prefix}.moe.shared", h, cfg, kind="swiglu",
+                            d_ff=cfg.moe_d_ff * cfg.num_shared_experts)
+
+    def rglru(self, p, prefix, h, hc, conv, cfg, cuts):
+        """Channel-parallel where the rules cut the width (h and conv along
+        it, the gates' columns with them) or nothing over 'model'."""
+        if not self.sharded:
+            return self._gathered(lambda w, s, c: rglru_decode(w, h, s, c, cfg)[0], p, prefix,
+                                  [(hc, cuts[0]), (conv, cuts[1])])
+        channels = _model_dim(self.layers[prefix]["w_x"], self.mesh) == 1
+        if (channels, *cuts) not in ((True, 1, 2), (False, None, None)):
+            self._refuse(prefix, cuts)
+        return rglru_decode_sharded(p, h, hc, conv, cfg, self.mesh, batch=self.batch)
+
+    def mamba(self, p, prefix, h, conv, state, cfg, cuts):
+        """On the rank's blocks of conv (its channels, or its rows where
+        conv_w is whole) and state (its rows, heads or N-block)."""
+        conv_cut, state_cut = cuts
+        if not self.sharded:
+            return self._gathered(lambda w, c, s: mamba_decode(w, h, c, s, cfg)[0], p, prefix,
+                                  [(conv, conv_cut), (state, state_cut)])
+        conv_w_cut = _model_dim(self.layers[prefix]["conv_w"], self.mesh) is not None
+        if not (conv_cut == 2 or (conv_cut in (None, 0) and not conv_w_cut)) or state_cut not in (None, 0, 1, 3):
+            self._refuse(prefix, cuts)
+        return mamba_decode_sharded(p, h, conv, state, cfg, self.mesh, batch=self.batch, conv_cut=conv_cut,
+                                    state_cut=state_cut)
+
+
+# ---------------------------------------------------------------------------
+# the blocks' specs
+# ---------------------------------------------------------------------------
+
+def _lead_axes(cfg: ModelConfig, name: str) -> int:
+    """The stacked layer axes before the batch dimension of cache ``name``."""
+    two = {"dense": ("local_k", "local_v", "global_k", "global_v"), "vlm": ("k", "v"), "hybrid": ("h", "conv")}
+    return 2 if name in two.get(cfg.family, ()) else 1
+
+
+def cache_blocks(lm, batch: int, max_len: int, *, frames: int | None = None) -> dict:
     """The spec of a rank's block of every cache ``init_cache`` allocates
-    under the current (placed) mesh for the global batch ``batch``: a
-    self-attention cache whose global length S takes the sharded attention
-    is cut as ``decode_attention_specs``' cache, rows over the batch axes and
-    S over 'model' (checked against ``runtime.sharding.cache_specs``: raises
-    where they differ); every other cache by rows only. The stacked layer
-    axes lead, unsharded."""
-    from ..runtime.sharding import cache_specs        # runtime imports the models
+    under the current (placed) mesh for the global batch ``batch`` (the
+    cache tree's structure): ``runtime.sharding.cache_spec`` of each leaf of
+    ``runtime.serve.abstract_cache(lm, batch, max_len, frames=frames)``
+    (encdec's cross caches over ``frames`` audio frames, max_len by
+    default), the reference's ``cache_specs`` but for its batch dimension:
+    the leaf's own, after its stacked layer axes, where the reference
+    would take a stacked axis as long as the batch (ROADMAP C13; the same
+    bytes, since the two are as long)."""
+    from ..runtime.serve import abstract_cache          # runtime imports the models
+    from ..runtime.sharding import cache_spec
 
-    cfg = lm.cfg
-    fam = cfg.family
     mesh = _placed_mesh()
     if mesh is None:
         raise ValueError("cache_blocks: no placed mesh is current (launch.mesh.make_mesh, pspec.logical_axis_rules)")
-    bspec = _decode_bspec(mesh, batch)
-    W = min(cfg.local_window, max_len)
-
-    def attn(lead: tuple, S: int, name: str, tail: tuple | None = None) -> tuple:
-        """A self-attention cache (*lead, B, S, KV, D), lead its stacked layer
-        axes (with ``tail``, an MLA latent cache (*lead, B, S, *tail))."""
-        if tail is None:
-            tail, read = (cfg.num_kv_heads, cfg.head_dim_), decode_attention_specs(cfg, mesh, batch)["cache"]
-        else:
-            read = mla_decode_specs(cfg, mesh, batch)["cache"]
-        spec = (None,) * len(lead) + read
-        if not _sharded_decode_applicable(S):
-            return (None,) * len(lead) + (bspec, None) + (None,) * len(tail)
-        shape = lead + (batch, S) + tail
-        want = cache_specs(mesh, torch.empty(shape, device="meta"), batch)
-        if not _same_spec(mesh, want, spec):
-            raise ValueError(f"{cfg.name}: cache {name} {shape} would be cut as {want} by "
-                             f"runtime.sharding.cache_specs, and the sharded attention reads it as {spec}")
-        return spec
-
-    def rows(bdim: int, n: int) -> tuple:
-        return (None,) * bdim + (bspec,) + (None,) * (n - bdim - 1)
-
-    if fam == "dense":
-        if _uses_rings(cfg):
-            n_p, pat = _pattern_period(cfg)
-            sp = {"local": attn((n_p, pat.count("L")), W, "local_k"),
-                  "global": attn((n_p, pat.count("G")), max_len, "global_k")}
-            return {f"{kind}_{kv}": sp[kind] for kind in ("local", "global") for kv in ("k", "v")}
-        sp = attn((cfg.num_layers,), max_len, "k")
-        return {"k": sp, "v": sp}
-    if fam == "vlm":
-        k_every = cfg.cross_attn_every
-        sp = attn((cfg.num_layers // k_every, k_every - 1), max_len, "k")
-        return {"k": sp, "v": sp, "cross_k": rows(1, 5), "cross_v": rows(1, 5)}
-    if fam == "hybrid":
-        n_p, rem = hybrid_periods(cfg)
-        sp = attn((n_p,), W, "ring_k")
-        out = {"h": rows(2, 4), "conv": rows(2, 5), "ring_k": sp, "ring_v": sp}
-        if rem:
-            out |= {"extra_h": rows(1, 3), "extra_conv": rows(1, 4)}
-        return out
-    if fam == "encdec":
-        sp = attn((cfg.num_layers,), max_len, "k")
-        return {"k": sp, "v": sp, "cross_k": rows(1, 5), "cross_v": rows(1, 5)}
-    if fam == "moe":
-        parts = {"moe": cfg.num_layers - cfg.first_k_dense} | ({"dense": cfg.first_k_dense} if cfg.first_k_dense
-                                                              else {})
-        return {part: {"c_kv": attn((n,), max_len, f"{part}/c_kv", (cfg.kv_lora_rank,)),
-                       "k_rope": attn((n,), max_len, f"{part}/k_rope", (cfg.qk_rope_head_dim,))}
-                for part, n in parts.items()}
-    if fam == "ssm":
-        return {"conv": rows(1, 4), "state": rows(1, 5)}
-    raise ValueError(fam)
-
-
-def table_specs(lm, mesh) -> dict:
-    """The specs of the embedding (and the unembedding) of the whole model
-    ``lm`` under ``mesh`` as the reference's serve step cuts them:
-    ``runtime.sharding.param_specs`` with serving's ZeRO where
-    ``needs_zero3(..., serve=True)`` finds the TP-only blocks too large
-    (vocab over 'model', and width over 'data' then)."""
-    from ..runtime.sharding import needs_zero3, param_specs       # runtime imports the models
-
-    specs = param_specs(mesh, lm, needs_zero3(mesh, lm, serve=True))
-    return {n: specs[n] for n in ("embed", "unembed") if n in specs}
-
-
-def param_blocks(lm, batch: int, max_len: int) -> dict:
-    """The spec of a rank's block of every parameter of ``lm`` under the
-    current (placed) mesh for the global batch ``batch`` and caches of
-    ``max_len``: the attention projections of a block that takes the
-    sharded attention by ``decode_attention_specs``, every attention
-    block's MLP by ``decode_mlp_specs`` where the sharded MLP applies, the
-    embedding and the unembedding cut as the reference's serve step holds
-    them (``table_specs``), and every other parameter whole (the
-    reference's shard_map in_specs, which its decode step reshards to). An
-    MLA block's projections by ``mla_decode_specs`` where the sharded MLA
-    decode applies, its dense MLP by ``decode_mlp_specs``, its routed
-    experts as training cuts them (``_expert_specs``): no rank holds every
-    expert."""
     cfg = lm.cfg
+
+    def spec(name: str, t) -> tuple:
+        return cache_spec(mesh, t.shape, batch, _lead_axes(cfg, name))
+
+    return {k: ({n: spec(n, t) for n, t in v.items()} if isinstance(v, dict) else spec(k, v))
+            for k, v in abstract_cache(lm, batch, max_len, frames=frames).items()}
+
+
+def param_blocks(lm) -> dict:
+    """The spec of a rank's block of every parameter of ``lm`` under the
+    current (placed) mesh: the reference's serve step's,
+    ``runtime.sharding.param_specs(mesh, lm, serve=True)`` (TP over 'model',
+    and ZeRO over 'data' where ``needs_zero3(..., serve=True)`` finds the
+    TP-only blocks too large)."""
+    from ..runtime.sharding import param_specs          # runtime imports the models
+
     mesh = _placed_mesh()
     if mesh is None:
         raise ValueError("param_blocks: no placed mesh is current (launch.mesh.make_mesh, pspec.logical_axis_rules)")
-    specs = {name: (None,) * p.dim() for name, p in lm.named_parameters()}
-    specs |= table_specs(lm, mesh)
-    attn, mlp_specs = decode_attention_specs(cfg, mesh, batch), decode_mlp_specs(cfg, mesh, batch)
-    if cfg.family == "moe":
-        mla, experts = mla_decode_specs(cfg, mesh, batch), _expert_specs(lm, mesh)
-        for prefix, blk in ((n, b) for n, b in lm.named_modules() if isinstance(b, MLABlock)):
-            if _sharded_decode_applicable(max_len):
-                specs |= {f"{prefix}.attn.{w}": mla[w] for w in blk.attn}
-            if blk.moe is not None:
-                specs |= {f"{prefix}.moe.{w}": experts[w] for w in experts}
-            elif _sharded_mlp_applicable():
-                specs |= {f"{prefix}.mlp.{w}": mlp_specs[w] for w in blk.mlp}
-    for prefix, S in _self_attention_blocks(lm, max_len):
-        if _sharded_decode_applicable(S):
-            for w in ("wq", "wk", "wv", "wo"):
-                specs[f"{prefix}.attn.{w}"] = attn[w]
-        if _sharded_mlp_applicable():
-            for w in ("w_gate", "w_up", "w_down"):
-                if f"{prefix}.mlp.{w}" in specs:
-                    specs[f"{prefix}.mlp.{w}"] = mlp_specs[w]
-    return specs
+    return param_specs(mesh, lm, serve=True)
+
+
+# ---------------------------------------------------------------------------
+# cache init
+# ---------------------------------------------------------------------------
+
+def _cross_kv_block(params, src: torch.Tensor, cut, mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """A cross layer's keys and values (B, N, KV, D) over its source src
+    (B, N, d), or where a mesh cuts them over 'model' along dimension
+    ``cut``, only this rank's block of them: the source's rows or
+    positions, or the whole weights' kv heads or columns."""
+    wk, wv = params["wk"], params["wv"]
+    if cut is not None:
+        r, m = mesh.coords["model"], mesh["model"]
+        if cut < 2:
+            n = src.shape[cut] // m
+            src = src.narrow(cut, r * n, n)
+        else:
+            n = wk.shape[cut - 1] // m
+            wk, wv = wk.narrow(cut - 1, r * n, n), wv.narrow(cut - 1, r * n, n)
+    return _heads(src, wk, *wk.shape[1:]), _heads(src, wv, *wv.shape[1:])
+
+
+def _cross_cache(blocks, src: torch.Tensor, cfg: ModelConfig, z, batch: int, mesh=None, cut=None) -> dict:
+    """Each cross layer's keys and values over ``src`` (B, N, d), stacked:
+    (n, B, N, KV, D), allocated by ``init_cache``'s ``z`` for the global
+    ``batch`` (under a mesh, ``src`` holds this rank's rows of it and each
+    layer's block is cut over 'model' along ``cut``)."""
+    N = src.shape[1]
+    cache = {name: z(name, len(blocks), batch, N, cfg.num_kv_heads, cfg.head_dim_, dtype=src.dtype)
+             for name in ("cross_k", "cross_v")}
+    rows = src.shape[0] // (mesh["model"] if cut == 0 else 1)
+    if cache["cross_k"].shape[1] != rows:
+        raise ValueError(f"{cfg.name}: {src.shape[0]} rows of cross-attention input for a cache of "
+                         f"{cache['cross_k'].shape[1]} rows")
+    for i, b in enumerate(blocks):
+        cache["cross_k"][i], cache["cross_v"][i] = _cross_kv_block(b.attn, src, cut, mesh)
+    return cache
+
+
+def _encode_sharded(lm, audio_embeds: torch.Tensor, mesh) -> torch.Tensor:
+    """Whisper's encoder over this rank's rows of the frames as the sharded
+    prefill runs it, on views of the rank's blocks of ``lm``'s parameters
+    (``param_blocks``): the same (B_loc, frames, d) on every rank of 'model'."""
+    from ..runtime.serve import local_lm                # runtime imports the models
+    from ..runtime.sharding import batch_axes
+
+    specs = param_blocks(lm)
+    view = local_lm(lm, specs, mesh, copy=False)
+    view.placement = Placement(mesh, specs, math.prod(mesh[a] for a in batch_axes(mesh)))
+    return view.encode(audio_embeds)
 
 
 @torch.no_grad()
@@ -341,10 +438,12 @@ def init_cache(lm, batch: int, max_len: int, *, image_embeds: torch.Tensor | Non
     computes from ``image_embeds`` (B, N, d) and encdec from the encoder's
     pass over ``audio_embeds``), in the reference's shapes and types.
 
-    Under a placed mesh, for the global batch ``batch``: each cache is this
-    rank's block of its unsharded shape, cut by its spec in
-    ``cache_blocks``; ``image_embeds`` / ``audio_embeds`` are then this
-    rank's rows."""
+    Under a placed mesh, for the global batch ``batch`` (``lm`` the whole
+    model): each cache is this rank's block of its unsharded shape, cut by
+    its spec in ``cache_blocks``; ``image_embeds`` / ``audio_embeds`` are
+    then this rank's rows, whisper's encoder runs on the rank's blocks and
+    each cross layer projects only the rank's block of its keys and
+    values."""
     from ..runtime.sharding import local_block        # runtime imports the models
 
     cfg: ModelConfig = lm.cfg
@@ -352,7 +451,8 @@ def init_cache(lm, batch: int, max_len: int, *, image_embeds: torch.Tensor | Non
     KV, D = cfg.num_kv_heads, cfg.head_dim_
     dev = lm.device
     mesh = _placed_mesh()
-    specs = None if mesh is None else cache_blocks(lm, batch, max_len)
+    frames = None if audio_embeds is None else audio_embeds.shape[1]
+    specs = None if mesh is None else cache_blocks(lm, batch, max_len, frames=frames)
 
     def z(name: str, *shape: int, dtype=cfg.cdtype) -> torch.Tensor:
         """Zeros for the cache ``name`` of the unsharded ``shape`` (under a
@@ -363,6 +463,9 @@ def init_cache(lm, batch: int, max_len: int, *, image_embeds: torch.Tensor | Non
                 spec = spec[key]
             shape = local_block(torch.empty(shape, device="meta"), spec, mesh).shape
         return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def cross_cut():
+        return None if specs is None else _model_dim(specs["cross_k"][1:], mesh)
 
     W = min(cfg.local_window, max_len)
     if fam == "dense":
@@ -376,7 +479,7 @@ def init_cache(lm, batch: int, max_len: int, *, image_embeds: torch.Tensor | Non
             raise ValueError(f"{cfg.name}: vlm caches need image_embeds (the cross K/V)")
         k_every = cfg.cross_attn_every
         cache = {kv: z(kv, cfg.num_layers // k_every, k_every - 1, batch, max_len, KV, D) for kv in "kv"}
-        return cache | _cross_cache(lm.cross_blocks, image_embeds.to(cfg.cdtype), cfg, z, batch)
+        return cache | _cross_cache(lm.cross_blocks, image_embeds.to(cfg.cdtype), cfg, z, batch, mesh, cross_cut())
     if fam == "moe":
         k = cfg.first_k_dense
         parts = {"moe": cfg.num_layers - k} | ({"dense": k} if k else {})
@@ -398,7 +501,8 @@ def init_cache(lm, batch: int, max_len: int, *, image_embeds: torch.Tensor | Non
         if audio_embeds is None:
             raise ValueError(f"{cfg.name}: encdec caches need audio_embeds (the encoder's input)")
         cache = {kv: z(kv, cfg.num_layers, batch, max_len, KV, D) for kv in "kv"}
-        return cache | _cross_cache(lm.dec_cross, lm.encode(audio_embeds), cfg, z, batch)
+        enc = lm.encode(audio_embeds) if mesh is None else _encode_sharded(lm, audio_embeds, mesh)
+        return cache | _cross_cache(lm.dec_cross, enc, cfg, z, batch, mesh, cross_cut())
     raise ValueError(fam)
 
 
@@ -453,7 +557,7 @@ def _head_logits(lm, x: torch.Tensor, mesh, batch: int, specs: dict) -> torch.Te
 
 @torch.no_grad()
 def decode_step(lm, tokens_t: torch.Tensor, cache: dict, pos: int, *, batch: int | None = None,
-                max_len: int | None = None, specs: dict | None = None):
+                specs: dict | None = None, cache_specs: dict | None = None, layers: dict | None = None):
     """tokens_t (B, 1) integer; pos an int → (logits (B, 1, V) float32,
     cache), the cache updated in place. Layers run in the reference's
     order: with local dense layers period by period, locals before
@@ -463,73 +567,83 @@ def decode_step(lm, tokens_t: torch.Tensor, cache: dict, pos: int, *, batch: int
     attention block in each period, then the trailing ones.
 
     Under a placed mesh: ``lm`` holds this rank's parameter blocks, cut
-    by ``specs`` (``param_blocks``, the tables cut too; a table without a
-    spec there is whole), ``cache`` its cache blocks
-    (``init_cache``), tokens_t its rows of the global batch ``batch``, and
-    the logits are those rows', whole along V; ``max_len`` is the caches'
-    global length."""
+    by ``specs`` (``param_blocks``), ``cache`` its cache blocks, cut by
+    ``cache_specs`` (``cache_blocks``; ``init_cache`` allocates them),
+    tokens_t its rows of the global batch ``batch``, and the logits are
+    those rows', whole along V. ``layers`` is ``layer_specs(specs)``, which
+    a caller that steps many times makes once (None: made here)."""
     cfg: ModelConfig = lm.cfg
     fam = cfg.family
     pos = int(pos)
-    geo = lambda ring: {}  # noqa: E731
     mesh = _placed_mesh()
-    if mesh is not None:
-        if batch is None or max_len is None:
-            raise ValueError("decode_step under a placed mesh takes the global batch and max_len")
+    if mesh is None:
+        ops = _OneDevice()
+    else:
+        if batch is None or specs is None or cache_specs is None:
+            raise ValueError("decode_step under a placed mesh takes the global batch and the blocks' specs")
         if tokens_t.shape[0] != _rows(mesh, batch, _decode_bspec(mesh, batch)):
             raise ValueError(f"decode_step: {tokens_t.shape[0]} rows of tokens for a global batch {batch} over "
                              f"{_decode_bspec(mesh, batch)}")
-        W = min(cfg.local_window, max_len)
-        geo = lambda ring: {"batch": batch, "S": W if ring else max_len}  # noqa: E731
-    x = lm._embed(tokens_t) if mesh is None else _lookup(lm, tokens_t, mesh, batch, specs or {})
+        ops = _Rank(mesh, batch, layer_specs(specs) if layers is None else layers, cache_specs)
+    x = lm._embed(tokens_t) if mesh is None else _lookup(lm, tokens_t, mesh, batch, specs)
     if fam == "dense":
         blocks = lm.blocks
         if _uses_rings(cfg):
             n_p, pat = _pattern_period(cfg)
             period = len(pat)
-            li = [i for i, c in enumerate(pat) if c == "L"]
-            gi = [i for i, c in enumerate(pat) if c == "G"]
+            kinds = (("local", [i for i, c in enumerate(pat) if c == "L"], False),
+                     ("global", [i for i, c in enumerate(pat) if c == "G"], True))
             for p in range(n_p):
-                for n, i in enumerate(li):
-                    x, _, _ = _attn_decode_block(
-                        blocks[p * period + i], x, cache["local_k"][p, n], cache["local_v"][p, n],
-                        pos, cfg, is_global=False, ring=True, **geo(True))
-                for n, i in enumerate(gi):
-                    x, _, _ = _attn_decode_block(
-                        blocks[p * period + i], x, cache["global_k"][p, n], cache["global_v"][p, n],
-                        pos, cfg, is_global=True, ring=False, **geo(False))
+                for kind, idx, is_global in kinds:
+                    cut = ops.cut(f"{kind}_k", 2)
+                    for n, i in enumerate(idx):
+                        j = p * period + i
+                        x = _attn_block(ops, blocks[j], f"blocks.{j}", x, cache[f"{kind}_k"][p, n],
+                                        cache[f"{kind}_v"][p, n], pos, cfg, cut, is_global=is_global,
+                                        ring=not is_global)
         else:
+            cut = ops.cut("k", 1)
             for i, blk in enumerate(blocks):
-                x, _, _ = _attn_decode_block(blk, x, cache["k"][i], cache["v"][i], pos, cfg,
-                                             is_global=True, ring=False, **geo(False))
+                x = _attn_block(ops, blk, f"blocks.{i}", x, cache["k"][i], cache["v"][i], pos, cfg, cut,
+                                is_global=True, ring=False)
     elif fam == "vlm":
-        for p, (selfs, cross) in enumerate(zip(lm.self_blocks, lm.cross_blocks)):
+        cut, cross = ops.cut("k", 2), ops.cut("cross_k", 1)
+        for p, (selfs, xblk) in enumerate(zip(lm.self_blocks, lm.cross_blocks)):
             for j, blk in enumerate(selfs):
-                x, _, _ = _attn_decode_block(blk, x, cache["k"][p, j], cache["v"][p, j], pos, cfg,
-                                             is_global=True, ring=False, **geo(False))
-            x = _cross_block(cross, x, cache["cross_k"][p], cache["cross_v"][p], cfg)
+                x = _attn_block(ops, blk, f"self_blocks.{p}.{j}", x, cache["k"][p, j], cache["v"][p, j], pos, cfg,
+                                cut, is_global=True, ring=False)
+            x = _cross_block(ops, xblk, f"cross_blocks.{p}", x, cache["cross_k"][p], cache["cross_v"][p], cfg, cross)
     elif fam == "moe":
-        kw = {} if mesh is None else dict(geo(False), experts=_expert_specs(lm, mesh))
-        for part, blocks in (("dense", getattr(lm, "dense_blocks", ())), ("moe", lm.moe_blocks)):
-            for i, blk in enumerate(blocks):
-                x = _mla_block(blk, x, cache[part]["c_kv"][i], cache[part]["k_rope"][i], pos, cfg, **kw)
+        for part, name in (("dense", "dense_blocks"), ("moe", "moe_blocks")):
+            if part not in cache:
+                continue
+            cuts = (ops.cut(f"{part}/c_kv", 1), ops.cut(f"{part}/k_rope", 1))
+            for i, blk in enumerate(getattr(lm, name)):
+                x = _mla_block(ops, blk, f"{name}.{i}", x, cache[part]["c_kv"][i], cache[part]["k_rope"][i], pos,
+                               cfg, cuts)
     elif fam == "ssm":
+        cuts = (ops.cut("conv", 1), ops.cut("state", 1))
         for i, blk in enumerate(lm.blocks):
-            y, _, _ = mamba_decode(blk.mix, rms_norm(x, blk.ln), cache["conv"][i], cache["state"][i], cfg)
-            x = x + y
+            x = x + ops.mamba(blk.mix, f"blocks.{i}.mix", rms_norm(x, blk.ln), cache["conv"][i], cache["state"][i],
+                              cfg, cuts)
     elif fam == "hybrid":
+        cuts, ring = (ops.cut("h", 2), ops.cut("conv", 2)), ops.cut("ring_k", 1)
         for p, (recs, attn) in enumerate(zip(lm.rec_blocks, lm.attn_blocks)):
             for j, blk in enumerate(recs):
-                x = _rec_block(blk, x, cache["h"][p, j], cache["conv"][p, j], cfg)
-            x, _, _ = _attn_decode_block(attn, x, cache["ring_k"][p], cache["ring_v"][p], pos, cfg,
-                                         is_global=False, ring=True, **geo(True))
-        for i, blk in enumerate(getattr(lm, "extra_rec", ())):
-            x = _rec_block(blk, x, cache["extra_h"][i], cache["extra_conv"][i], cfg)
+                x = _rec_block(ops, blk, f"rec_blocks.{p}.{j}", x, cache["h"][p, j], cache["conv"][p, j], cfg, cuts)
+            x = _attn_block(ops, attn, f"attn_blocks.{p}", x, cache["ring_k"][p], cache["ring_v"][p], pos, cfg, ring,
+                            is_global=False, ring=True)
+        extra = getattr(lm, "extra_rec", ())
+        if extra:
+            cuts = (ops.cut("extra_h", 1), ops.cut("extra_conv", 1))
+        for i, blk in enumerate(extra):
+            x = _rec_block(ops, blk, f"extra_rec.{i}", x, cache["extra_h"][i], cache["extra_conv"][i], cfg, cuts)
     elif fam == "encdec":
-        for i, (self_blk, cross) in enumerate(zip(lm.dec_self, lm.dec_cross)):
-            x, _, _ = _attn_decode_block(self_blk, x, cache["k"][i], cache["v"][i], pos, cfg,
-                                         is_global=True, ring=False, **geo(False))
-            x = _cross_block(cross, x, cache["cross_k"][i], cache["cross_v"][i], cfg)
+        cut, cross = ops.cut("k", 1), ops.cut("cross_k", 1)
+        for i, (self_blk, xblk) in enumerate(zip(lm.dec_self, lm.dec_cross)):
+            x = _attn_block(ops, self_blk, f"dec_self.{i}", x, cache["k"][i], cache["v"][i], pos, cfg, cut,
+                            is_global=True, ring=False)
+            x = _cross_block(ops, xblk, f"dec_cross.{i}", x, cache["cross_k"][i], cache["cross_v"][i], cfg, cross)
     else:
         raise ValueError(fam)
-    return (lm._logits(x) if mesh is None else _head_logits(lm, x, mesh, batch, specs or {})), cache
+    return (lm._logits(x) if mesh is None else _head_logits(lm, x, mesh, batch, specs)), cache

@@ -18,13 +18,15 @@ reference reaches no Pallas kernel there either.
 ``mla_decode_sharded`` is the reference's weight-stationary,
 sequence-parallel form of that decode on a rank's blocks under a placed
 mesh (``mla_decode_specs``): the latent cache sharded over 'model' along
-S, projections summed over 'data', the small absorbed W^UK/W^UV gathered
-once a layer, the shards' softmax states combined by a max and two sums.
+S, projections summed over 'data', W^UK and W^UV applied on the rank's
+heads of wkv_b where they stay (the absorbed queries gathered over
+'model', one token a row), the shards' softmax states combined by a max
+and two sums.
 Its products are the reference's stock ones (the 576-wide latent key is no
 instance of the decode kernel). The reference's moe decode does not call
 it (its decode.py keeps the absorbed single-device form under XLA's
 partitioner: "refuted"); the port's decode step under a placed mesh does
-(``models.decode``), where the cache's global length allows it.
+(``models.decode``) wherever the rules cut its caches along S.
 
 ``mla_sharded`` is the full-sequence MLA of training and prefill on a
 rank's rows and its blocks under a mesh (``runtime.sharding.param_specs``'
@@ -41,8 +43,7 @@ from torch import nn
 
 from .._device import warm_host_math
 from ..launch.mesh import all_gather, all_reduce, gather_dims
-from .attention import (_attend, _batch_row_start, _decode_bspec, _gather_batch, _psum_proj, _rows,
-                        current_mesh)
+from .attention import _attend, _decode_bspec, _rows, col_proj, current_mesh, row_proj
 from .common import ModelConfig
 from .layers import init_linear_, linear, rms_norm, rope, row_parallel
 
@@ -236,20 +237,15 @@ def mla_decode_sharded(params, x_t: torch.Tensor, c_kv_cache: torch.Tensor, k_ro
     d, H = cfg.d_model, cfg.num_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     rkv, rq = cfg.kv_lora_rank, cfg.q_lora_rank
-    xg = _gather_batch(x_t, bspec, mesh)                          # (B, 1, d)
-    # queries
+    # queries on the rank's heads, latents whole: weights stay, partial products sum over 'data'
     if rq:
-        cq = rms_norm(_psum_proj(xg, params["wq_a"], d, mesh), params["q_norm"])
+        cq, kv_a = col_proj(x_t, [params["wq_a"], params["wkv_a"]], d, mesh, bspec)
         wq_b = params["wq_b"]                                     # (rq, H_loc, dn + dr)
-        q = linear(cq, wq_b.reshape(rq, -1)).reshape(*cq.shape[:2], wq_b.shape[1], dn + dr)
+        q = linear(rms_norm(cq, params["q_norm"]), wq_b.reshape(rq, -1)).reshape(Bl, 1, wq_b.shape[1], dn + dr)
     else:
-        q = _psum_proj(xg, params["wq"], d, mesh)
-    if q.shape[2] != H:
-        q = all_gather(q, "model", mesh, dim=2)
-    # latents
-    kv_a = _psum_proj(xg, params["wkv_a"], d, mesh)               # (B, 1, rkv + dr)
-    row0 = _batch_row_start(mesh, bspec, Bl)
-    q, kv_a = q[row0:row0 + Bl], kv_a[row0:row0 + Bl]
+        q, kv_a = col_proj(x_t, [params["wq"], params["wkv_a"]], d, mesh, bspec)
+    H_loc = q.shape[2]
+    h0 = mesh.coords["model"] * H_loc if H_loc != H else 0
     posb = torch.full((Bl, 1), pos, dtype=torch.int64, device=x_t.device)
     qn, qr = q[..., :dn], rope(q[..., dn:], posb, cfg.rope_theta)
     c_t = rms_norm(kv_a[..., :rkv], params["kv_norm"])
@@ -260,11 +256,13 @@ def mla_decode_sharded(params, x_t: torch.Tensor, c_kv_cache: torch.Tensor, k_ro
     if 0 <= slot < S_loc:
         c_kv_cache[:, slot] = c_t[:, 0].to(c_kv_cache.dtype)
         k_rope_cache[:, slot] = kr_t[:, 0].to(k_rope_cache.dtype)
+    # W^UK absorbed on the rank's heads of wkv_b; the absorbed and rotary queries gathered over 'model'
+    wkb = params["wkv_b"]                                         # (rkv, H_loc, dn + dv)
+    qa = torch.cat([torch.einsum("bqhc,rhc->bqhr", qn, wkb[..., :dn]), qr], dim=-1)
+    if H_loc != H:
+        qa = all_gather(qa, "model", mesh, dim=2)
+    q_abs, qr = qa[..., :rkv], qa[..., rkv:]
     # absorbed attention over this shard's latents
-    wkb = params["wkv_b"]
-    if wkb.shape[1] != H:                                         # gather the small W^UK / W^UV
-        wkb = all_gather(wkb, "model", mesh, dim=1)
-    q_abs = torch.einsum("bqhc,rhc->bqhr", qn, wkb[..., :dn])
     s = (torch.einsum("bqhr,bkr->bhqk", q_abs, c_kv_cache)
          + torch.einsum("bqhc,bkc->bhqk", qr, k_rope_cache)).float() * ((dn + dr) ** -0.5)
     valid = start + torch.arange(S_loc, device=x_t.device) <= pos
@@ -277,21 +275,12 @@ def mla_decode_sharded(params, x_t: torch.Tensor, c_kv_cache: torch.Tensor, k_ro
     # decode's softmax is; each shard's latent sum kept in float32, rounded once after the sum over 'model'
     p = (p / torch.clamp(l, min=1e-30)[..., None]).to(c_kv_cache.dtype)
     lat = all_reduce(torch.einsum("bhqk,bkr->bqhr", p.float(), c_kv_cache.float()), "model", mesh).to(x_t.dtype)
-    out = torch.einsum("bqhr,rhv->bqhv", lat, wkb[..., dn:])      # W^UV on the way out
-    # output projection (weight-stationary)
-    og = _gather_batch(out, bspec, mesh)
-    wo = params["wo"]
-    H_loc = wo.shape[0]
-    if H_loc != H:
-        r = mesh.coords["model"]
-        o_slice = og[:, :, r * H_loc:(r + 1) * H_loc]
-        y = row_parallel(o_slice.reshape(*og.shape[:2], H_loc * dv), wo.reshape(H_loc * dv, -1), mesh)
-    else:
-        y = linear(og.reshape(*og.shape[:2], H * dv), wo.reshape(H * dv, -1))
-    if y.shape[-1] != d:
-        y = all_gather(y, "data", mesh, dim=2)
+    out = torch.einsum("bqhr,rhv->bqhv", lat[:, :, h0:h0 + H_loc], wkb[..., dn:])   # W^UV on the rank's heads
+    # output projection: the rank's heads of wo row-parallel (weight-stationary)
+    y = row_proj(out.reshape(Bl, 1, H_loc * dv), params["wo"].reshape(H_loc * dv, -1), d, mesh, bspec,
+                 cut=H_loc != H)
     mla_decode_sharded.calls += 1
-    return y[row0:row0 + Bl], c_kv_cache, k_rope_cache
+    return y, c_kv_cache, k_rope_cache
 
 
 mla_decode_sharded.calls = 0   # layers run through the sharded MLA decode, this process

@@ -135,12 +135,15 @@ def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _route(params, xt: torch.Tensor, cfg: ModelConfig):
+def _route(params, xt: torch.Tensor, cfg: ModelConfig, logits: torch.Tensor | None = None):
     """(T, d) tokens → gates (T, K), expert ids idx (T, K) and the
-    routing probabilities probs (T, E), all float32 but idx."""
+    routing probabilities probs (T, E), all float32 but idx. ``logits``
+    (T, E) float32, where given, are the router's (computed where its
+    weight is cut)."""
     K = cfg.top_k
     warm_host_math(xt)
-    logits = torch.matmul(xt.float(), params["router"])
+    if logits is None:
+        logits = torch.matmul(xt.float(), params["router"])
     if cfg.router == "sigmoid":
         scores = torch.sigmoid(logits)
         _, idx = _top_k(scores + params["router_bias"], K)
@@ -305,15 +308,16 @@ def _batch_axes(mesh) -> tuple:
 
 
 def _gather_dispatch(params, xt: torch.Tensor, tok: torch.Tensor, live, T: int, cfg: ModelConfig, mesh,
-                     specs: dict):
+                     specs: dict, logits: torch.Tensor | None = None):
     """The gather dispatch's routed experts on this rank's share of the
     global batch: xt (n, d) its tokens, ``tok`` (n,) their indices in the
     global token order (−1 where ``live``, a boolean (n,) or None, marks a
     padding token), T the global token count, every token routed by one
-    rank; the experts cut as ``specs`` gives them. → (y (n, d), aux)."""
+    rank (by ``logits`` (n, E) where given); the experts cut as ``specs``
+    gives them. → (y (n, d), aux)."""
     n, d = xt.shape
     E, K = cfg.num_experts, cfg.top_k
-    gates, idx, probs = _route(params, xt, cfg)
+    gates, idx, probs = _route(params, xt, cfg, logits)
     top1 = F.one_hot(idx[:, 0], E).float()
     if live is not None:
         top1, probs = top1 * live[:, None], probs * live[:, None]
@@ -350,14 +354,16 @@ def _gather_dispatch(params, xt: torch.Tensor, tok: torch.Tensor, live, T: int, 
     return y, aux
 
 
-def moe_gather_sharded(params, x: torch.Tensor, cfg: ModelConfig, mesh, specs: dict, bspec):
+def moe_gather_sharded(params, x: torch.Tensor, cfg: ModelConfig, mesh, specs: dict, bspec,
+                       logits: torch.Tensor | None = None):
     """The routed experts of the gather dispatch on a rank's rows x
     (B_loc, S, d) of a global batch split over the axes ``bspec`` (a tuple,
     or None), the same rows on every rank of the mesh's other axes, which
     share their tokens out: each takes an S/n block of every row where n
     divides S, else a block of the rows' tokens in order (the last padded).
-    ``params`` holds the router whole and the experts' blocks under
-    ``specs`` → (y (B_loc, S, d), aux), y the same on the ranks that share
+    ``params`` holds the router whole (or ``logits`` (B_loc, S, E), float32,
+    are the router's, where its weight is cut) and the experts' blocks
+    under ``specs`` → (y (B_loc, S, d), aux), y the same on the ranks that share
     the rows. ``.calls`` counts its calls (``moe_layer``'s under a placed
     mesh too), ``.dropped`` the (token, choice) pairs past the capacity, of
     the global batch, that they dropped."""
@@ -377,14 +383,16 @@ def moe_gather_sharded(params, x: torch.Tensor, cfg: ModelConfig, mesh, specs: d
         xt = x[:, c * Sn:(c + 1) * Sn].reshape(Bl * Sn, d)
         tok = ((row0 + torch.arange(Bl, device=dev))[:, None] * S + c * Sn
                + torch.arange(Sn, device=dev)).reshape(-1)
-        y, aux = _gather_dispatch(params, xt, tok, None, T, cfg, mesh, specs)
+        lt = None if logits is None else logits[:, c * Sn:(c + 1) * Sn].reshape(Bl * Sn, -1)
+        y, aux = _gather_dispatch(params, xt, tok, None, T, cfg, mesh, specs, lt)
         return gather_dims(y.view(Bl, Sn, d), (None, rep or None, None), mesh), aux
     Tr = Bl * S
     Tn = -(-Tr // n)
     xt = F.pad(x.reshape(Tr, d), (0, 0, 0, n * Tn - Tr))[c * Tn:(c + 1) * Tn]
     loc = c * Tn + torch.arange(Tn, device=dev)
     live = loc < Tr
-    y, aux = _gather_dispatch(params, xt, torch.where(live, row0 * S + loc, -1), live, T, cfg, mesh, specs)
+    lt = None if logits is None else F.pad(logits.reshape(Tr, -1), (0, 0, 0, n * Tn - Tr))[c * Tn:(c + 1) * Tn]
+    y, aux = _gather_dispatch(params, xt, torch.where(live, row0 * S + loc, -1), live, T, cfg, mesh, specs, lt)
     return gather_dims(y, (rep or None, None), mesh)[:Tr].view(Bl, S, d), aux
 
 

@@ -19,6 +19,13 @@ so each rank convolves, gates and scans its own channels; only the
 input of w_r and w_i, the whole xw, is gathered over 'model' (its
 gradient reduce-scattered back), and the row-parallel output is summed
 over 'model'.
+
+``rglru_decode_sharded`` is the one-step decode so, on a rank's rows
+under a placed mesh (``models.decode``): the rank's width block of the
+``h`` and ``conv`` caches, where the rules cut them, with the same
+columns of the gates' weights; only the rank's (B, 1, w/m) conv output,
+gathered for w_r and w_i, and the row-parallel output's float32 partial
+sums move.
 """
 from __future__ import annotations
 
@@ -28,11 +35,12 @@ from torch import nn
 
 from .._device import warm_host_math
 from ..launch.mesh import all_gather, gather_dims
+from .attention import _decode_bspec, col_proj, row_proj
 from .common import ModelConfig
 from .layers import init_linear_, row_parallel
 
 __all__ = ["init_rglru", "init_rglru_", "rglru_forward", "rglru_decode", "init_rglru_state",
-           "linear_scan", "rglru_sharded"]
+           "linear_scan", "rglru_sharded", "rglru_decode_sharded"]
 
 _C = 8.0  # Griffin's fixed recurrence sharpness
 
@@ -164,3 +172,37 @@ def rglru_decode(params, x_t: torch.Tensor, h: torch.Tensor, conv_cache: torch.T
     gate = F.gelu((x_t @ params["w_gate"]).float(), approximate="tanh")
     y = (h[:, None, :] * gate).to(x_t.dtype)
     return y @ params["out"], h, conv_cache
+
+
+def rglru_decode_sharded(params, x_t: torch.Tensor, h: torch.Tensor, conv_cache: torch.Tensor, cfg: ModelConfig,
+                         mesh, *, batch: int):
+    """``rglru_decode`` channel-parallel on this rank's blocks: x_t
+    (B_loc, 1, d) its rows of the global batch ``batch``; ``params`` its
+    w_loc columns of w_x, w_gate, conv_w, w_r and w_i and rows of out (d
+    whole, or cut over 'data': weight-stationary, ``attention.col_proj``),
+    conv_b and lam whole; h (B_loc, w_loc) and conv_cache (B_loc, 3, w_loc)
+    the same channels (w_loc = w where nothing is cut). The recurrence is
+    elementwise over the width: the rank convolves, gates and updates its
+    channels in place, from the whole conv output gathered over 'model'
+    for w_r and w_i, and the output's row-parallel partial sums are summed
+    over 'model' → (B_loc, 1, d)."""
+    rglru_decode_sharded.calls += 1
+    bspec = _decode_bspec(mesh, batch)
+    d, w, wl = cfg.d_model, cfg.lru_width_, h.shape[-1]
+    c0 = mesh.coords["model"] * wl if wl != w else 0
+    c = slice(c0, c0 + wl)
+    xw_t, g = col_proj(x_t, [params["w_x"], params["w_gate"]], d, mesh, bspec)      # (B_loc, 1, w_loc)
+    hist = torch.cat([conv_cache, xw_t.to(conv_cache.dtype)], dim=1)
+    xw = (torch.einsum("bwc,wc->bc", hist.float(), params["conv_w"].float()) + params["conv_b"][c]
+          )[:, None, :].to(x_t.dtype)
+    conv_cache.copy_(hist[:, 1:, :])
+    warm_host_math(xw)
+    xw_all = xw if wl == w else all_gather(xw, "model", mesh, dim=2)
+    a, gated = _gated(xw_all @ params["w_r"], xw_all @ params["w_i"], params["lam"][c], xw)
+    h.copy_(a[:, 0] * h + gated[:, 0])
+    gate = F.gelu(g.float(), approximate="tanh")
+    y = (h[:, None, :] * gate).to(x_t.dtype)
+    return row_proj(y, params["out"], d, mesh, bspec, cut=wl != w)
+
+
+rglru_decode_sharded.calls = 0   # recurrent layers decoded channel-parallel, this process

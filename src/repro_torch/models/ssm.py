@@ -22,6 +22,14 @@ of z, x and dt and the groups of B and C that they read: it convolves
 and scans those heads, sums the gated norm's float32 squares over
 'model', and applies its rows of out_proj row-parallel. A head count
 that does not divide 'model' runs whole on every rank.
+
+``mamba_decode_sharded`` is the one-token decode on a rank's rows under a
+placed mesh (``models.decode``), each cache read where the rules cut it:
+in_proj column-parallel with the (B, 1, ·) projections gathered over
+'model', the conv on the rank's block of ``conv`` (its channels, or its
+rows), the state updated on the rank's block of ``state`` (its rows,
+heads, head columns or N-block), y's partial sums over N summed over
+'model' in float32 (or its blocks gathered), out_proj row-parallel.
 """
 from __future__ import annotations
 
@@ -32,11 +40,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import warm_host_math
-from ..launch.mesh import all_reduce, gather_dims, spec_axes
+from ..launch.mesh import all_gather, all_reduce, gather_dims, spec_axes
+from .attention import _decode_bspec, col_proj, row_proj
 from .common import ModelConfig
 from .layers import init_linear_, rms_norm, row_parallel
 
-__all__ = ["init_mamba", "init_mamba_", "mamba_forward", "mamba_decode", "init_mamba_cache", "mamba_sharded"]
+__all__ = ["init_mamba", "init_mamba_", "mamba_forward", "mamba_decode", "init_mamba_cache", "mamba_sharded",
+           "mamba_decode_sharded"]
 
 
 def init_mamba(cfg: ModelConfig, device) -> nn.ParameterDict:
@@ -261,3 +271,78 @@ def mamba_decode(params, x_t: torch.Tensor, conv_cache: torch.Tensor, state: tor
     y = y.reshape(Bsz, 1, din).to(x_t.dtype)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["norm"])
     return y @ params["out_proj"], conv_cache, state
+
+
+def _block(n: int, mesh, cut_here: bool) -> slice:
+    """This rank's block of n elements of a dimension cut over 'model'
+    (``cut_here``; else all of them)."""
+    if not cut_here:
+        return slice(None)
+    k = n // mesh["model"]
+    return slice(mesh.coords["model"] * k, (mesh.coords["model"] + 1) * k)
+
+
+def mamba_decode_sharded(params, x_t: torch.Tensor, conv_cache: torch.Tensor, state: torch.Tensor,
+                         cfg: ModelConfig, mesh, *, batch: int, conv_cut: int | None, state_cut: int | None):
+    """``mamba_decode`` on this rank's blocks: x_t (B_loc, 1, d) its rows of
+    the global batch ``batch``; ``params`` its blocks of in_proj (columns
+    over 'model', d whole or over 'data'), conv_w (channels over 'model',
+    the same as ``conv_cache``'s where both are cut) and out_proj (d_inner
+    over 'model'), the rest whole. ``conv_cache`` is the rank's block of
+    (B_loc, W − 1, conv_dim) cut over 'model' along dimension ``conv_cut``
+    (0 its rows, with conv_w whole; 2 its channels; None whole), ``state``
+    of (B_loc, H, P, N) along ``state_cut`` (0 its rows, 1 its heads, 3 its
+    N-block, or None); a cut along P raises. Both are updated in place; only (B, 1, ·)
+    projections, conv outputs and y's partial sums or rows move
+    → (B_loc, 1, d)."""
+    if conv_cut not in (None, 0, 2) or state_cut not in (None, 0, 1, 3):
+        raise ValueError(f"mamba_decode_sharded: conv cut along {conv_cut} and state along {state_cut} over "
+                         f"'model' (no sharded body reads them)")
+    mamba_decode_sharded.calls += 1
+    bspec = _decode_bspec(mesh, batch)
+    Bsz, d = x_t.shape[0], cfg.d_model
+    din, H, P, N, G = cfg.d_inner, cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_ngroups
+    conv_dim = din + 2 * G * N
+    warm_host_math(x_t)
+    zxbcdt, = col_proj(x_t, [params["in_proj"]], d, mesh, bspec)
+    if zxbcdt.shape[-1] != 2 * din + 2 * G * N + H:
+        zxbcdt = all_gather(zxbcdt, "model", mesh, dim=-1)
+    z, xBC_t, dt_raw = _split(cfg, zxbcdt)                         # (B_loc, 1, ·)
+    # the causal conv on the rank's block of the cache of the last W − 1 inputs
+    rows, chans = _block(Bsz, mesh, conv_cut == 0), _block(conv_dim, mesh, conv_cut == 2)
+    w = params["conv_w"]
+    if w.shape[1] == conv_dim:
+        w = w[:, chans]
+    hist = torch.cat([conv_cache, xBC_t[rows][..., chans].to(conv_cache.dtype)], dim=1)
+    xBC = F.silu(torch.einsum("bwc,wc->bc", hist.float(), w.float()) + params["conv_b"][chans]
+                 )[:, None, :].to(x_t.dtype)
+    conv_cache.copy_(hist[:, 1:, :])
+    if conv_cut is not None:
+        xBC = all_gather(xBC, "model", mesh, dim=0 if conv_cut == 0 else 2)
+
+    xs, Bmat, Cmat = xBC[..., :din], xBC[..., din:din + G * N], xBC[..., din + G * N:]
+    xs = xs.reshape(Bsz, H, P)
+    rep = H // G
+    Bv = _rep(Bmat.reshape(Bsz, G, N), rep, 1)                     # (B, H, N)
+    Cv = _rep(Cmat.reshape(Bsz, G, N), rep, 1)
+    dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"])      # (B, H)
+    A = -torch.exp(params["A_log"])
+    decay = torch.exp(dt * A[None, :])                             # (B, H)
+    # the rank's block of the state: its rows, heads or N-block
+    b, h, n = _block(Bsz, mesh, state_cut == 0), _block(H, mesh, state_cut == 1), _block(N, mesh, state_cut == 3)
+    xdt = xs.float() * dt[..., None]
+    upd = torch.einsum("bhp,bhn->bhpn", xdt[b, h], Bv.float()[b, h, n])
+    state.copy_(state * decay[b, h][..., None, None] + upd)
+    y = torch.einsum("bhn,bhpn->bhp", Cv.float()[b, h, n], state)
+    if state_cut == 3:
+        y = all_reduce(y, "model", mesh)                           # y's partial sums over N
+    elif state_cut is not None:
+        y = all_gather(y, "model", mesh, dim=state_cut)
+    y = y + xs.float() * params["D"][None, :, None]
+    y = y.reshape(Bsz, 1, din).to(x_t.dtype)
+    y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["norm"])
+    wo = params["out_proj"]                                        # (din_loc, d_loc)
+    return row_proj(y[..., _block(din, mesh, wo.shape[0] != din)], wo, d, mesh, bspec, cut=wo.shape[0] != din)
+
+
+mamba_decode_sharded.calls = 0   # Mamba-2 layers decoded on a rank's cache blocks, this process

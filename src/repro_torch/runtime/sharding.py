@@ -48,7 +48,7 @@ import torch
 from ..launch.mesh import gather_dims, spec_axes
 from ..optim.adamw import stack_position
 
-__all__ = ["param_specs", "opt_specs", "opt8_specs", "batch_specs", "cache_specs", "needs_zero3",
+__all__ = ["param_specs", "opt_specs", "opt8_specs", "batch_specs", "cache_specs", "cache_spec", "needs_zero3",
            "per_device_bytes", "tree_map", "local_block", "local_blocks", "gather_blocks", "block_index",
            "block_shape", "spec_axes", "opt_state_specs", "batch_axes"]
 
@@ -213,36 +213,43 @@ def batch_axes(mesh: dict) -> tuple:
     return tuple(a for a in ("pod", "data") if _axis_size(mesh, a) > 1)
 
 
-def cache_specs(mesh: dict, cache, batch_size: int):
+def cache_spec(mesh: dict, shape, batch_size: int, batch_dim: int | None = None) -> tuple:
+    """One cache leaf's spec: the batch-sized dim over the batch axes
+    (('pod', 'data') where both divide it, else 'data'; skipped when
+    batch_size is 1), then the longest remaining dim that divides 'model'
+    over 'model'. The batch-sized dim is ``batch_dim`` where given, else
+    the first dim equal to batch_size, as the reference picks it (a
+    stacked layer axis as long as the batch comes first then)."""
     model, data = _axis_size(mesh, "model"), _axis_size(mesh, "data")
     pod = _axis_size(mesh, "pod")
-
-    def spec(leaf):
-        shape = tuple(leaf.shape)
-        assign: list = [None] * len(shape)
-        # batch dim: first dim equal to batch_size (skip when B == 1)
-        bdim = None
-        if batch_size > 1:
-            for i, s in enumerate(shape):
-                if s != batch_size:
-                    continue
-                if pod > 1 and s % (pod * data) == 0:
-                    bdim = i
-                    assign[i] = ("pod", "data")
-                elif data > 1 and s % data == 0:
-                    bdim = i
-                    assign[i] = "data"
-                if bdim is not None:
-                    break
-        # sequence (or widest) dim over 'model'
-        order = sorted((i for i in range(len(shape)) if i != bdim), key=lambda i: -shape[i])
-        for i in order:
-            if model > 1 and shape[i] % model == 0 and shape[i] >= model:
-                assign[i] = "model"
+    shape = tuple(shape)
+    assign: list = [None] * len(shape)
+    bdim = None
+    if batch_size > 1:
+        for i in ([batch_dim] if batch_dim is not None else range(len(shape))):
+            s = shape[i]
+            if s != batch_size:
+                continue
+            if pod > 1 and s % (pod * data) == 0:
+                bdim = i
+                assign[i] = ("pod", "data")
+            elif data > 1 and s % data == 0:
+                bdim = i
+                assign[i] = "data"
+            if bdim is not None:
                 break
-        return tuple(assign)
+    # sequence (or widest) dim over 'model'
+    order = sorted((i for i in range(len(shape)) if i != bdim), key=lambda i: -shape[i])
+    for i in order:
+        if model > 1 and shape[i] % model == 0 and shape[i] >= model:
+            assign[i] = "model"
+            break
+    return tuple(assign)
 
-    return tree_map(spec, cache)
+
+def cache_specs(mesh: dict, cache, batch_size: int):
+    """``cache_spec`` of every leaf of a cache tree, the reference's rule."""
+    return tree_map(lambda leaf: cache_spec(mesh, leaf.shape, batch_size), cache)
 
 
 def block_index(mesh, entry, coords: dict) -> tuple[int, int]:

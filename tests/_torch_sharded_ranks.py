@@ -125,12 +125,13 @@ def _moe(mesh, key, case, inp, out):
 
 def cross_inputs(cfg, case: dict, rows: int, device) -> dict:
     """``init_cache``'s cross-attention input for ``rows`` of the batch:
-    vlm's image embeddings, encdec's audio frames (zeros: the test
-    overwrites the cross K/V with the inputs' rows)."""
+    vlm's image embeddings, encdec's audio frames (the case's ``frames``,
+    else max_len; zeros: the test overwrites the cross K/V with the
+    inputs' rows)."""
     if cfg.family == "vlm":
         return {"image_embeds": torch.zeros(rows, cfg.num_image_tokens, cfg.d_model, device=device)}
     if cfg.family == "encdec":
-        return {"audio_embeds": torch.zeros(rows, case["frames"], cfg.d_model, device=device)}
+        return {"audio_embeds": torch.zeros(rows, case.get("frames") or case["max_len"], cfg.d_model, device=device)}
     return {}
 
 
@@ -163,30 +164,51 @@ def _at(tree, key: str):
     return tree
 
 
+COUNTERS = ("attention", "mlp", "mla", "moe", "cross", "rglru", "mamba", "gathered")
+
+
+def _counters():
+    from repro_torch.models import attention, mla, rglru, ssm
+
+    return (attention.decode_attention_sharded, attention.decode_mlp_sharded, mla.mla_decode_sharded,
+            moe.moe_gather_sharded, attention.cross_decode_sharded, rglru.rglru_decode_sharded,
+            ssm.mamba_decode_sharded, decode.gathered_layer)
+
+
 def serve(mesh, key, case, inp, out):
     """build_serve_step under the mesh over a cache filled from the inputs
-    (nested caches by their '/' paths): each step's logits rows, the cache
-    blocks after the last step, and each step's sharded layers
-    (attention, MLP, MLA decode, the gather dispatch)."""
-    from repro_torch.models import attention, mla
+    (nested caches by their '/' paths; vlm's and encdec's cross K/V too,
+    ``init_cache`` run first on zero embeddings of the rank's rows): each
+    step's logits rows, the cache blocks after the last step, the specs,
+    and each step's layers by the way they ran (``COUNTERS``). A case with
+    ``baseline`` runs with ``REPRO_SHARDED_DECODE=0``."""
+    import os
 
     cfg, B, max_len = config(case), case["B"], case["max_len"]
     lm = LM(cfg, device="cpu")
     lm.load_state_dict(params_from_reference(cfg, _tree(inp, f"{key}/params/")))
-    step, (psh, csh, tsh, _), _ = build_serve_step(lm, B, max_len, mesh=mesh)
-    with logical_axis_rules(mesh):
-        cache = decode.init_cache(lm, B, max_len)
-    for k, t in _walk(cache):
-        t.copy_(_cut(inp[f"{key}/cache/{k}"], _at(csh, k), mesh))
-    toks = inp[f"{key}/tokens"]
-    counters = (attention.decode_attention_sharded, attention.decode_mlp_sharded, mla.mla_decode_sharded,
-                moe.moe_gather_sharded)
-    calls = []
-    for n, pos in enumerate(case["steps"]):
-        before = [getattr(f, "calls", 0) for f in counters]
-        logits, cache = step(_cut(toks[:, n:n + 1], tsh, mesh), cache, pos)
-        calls.append([getattr(f, "calls", 0) - b for f, b in zip(counters, before)])
-        out[f"{key}/logits{pos}"] = _np(logits)
+    prev = os.environ.get("REPRO_SHARDED_DECODE")
+    if case.get("baseline"):
+        os.environ["REPRO_SHARDED_DECODE"] = "0"
+    try:
+        step, (psh, csh, tsh, _), _ = build_serve_step(lm, B, max_len, mesh=mesh, frames=case.get("frames"))
+        rows = local_block(torch.empty(B), tsh[:1], mesh).shape[0]
+        with logical_axis_rules(mesh):
+            cache = decode.init_cache(lm, B, max_len, **cross_inputs(cfg, case, rows, "cpu"))
+        for k, t in _walk(cache):
+            t.copy_(_cut(inp[f"{key}/cache/{k}"], _at(csh, k), mesh))
+        toks = inp[f"{key}/tokens"]
+        calls = []
+        for n, pos in enumerate(case["steps"]):
+            before = [f.calls for f in _counters()]
+            logits, cache = step(_cut(toks[:, n:n + 1], tsh, mesh), cache, pos)
+            calls.append([f.calls - b for f, b in zip(_counters(), before)])
+            out[f"{key}/logits{pos}"] = _np(logits)
+    finally:
+        if prev is None:
+            os.environ.pop("REPRO_SHARDED_DECODE", None)
+        else:
+            os.environ["REPRO_SHARDED_DECODE"] = prev
     for k, t in _walk(cache):
         out[f"{key}/cache_after/{k}"] = _np(t)
     out[f"{key}/serve_calls"] = np.array(calls)
@@ -194,32 +216,23 @@ def serve(mesh, key, case, inp, out):
     out[f"{key}/param_specs"] = np.array(json.dumps(psh))
 
 
-def _decode_step(mesh, key, case, inp, out):
-    """build_serve_step under the mesh over a cache filled from the inputs;
-    each step's logits rows, the cache blocks after the last step, and the
-    sharded attention and MLP layers a step."""
-    from repro_torch.models import attention
+def cross_blocks(mesh, key, case, inp, out):
+    """``init_cache`` under the mesh from the case's image embeddings or
+    audio frames (the rank's rows): its blocks of the cross K/V, which the
+    test holds against the same blocks of the unsharded ``init_cache``,
+    and the specs that cut them."""
+    from repro_torch.models.attention import _decode_bspec
 
     cfg, B, max_len = config(case), case["B"], case["max_len"]
     lm = LM(cfg, device="cpu")
     lm.load_state_dict(params_from_reference(cfg, _tree(inp, f"{key}/params/")))
-    step, (psh, csh, tsh, _), _ = build_serve_step(lm, B, max_len, mesh=mesh)
-    rows = local_block(torch.empty(B), tsh[:1], mesh).shape[0]
+    name = "image_embeds" if cfg.family == "vlm" else "audio_embeds"
+    src = _cut(inp[f"{key}/{name}"], (_decode_bspec(mesh, B), None, None), mesh)
     with logical_axis_rules(mesh):
-        cache = decode.init_cache(lm, B, max_len, **cross_inputs(cfg, case, rows, "cpu"))
-    for k in cache:
-        cache[k].copy_(_cut(inp[f"{key}/cache/{k}"], csh[k], mesh))
-    toks = inp[f"{key}/tokens"]
-    calls = []
-    for n, pos in enumerate(case["steps"]):
-        before = attention.decode_attention_sharded.calls, attention.decode_mlp_sharded.calls
-        logits, cache = step(_cut(toks[:, n:n + 1], tsh, mesh), cache, pos)
-        calls.append((attention.decode_attention_sharded.calls - before[0],
-                      attention.decode_mlp_sharded.calls - before[1]))
-        out[f"{key}/logits{pos}"] = _np(logits)
-    for k in cache:
-        out[f"{key}/cache_after/{k}"] = _np(cache[k])
-    out[f"{key}/calls"] = np.array(calls)
+        cache = decode.init_cache(lm, B, max_len, **{name: src})
+        csh = decode.cache_blocks(lm, B, max_len, frames=src.shape[1] if cfg.family == "encdec" else None)
+    for k in ("cross_k", "cross_v"):
+        out[f"{key}/{k}"] = _np(cache[k])
     out[f"{key}/cache_specs"] = np.array(json.dumps(csh))
 
 
@@ -254,8 +267,8 @@ def _refusals(mesh, key, case, inp, out):
     out[f"{key}/messages"] = np.array(msgs)
 
 
-RUN = {"linear": _attention, "ring": _attention, "mlp": _mlp, "mla": _mla, "moe": _moe, "decode": _decode_step,
-       "refusals": _refusals}
+RUN = {"linear": _attention, "ring": _attention, "mlp": _mlp, "mla": _mla, "moe": _moe, "decode": serve,
+       "refusals": _refusals, "cross_blocks": cross_blocks}
 
 
 def run(mesh, workdir: str) -> dict:

@@ -190,7 +190,7 @@ def _specs(mesh, dev) -> dict:
     for arch, reduced in (("gemma2-9b", True), ("deepseek-v2-236b", True), ("gemma2-9b", False)):
         lm = LM(get_config(arch, reduced=reduced), device="meta")
         with logical_axis_rules(mesh):
-            got = decode.param_blocks(lm, 4, 256)
+            got = decode.param_blocks(lm)
         want = sharding.param_specs(mesh, lm, serve=True)
         key = f"{arch}{' reduced' if reduced else ''}"
         out[key] = {n: (got[n], want[n]) for n in ("embed", "unembed") if n in want}

@@ -215,6 +215,102 @@ def test_cli_refuses_what_waits_for_the_sharded_paths(tmp_path):
     assert one["roofline_terms"] == dryrun.run_cell("gemma2-9b", "train_4k", "1", reduced=True)["roofline_terms"]
 
 
+# -- a decode step holds the rules' blocks and receives one-token activations only ---------
+
+DECODE_CELLS = [(a, s) for a, s, ok in cells(list_archs()) if ok and SHAPES[s].kind == "decode"]
+# the six families at reduced size; the reduced llama-3.2-vision has no cross layer, so 8 layers with one every 4
+DECODE_FAMILIES = {"gemma2-9b": {}, "recurrentgemma-2b": {}, "mamba2-780m": {},
+                   "llama-3.2-vision-11b": dict(num_layers=8, cross_attn_every=4), "whisper-base": {},
+                   "deepseek-v2-236b": {}}
+
+
+@pytest.mark.parametrize("mesh", ["1x4", "2x2", "2x2x2"])
+def test_every_reduced_decode_cell_holds_the_rules_blocks(mesh):
+    """Rank 0 of every reduced decode cell holds exactly the bytes the rules
+    count, parameters and caches (``run_cell`` checks it for every cell;
+    here it is also read off the record): the cells whose stacked layer axis
+    is as long as the batch at 2x2x2 (nemotron, mistral, whisper: 4 layers at
+    B 4; ROADMAP C13) write records too."""
+    for arch, shape in DECODE_CELLS:
+        rec = dryrun.run_cell(arch, shape, mesh, reduced=True)
+        assert rec["memory"]["held_groups"] == rec["memory"]["argument_groups"], (arch, shape)
+        assert rec["collectives"]["parameter_gathers"] == {}, (arch, shape)
+
+
+def _received(cfg, B: int, S: int, mesh: dict) -> dict:
+    return dryrun.analyze_rank_step(cfg, Shape("decode_32k", S, B, "decode"), mesh)[1]
+
+
+def _buffer_shape(desc: str) -> tuple:
+    """The buffer's shape of a ``launch.mesh.received`` call description."""
+    inner = desc.split("[", 1)[1].split("]", 1)[0]
+    return tuple(int(n) for n in inner.split(",")) if inner else ()
+
+
+def _parameter_blocks(cfg, mesh: dict) -> dict:
+    """shape → name of every block of a parameter of the reduced model
+    that a rank could hold or gather: its serving block
+    (``param_specs(serve=True)``) gathered over each subset of the mesh
+    axes that cut it, the empty one (the block) and the whole (the
+    parameter) included."""
+    from itertools import combinations
+
+    from repro_torch.launch.mesh import spec_axes
+    from repro_torch.runtime import sharding
+
+    lm = LM(cfg, device="meta")
+    out = {}
+    for name, spec in sharding.param_specs(mesh, lm, serve=True).items():
+        shape = tuple(lm.get_parameter(name).shape)
+        axes = sorted({a for e in spec for a in spec_axes(e) if mesh.get(a, 1) > 1})
+        for cut in (c for k in range(len(axes) + 1) for c in combinations(axes, k)):
+            sub = tuple(tuple(a for a in spec_axes(e) if a in cut) or None for e in spec)
+            out[sharding.block_shape(shape, sub, mesh)] = name
+    return out
+
+
+@pytest.mark.parametrize("mesh", [{"data": 2, "model": 2}, {"pod": 2, "data": 2, "model": 2}], ids=["2x2", "2x2x2"])
+@pytest.mark.parametrize("arch", list(DECODE_FAMILIES))
+def test_a_decode_step_receives_one_token_activations_only(arch, mesh):
+    """Rank 0's bytes received (meta) in one decode step of the reduced
+    model, B 4 over max_len 256: the same at max_len 512, since no cache
+    block moves, and twice as many at B 8, since all that moves is one
+    token a row; no gather receives a block of a parameter, gathered over
+    any of its axes or none. The moe family's dispatch moves slots of a
+    capacity that does not follow the batch; there no call of any kind
+    receives one."""
+    cfg = get_config(arch, reduced=True).replace(**DECODE_FAMILIES[arch])
+    base = _received(cfg, 4, 256, mesh)
+    assert base["total"] > 0
+    assert _received(cfg, 4, 512, mesh)["by_kind"] == base["by_kind"]
+    blocks = _parameter_blocks(cfg, mesh)
+    moves = [d for d in base["calls"] if _buffer_shape(d) in blocks and (cfg.family == "moe" or
+                                                                         d.startswith("all_gather "))]
+    assert moves == [], [(d, blocks[_buffer_shape(d)]) for d in moves]
+    assert base["parameter_gathers"] == []
+    if cfg.family != "moe":
+        assert {k: 2 * v for k, v in base["by_kind"].items()} == _received(cfg, 8, 256, mesh)["by_kind"]
+
+
+def test_the_dry_run_lists_a_decode_step_s_parameter_gathers(monkeypatch):
+    """Where the gather dispatch gathers a held expert block at use (12
+    experts on 2 × 4 under serving's ZeRO: E over 'model', d over 'data';
+    at published width deepseek-v2's 160 experts at 16 × 16, ROADMAP Next
+    3), the record lists the gather, with the blocks of the experts' shape
+    gathered over 'data', and the test above's check catches it."""
+    from repro_torch.runtime import sharding
+
+    monkeypatch.setattr(sharding, "_SERVE_ZERO3_BUDGET", 0)
+    mesh = {"data": 2, "model": 4}
+    cfg = get_config("deepseek-v2-236b", reduced=True).replace(num_experts=12)
+    coll = _received(cfg, 8, 256, mesh)
+    E, d, f = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+    assert coll["parameter_gathers"] == [f"all_gather data bfloat16[{E // 4},{d // 2},{f}] g=2"], coll["calls"]
+    assert _parameter_blocks(cfg, mesh)[(E // 4, d // 2, f)].endswith((".w_gate", ".w_up", ".w_down"))
+    rec = dryrun._collectives(coll)
+    assert list(rec["parameter_gathers"]) == coll["parameter_gathers"]
+
+
 @pytest.mark.parametrize("arch,shape,mesh,want", [
     ("gemma2-9b", "train_4k", "1", 128), ("gemma2-9b", "train_4k", "single", 8),
     ("mistral-large-123b", "train_4k", "1", 256), ("whisper-base", "train_4k", "1", 1),

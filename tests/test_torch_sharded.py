@@ -22,7 +22,12 @@ hybrid (recurrentgemma, one kv head: its key and value projections
 replicated over 'model') across a ring wrap, and for the vlm
 (llama-3.2-vision, self layers between cross layers) and encdec
 (whisper, the decoder's self layers over an encoder pass's cross K/V),
-their linear caches written on every shard. The caches start from random
+their linear caches written on every shard; each rank holds the rules'
+blocks (``param_specs(..., serve=True)``, ``cache_specs``), every layer
+through its sharded body, and again under ``REPRO_SHARDED_DECODE=0``
+(every layer gathering its blocks at use). ``init_cache`` under the mesh
+projects each rank's block of the cross K/V (along N, or along D where
+17 image tokens do not divide 'model'). The caches start from random
 rows (the reference's own tests start from zeros, where only the first
 shard sees a key before the wrap), so that every shard's softmax state
 counts in the combine. A second mesh, 2 × 2 × 2 with a pod axis, holds
@@ -80,6 +85,19 @@ CASES = {
     # three decoder self layers over the cross K/V of an encoder pass over 64 frames
     "decode_encdec": dict(kind="decode", arch="whisper-base", over=dict(F32, num_layers=3), B=4, max_len=1024,
                           steps=[0, 1, 300, 600, 1023], frames=64),
+    # REPRO_SHARDED_DECODE=0, the reference's baseline: every layer gathers its blocks at use
+    "decode_hybrid_baseline": dict(kind="decode", arch="recurrentgemma-2b", over=dict(F32, local_window=512), B=4,
+                                   max_len=1024, steps=[0, 1, 600], baseline=True),
+    "decode_encdec_baseline": dict(kind="decode", arch="whisper-base", over=dict(F32, num_layers=3), B=4,
+                                   max_len=1024, steps=[0, 1, 600], frames=64, baseline=True),
+    # init_cache under the mesh: each cross layer's block of its K/V, cut along N (64 image tokens, 64 frames
+    # through whisper's encoder on the rank's blocks) or along D (17 image tokens do not divide 'model')
+    "cross_vlm_n": dict(kind="cross_blocks", arch="llama-3.2-vision-11b",
+                        over=dict(F32, num_layers=8, cross_attn_every=4, num_image_tokens=64), B=4, max_len=256),
+    "cross_vlm_d": dict(kind="cross_blocks", arch="llama-3.2-vision-11b",
+                        over=dict(F32, num_layers=8, cross_attn_every=4, num_image_tokens=17), B=4, max_len=256),
+    "cross_encdec": dict(kind="cross_blocks", arch="whisper-base", over=dict(F32, num_layers=3), B=4, max_len=256,
+                         frames=64),
     "refusals": dict(kind="refusals", dense=DENSE, moe=MOE),
     # a pod axis: rows over (pod, data); the moe experts over model × data, replicated over pod
     "pod_linear": dict(kind="linear", arch="gemma2-9b", over=dict(F32, local_window=0, layer_pattern="G"), B=4,
@@ -182,6 +200,12 @@ def _inputs(cases) -> dict:
                 f"{key}/shared/w_gate": _w(rng, d, fs), f"{key}/shared/w_up": _w(rng, d, fs),
                 f"{key}/shared/w_down": _w(rng, fs, d),
                 f"{key}/x": (rng.standard_normal((c["B"], c["S"], d)) * 0.3).astype(np.float32)}
+    for key in _of("cross_blocks"):
+        c = cases[key]
+        cfg = get_config(c["arch"], reduced=True).replace(**c["over"])
+        inp |= {f"{key}/params/{k}": v for k, v in _lm_tree(cfg, seed=6).items()}
+        name, n = ("image_embeds", cfg.num_image_tokens) if cfg.family == "vlm" else ("audio_embeds", c["frames"])
+        inp[f"{key}/{name}"] = rng.standard_normal((c["B"], n, cfg.d_model)).astype(np.float32)
     for key in _of("decode"):
         c = cases[key]
         cfg = get_config(c["arch"], reduced=True).replace(**c["over"])
@@ -326,12 +350,41 @@ def test_moe_gather_dispatch_of_a_sharded_batch(runs, key):
     _moe_against_the_reference(runs, key, f"{key}/gather")
 
 
+def _spec(e):
+    """A spec as JSON gives it back: lists for tuples."""
+    return tuple(tuple(x) if isinstance(x, list) else x for x in e)
+
+
+def _layer_calls(cfg, baseline: bool) -> list:
+    """A decode step's layers by the way they run (``ranks.COUNTERS``):
+    the sharded attention, MLP, MLA, expert dispatch, cross attention,
+    RG-LRU and Mamba-2 bodies, or under the baseline every attention,
+    cross and MLP layer gathered at use (the RG-LRU and Mamba-2 mixers
+    too)."""
+    fam, L = cfg.family, cfg.num_layers
+    if fam == "dense":
+        attn, mlps, cross, rec = L, L, 0, 0
+    elif fam == "hybrid":
+        attn, mlps, cross, rec = L // 3, L, 0, L - L // 3
+    elif fam == "vlm":
+        cross = L // cfg.cross_attn_every
+        attn, mlps, rec = L - cross, L, 0
+    else:                                   # encdec: a self and a cross block a layer
+        attn, mlps, cross, rec = L, 2 * L, L, 0
+    if baseline:
+        return [0, 0, 0, 0, 0, 0, 0, attn + mlps + cross + rec]
+    return [attn, mlps, 0, 0, cross, rec, 0, 0]
+
+
 @pytest.mark.parametrize("key", _of("decode"))
 def test_decode_step_under_the_mesh_equals_the_unsharded_step(runs, key):
     """build_serve_step's per-rank step: each rank's logits rows against
     the port's unsharded decode_step (run here) and the reference's, every
-    attention block through the sharded attention and MLP, and the cache
-    blocks after the last step."""
+    layer through its sharded body (under ``REPRO_SHARDED_DECODE=0``
+    gathered at use), and the cache blocks after the last step. Every
+    rank holds the rules' blocks: the parameters cut as
+    ``param_specs(..., serve=True)`` cuts them, the caches as
+    ``cache_specs`` does."""
     ref, port, inp = runs
     c = CASES[key]
     cfg = _cfg(key)
@@ -340,7 +393,6 @@ def test_decode_step_under_the_mesh_equals_the_unsharded_step(runs, key):
     cache = {k: torch.from_numpy(a.copy()) for k, a in ranks._tree(inp, f"{key}/cache/").items()}
     mesh, rs = _ranks(port, c)
     rows = (attention._decode_bspec(mesh, c["B"]), None, None)
-    layers = len(decode._self_attention_blocks(lm, c["max_len"]))
     for n, pos in enumerate(c["steps"]):
         own, cache = decode.decode_step(lm, torch.from_numpy(inp[f"{key}/tokens"][:, n:n + 1]), cache, pos)
         for r, coords in rs:
@@ -348,27 +400,54 @@ def test_decode_step_under_the_mesh_equals_the_unsharded_step(runs, key):
             np.testing.assert_allclose(got, _block(own.numpy(), rows, mesh, coords), rtol=2e-4, atol=2e-4)
             np.testing.assert_allclose(got, _block(ref[f"naive/{key}/logits{pos}"], rows, mesh, coords),
                                        rtol=2e-4, atol=2e-4)
+    rules = sharding.cache_specs(mesh, abstract_cache(lm, c["B"], c["max_len"], frames=c.get("frames")), c["B"])
+    pspecs = sharding.param_specs(mesh, lm, serve=True)
     for r, coords in rs:
-        assert r[f"{key}/calls"].tolist() == [[layers, layers]] * len(c["steps"])
+        assert r[f"{key}/serve_calls"].tolist() == [_layer_calls(cfg, c.get("baseline", False))] * len(c["steps"])
+        assert {k: _spec(e) for k, e in json.loads(str(r[f"{key}/param_specs"])).items()} == pspecs
         csh = json.loads(str(r[f"{key}/cache_specs"]))
         for k in cache:
-            spec = tuple(tuple(e) if isinstance(e, list) else e for e in csh[k])
-            self_attention = k in ("k", "v", "local_k", "local_v", "global_k", "global_v", "ring_k", "ring_v")
-            assert ["model" in sharding.spec_axes(e) for e in spec] == [
-                self_attention and i == len(spec) - 3 for i in range(len(spec))], (k, spec)
+            spec = _spec(csh[k])
+            assert spec == rules[k], (k, spec, rules[k])
             np.testing.assert_allclose(r[f"{key}/cache_after/{k}"], _block(cache[k].numpy(), spec, mesh, coords),
                                        rtol=1e-5, atol=1e-5, err_msg=f"{key} cache {k}")
 
 
+@pytest.mark.parametrize("key", _of("cross_blocks"))
+def test_init_cache_under_the_mesh_projects_the_rank_s_cross_blocks(runs, key):
+    """``init_cache`` under the mesh from the rank's rows of the image
+    embeddings or audio frames: each rank's cross K/V block (along N, or
+    along D where the image tokens do not divide 'model'; whisper's
+    encoder run on the rank's blocks) equals the same block of the
+    unsharded ``init_cache``, and the cut is the rules'."""
+    _, port, inp = runs
+    c = CASES[key]
+    cfg = _cfg(key)
+    lm = LM(cfg, device="cpu")
+    lm.load_state_dict(params_from_reference(cfg, ranks._tree(inp, f"{key}/params/")))
+    name = "image_embeds" if cfg.family == "vlm" else "audio_embeds"
+    whole = decode.init_cache(lm, c["B"], c["max_len"], **{name: torch.from_numpy(inp[f"{key}/{name}"])})
+    mesh, rs = _ranks(port, c)
+    rules = sharding.cache_specs(mesh, whole, c["B"])
+    want_dim = {"cross_vlm_n": 2, "cross_vlm_d": 4, "cross_encdec": 2}[key]
+    for r, coords in rs:
+        csh = json.loads(str(r[f"{key}/cache_specs"]))
+        for k in ("cross_k", "cross_v"):
+            spec = _spec(csh[k])
+            assert spec == rules[k] and spec[want_dim] == "model", (k, spec)
+            np.testing.assert_allclose(r[f"{key}/{k}"], _block(whole[k].numpy(), spec, mesh, coords), rtol=1e-5,
+                                       atol=1e-5, err_msg=f"{key} {k} at {coords}")
+
+
 def test_refusals_under_a_placed_mesh(runs):
-    """A cache that runtime.sharding.cache_specs would cut otherwise than
-    the sharded attention reads it (4 layers L G L G at B 2: the batch rule
-    takes the 2 periods for the batch) is refused; the gather dispatch of a
-    sharded batch and the moe family's decode caches now run."""
+    """Nothing of these refuses any more: a cache the reference's
+    ``cache_specs`` cuts on a stacked axis as long as the batch (4 layers
+    L G L G at B 2: the rule takes the 2 periods for the batch) is cut on
+    its batch dimension instead (ROADMAP C13), the gather dispatch of a
+    sharded batch and the moe family's decode caches run."""
     for r, _ in _ranks(runs[1], CASES["refusals"])[1]:
         layout, gather, mla = (str(m) for m in r["refusals/messages"])
-        assert layout.startswith("ValueError") and "cache_specs" in layout
-        assert gather == "" and mla == "", (gather, mla)
+        assert layout == "" and gather == "" and mla == "", (layout, gather, mla)
 
 
 @pytest.mark.parametrize("kind,pos", [("linear", -1), ("linear", 1024), ("linear", 5000), ("ring", -1),
@@ -410,17 +489,17 @@ def test_applicability_and_layout_helpers_equal_the_reference(shape, monkeypatch
     monkeypatch.delenv("REPRO_SHARDED_DECODE", raising=False)
     cfg, ref_cfg = get_config("deepseek-v2-236b", reduced=True), ref_get_config("deepseek-v2-236b", reduced=True)
     with pspec.logical_axis_rules(dict(shape)), ref_pspec.logical_axis_rules(_RefMesh(shape)):
-        assert attention._sharded_mlp_applicable() == ref_attention._sharded_mlp_applicable()
+        assert attention.sharded_decode_on()
         for S in (1, 64, 127, 128, 256, 500, 512, 1024, 4096, 8192):
-            assert attention._sharded_decode_applicable(S) == ref_attention._sharded_decode_applicable(S), S
             for E in (1, 4, 8, 12, 160, 256):
                 assert (moe._a2a_applicable(cfg.replace(num_experts=E), S)
                         == ref_moe._a2a_applicable(ref_cfg.replace(num_experts=E), S)), (S, E)
         for B in (1, 2, 3, 4, 8, 16, 64, 256):
             assert attention._decode_bspec(shape, B) == ref_attention._decode_bspec(_RefMesh(shape), B), B
+        # the reference's baseline switch turns the port's sharded bodies off too
         monkeypatch.setenv("REPRO_SHARDED_DECODE", "0")
-        assert attention._sharded_decode_applicable(4096) == ref_attention._sharded_decode_applicable(4096)
-        assert attention._sharded_mlp_applicable() == ref_attention._sharded_mlp_applicable()
+        assert not attention.sharded_decode_on() and not ref_attention._sharded_mlp_applicable()
+        assert not ref_attention._sharded_decode_applicable(4096)
     assert pspec.current_mesh() is None
 
 

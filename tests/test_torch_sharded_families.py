@@ -19,14 +19,26 @@ reduced llama-3.2-vision-11b with 8 layers, a cross layer every 4 and 2 kv
 heads on 2 × 2 × 2 with a pod axis (adamw8: the stacked cross gates
 quantized as one leaf); reduced whisper-base on 2 × 4 with remat (adamw,
 2 microbatches: the audio embeddings regathered and cut with the rows);
-each family's prefill step on 2 × 4; and ``rglru_sharded`` at a width that
-does not divide 'model'.
+each family's prefill step on 2 × 4; ``rglru_sharded`` at a width that
+does not divide 'model'; and each family's decode through
+``build_serve_step(..., mesh=...)`` against the reference's own
+``build_serve_step(lm, mesh, B, max_len)`` (``_jax_sharded_reference.serve``)
+from random caches: the hybrid's 64-slot ring at 16 slots a rank (S/m <
+128, the key-range path) across its wrap; the vlm's cross K/V cut along N
+(64 image tokens, 2 × 4), along D (17, 2 × 2 × 2) and along the rows over
+'model' (1 × 4, B 64); whisper's along N (64 frames); and reduced
+nemotron at 2 × 2 × 2 with B 4 = 4 layers (ROADMAP C13), its caches cut
+on their batch dimension where the reference's rule takes the layer
+axis.
 
 Held to the dense family's limits: each step's loss and grad norm within
 1e-5 relative of the reference's and of the port's unsharded step, the
 learning rate equal; every rank's parameter blocks by
 ``assert_within_change``; the adamw8 codes and scales; the prefill's
-logits rows within 1e-4 of the largest logit.
+logits rows within 1e-4 of the largest logit; the decode's logits rows
+within 2e-4 and its cache blocks within 1e-5 of the reference's serve step
+and of the port's unsharded decode step, every rank holding the rules'
+blocks and every layer through its sharded body.
 """
 import json
 
@@ -35,12 +47,15 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.models import params_from_reference, rglru
+from repro_torch.models import LM, decode, params_from_reference, rglru
+from repro_torch.models.attention import _decode_bspec
 from repro_torch.models.interop import opt_state_from_reference
 from repro_torch.runtime import sharding
+from repro_torch.runtime.serve import abstract_cache
 from repro_torch.runtime.train import build_prefill_step, build_train_step, init_opt_state
 
 import _torch_sharded_train_ranks as ranks
+from _torch_sharded_ranks import COUNTERS, _at, _walk, cross_inputs
 
 MESH = {"data": 2, "model": 4}                 # the reference tests' mesh
 POD = {"pod": 2, "data": 2, "model": 2}        # batch rows over (pod, data), parameters replicated over pods
@@ -48,6 +63,8 @@ F32 = dict(param_dtype="float32", compute_dtype="float32")
 HYBRID = dict(F32, remat=False, local_window=8)                             # the window bites at 32 tokens
 VLM = dict(F32, remat=False, num_layers=8, cross_attn_every=4, num_kv_heads=2)
 WHISPER = dict(F32, remat=True)
+VLM_SERVE = dict(F32, num_layers=8, cross_attn_every=4)
+ROW = {"data": 1, "model": 4}                  # rows over 'model' where the batch is a cache's longest dimension
 CASES = {
     "hybrid": dict(kind="train", arch="recurrentgemma-2b", over=HYBRID, mesh=MESH, B=8, S=32, steps=3,
                    tcfg=dict(ranks.TCFG, microbatches=2, optimizer="adamw"), seed=21),
@@ -61,9 +78,29 @@ CASES = {
     # 30 channels do not divide 'model' (4): the block runs whole
     "rglru_whole": dict(kind="rglru_whole", arch="recurrentgemma-2b", over=dict(F32, lru_width=30), mesh=MESH, B=8,
                         S=32, seed=27),
+    # the decode through build_serve_step under the mesh, against the reference's own serve step: the hybrid's
+    # 64-slot ring at 16 slots a rank (S/m < 128) across its wrap, h and conv by channels
+    "hybrid_serve": dict(kind="serve", arch="recurrentgemma-2b", over=dict(F32, local_window=64), mesh=MESH, B=4,
+                         max_len=256, steps=[0, 1, 63, 64, 65, 200], seed=28),
+    # vlm cross K/V cut along N (64 image tokens), along D (17 do not divide 'model'), and along the rows over
+    # 'model' (1 × 4, B 64 the longest dimension)
+    "vlm_serve": dict(kind="serve", arch="llama-3.2-vision-11b", over=dict(VLM_SERVE, num_image_tokens=64), mesh=MESH,
+                      B=4, max_len=256, steps=[0, 1, 200], seed=29),
+    "vlm_serve_d": dict(kind="serve", arch="llama-3.2-vision-11b", over=dict(VLM_SERVE, num_image_tokens=17),
+                        mesh=POD, B=4, max_len=256, steps=[0, 1, 200], seed=30),
+    "vlm_serve_rows": dict(kind="serve", arch="llama-3.2-vision-11b", over=dict(VLM_SERVE, num_image_tokens=16),
+                           mesh=ROW, B=64, max_len=128, steps=[0, 1, 100], seed=31),
+    # whisper's cross K/V over 64 frames cut along N
+    "whisper_serve": dict(kind="serve", arch="whisper-base", over=dict(F32, num_layers=3), mesh=MESH, B=4,
+                          max_len=256, steps=[0, 1, 200], frames=64, seed=32),
+    # ROADMAP C13: 4 layers at B 4 on 2 × 2 × 2, the reference's rule cuts the layer axis; the port the batch
+    "c13_serve": dict(kind="serve", arch="nemotron-4-15b", over=F32, mesh=POD, B=4, max_len=256, steps=[0, 1, 200],
+                      seed=33),
 }
 TRAIN = [k for k, c in CASES.items() if c["kind"] == "train"]
 PREFILL = [k for k, c in CASES.items() if c["kind"] == "prefill"]
+SERVE = [k for k, c in CASES.items() if c["kind"] == "serve"]
+MESHES = {"2x4": MESH, "pod": POD, "1x4": ROW}
 GATES = ("cross_blocks/xgate", "dec_cross/xgate")
 LOSS_RTOL = 1e-5
 LOGITS_TOL = 1e-4                              # of the largest |logit|
@@ -102,6 +139,14 @@ def _inputs() -> dict:
             if g in tree:
                 tree[g] = np.linspace(0.3, 0.9, tree[g].size, dtype=np.float32).reshape(tree[g].shape)
         inp |= {f"{key}/params/{k}": v for k, v in tree.items()}
+        if c["kind"] == "serve":
+            rng = np.random.default_rng(c["seed"])
+            cache = decode.init_cache(LM(cfg, device="meta"), c["B"], c["max_len"],
+                                      **cross_inputs(cfg, c, c["B"], "meta"))
+            for k, t in _walk(cache):
+                inp[f"{key}/cache/{k}"] = (rng.standard_normal(tuple(t.shape)) * 0.5).astype(np.float32)
+            inp[f"{key}/tokens"] = rng.integers(0, cfg.vocab_size, (c["B"], len(c["steps"]))).astype(np.int32)
+            continue
         for s, b in enumerate(ranks.batches(cfg, c["B"], c["S"], c.get("steps", 1), c["seed"])):
             inp |= {f"{key}/{n}{s}": a for n, a in b.items()}
     return inp
@@ -112,15 +157,15 @@ def runs(tmp_path_factory):
     """(the reference's outputs, each mesh's ranks' results, the inputs): the
     reference subprocess and the ranks run at the same time."""
     inp = _inputs()
-    ref, port = ranks.run_with_reference(tmp_path_factory.mktemp("sharded_families"), CASES, inp,
-                                         {"2x4": MESH, "pod": POD})
+    ref, port = ranks.run_with_reference(tmp_path_factory.mktemp("sharded_families"), CASES, inp, MESHES)
     return ref, port, inp
 
 
 def _ranks(port, case):
     """Each rank's results of the case's mesh, with its coordinates."""
     mesh = case["mesh"]
-    return [(r, dict(zip(mesh, (int(c) for c in r["coords"])))) for r in port["2x4" if mesh == MESH else "pod"]]
+    name = next(n for n, m in MESHES.items() if m == mesh)
+    return [(r, dict(zip(mesh, (int(c) for c in r["coords"])))) for r in port[name]]
 
 
 _UNSHARDED: dict = {}
@@ -298,3 +343,61 @@ def test_row_parallel_rounds_the_summed_partials_once(dtype):
     torch.matmul(xb, wb).backward(g)
     torch.testing.assert_close(xa.grad, xb.grad, rtol=0, atol=0)
     torch.testing.assert_close(wa.grad, wb.grad, rtol=0, atol=0)
+
+
+def _spec(e):
+    """A spec as JSON gives it back: lists for tuples."""
+    return tuple(tuple(x) if isinstance(x, list) else x for x in e)
+
+
+@pytest.mark.parametrize("key", SERVE)
+def test_decode_step_under_the_mesh_equals_the_reference(runs, key):
+    """``build_serve_step(..., mesh=...)``: each rank's logits rows against
+    the reference's own serve step under the mesh and the port's unsharded
+    decode step within 2e-4, and its cache blocks after the last step
+    within 1e-5. Every rank holds the rules' blocks (``param_specs(...,
+    serve=True)``; the caches ``cache_specs``', but for C13's: the batch
+    dimension where the reference cuts a stacked axis as long as the
+    batch, the same bytes) and runs every layer through its sharded body,
+    none gathered at use."""
+    ref, port, inp = runs
+    c, cfg = CASES[key], _cfg(key)
+    mesh = c["mesh"]
+    lm = LM(cfg, device="cpu")
+    lm.load_state_dict(params_from_reference(cfg, ranks.tree_of(inp, f"{key}/params/")))
+    cache = {}
+    for k in (k[len(f"{key}/cache/"):] for k in inp if k.startswith(f"{key}/cache/")):
+        cache[k] = torch.from_numpy(inp[f"{key}/cache/{k}"].copy())
+    rows = (_decode_bspec(mesh, c["B"]), None, None)
+    rs = _ranks(port, c)
+    for n, pos in enumerate(c["steps"]):
+        own, cache = decode.decode_step(lm, torch.from_numpy(inp[f"{key}/tokens"][:, n:n + 1]), cache, pos)
+        for r, coords in rs:
+            got = r[f"{key}/logits{pos}"]
+            for whole in (own.numpy(), ref[f"serve/{key}/logits{pos}"]):
+                np.testing.assert_allclose(got, ranks.cut(whole, rows, mesh, coords), rtol=2e-4, atol=2e-4,
+                                           err_msg=f"{key} step {pos} at {coords}")
+    rules = sharding.cache_specs(mesh, abstract_cache(lm, c["B"], c["max_len"], frames=c.get("frames")), c["B"])
+    pspecs = sharding.param_specs(mesh, lm, serve=True)
+    moved = 0
+    for r, coords in rs:
+        calls = dict(zip(COUNTERS, np.asarray(r[f"{key}/serve_calls"]).sum(axis=0).tolist()))
+        assert calls["gathered"] == 0 and calls["attention"] > 0 and calls["mlp"] > 0, calls
+        assert (calls["cross"] > 0) == (cfg.family in ("vlm", "encdec")), calls
+        assert (calls["rglru"] > 0) == (cfg.family == "hybrid"), calls
+        assert {k: _spec(e) for k, e in json.loads(str(r[f"{key}/param_specs"])).items()} == pspecs
+        csh = json.loads(str(r[f"{key}/cache_specs"]))
+        for k, t in cache.items():
+            spec, want = _spec(_at(csh, k)), rules[k]
+            if spec != want:                          # C13: the batch's axes moved off a stacked layer axis
+                moved += 1
+                assert key == "c13_serve" and want[0] == spec[1] and spec[0] is None, (k, spec, want)
+            for whole in (t.numpy(), ref[f"serve/{key}/cache_after/{k}"]):
+                np.testing.assert_allclose(r[f"{key}/cache_after/{k}"], ranks.cut(whole, spec, mesh, coords),
+                                           rtol=1e-5, atol=1e-5, err_msg=f"{key} cache {k} at {coords}")
+    assert (moved > 0) == (key == "c13_serve")
+    cross = {"vlm_serve": 2, "vlm_serve_d": 4, "vlm_serve_rows": 1, "whisper_serve": 2}.get(key)
+    if cross is not None:                             # the cut each case is there for
+        assert rules["cross_k"][cross] == "model", rules["cross_k"]
+    if key == "hybrid_serve":
+        assert rules["ring_k"][2] == "model" and rules["h"][3] == "model" and rules["conv"][4] == "model"

@@ -75,6 +75,10 @@ CASES = {
     "v2_prefill": dict(kind="prefill", arch="deepseek-v2-236b", over=MOE, mesh=MESH, B=8, S=32, seed=35),
     "v2_serve": dict(kind="serve", arch="deepseek-v2-236b", over=F32, mesh=MESH, B=16, max_len=1024,
                      steps=[0, 1, 700], router_scale=4.0, seed=36),
+    # serving's ZeRO forced: the router's d over 'data' (its logits weight-stationary), the shared experts'
+    # and MLA's input dimension over 'data' too
+    "v2_serve_zero3": dict(kind="serve", arch="deepseek-v2-236b", over=F32, mesh=MESH, B=8, max_len=256,
+                           steps=[0, 1, 200], serve_zero3_budget=0, seed=37),
 }
 TRAIN = [k for k, c in CASES.items() if c["kind"] == "train"]
 GATHER = [k for k in TRAIN if CASES[k]["moe_impl"] == "gather"]
@@ -359,13 +363,82 @@ def test_decode_step_under_the_mesh_equals_the_reference(runs):
     assert int(ref[f"serve/{key}/drops"]) > 0
     for r, coords in rs:
         assert int(r[f"{key}/dropped"]) > 0
-        assert r[f"{key}/serve_calls"].tolist() == [[0, dense, L, routed]] * len(c["steps"])
+        # attention, MLP (the dense layer's and each routed layer's shared experts), MLA, dispatch, cross,
+        # RG-LRU, Mamba-2, gathered at use
+        assert r[f"{key}/serve_calls"].tolist() == [[0, dense + routed, L, routed, 0, 0, 0, 0]] * len(c["steps"])
         csh = json.loads(str(r[f"{key}/cache_specs"]))
         psh = json.loads(str(r[f"{key}/param_specs"]))
         assert psh["moe_blocks.0.moe.w_gate"] == [["model", "data"], None, None]
+        assert {k: tuple(tuple(x) if isinstance(x, list) else x for x in e) for k, e in psh.items()} == \
+            sharding.param_specs(MESH, lm, serve=True)
         for k, t in _walk(cache):
             spec = tuple(tuple(e) if isinstance(e, list) else e for e in _at(csh, k))
             assert spec[2] == "model", (k, spec)
+            for whole in (t.numpy(), ref[f"serve/{key}/cache_after/{k}"]):
+                np.testing.assert_allclose(r[f"{key}/cache_after/{k}"], ranks.cut(whole, spec, MESH, coords),
+                                           rtol=1e-5, atol=1e-5, err_msg=f"cache {k} at {coords}")
+
+
+def test_decode_refuses_latent_caches_cut_apart():
+    """At the published kv_lora_rank 512 over max_len 256 on 2 × 2 the
+    rules cut c_kv (L, B, 256, 512) along its latent dimension and k_rope
+    (L, B, 256, 64) along S. No sharded MLA body reads that pair, so the
+    decode step refuses it at the first MLA layer, naming the layer and
+    both cuts (rank 0's step on ``meta``)."""
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import meta_rank_mesh
+    from repro_torch.runtime import pspec
+
+    mesh = {"data": 2, "model": 2}
+    cfg = get_config("deepseek-v2-236b", reduced=True).replace(kv_lora_rank=512)
+    with meta_rank_mesh(mesh, 0) as m, pspec.logical_axis_rules(m):
+        specs = decode.cache_blocks(LM(cfg, device="meta"), 4, 256)
+    for part in specs:
+        assert specs[part]["c_kv"][3] == "model" and specs[part]["k_rope"][2] == "model", specs
+    with pytest.raises(ValueError, match=r"blocks\.0\.attn's blocks .* along \(2, 1\): no sharded body reads"):
+        dryrun.analyze_rank_step(cfg, Shape("decode_32k", 256, 4, "decode"), mesh)
+
+
+def test_decode_step_with_serving_zero3_equals_the_reference(runs, monkeypatch):
+    """``build_serve_step(..., mesh=...)`` with serving's ZeRO forced (the
+    budget 0 on both sides): the router held with its d over 'data', so its
+    logits are summed weight-stationary over 'data'; each rank's logits rows
+    within 2e-4 of the reference's own serve step and of the port's
+    unsharded decode step, its latent caches within 1e-5, its blocks the
+    rules', and nothing gathered at use."""
+    from _torch_sharded_ranks import COUNTERS
+
+    ref, port, inp = runs
+    key = "v2_serve_zero3"
+    c, cfg = CASES[key], _cfg(key)
+    lm = LM(cfg, device="cpu")
+    lm.load_state_dict(params_from_reference(cfg, ranks.tree_of(inp, f"{key}/params/")))
+    cache = {}
+    for k in (k[len(f"{key}/cache/"):] for k in inp if k.startswith(f"{key}/cache/")):
+        part, leaf = k.split("/")
+        cache.setdefault(part, {})[leaf] = torch.from_numpy(inp[f"{key}/cache/{k}"].copy())
+    from repro_torch.models.attention import _decode_bspec
+
+    rows = (_decode_bspec(MESH, c["B"]), None, None)
+    rs = _ranks(port, c)
+    for n, pos in enumerate(c["steps"]):
+        own, cache = decode.decode_step(lm, torch.from_numpy(inp[f"{key}/tokens"][:, n:n + 1]), cache, pos)
+        for r, coords in rs:
+            got = r[f"{key}/logits{pos}"]
+            for whole in (own.numpy(), ref[f"serve/{key}/logits{pos}"]):
+                np.testing.assert_allclose(got, ranks.cut(whole, rows, MESH, coords), rtol=F32_TOL, atol=F32_TOL)
+    monkeypatch.setattr(sharding, "_SERVE_ZERO3_BUDGET", 0)
+    pspecs = sharding.param_specs(MESH, lm, serve=True)
+    assert pspecs["moe_blocks.0.moe.router"] == ("data", None)
+    for r, coords in rs:
+        calls = dict(zip(COUNTERS, np.asarray(r[f"{key}/serve_calls"]).sum(axis=0).tolist()))
+        assert calls["gathered"] == 0 and calls["moe"] > 0 and calls["mla"] > 0, calls
+        psh = json.loads(str(r[f"{key}/param_specs"]))
+        assert {k: tuple(tuple(x) if isinstance(x, list) else x for x in e) for k, e in psh.items()} == pspecs
+        csh = json.loads(str(r[f"{key}/cache_specs"]))
+        for k, t in _walk(cache):
+            spec = tuple(tuple(e) if isinstance(e, list) else e for e in _at(csh, k))
             for whole in (t.numpy(), ref[f"serve/{key}/cache_after/{k}"]):
                 np.testing.assert_allclose(r[f"{key}/cache_after/{k}"], ranks.cut(whole, spec, MESH, coords),
                                            rtol=1e-5, atol=1e-5, err_msg=f"cache {k} at {coords}")

@@ -19,8 +19,11 @@ inputs. Cases, reduced mamba2-780m in float32 (16 heads of 16, d_inner
   columns a rank) crosses its sections;
 * on 2 × 2 × 2 with a pod axis and adamw8 (8 heads a rank);
 * the prefill on 2 × 4;
-* the decode through ``build_serve_step`` on 2 × 4, B 8, 3 steps from
-  random conv and state caches (cut by rows);
+* the decode through ``build_serve_step`` from random conv and state
+  caches, 3 steps, each cache cut as the rules cut it: on 2 × 4 at B 8
+  (conv by its channels, the state by its heads), the same with 32 states
+  (the state by its N-block: y's partial sums summed over 'model'), and on
+  1 × 4 at B 32 (the state by its rows, the batch its longest dimension);
 * ``mamba_sharded`` with 2 heads (``ssm_head_dim`` 128), which do not
   divide 'model' 4: the block runs whole.
 
@@ -48,6 +51,8 @@ from _torch_sharded_ranks import _walk
 
 MESH = {"data": 2, "model": 4}                 # the reference tests' mesh
 POD = {"pod": 2, "data": 2, "model": 2}        # batch rows over (pod, data), parameters replicated over pods
+ROW = {"data": 1, "model": 4}                  # rows over 'model' where the batch is a cache's longest dimension
+MESHES = {"2x4": MESH, "pod": POD, "1x4": ROW}
 F32 = dict(param_dtype="float32", compute_dtype="float32")
 MAMBA = dict(F32, remat=False)
 CASES = {
@@ -58,11 +63,17 @@ CASES = {
     "mamba_prefill": dict(kind="prefill", arch="mamba2-780m", over=MAMBA, mesh=MESH, B=8, S=64, seed=43),
     "mamba_serve": dict(kind="serve", arch="mamba2-780m", over=F32, mesh=MESH, B=8, max_len=1024, steps=[0, 1, 2],
                         seed=44),
+    "mamba_serve_n": dict(kind="serve", arch="mamba2-780m", over=dict(F32, ssm_state=32), mesh=MESH, B=8,
+                          max_len=256, steps=[0, 1, 2], seed=46),
+    "mamba_serve_rows": dict(kind="serve", arch="mamba2-780m", over=F32, mesh=ROW, B=32, max_len=256,
+                             steps=[0, 1, 2], seed=47),
     # 2 heads of 128 do not divide 'model' (4): the block runs whole
     "mamba_whole": dict(kind="mamba_whole", arch="mamba2-780m", over=dict(F32, ssm_head_dim=128), mesh=MESH, B=8,
                         S=64, seed=45),
 }
 TRAIN = [k for k, c in CASES.items() if c["kind"] == "train"]
+SERVE = [k for k, c in CASES.items() if c["kind"] == "serve"]
+STATE_CUT = {"mamba_serve": 2, "mamba_serve_n": 4, "mamba_serve_rows": 1}   # the state's dimension over 'model'
 LOSS_RTOL = 1e-5
 LOGITS_TOL = 1e-4                              # of the largest |logit|
 F32_TOL = 2e-4                                 # the reference's decode tolerance
@@ -119,15 +130,15 @@ def runs(tmp_path_factory):
     """(the reference's outputs, each mesh's ranks' results, the inputs): the
     reference subprocess and the ranks run at the same time."""
     inp = _inputs()
-    ref, port = ranks.run_with_reference(tmp_path_factory.mktemp("sharded_ssm"), CASES, inp,
-                                         {"2x4": MESH, "pod": POD})
+    ref, port = ranks.run_with_reference(tmp_path_factory.mktemp("sharded_ssm"), CASES, inp, MESHES)
     return ref, port, inp
 
 
 def _ranks(port, case):
     """Each rank's results of the case's mesh, with its coordinates."""
     mesh = case["mesh"]
-    return [(r, dict(zip(mesh, (int(c) for c in r["coords"])))) for r in port["2x4" if mesh == MESH else "pod"]]
+    name = next(n for n, m in MESHES.items() if m == mesh)
+    return [(r, dict(zip(mesh, (int(c) for c in r["coords"])))) for r in port[name]]
 
 
 _UNSHARDED: dict = {}
@@ -273,39 +284,62 @@ def test_prefill_step_equals_the_reference(runs):
 
 
 def test_decode_step_under_the_mesh_equals_the_reference(runs):
+    """The decode on 2 × 4 at B 8, the state cut by its heads
+    (``_serve_against_the_reference``)."""
+    _serve_against_the_reference(runs, "mamba_serve")
+
+
+@pytest.mark.parametrize("key", [k for k in SERVE if k != "mamba_serve"])
+def test_decode_step_reads_the_state_where_the_rules_cut_it(runs, key):
+    """The decode with the state cut by its N-block (2 × 4, 32 states) and
+    by its rows (1 × 4, B 32) (``_serve_against_the_reference``)."""
+    _serve_against_the_reference(runs, key)
+
+
+def _serve_against_the_reference(runs, key):
     """``build_serve_step(..., mesh=...)``: each rank's logits rows against
     the reference's own serve step under the mesh and the port's unsharded
     decode step within 2e-4, and its blocks of the conv and state caches
-    after the last step, cut by rows only, the Mamba-2 weights whole and
-    the tied table cut as ``param_specs(..., serve=True)`` cuts it (vocab
-    over 'model')."""
+    after the last step within 1e-5. Every rank holds the rules' blocks:
+    the parameters as ``param_specs(..., serve=True)`` cuts them (in_proj's
+    columns, conv_w's channels and out_proj's rows over 'model', the tied
+    table's vocab), the caches as ``cache_specs`` does (conv by its
+    channels; the state by its heads, its N-block or its rows), and every
+    layer runs through ``mamba_decode_sharded``, none gathered at use."""
+    from repro_torch.models.attention import _decode_bspec
+    from repro_torch.runtime.serve import abstract_cache
+
+    from _torch_sharded_ranks import COUNTERS
+
     ref, port, inp = runs
-    key = "mamba_serve"
     c, cfg = CASES[key], _cfg(key)
+    mesh = c["mesh"]
     lm = LM(cfg, device="cpu")
     lm.load_state_dict(params_from_reference(cfg, ranks.tree_of(inp, f"{key}/params/")))
     cache = {k: torch.from_numpy(inp[f"{key}/cache/{k}"].copy()) for k in ("conv", "state")}
-    from repro_torch.models.attention import _decode_bspec
-
-    bspec = _decode_bspec(MESH, c["B"])
-    rows = (bspec, None, None)
+    rows = (_decode_bspec(mesh, c["B"]), None, None)
     rs = _ranks(port, c)
     for n, pos in enumerate(c["steps"]):
         own, cache = decode.decode_step(lm, torch.from_numpy(inp[f"{key}/tokens"][:, n:n + 1]), cache, pos)
         for r, coords in rs:
             got = r[f"{key}/logits{pos}"]
             for whole in (own.numpy(), ref[f"serve/{key}/logits{pos}"]):
-                np.testing.assert_allclose(got, ranks.cut(whole, rows, MESH, coords), rtol=F32_TOL, atol=F32_TOL)
+                np.testing.assert_allclose(got, ranks.cut(whole, rows, mesh, coords), rtol=F32_TOL, atol=F32_TOL)
+    rules = sharding.cache_specs(mesh, abstract_cache(lm, c["B"], c["max_len"]), c["B"])
+    assert rules["state"][STATE_CUT[key]] == "model" and rules["conv"][3] == "model", rules
+    pspecs = sharding.param_specs(mesh, lm, serve=True)
+    assert pspecs["embed"] == ("model", None) and pspecs["blocks.0.mix.in_proj"] == (None, "model")
     for r, coords in rs:
+        calls = dict(zip(COUNTERS, np.asarray(r[f"{key}/serve_calls"]).sum(axis=0).tolist()))
+        assert calls == {k: cfg.num_layers * len(c["steps"]) if k == "mamba" else 0 for k in COUNTERS}, calls
         csh = json.loads(str(r[f"{key}/cache_specs"]))
         psh = json.loads(str(r[f"{key}/param_specs"]))
-        assert all(all(e is None for e in s) for name, s in psh.items() if name != "embed")
-        assert tuple(psh["embed"]) == sharding.param_specs(MESH, lm, serve=True)["embed"] == ("model", None)
+        assert {k: tuple(tuple(x) if isinstance(x, list) else x for x in e) for k, e in psh.items()} == pspecs
         for k in ("conv", "state"):
             spec = tuple(tuple(e) if isinstance(e, list) else e for e in csh[k])
-            assert spec == (None, bspec) + (None,) * (len(spec) - 2), (k, spec)
+            assert spec == rules[k], (k, spec)
             for whole in (cache[k].numpy(), ref[f"serve/{key}/cache_after/{k}"]):
-                np.testing.assert_allclose(r[f"{key}/cache_after/{k}"], ranks.cut(whole, spec, MESH, coords),
+                np.testing.assert_allclose(r[f"{key}/cache_after/{k}"], ranks.cut(whole, spec, mesh, coords),
                                            rtol=1e-5, atol=1e-5, err_msg=f"cache {k} at {coords}")
 
 
