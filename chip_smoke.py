@@ -65,7 +65,7 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    counted by ``torch.profiler``), the event-horizon loop ≡ the per-event loop (64
    sites × 4,000 jobs, 227 migrations), and hier ≡ flat: GridSim at
    256/16 and 1,000/50 sites/tiers, then ``DianaScheduler`` at 10,000
-   sites × 100 tiers × 10,000 jobs (the flat select through the fused
+   sites × 100 tiers × 4,000 jobs (the flat select through the fused
    f64 argmin kernel). The generators of ``benchmarks/`` are rebuilt
    over the port's classes (the same draws); each part prints its wall
    time on the card and on the CPU twin.
@@ -224,7 +224,16 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    (bf16, 2e-2 of the largest magnitude); (d) one deepseek-v2-236b moe
    layer, the a2a dispatch (2-D EP: 160 experts over the 4 ranks) on
    B 2 × S 512 against the gather dispatch in this process, capacity factor
-   cut to 64 (dropless), output within 2e-2 and aux within 1e-3. Prints each
+   cut to 64 (dropless), output within 2e-2 and aux within 1e-3; (e)
+   gemma2-9b through ``build_serve_step(..., mesh=...)`` on short caches
+   that the rules cut otherwise than along S: in float32 with 2 layers,
+   B 4 over max_len 128 on the 2 × 2 mesh (every cache along D: the
+   float32 partial scores), and in bf16 with 4 layers, B 320 over max_len
+   128 on a 1 × 4 mesh over the same ranks (every cache along its rows:
+   the decode kernel on the rank's rows), each rank's rows within 2e-4
+   (f32) and 2e-2 (bf16) of the largest one-process logit, the same
+   greedy tokens (in bf16 but for top-two ties), and storage equal to the
+   rules' bytes. Prints each
    rank's step times and peak memory: four processes time-sharing one card
    with their collectives staged through host memory, not the sharded
    step's speed, and held to no bound.
@@ -263,8 +272,8 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    256), (128, 128), (64, 64)) and the plain route launching nothing.
    Then four ranks on the 2 × 2 mesh as in phase 13: (b) bf16, remat,
    ``TrainConfig``'s defaults, 2 steps of a global B 2: recurrentgemma-2b
-   with 5 layers (R R L R R) at S 2,048, llama-3.2-vision-11b with 5 at S
-   2,048, whisper-base whole at S 448, every loss and grad norm within
+   with 5 layers (R R L R R) at S 1,024, llama-3.2-vision-11b with 5 at S
+   1,024, whisper-base whole at S 448, every loss and grad norm within
    2e-2 relative of the one-process steps (here, first), the same
    learning rates; (c) whisper-base in float32, 3 steps at S 448 against
    rank 0's one-process steps to phase 13's f32 limits; (d) each
@@ -280,7 +289,10 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    channel-parallel; whisper's cross K/V cut along N through the
    key-range entry, vision's 1,601 image tokens along D through the
    float32 partial scores), and each rank's parameter and cache storage
-   equal to the rules' bytes, beside the rule before them. (f) Every
+   equal to the rules' bytes, beside the rule before them; then again on
+   short caches that the rules cut along D (recurrentgemma-2b's ring of
+   128 across its wrap, whisper-base's self caches of 32), each self layer
+   through the float32 partial scores. (f) Every
    sharded attention call of (b)-(d) launches the flash kernel and every
    training layer its backward, each at its family's instance, none
    padded; ``rglru_sharded`` runs once a recurrent layer a forward. The
@@ -299,14 +311,16 @@ Needs one CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and the checkout's
    dispatch of the sharded batch at 1.25, which must drop tokens, then 1
    step of the a2a at 27, above E / K, where a shard's capacity holds all
    its tokens (dropless); mamba2-780m with 8 of 48 layers at S
-   2,048, 2 steps; every loss and grad norm within 2e-2 relative of the
+   1,024, 2 steps; every loss and grad norm within 2e-2 relative of the
    one-process steps (here, first), the same learning rates; (c)
    mamba2-780m in float32, 4 layers, S 512, 3 steps against rank 0's
    one-process steps to phase 13's f32 limits; (d) each prefill under the
    mesh (mamba2 in float32 too); (e) ``build_serve_step(..., mesh=...)``,
    B 4 over max_len 1,024, a prompt then decode steps: deepseek-v2-236b in
-   bf16 (``mla_decode_sharded``, the gather dispatch of one token a row)
-   and mamba2-780m in bf16 and float32, within phase 12's limits, each
+   bf16 (``mla_decode_sharded``, the gather dispatch of one token a row;
+   again over max_len 256, where the rules cut c_kv along its latent
+   dimension and k_rope along S, ROADMAP C14's layout) and mamba2-780m in
+   bf16 and float32, within phase 12's limits, each
    rank's storage equal to the rules' bytes (beside the rule before them)
    and every Mamba-2 layer through ``mamba_decode_sharded`` (its state cut
    along N); (f)
@@ -376,6 +390,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1495,7 +1510,7 @@ def sim_trace(res) -> list:
     return [(j.user, j.arrival, j.exec_site, j.start, j.finish, j.migrated) for j in res.jobs]
 
 
-HIER_CORE = (10_000, 100, 10_000)     # sites, tiers, jobs (the bench's 100,000 jobs cut to 10,000)
+HIER_CORE = (10_000, 100, 4_000)      # sites, tiers, jobs (the bench's 100,000 jobs cut to 4,000)
 
 
 def phase_sim(torch, P) -> dict:
@@ -3234,7 +3249,15 @@ def phase_dryrun_on_card(torch) -> dict:
 # steps at positions that cross the 4,096 ring's wrap; one deepseek-v2-236b
 # MLA layer (mla_decode_sharded against mla_decode); one deepseek-v2-236b
 # moe layer, the a2a dispatch (2-D EP, 160 experts over 4 ranks) on
-# B 2 x S 512 against the gather dispatch.
+# B 2 x S 512 against the gather dispatch. (e) Short caches that the rules
+# cut otherwise than along S (PH12_SHORT): gemma2-9b at published width
+# with every cache along D (f32, B 4 over max_len 128 on the 2 x 2 mesh)
+# and along its rows (bf16, B 320 over max_len 128 on a TP-only 1 x 4 mesh
+# over the same ranks; B above 256, the head width, and small enough that
+# the rows' logits, gathered whole along V, stay below the rank's rows of
+# the table that check_received holds a decode step under), each rank's
+# rows held to one process on the card (written to a file the ranks
+# read), storage held to the rules' bytes.
 PH12 = dict(mesh={"data": 2, "model": 2}, B=4, max_len=8192, steps=(0, 1, 4095, 4096, 4097, 8191), seed=12,
             layers={"float32": 2, "bfloat16": 4})
 RANGE12 = dict(B=4, S=8192, H=16, KV=8, D=256, cap=50.0, ranges=4, positions=(8191, 4095))
@@ -3243,6 +3266,9 @@ MOE12 = dict(B=2, S=512, capacity_factor=64.0)   # the dropless cut: neither dis
 # Phase 12 (b)'s serve passes: (name, dtype, serving's ZeRO forced). The third holds the weight-stationary
 # tables (vocab over 'model', width over 'data', as published gemma2-9b is served on 2 x 2) to float32's limits.
 PASSES12 = (("float32", "float32", False), ("bfloat16", "bfloat16", False), ("float32_zero3", "float32", True))
+# (e): (name, dtype, mesh, B, max_len, positions, layers, the dimension the rules cut each cache along over 'model')
+PH12_SHORT = (("float32_d", "float32", {"data": 2, "model": 2}, 4, 128, (0, 1, 127), 2, 3),
+              ("bfloat16_rows", "bfloat16", {"data": 1, "model": 4}, 320, 128, (0, 1, 127), 4, 0))
 F32_TOL = 2e-4        # the reference test's decode tolerance (tests/models/test_sharded_decode.py)
 BF16_REL = 2e-2       # bf16: max |sharded − one process| ≤ BF16_REL · max |one process|
 AUX_RTOL = 1e-3
@@ -3327,28 +3353,119 @@ def range_entry(torch) -> dict:
     return out
 
 
-def gemma12(torch, dtype: str, dev):
-    """gemma2-9b at published width, depth cut to PH12's layers, from the seed."""
+def gemma12(torch, dtype: str, dev, layers: int | None = None):
+    """gemma2-9b at published width, depth cut to PH12's layers (or
+    ``layers``), from the seed."""
     from repro_torch.configs import get_config
     from repro_torch.models import LM
 
-    cfg = get_config("gemma2-9b").replace(num_layers=PH12["layers"][dtype], param_dtype=dtype, compute_dtype=dtype)
+    cfg = get_config("gemma2-9b").replace(num_layers=layers or PH12["layers"][dtype], param_dtype=dtype,
+                                          compute_dtype=dtype)
     return cfg, LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(PH12["seed"]))
 
 
-def cache12(torch, lm) -> dict:
+def cache12(torch, lm, B: int = PH12["B"], max_len: int = PH12["max_len"]) -> dict:
     """The global caches of B x max_len, every slot from a seeded generator."""
     from repro_torch.models import decode
 
-    cache = decode.init_cache(lm, PH12["B"], PH12["max_len"])
+    cache = decode.init_cache(lm, B, max_len)
     gen = torch.Generator(device=lm.device).manual_seed(PH12["seed"] + 1)
     for t in cache.values():
         t.copy_(torch.randn(t.shape, generator=gen, device=lm.device).to(t.dtype))
     return cache
 
 
-def tokens12(vocab: int) -> np.ndarray:
-    return np.random.default_rng(PH12["seed"]).integers(0, vocab, (PH12["B"], len(PH12["steps"]))).astype(np.int32)
+def tokens12(vocab: int, B: int = PH12["B"], steps: int = len(PH12["steps"])) -> np.ndarray:
+    return np.random.default_rng(PH12["seed"]).integers(0, vocab, (B, steps)).astype(np.int32)
+
+
+def short12_want(torch, dev, work: Path) -> dict:
+    """(e)'s one-process logits of each PH12_SHORT pass, stacked by step,
+    written to ``work``/<name>.npy for the ranks; returns their files."""
+    from repro_torch.models import decode
+
+    out = {}
+    for name, dtype, _, B, max_len, positions, layers, _ in PH12_SHORT:
+        cfg, lm = gemma12(torch, dtype, dev, layers)
+        toks = tokens12(cfg.vocab_size, B, len(positions))
+        cache = cache12(torch, lm, B, max_len)
+        rows = []
+        for n, pos in enumerate(positions):
+            logits, cache = decode.decode_step(lm, torch.as_tensor(toks[:, n:n + 1], device=dev), cache, pos)
+            rows.append(logits.float().cpu().numpy())
+        out[name] = str(work / f"{name}.npy")
+        np.save(out[name], np.stack(rows))
+        del lm, cache, logits, rows
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def short12_rank(torch, mesh, files: dict) -> dict:
+    """(e) on this rank: each PH12_SHORT pass through ``build_serve_step``
+    under its mesh (the 1 x 4 one made over the same ranks), its caches'
+    cut, holding, counts and times, and its rows' largest error against the
+    one-process logits in ``files`` beside their largest |logit|, whether
+    the greedy tokens agree and, where not, whether the one process's two
+    largest logits lie within the limit of each other."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import attention, decode
+    from repro_torch.runtime.pspec import logical_axis_rules
+    from repro_torch.runtime.serve import build_serve_step
+    from repro_torch.runtime.sharding import block_index, local_block
+
+    res = {}
+    for name, dtype, shape, B, max_len, positions, layers, _ in PH12_SHORT:
+        on = mesh if shape == dict(mesh) else make_mesh(shape)
+        cfg, lm = gemma12(torch, dtype, on.device, layers)
+        toks = tokens12(cfg.vocab_size, B, len(positions))
+        step, (_, csh, tsh, _), _ = build_serve_step(lm, B, max_len, mesh=on)
+        full = cache12(torch, lm, B, max_len)
+        with logical_axis_rules(on):
+            cache = decode.init_cache(lm, B, max_len)
+        for k in cache:
+            cache[k].copy_(local_block(full[k], csh[k], on))
+        del full, lm
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = holding(torch, step, cache, cfg, on, B, max_len, f"phase 12e {name}")
+        want = np.load(files[name], mmap_mode="r")
+        idx, blocks = block_index(on, tsh[0], on.coords)
+        lo = idx * (B // blocks)
+        errs, big, same, ties, counts, times = 0.0, 0.0, 0, 0, [], []
+        for n, pos in enumerate(positions):
+            tok = local_block(torch.as_tensor(toks[:, n:n + 1], device=on.device), tsh, on)
+            before = (attention.decode_attention_sharded.calls, attention.decode_mlp_sharded.calls,
+                      decode.gathered_layer.calls, da_ops.decode_attention.launches, da_ops.decode_attention.ranged)
+            torch.cuda.synchronize()
+            zero_received()
+            t1 = time.perf_counter()
+            logits, cache = step(tok, cache, pos)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            log_received("decode", cfg, on, n)
+            after = (attention.decode_attention_sharded.calls, attention.decode_mlp_sharded.calls,
+                     decode.gathered_layer.calls, da_ops.decode_attention.launches, da_ops.decode_attention.ranged)
+            counts.append(dict(zip(("attention", "mlp", "gathered", "decode_launches", "range_launches"),
+                                   (a - b for a, b in zip(after, before)))))
+            got = logits.float().cpu().numpy()
+            ref = np.asarray(want[n, lo:lo + got.shape[0]])
+            errs, big = max(errs, float(np.abs(got - ref).max())), max(big, float(np.abs(ref).max()))
+            top2 = np.sort(ref, axis=-1)[..., -2:]
+            agree_ = got.argmax(-1) == ref.argmax(-1)
+            picked = np.take_along_axis(ref, got.argmax(-1)[..., None], -1)[..., 0]
+            tie = (top2[..., 1] - top2[..., 0]) <= BF16_REL * np.abs(ref).max()
+            same += int(agree_.sum())
+            ties += int((~agree_ & ~(tie & (top2[..., 1] - picked <= BF16_REL * np.abs(ref).max()))).sum())
+        del step, cache, logits, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        res[name] = dict(max_abs_err=errs, max_abs_ref=big, argmax_same=same, argmax_off_outside_ties=ties,
+                         rows=B // blocks, counts=counts,
+                         step_s=times, holding=held, layers=layers,
+                         cuts={k: v for k, v in decode.cache_cuts(cfg, csh, on).items()})
+    return res
 
 
 def mla12(torch, dev):
@@ -3534,10 +3651,11 @@ def holding(torch, step, cache, cfg, mesh, B: int, max_len: int, what: str, fram
     return dict(held=held, rules=rules, parent=parent_holding(torch, cfg, shape, B, max_len, frames))
 
 
-def phase12_rank(mesh) -> dict:
-    """One rank of phase 12 (b)-(d), on its blocks; every kernel counter set
+def phase12_rank(mesh, short_files: dict) -> dict:
+    """One rank of phase 12 (b)-(e), on its blocks; every kernel counter set
     to 0 before and read after. Returns this rank's outputs (its rows, its
-    MLA rows, its moe tokens), per-step counts and times, and peak memory."""
+    MLA rows, its moe tokens, (e)'s errors against ``short_files``),
+    per-step counts and times, and peak memory."""
     import torch
 
     from repro_torch.kernels.decode_attention import ops as da_ops
@@ -3593,6 +3711,8 @@ def phase12_rank(mesh) -> dict:
         del lm, step, cache, logits
         gc.collect()
         torch.cuda.empty_cache()
+    # (e) the short caches
+    res["short"] = short12_rank(torch, mesh, short_files)
     # (c) one MLA layer
     cfg, p, caches, xs = mla12(torch, dev)
     specs = mla_decode_specs(cfg, mesh, MLA12["B"])
@@ -3769,11 +3889,12 @@ def phase_sharded(torch) -> dict:
     del p, x, y
     gc.collect()
     torch.cuda.empty_cache()
-    one_s = time.perf_counter() - t0
-
-    t1 = time.perf_counter()
-    ranks = run_ranks(phase12_rank, PH12["mesh"], backend="gloo", timeout=900)
-    ranks_s = time.perf_counter() - t1
+    with tempfile.TemporaryDirectory(prefix="phase12_") as work:
+        short_files = short12_want(torch, dev, Path(work))
+        one_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        ranks = run_ranks(phase12_rank, PH12["mesh"], backend="gloo", args=(short_files,), timeout=900)
+        ranks_s = time.perf_counter() - t1
     mesh = PH12["mesh"]
     rows_spec = (_decode_bspec(mesh, B), None, None)
     moe_spec = moe.moe_a2a_specs(cfg, mesh)["x"]
@@ -3814,6 +3935,18 @@ def phase_sharded(torch) -> dict:
         check(abs(r["moe_aux"] - want["moe_aux"]) <= AUX_RTOL * abs(want["moe_aux"]),
               f"phase 12d rank {c} aux {r['moe_aux']!r} vs {want['moe_aux']!r}")
         check(r["ep2d"], f"phase 12d rank {c}: not 2-D expert parallelism")
+        # (e) each short pass within its type's limit of the largest |logit|, the caches cut as it is there for,
+        # the self layers through the kernel on the rank's rows or through the partial scores along D
+        for name, dtype, _, _, _, positions, L, cut in PH12_SHORT:
+            sh = r["short"][name]
+            lim = (F32_TOL if dtype == "float32" else BF16_REL) * sh["max_abs_ref"]
+            check(sh["max_abs_err"] <= lim and (dtype != "float32" or sh["argmax_same"] == sh["rows"] * len(positions))
+                  and sh["argmax_off_outside_ties"] == 0,
+                  f"phase 12e rank {c} {name}: max |diff| {sh['max_abs_err']!r} (limit {lim!r}), greedy tokens "
+                  f"{sh['argmax_same']} of {sh['rows'] * len(positions)} the same")
+            check(sh["cuts"] == {"local": (cut,), "global": (cut,)}, f"phase 12e rank {c} {name}: cuts {sh['cuts']}")
+            want_k = dict(attention=L, mlp=L, gathered=0, decode_launches=L if cut == 0 else 0, range_launches=0)
+            check(all(k == want_k for k in sh["counts"]), f"phase 12e rank {c} {name}: {sh['counts']}, want {want_k}")
         received = check_received("12", c, r["received"])
         per_rank.append(dict(coords=c, f32_max_abs_err=f32_err, zero3_f32_max_abs_err=f32_errs["float32_zero3"],
                              bf16_rel_err=bf_rel, bf16_ties=int(tie.sum()),
@@ -3823,17 +3956,21 @@ def phase_sharded(torch) -> dict:
                              counts={d: r[d]["counts"] for d, _, _ in PASSES12},
                              cut_params={d: r[d]["cut_params"] for d, _, _ in PASSES12},
                              holding={d: r[d]["holding"] for d, _, _ in PASSES12},
-                             cache_specs=r["bfloat16"]["cache_specs"], received=received))
+                             cache_specs=r["bfloat16"]["cache_specs"], received=received,
+                             short={k: dict(v, rel_err=v["max_abs_err"] / v["max_abs_ref"], counts=v["counts"][0])
+                                    for k, v in r["short"].items()}))
         print(f"phase 12 rank {c}: {json.dumps(per_rank[-1])}")
     launches = summed([r["launches"] for r in ranks])
     pairs = summed([r["flash_pairs"] for r in ranks])
     out.update(ranks=per_rank, launches=launches, flash_pairs=pairs,
                range_launches=sum(r["range_launches"] for r in ranks),
+               short_launches=sum(k["decode_launches"] for r in ranks for v in r["short"].values() for k in v["counts"]),
                one_process_s=one_s, ranks_s=ranks_s, wall_s=time.perf_counter() - t0, aux=want["moe_aux"])
     print(f"phase 12 four ranks on one card (2 x 2 mesh, gloo, collectives staged through host memory): the step "
           f"times above are four processes time-sharing one card, not the sharded step's speed, and are held to no "
           f"bound; ranks {ranks_s:.3f} s, one-process references {one_s:.3f} s, phase {out['wall_s']:.3f} s, "
-          f"launches {launches}, key-range launches {out['range_launches']}")
+          f"launches {launches}, key-range launches {out['range_launches']}, (e)'s launches on the ranks' rows "
+          f"{out['short_launches']}")
     return out
 
 
@@ -4142,8 +4279,8 @@ def phase_sharded_train(torch) -> dict:
 # 2 x 2 mesh (gloo, one card), bf16, remat, TrainConfig's defaults, 2 steps
 # of a global B 2 (one row a data rank) against the same steps in one
 # process: recurrentgemma-2b with 5 of 26 layers (R R L + R R: rec_blocks,
-# attn_blocks and extra_rec) at S 2,048 (the 2,048 window does not bite:
-# (a) holds it), llama-3.2-vision-11b with 5 layers at S 2,048,
+# attn_blocks and extra_rec) at S 1,024 (the 2,048 window does not bite:
+# (a) holds it), llama-3.2-vision-11b with 5 layers at S 1,024,
 # whisper-base whole at S 448. (c) whisper-base's f32 oracle on the four
 # ranks: 3 steps at S 448 against rank 0's one-process step, the encoder's
 # non-causal, the decoder's causal and its cross attention on every rank's
@@ -4152,7 +4289,7 @@ def phase_sharded_train(torch) -> dict:
 PH14 = dict(mesh={"data": 2, "model": 2}, B=2, steps=2, oracle_steps=3, oracle_S=512, data_seed=1)
 PH14_ORACLE = {"recurrentgemma-2b": dict(num_layers=3, local_window=128),
                "llama-3.2-vision-11b": dict(num_layers=5), "whisper-base": {}}
-PH14_TRAIN = {"recurrentgemma-2b": (dict(num_layers=5), 2048), "llama-3.2-vision-11b": (dict(num_layers=5), 2048),
+PH14_TRAIN = {"recurrentgemma-2b": (dict(num_layers=5), 1024), "llama-3.2-vision-11b": (dict(num_layers=5), 1024),
               "whisper-base": ({}, WHISPER_TOKENS)}
 PH14_PAIRS = {"recurrentgemma-2b": "256x256", "llama-3.2-vision-11b": "128x128", "whisper-base": "64x64"}
 PH14_GRAD_TOL = 1e-3     # (a): each gradient leaf within 1e-3 of its max |g|, as phase 10.2
@@ -4162,6 +4299,10 @@ PH14_GRAD_TOL = 1e-3     # (a): each gradient leaf within 1e-3 of its max |g|, a
 PH14_SERVE = dict(B=4, max_len=1024, positions=(0, 511, 1023), seed=14,
                   layers={"recurrentgemma-2b": dict(num_layers=3), "llama-3.2-vision-11b": dict(num_layers=5),
                           "whisper-base": {}})
+# (e) again on short caches that the rules cut along D (head_dim over max_len): recurrentgemma-2b's ring of 128
+# across its wrap (256 > 128), whisper-base's self caches of 32 (64 > 32; its cross K/V over 1,500 frames along N)
+PH14_SHORT = {"recurrentgemma-2b": dict(max_len=128, positions=(0, 127, 300)),
+              "whisper-base": dict(max_len=32, positions=(0, 1, 31))}
 
 
 def family_layers(cfg) -> tuple[int, int]:
@@ -4268,15 +4409,17 @@ def whisper14(torch, mesh=None) -> tuple:
     return metrics, times, lm, before
 
 
-def serve14(torch, arch: str, mesh=None) -> dict:
+def serve14(torch, arch: str, mesh=None, max_len: int = PH14_SERVE["max_len"],
+            positions: tuple = PH14_SERVE["positions"]) -> dict:
     """(e) for one family: ``build_serve_step`` in float32 (under ``mesh`` on
-    this rank's rows and blocks), B 4 over max_len 1,024: ``init_cache`` over
+    this rank's rows and blocks), B 4 over ``max_len``: ``init_cache`` over
     the family's seeded image embeddings or audio frames (under ``mesh`` the
     rank's rows: whisper's encoder on the rank's blocks, each cross layer's
     block of its K/V), every other cache from a seeded generator, steps at
-    PH14_SERVE's positions → {"logits": this rank's rows by step}, and under
-    ``mesh`` each step's layers by body and decode launches, the cross
-    caches' cut and the rank's holding against the rules' bytes."""
+    ``positions`` → {"logits": this rank's rows by step}, and under
+    ``mesh`` each step's layers by body and decode launches, the caches'
+    cuts (``decode.cache_cuts``) and the rank's holding against the rules'
+    bytes."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.models import attention, decode, rglru
     from repro_torch.runtime.pspec import logical_axis_rules
@@ -4284,7 +4427,7 @@ def serve14(torch, arch: str, mesh=None) -> dict:
     from repro_torch.runtime.sharding import local_block
 
     cfg, lm = build_family(torch, arch, "float32", **PH14_SERVE["layers"][arch])
-    B, max_len = PH14_SERVE["B"], PH14_SERVE["max_len"]
+    B = PH14_SERVE["B"]
     emb = family_inputs(torch, cfg, B)
     frames = emb["audio_embeds"].shape[1] if "audio_embeds" in emb else None
     whole = abstract_cache(lm, B, max_len, frames=frames)
@@ -4305,16 +4448,15 @@ def serve14(torch, arch: str, mesh=None) -> dict:
     out = {}
     if mesh is not None:
         out["holding"] = holding(torch, step, cache, cfg, mesh, B, max_len, f"phase 14e {arch}", frames)
-        out["cross_cut"] = next((i for i, e in enumerate(csh["cross_k"][1:]) if e == "model"), None) \
-            if "cross_k" in csh else None
+        out["cuts"] = decode.cache_cuts(cfg, csh, mesh)
     del lm                      # the step holds this rank's blocks (the whole ones shared)
     gc.collect()
     torch.cuda.empty_cache()
-    toks = np.random.default_rng(PH14_SERVE["seed"]).integers(0, cfg.vocab_size, (B, len(PH14_SERVE["positions"])))
+    toks = np.random.default_rng(PH14_SERVE["seed"]).integers(0, cfg.vocab_size, (B, len(positions)))
     counters = (attention.decode_attention_sharded, attention.cross_decode_sharded, rglru.rglru_decode_sharded,
                 attention.decode_mlp_sharded, decode.gathered_layer)
     rows, counts, times = [], [], []
-    for n, pos in enumerate(PH14_SERVE["positions"]):
+    for n, pos in enumerate(positions):
         tok = torch.as_tensor(toks[:, n:n + 1], device="cuda")
         before = [f.calls for f in counters] + [da_ops.decode_attention.launches, da_ops.decode_attention.ranged]
         torch.cuda.synchronize()
@@ -4335,11 +4477,12 @@ def serve14(torch, arch: str, mesh=None) -> dict:
     return dict(out, logits=np.stack(rows), counts=counts, step_s=times, layers=cfg.num_layers)
 
 
-def serve14_want(cfg, cross_cut) -> dict:
-    """(e)'s layers by body a step: each self-attention layer's cache cut
-    along S (the decode kernel's key-range entry), each cross layer through
-    the key-range entry where its K/V are cut along N, the plain partial
-    scores where along D; every MLP sharded, nothing gathered at use."""
+def serve14_want(cfg, cuts: dict) -> dict:
+    """(e)'s layers by body a step, by the caches' ``cuts``
+    (``decode.cache_cuts``): each self-attention layer and each cross layer
+    through the decode kernel where its cache is cut along S (N; the
+    key-range entry) or its rows, through the plain partial scores where
+    along D; every MLP sharded, nothing gathered at use."""
     L = cfg.num_layers
     if cfg.family == "hybrid":
         attn, cross, rec = L // 3, 0, L - L // 3
@@ -4348,9 +4491,18 @@ def serve14_want(cfg, cross_cut) -> dict:
         attn, rec = L - cross, 0
     else:
         attn, cross, rec = L, L, 0
-    launch = attn + (cross if cross_cut != 3 else 0)
+    self_cut = (cuts.get("ring") or cuts["self"])[0]
+    cross_cut = cuts["cross"][0] if cross else None
+    launch = (attn if self_cut != 3 else 0) + (cross if cross_cut != 3 else 0)
+    ranged = (attn if self_cut == 1 else 0) + (cross if cross_cut == 1 else 0)
     return dict(attention=attn, cross=cross, rglru=rec, mlp=L * (2 if cfg.family == "encdec" else 1), gathered=0,
-                decode_launches=launch, range_launches=attn + (cross if cross_cut == 1 else 0))
+                decode_launches=launch, range_launches=ranged)
+
+
+def serve14_runs() -> list:
+    """(e)'s runs: (key, arch, serve14's keywords), the short ones keyed
+    '<arch> short'."""
+    return [(a, a, {}) for a in PH14_SERVE["layers"]] + [(f"{a} short", a, kw) for a, kw in PH14_SHORT.items()]
 
 
 def phase14_rank(mesh) -> dict:
@@ -4406,11 +4558,11 @@ def phase14_rank(mesh) -> dict:
     torch.cuda.empty_cache()
     # (e) the serve steps under the mesh
     res["serve"] = {}
-    for arch in PH14_SERVE["layers"]:
+    for key, arch, short in serve14_runs():
         torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
-        res["serve"][arch] = serve14(torch, arch, mesh)
-        res["serve"][arch].update(part_s=time.perf_counter() - t1, peak_bytes=torch.cuda.max_memory_allocated())
+        res["serve"][key] = serve14(torch, arch, mesh, **short)
+        res["serve"][key].update(part_s=time.perf_counter() - t1, peak_bytes=torch.cuda.max_memory_allocated())
     torch.cuda.synchronize()
     res["sharded_s"] = time.perf_counter() - t0
     res["launches"] = {name: fn.launches for name, fn in counters.items()}
@@ -4496,7 +4648,7 @@ def phase_sharded_families(torch) -> dict:
     want["whisper-base f32"] = prefill14(torch, "whisper-base", "float32")
     gc.collect()
     torch.cuda.empty_cache()
-    serve_want = {arch: serve14(torch, arch)["logits"] for arch in PH14_SERVE["layers"]}
+    serve_want = {key: serve14(torch, arch, **short)["logits"] for key, arch, short in serve14_runs()}
     one_s = time.perf_counter() - t1
 
     ranks, ranks_s = card_ranks(phase14_rank, PH14["mesh"])
@@ -4511,7 +4663,8 @@ def phase_sharded_families(torch) -> dict:
     fwd_want = {PH14_PAIRS[a]: 2 * steps * L + L for a, (L, _) in layers.items()}
     fwd_want["64x64"] += 2 * wsteps * wL + wL
     # (e): init_cache under the mesh runs whisper's encoder as the sharded prefill does, a flash launch a layer
-    fwd_want["64x64"] += get_config("whisper-base").replace(**PH14_SERVE["layers"]["whisper-base"]).num_encoder_layers
+    fwd_want["64x64"] += sum(get_config(a).replace(**PH14_SERVE["layers"][a]).num_encoder_layers
+                             for _, a, _ in serve14_runs() if a == "whisper-base")
     bwd_want = {PH14_PAIRS[a]: steps * L for a, (L, _) in layers.items()}
     bwd_want["64x64"] += wsteps * wL
     rec_want = sum((2 * steps + 1) * R for _, R in layers.values())
@@ -4551,17 +4704,20 @@ def phase_sharded_families(torch) -> dict:
         # through its sharded body, the key-range entry for every self layer and N-cut cross layer
         srows = (None, _decode_bspec(mesh, PH14_SERVE["B"]), None, None)
         serve_err, launched = {}, 0
-        for arch, sv in r["serve"].items():
-            got, ref = sv["logits"], rows_of(serve_want[arch], c, mesh, srows)
-            serve_err[arch] = max_abs_err(torch, torch.from_numpy(got), torch.from_numpy(ref))
+        for key, arch, short in serve14_runs():
+            sv = r["serve"][key]
+            got, ref = sv["logits"], rows_of(serve_want[key], c, mesh, srows)
+            serve_err[key] = max_abs_err(torch, torch.from_numpy(got), torch.from_numpy(ref))
             check(got.shape == ref.shape and bool(np.all(np.abs(got - ref) <= F32_TOL + F32_TOL * np.abs(ref))),
-                  f"phase 14e rank {c} {arch}: logits differ from one process by {serve_err[arch]!r}")
-            check(np.array_equal(got.argmax(-1), ref.argmax(-1)), f"phase 14e rank {c} {arch} argmax differs")
+                  f"phase 14e rank {c} {key}: logits differ from one process by {serve_err[key]!r}")
+            check(np.array_equal(got.argmax(-1), ref.argmax(-1)), f"phase 14e rank {c} {key} argmax differs")
             cfg = get_config(arch).replace(**PH14_SERVE["layers"][arch])
-            want_k = serve14_want(cfg, sv["cross_cut"])
-            check(all(k == want_k for k in sv["counts"]), f"phase 14e rank {c} {arch}: {sv['counts']}, want {want_k}")
-            check(arch != "whisper-base" or sv["cross_cut"] == 1,
-                  f"phase 14e rank {c}: whisper's cross K/V cut along {sv['cross_cut']}, not N")
+            want_k = serve14_want(cfg, sv["cuts"])
+            check(all(k == want_k for k in sv["counts"]), f"phase 14e rank {c} {key}: {sv['counts']}, want {want_k}")
+            check(arch != "whisper-base" or sv["cuts"]["cross"] == (1,),
+                  f"phase 14e rank {c}: whisper's cross K/V cut along {sv['cuts'].get('cross')}, not N")
+            check(not short or (sv["cuts"].get("ring") or sv["cuts"]["self"]) == (3,),
+                  f"phase 14e rank {c} {key}: self caches cut along {sv['cuts']}, not D")
             launched += sum(k["decode_launches"] for k in sv["counts"])
         check(r["launches"]["decode_attention"] == launched,
               f"phase 14 rank {c} launched decode_attention {r['launches']['decode_attention']} times, (e) {launched}")
@@ -4569,7 +4725,7 @@ def phase_sharded_families(torch) -> dict:
         per_rank.append(dict(coords=c, families=fams, f32_step_s=r["f32"]["step_s"],
                              f32_peak_gb=r["f32"]["peak_bytes"] / 1e9, prefill_rel_err=errs,
                              serve_max_abs_err=serve_err,
-                             serve={a: dict(holding=v["holding"], cross_cut=v["cross_cut"], step_s=v["step_s"],
+                             serve={a: dict(holding=v["holding"], cuts=v["cuts"], step_s=v["step_s"],
                                             part_s=v["part_s"], peak_gb=v["peak_bytes"] / 1e9, counts=v["counts"][0])
                                     for a, v in r["serve"].items()}, flash_forward=fwd,
                              flash_backward=bwd, rglru_calls=r["calls"][1], sharded_s=r["sharded_s"],
@@ -4625,21 +4781,28 @@ def phase_sharded_families(torch) -> dict:
 # of the gather dispatch at 1.25, the global slots and capacity, then 1
 # step of the a2a at a dropless cut (A2A_DROPLESS: the a2a's per-shard
 # capacity cannot equal one process's otherwise); mamba2-780m with 8 of 48
-# layers at S 2,048 (eight chunks of 256), AdamW, 2 steps. (c) mamba2-780m's
+# layers at S 1,024 (four chunks of 256), AdamW, 2 steps. (c) mamba2-780m's
 # f32 oracle on the four ranks: 4 layers, S 512, 3 steps against rank 0's
 # one-process steps, its parameters gathered. (d) Each prefill under the
 # mesh on (b)'s first batch (bf16; mamba2 in f32 too). (e) build_serve_step
 # under the mesh, B 4 over max_len 1,024: a prompt of PH15_SERVE["prompt"]
 # tokens through the step, then PH15_SERVE["decode"] decode steps, deepseek
-# in bf16, mamba2 in bf16 and f32. (f) Launches and layer counts.
+# in bf16 (over max_len 256 too: PH15_SERVE_RUNS), mamba2 in bf16 and f32.
+# (f) Launches and layer counts.
 PH15 = dict(mesh={"data": 2, "model": 2}, B=2, data_seed=1)
 PH15_MOE = dict(num_layers=2)                             # of 60: the dense first layer and one MoE layer
 PH15_ORACLE = dict(B=1, S=512)
 PH15_MOE_TRAIN = dict(S=1024, gather_steps=2, a2a_steps=1)
 PH15_SSM = dict(num_layers=8)                             # of 48
-PH15_SSM_TRAIN = dict(S=2048, steps=2)
+PH15_SSM_TRAIN = dict(S=1024, steps=2)
 PH15_SSM_ORACLE = dict(num_layers=4, S=512, steps=3)
-PH15_SERVE = dict(B=4, max_len=1024, prompt=8, decode=4, seed=15)
+PH15_SERVE = dict(B=4, max_len=1024, prompt=4, decode=4, seed=15)
+# (e)'s runs: (key, arch, dtype, max_len); at max_len 256 the rules cut deepseek's c_kv (B, 256, 512) along its
+# latent dimension and k_rope (B, 256, 64) along S (ROADMAP C14's layout)
+PH15_SERVE_RUNS = (("deepseek-v2-236b bfloat16", "deepseek-v2-236b", "bfloat16", 1024),
+                   ("deepseek-v2-236b bfloat16 c14", "deepseek-v2-236b", "bfloat16", 256),
+                   ("mamba2-780m bfloat16", "mamba2-780m", "bfloat16", 1024),
+                   ("mamba2-780m float32", "mamba2-780m", "float32", 1024))
 # The a2a step's capacity factor: above E / K = 160 / 6, so that a shard's capacity
 # int(T_loc · K · cf / E) holds every one of its tokens and nothing drops. MOE12's 64
 # (phase 12, forward only) ran out of memory here with four ranks training (H100 80GB HBM3, 700 W).
@@ -4818,31 +4981,32 @@ def prefill15(torch, arch: str, dtype: str, dev, mesh=None) -> np.ndarray:
     return prefill_logged(step, batch, lm.cfg, mesh)
 
 
-def serve15(torch, arch: str, dtype: str, dev, mesh=None) -> tuple:
+def serve15(torch, arch: str, dtype: str, dev, mesh=None, max_len: int = PH15_SERVE["max_len"]) -> tuple:
     """(e): build_serve_step (under ``mesh`` on this rank's rows and blocks)
-    over PH15_SERVE's prompt and decode steps from empty caches: (each
-    step's logits (this rank's rows), stacked; each step's routings, as
-    (the global rows routed, their expert ids) on the host, under ``mesh``
-    the rows this rank routed; under ``mesh`` the rank's holding against
-    the rules' bytes (``holding``), else None)."""
+    over PH15_SERVE's prompt and decode steps from empty caches of
+    ``max_len``: (each step's logits (this rank's rows), stacked; each
+    step's routings, as (the global rows routed, their expert ids) on the
+    host, under ``mesh`` the rows this rank routed; under ``mesh`` the
+    rank's holding against the rules' bytes (``holding``) and its caches'
+    cuts (``decode.cache_cuts``), else None and None)."""
     from repro_torch.models import decode, moe
     from repro_torch.runtime.pspec import logical_axis_rules
     from repro_torch.runtime.serve import build_serve_step
     from repro_torch.runtime.sharding import local_block
 
     cfg, lm = (ssm15 if arch == "mamba2-780m" else moe15)(torch, dtype, dev)
-    B, max_len = PH15_SERVE["B"], PH15_SERVE["max_len"]
+    B = PH15_SERVE["B"]
     n = PH15_SERVE["prompt"] + PH15_SERVE["decode"]
     toks = np.random.default_rng(PH15_SERVE["seed"]).integers(0, cfg.vocab_size, (B, n))
     if mesh is None:
         step, _ = build_serve_step(lm, B, max_len)
         cache = decode.init_cache(lm, B, max_len)
-        cut = lambda t: t  # noqa: E731
+        cut, cuts = (lambda t: t), None  # noqa: E731
     else:
-        step, (_, _, tsh, _), _ = build_serve_step(lm, B, max_len, mesh=mesh)
+        step, (_, csh, tsh, _), _ = build_serve_step(lm, B, max_len, mesh=mesh)
         with logical_axis_rules(mesh):
             cache = decode.init_cache(lm, B, max_len)
-        cut = lambda t: local_block(t, tsh, mesh)  # noqa: E731
+        cut, cuts = (lambda t: local_block(t, tsh, mesh)), decode.cache_cuts(cfg, csh, mesh)  # noqa: E731
     held = None if mesh is None else holding(torch, step, cache, cfg, mesh, B, max_len, f"phase 15e {arch} {dtype}")
     del lm                      # the step holds this rank's blocks (the whole ones shared)
     gc.collect()
@@ -4869,7 +5033,7 @@ def serve15(torch, arch: str, dtype: str, dev, mesh=None) -> tuple:
     finally:
         moe._gather_dispatch = orig
     del step, cache
-    return np.stack(logits_by_step), routes, held
+    return np.stack(logits_by_step), routes, held, cuts
 
 
 def rerouted(one_routes: list, rank_routes: list) -> set:
@@ -4959,12 +5123,12 @@ def phase15_rank(mesh) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     # (e) the serve steps
-    res["routes"], res["holding"] = {}, {}
-    for arch, dtype in (("deepseek-v2-236b", "bfloat16"), ("mamba2-780m", "bfloat16"), ("mamba2-780m", "float32")):
+    res["routes"], res["holding"], res["cuts"] = {}, {}, {}
+    for key, arch, dtype, max_len in PH15_SERVE_RUNS:
         t1 = time.perf_counter()
-        res["serve"][f"{arch} {dtype}"], res["routes"][f"{arch} {dtype}"], res["holding"][f"{arch} {dtype}"] = \
-            serve15(torch, arch, dtype, dev, mesh)
-        res["serve"][f"{arch} {dtype} s"] = time.perf_counter() - t1
+        res["serve"][key], res["routes"][key], res["holding"][key], res["cuts"][key] = \
+            serve15(torch, arch, dtype, dev, mesh, max_len)
+        res["serve"][f"{key} s"] = time.perf_counter() - t1
         gc.collect()
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -5036,8 +5200,8 @@ def phase_sharded_moe_ssm(torch) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     routes = {}
-    for arch, dtype in (("deepseek-v2-236b", "bfloat16"), ("mamba2-780m", "bfloat16"), ("mamba2-780m", "float32")):
-        serve[f"{arch} {dtype}"], routes[f"{arch} {dtype}"], _ = serve15(torch, arch, dtype, dev)
+    for key, arch, dtype, max_len in PH15_SERVE_RUNS:
+        serve[key], routes[key], _, _ = serve15(torch, arch, dtype, dev, max_len=max_len)
         gc.collect()
         torch.cuda.empty_cache()
     one_s = time.perf_counter() - t1
@@ -5055,10 +5219,12 @@ def phase_sharded_moe_ssm(torch) -> dict:
     n_g, n_a = PH15_MOE_TRAIN["gather_steps"], PH15_MOE_TRAIN["a2a_steps"]
     n_serve = PH15_SERVE["prompt"] + PH15_SERVE["decode"]
     ssm_L, ssm_oL = PH15_SSM["num_layers"], PH15_SSM_ORACLE["num_layers"]
-    want_calls = {"mla_sharded": 2 * moe_L * (n_g + n_a) + moe_L, "mla_decode_sharded": moe_L * n_serve,
+    moe_serves = sum(arch == "deepseek-v2-236b" for _, arch, _, _ in PH15_SERVE_RUNS)
+    want_calls = {"mla_sharded": 2 * moe_L * (n_g + n_a) + moe_L, "mla_decode_sharded": moe_L * n_serve * moe_serves,
                   "mamba_sharded": 2 * ssm_L * PH15_SSM_TRAIN["steps"] + 2 * ssm_L
                   + 2 * ssm_oL * PH15_SSM_ORACLE["steps"],
-                  "moe_gather_sharded": routed * (2 * n_g + 1 + n_serve), "moe_a2a_sharded": 2 * routed * n_a,
+                  "moe_gather_sharded": routed * (2 * n_g + 1 + n_serve * moe_serves),
+                  "moe_a2a_sharded": 2 * routed * n_a,
                   "mamba_decode_sharded": 2 * ssm_L * n_serve, "gathered_layer": 0}
     # (e): the (step, row) pairs a bf16 near-tie at the top k sent to other experts under the mesh
     # (the moe layer is the last: the difference reaches that step's logits of that row alone)
@@ -5090,6 +5256,8 @@ def phase_sharded_moe_ssm(torch) -> dict:
             check(got.shape == ref.shape and errs[key] <= tol,
                   f"phase 15d rank {c} {key} prefill: {errs[key]!r} of the largest logit (limit {tol})")
         serr = {}
+        check(r["cuts"]["deepseek-v2-236b bfloat16 c14"] == {"dense": (2, 1), "moe": (2, 1)},
+              f"phase 15e rank {c}: the c14 run's latent caches cut along {r['cuts']}")
         row0 = c["data"] * (PH15_SERVE["B"] // mesh["data"])
         for key, ref_all in serve.items():
             got, ref = r["serve"][key], rows_of(ref_all, c, mesh, srows)
@@ -5120,7 +5288,7 @@ def phase_sharded_moe_ssm(torch) -> dict:
         per_rank.append(dict(coords=c, families=fams, dropped=drops, f32_step_s=r["f32"]["step_s"],
                              f32_peak_gb=r["f32"]["peak_bytes"] / 1e9, prefill_rel_err=errs, serve_err=serr,
                              serve_s={k: v for k, v in r["serve"].items() if k.endswith(" s")},
-                             serve_holding=r["holding"],
+                             serve_holding=r["holding"], serve_cuts=r["cuts"],
                              flash_forward=fwd, flash_backward=bwd, calls=r["calls"], sharded_s=r["sharded_s"],
                              received=received))
         print(f"phase 15 rank {c}: {json.dumps(per_rank[-1])}")
@@ -5625,8 +5793,9 @@ def main() -> int:
     print(f"phase 12 in {time.perf_counter() - t0:.3f} s (tables gathered whole: {GATHERED_TABLES_S[12]} s), "
           f"launches (four ranks) {ph12_launches}, flash by instance "
           f"{ph12_pairs}, key-range launches {sharded['range_launches']}")
-    check(ph12_launches["decode_attention"] > 0 and sharded["range_launches"] == ph12_launches["decode_attention"],
-          "phase 12 never launched decode_attention's key-range entry, or launched another")
+    check(sharded["range_launches"] > 0 and sharded["short_launches"] > 0
+          and sharded["range_launches"] + sharded["short_launches"] == ph12_launches["decode_attention"],
+          "phase 12 never launched decode_attention's key-range entry or its rows' launches (e), or launched another")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5743,7 +5912,8 @@ def main() -> int:
                      launches_ph12=ph12_launches["decode_attention"], launches_ph13=ph13_launches["decode_attention"],
                      launches_ph14=ph14_launches["decode_attention"], launches_ph15=ph15_launches["decode_attention"],
                      launches_ph16=ph16_launches["decode_attention"],
-                     launches_ph12_range_entry=sharded["range_launches"], range_entry=sharded["range_entry"],
+                     launches_ph12_range_entry=sharded["range_launches"], launches_ph12_rows=sharded["short_launches"],
+                     range_entry=sharded["range_entry"],
                      **attn["decode_attention"]))
     # The backward has no Pallas twin (the reference differentiates jnp
     # attention); it is the gradient of the forward TPU kernel's function.

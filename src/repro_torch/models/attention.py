@@ -25,13 +25,15 @@ the axis's process group (``launch.mesh``). Projections are partial
 products over the weights' 'data' shard of the input dimension, summed
 over 'data': weights never move, only the (B, 1, ·) decode activations,
 the (B, H) and (B, H, D) softmax states cross ranks. A layer's cache
-stays where the rules cut it: a self-attention cache along S, where each
+stays where the rules cut it (``decode_attention_block``): along S each
 rank attends over its range through the decode kernel's key-range entry
-(``key0``, ``lse``) and the ranks combine their (out, lse) pairs
-(``decode_attention_block``). ``cross_decode_sharded`` reads a cross
-cache, every key visible, the same way along N; along its rows the
-kernel runs on the rank's rows and the one-token outputs are gathered;
-along D the float32 partial scores are summed. Any other cut raises.
+(``key0``, ``lse``) and the ranks combine their (out, lse) pairs; along
+its rows the kernel runs on the rank's rows and the one-token outputs
+are gathered; along D the float32 partial scores are summed over
+'model' and the rank's slice of the output gathered. A self-attention
+cache (``decode_attention_sharded``, linear or a ring) and a cross cache
+(``cross_decode_sharded``, every key visible, N in place of S) are read
+so. A cut along the kv heads raises.
 
 The sharded full-sequence attention and MLP (``attention_sharded``,
 ``mlp_sharded``; training and prefill) run on a rank's rows of the batch
@@ -433,30 +435,73 @@ def _whole_heads(q, n: int, mesh):
 
 def _write_block(cache, t, slot: int, cut, mesh) -> None:
     """Write the token's row t (B_loc, …) at global ``slot`` into this
-    rank's block of a layer's cache (B, S, …), whole (``cut`` None) or cut
-    along S over 'model' (``cut`` 1), where only the shard that owns the
-    slot writes."""
-    if cut is None:
-        cache[:, slot] = t.to(cache.dtype)
+    rank's block of a layer's cache (B, S, …): whole (``cut`` None), cut
+    along S over 'model' (``cut`` 1: only the shard that owns the slot
+    writes), along its rows (0: the rank's rows of t) or along a later
+    dimension (the rank's slice of t there)."""
+    if cut == 1:
+        s = slot - mesh.coords["model"] * cache.shape[1]
+        if 0 <= s < cache.shape[1]:
+            cache[:, s] = t.to(cache.dtype)
         return
-    s = slot - mesh.coords["model"] * cache.shape[1]
-    if 0 <= s < cache.shape[1]:
-        cache[:, s] = t.to(cache.dtype)
+    if cut is not None:
+        n = cache.shape[cut]
+        t = t.narrow(0 if cut == 0 else cut - 1, mesh.coords["model"] * n, n)
+    cache[:, slot] = t.to(cache.dtype)
+
+
+def _d_block_attention(q, ck, cv, pos: int, mesh, *, window: int = 0, softcap: float = 0.0):
+    """One-token attention of q (B_loc, H, D), whole, over keys and values
+    (B_loc, S, KV, D_loc) cut along D over 'model' (the rank's slice
+    coordinate('model') · D_loc onward), keys 0…pos visible (within
+    ``window`` of pos where it is > 0): the float32 partial scores of the
+    rank's slice summed over 'model' and scaled by the whole D's D^-0.5,
+    the soft-cap, the mask, the softmax, and the rank's slice of the
+    output gathered along D → (B_loc, H, D) in q's type. No kernel: the
+    decode kernel needs whole rows of D for its scores (the reference's
+    model runs stock products here too)."""
+    B, H, D = q.shape
+    KV, Dl = ck.shape[2], ck.shape[3]
+    r = mesh.coords["model"]
+    qg = q[..., r * Dl:(r + 1) * Dl].reshape(B, KV, H // KV, Dl)
+    s = all_reduce(torch.einsum("bgrd,bkgd->bgrk", qg.float(), ck.float()), "model", mesh) * D ** -0.5
+    warm_host_math(s)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    idx = torch.arange(ck.shape[1], device=q.device)
+    valid = idx <= pos
+    if window > 0:
+        valid = valid & ((pos - idx) < window)
+    s = torch.where(valid, s, torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
+    p = torch.softmax(s, dim=-1).masked_fill(~valid, 0.0).to(q.dtype)
+    o = torch.einsum("bgrk,bkgd->bgrd", p, cv.to(q.dtype)).reshape(B, H, Dl)
+    return all_gather(o, "model", mesh, dim=2)
 
 
 def decode_attention_block(q, ck, cv, pos: int, cut, mesh, *, window: int = 0, softcap: float = 0.0):
     """One-token attention of this rank's rows' queries q (B_loc, H, D),
-    whole, over its block ck, cv of a layer's cache (B_loc, S, KV, D),
-    whole (``cut`` None: the decode kernel) or cut along S over 'model'
-    (``cut`` 1: keys coordinate('model') · S_loc onward through the
-    kernel's key-range entry (``key0``, ``lse``), the ranks' (out, lse)
-    pairs combined, M = max lse, w = e^(lse − M), out = Σ w·out / Σ w, the
-    reference's pmax and two psums) → (B_loc, H, D) in q's type, the same
-    on every rank of 'model'. Only one-token results move."""
+    whole, over its block ck, cv of a layer's cache (B_loc, S, KV, D), cut
+    over 'model' along dimension ``cut`` → (B_loc, H, D) in q's type, the
+    same on every rank of 'model'. Only one-token results move:
+
+      None  whole: the decode kernel;
+      1     along S: keys coordinate('model') · S_loc onward through the
+            kernel's key-range entry (``key0``, ``lse``), the ranks'
+            (out, lse) pairs combined, M = max lse, w = e^(lse − M),
+            out = Σ w·out / Σ w, the reference's pmax and two psums;
+      0     along the rows: the kernel on the rank's rows of q and of the
+            cache, the outputs gathered along the rows;
+      3     along D: ``_d_block_attention``."""
     if cut is None:
         return decode_attention_kernel(q, ck, cv, pos, window=window, softcap=softcap)
+    if cut == 0:
+        n, r = ck.shape[0], mesh.coords["model"]
+        o = decode_attention_kernel(q[r * n:(r + 1) * n], ck, cv, pos, window=window, softcap=softcap)
+        return all_gather(o, "model", mesh, dim=0)
+    if cut == 3:
+        return _d_block_attention(q, ck, cv, pos, mesh, window=window, softcap=softcap)
     if cut != 1:
-        raise ValueError(f"decode_attention_block: a cache cut along dimension {cut} over 'model' (S is 1)")
+        raise ValueError(f"decode_attention_block: a cache cut along dimension {cut} over 'model' (no body reads it)")
     o, lse = decode_attention_kernel(q, ck, cv, pos, window=window, softcap=softcap,
                                      key0=mesh.coords["model"] * ck.shape[1], lse=True)
     M = all_reduce(lse, "model", mesh, op="max")
@@ -465,37 +510,6 @@ def decode_attention_block(q, ck, cv, pos: int, cut, mesh, *, window: int = 0, s
     l = all_reduce(w, "model", mesh)
     acc = all_reduce(w[..., None] * o, "model", mesh)
     return (acc / l[..., None]).to(q.dtype)
-
-
-def _cross_block_attention(q, ck, cv, cut, mesh):
-    """A cross layer's one-token attention of q (B_loc, H, D), whole, over
-    its fixed keys and values (B_loc, N, KV, D) as this rank's block, every
-    key visible, cut over 'model' along dimension ``cut`` → (B_loc, H, D):
-
-      None, 1  whole or along N: ``decode_attention_block``;
-      0        the rank's rows: the kernel on them, the outputs gathered;
-      3        the rank's slice of D: float32 partial scores summed over
-               'model', the softmax, and the rank's slice of the output
-               gathered along D (no kernel, as the reference has none)."""
-    if cut in (None, 1):
-        return decode_attention_block(q, ck, cv, ck.shape[1] * (mesh.get("model", 1) if cut else 1) - 1, cut, mesh)
-    r = mesh.coords["model"]
-    if cut == 0:
-        n = ck.shape[0]
-        return all_gather(decode_attention_kernel(q[r * n:(r + 1) * n], ck, cv, ck.shape[1] - 1), "model", mesh,
-                          dim=0)
-    if cut != 3:
-        raise ValueError(f"cross_decode_sharded: a cross cache cut along dimension {cut} over 'model' "
-                         f"(no sharded body reads it)")
-    B, H, D = q.shape
-    KV, Dl = ck.shape[2], ck.shape[3]
-    rep = H // KV
-    qg = q[..., r * Dl:(r + 1) * Dl].reshape(B, KV, rep, Dl)
-    s = all_reduce(torch.einsum("bgrd,bkgd->bgrk", qg.float(), ck.float()), "model", mesh) * D ** -0.5
-    warm_host_math(s)
-    p = torch.softmax(s, dim=-1).to(q.dtype)
-    o = torch.einsum("bgrk,bkgd->bgrd", p, cv.to(q.dtype)).reshape(B, H, Dl)
-    return all_gather(o, "model", mesh, dim=2)
 
 
 def _out_proj(wo, o, d: int, mesh, bspec):
@@ -527,21 +541,24 @@ def decode_attention_sharded(params, x_t: torch.Tensor, cache_k: torch.Tensor, c
     """Weight-stationary decode attention on this rank's blocks
     (``decode_attention_specs`` for the global batch ``batch``): x_t
     (B_loc, 1, d), the projections' blocks in ``params``, and this layer's
-    cache block of (B, S, KV, D), whole (``cut`` None) or cut along S over
-    'model' (``cut`` 1, the reference's layout: keys coordinate('model') ·
-    S_loc onward, of a ring its slots; any other cut raises). Writes the token's key and value into the
-    block that holds them, in place, and returns (out (B_loc, 1, d),
-    cache_k, cache_v).
+    cache block of (B, S, KV, D), linear or a ring, whole (``cut`` None) or
+    cut over 'model' along S (``cut`` 1: keys coordinate('model') · S_loc
+    onward, of a ring its slots), its rows (0) or D (3); a cut along the
+    kv heads raises. Writes the token's key and value into the block that
+    holds them (the slot's shard, the rank's rows, its slice of D), in
+    place, and returns (out (B_loc, 1, d), cache_k, cache_v).
 
     The projections' partial products are summed over the weights' 'data'
     shard of d and the heads gathered over 'model' (one-token rows only);
     the attention runs on the block (``decode_attention_block``: along S
     through the decode kernel's key-range entry and the ranks' (out, lse)
-    pairs combined), and wo row-parallel over the heads."""
+    pairs combined, along the rows through the kernel on the rank's rows,
+    along D on float32 partial scores), and wo row-parallel over the
+    heads."""
     mesh = current_mesh()
-    if cut not in (None, 1):
+    if cut not in (None, 0, 1, 3):
         raise ValueError(f"decode_attention_sharded: a self-attention cache cut along dimension {cut} over "
-                         f"'model' (no sharded body reads it; S is 1)")
+                         f"'model' (no sharded body reads it)")
     bspec = _decode_bspec(mesh, batch)
     Bl = _check_rows("decode_attention_sharded", mesh, batch, bspec, x_t, cache_k, cut)
     H, KV, D, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, cfg.d_model
@@ -573,9 +590,8 @@ def cross_decode_sharded(params, x_t: torch.Tensor, ck: torch.Tensor, cv: torch.
     """``cross_decode`` on this rank's blocks: x_t (B_loc, 1, d), wq and wo
     cut as ``decode_attention_specs`` reads them (heads over 'model'), and
     the cross layer's fixed keys and values (B, N, KV, D) as this rank's
-    block, cut over 'model' along dimension ``cut`` (``_cross_block_attention``:
-    along N through the key-range entry, along the rows or along D, every
-    key visible) → (B_loc, 1, d).
+    block, cut over 'model' along dimension ``cut`` (``decode_attention_block``
+    with N in place of S, every key visible) → (B_loc, 1, d).
     No rotary embedding, QK-norm or soft-cap, as the reference's cross
     decode has none."""
     mesh = current_mesh()
@@ -583,7 +599,8 @@ def cross_decode_sharded(params, x_t: torch.Tensor, ck: torch.Tensor, cv: torch.
     _check_rows("cross_decode_sharded", mesh, batch, bspec, x_t, ck, cut)
     H, d = cfg.num_heads, cfg.d_model
     q = _whole_heads(col_proj(x_t, [params["wq"]], d, mesh, bspec)[0], H, mesh)
-    o = _cross_block_attention(q[:, 0], ck, cv, cut, mesh)
+    N = ck.shape[1] * (mesh["model"] if cut == 1 else 1)
+    o = decode_attention_block(q[:, 0], ck, cv, N - 1, cut, mesh)              # every key visible
     cross_decode_sharded.calls += 1
     return _out_proj(params["wo"], o[:, None], d, mesh, bspec)
 

@@ -37,29 +37,36 @@ gathers a held block over 'data' (an expert count that does not divide
 over the EP axes, deepseek-v2's 160 at 16 × 16; ROADMAP Next 3):
 
   attention  ``attention.decode_attention_sharded``: the projections
-             weight-stationary, the cache read along S, where the rules
-             cut it (the decode kernel's key-range entry and the ranks'
-             (out, lse) pairs combined, whatever S/m is)
+             weight-stationary, the cache, linear or a ring, read where
+             the rules cut it: along S (the decode kernel's key-range
+             entry and the ranks' (out, lse) pairs combined, whatever S/m
+             is), along its rows (the kernel on the rank's rows, the
+             outputs gathered) or along D (float32 partial scores summed)
   cross      ``attention.cross_decode_sharded``: the same without a write,
-             every key visible (N cut: the key-range entry; rows over
-             'model': the rank's rows, gathered; D cut: float32 partial
-             scores summed)
+             every key visible, N in place of S
   MLP        ``attention.decode_mlp_sharded`` (the shared experts too)
-  MLA        ``mla.mla_decode_sharded`` on latent caches cut along S
+  MLA        ``mla.mla_decode_sharded`` on latent caches cut along S,
+             along their rows, or c_kv along its latent dimension with
+             k_rope along S, its rows or its rope dimension
   experts    ``moe.moe_gather_sharded``, the gather dispatch of the
              sharded batch on the held experts (the router's logits
              weight-stationary where its d is cut)
   RG-LRU     ``rglru.rglru_decode_sharded``, channel-parallel on the
-             rank's width block of ``h`` and ``conv``
+             rank's width block of ``h`` and ``conv``, or on its rows of
+             them
   Mamba-2    ``ssm.mamba_decode_sharded`` on the rank's blocks of ``conv``
              and ``state``
 
 A body reads the held blocks through views where its own specs
 (``decode_attention_specs``, ``decode_mlp_specs``, ``mla_decode_specs``)
-cut more than the rules (d over 'data' under TP-only serving). A layer
-whose blocks no body reads (a self-attention cache not cut along S, an
-MLA layer whose two latent caches are not both cut along S) raises,
-naming the layer and its blocks. Where ``REPRO_SHARDED_DECODE=0`` turns
+cut more than the rules (d over 'data' under TP-only serving). Which
+layouts the bodies read is one table, ``READS`` (``layout`` gives a
+layer's, ``reads`` decides, ``layouts`` lists a step's): every layout the
+rules give over the catalog is there, and a layer laid out otherwise
+raises, naming the layer and its blocks. Where the rules cut the RG-LRU's
+or Mamba-2's conv cache along its rows and its filter by channels, the
+filter's blocks (conv width × channels/m) are gathered over 'model', the
+one parameter block a decode body moves. Where ``REPRO_SHARDED_DECODE=0`` turns
 the sharded bodies off, every layer gathers its blocks at use, runs the
 one-device layer on the rank's rows and writes its cache blocks back
 (``gathered_layer.calls`` counts them). The embedding and the
@@ -74,6 +81,7 @@ and ``attention.mlp_sharded`` on the rank's blocks).
 """
 from __future__ import annotations
 
+import collections
 import math
 from typing import Any
 
@@ -91,7 +99,8 @@ from .moe import moe_gather_sharded
 from .rglru import init_rglru_state, rglru_decode, rglru_decode_sharded
 from .ssm import init_mamba_cache, mamba_decode, mamba_decode_sharded
 
-__all__ = ["init_cache", "decode_step", "cache_blocks", "param_blocks", "layer_specs", "gathered_layer"]
+__all__ = ["init_cache", "decode_step", "cache_blocks", "param_blocks", "layer_specs", "gathered_layer", "layouts",
+           "reads"]
 
 
 def _pattern_period(cfg: ModelConfig) -> tuple[int, str]:
@@ -170,9 +179,6 @@ def _rec_block(ops, p, prefix: str, x, h, conv, cfg: ModelConfig, cuts):
 class _OneDevice:
     """The step's layers on one device (no placed mesh): the reference's."""
 
-    def cut(self, name: str, lead: int):
-        return None
-
     def attention(self, p, prefix, h, kc, vc, pos, cfg, cut, *, is_global, ring):
         return decode_attention(p, h, kc, vc, pos, cfg, is_global=is_global, ring=ring)[0]
 
@@ -228,29 +234,111 @@ def layer_specs(specs: dict) -> dict:
     return out
 
 
+# The layouts the sharded bodies read: a layer kind → its layouts, each the
+# dimensions along which the layer's blocks are cut over 'model' (None: not
+# cut, or a 'model' axis of one rank), as ``layout`` gives them. Every layout
+# that ``runtime.sharding``'s rules give over the catalog is here
+# (tests/test_torch_decode_layouts.py sweeps them); any other raises.
+_CACHE_CUTS = {(None,), (0,), (1,), (3,)}          # whole, its rows, S (N), D
+READS = {
+    "self": _CACHE_CUTS,                            # a self-attention cache, linear or a ring
+    "cross": _CACHE_CUTS,                           # a cross cache
+    # (c_kv's, k_rope's): both whole, along the rows or along S; c_kv along its latent dimension with
+    # k_rope along the rows, S or its rope dimension
+    "mla": {(None, None), (0, 0), (1, 1), (2, 0), (2, 1), (2, 2)},
+    # (w_x's, h's, conv's): nothing cut; the gates' columns with h and conv by channels or by rows
+    "rglru": {(None, None, None), (1, 1, 2), (1, 0, 0)},
+    # (conv_w's, conv's, state's): the conv cache whole or by rows with the filter whole, by channels or by
+    # rows with the filter cut by channels; the state whole or by rows, heads or its N-block
+    "mamba": {(f, c, st) for f, c in ((None, None), (None, 0), (1, 2), (1, 0)) for st in (None, 0, 1, 3)},
+}
+# the parameter whose cut decides a layer's body, after which its caches' cuts follow
+_LEAD_PARAM = {"rglru": "w_x", "mamba": "conv_w"}
+
+
+def layout(kind: str, cuts: tuple, held: dict, mesh) -> tuple:
+    """A layer's layout: ``cuts``, its caches' dimensions cut over 'model',
+    after the cut of the parameter that decides its body (``_LEAD_PARAM``)
+    among ``held``, the layer's parameters' specs."""
+    name = _LEAD_PARAM.get(kind)
+    return tuple(cuts) if name is None else (_model_dim(held[name], mesh), *cuts)
+
+
+def reads(kind: str, lay: tuple) -> bool:
+    """Whether a sharded body reads a layer of ``kind`` ('self', 'cross',
+    'mla', 'rglru', 'mamba') laid out as ``lay`` (``layout``)."""
+    return tuple(lay) in READS[kind]
+
+
+def cache_cuts(cfg: ModelConfig, cache_specs: dict, mesh) -> dict:
+    """Each group of layers of ``cfg``'s decode step → the dimensions along
+    which a layer's blocks of its caches are cut over 'model' (None: not
+    cut), by the caches' specs ``cache_specs`` (``cache_blocks``): 'local'
+    and 'global' (dense layers with rings) or 'self', and 'cross' (the
+    key's cache), 'dense' and 'moe' (MLA: c_kv's, k_rope's), 'mamba'
+    (conv's, state's), 'rec' and 'extra' (the RG-LRU's h's, conv's),
+    'ring'."""
+    def cut(name: str):
+        spec = cache_specs
+        for key in name.split("/"):
+            spec = spec[key]
+        return _model_dim(spec[_lead_axes(cfg, name.split("/")[-1]):], mesh)
+
+    fam = cfg.family
+    if fam == "dense":
+        if _uses_rings(cfg):
+            return {"local": (cut("local_k"),), "global": (cut("global_k"),)}
+        return {"self": (cut("k"),)}
+    if fam in ("vlm", "encdec"):
+        return {"self": (cut("k"),), "cross": (cut("cross_k"),)}
+    if fam == "moe":
+        return {part: (cut(f"{part}/c_kv"), cut(f"{part}/k_rope")) for part in cache_specs}
+    if fam == "ssm":
+        return {"mamba": (cut("conv"), cut("state"))}
+    if fam == "hybrid":
+        out = {"rec": (cut("h"), cut("conv")), "ring": (cut("ring_k"),)}
+        if "extra_h" in cache_specs:
+            out["extra"] = (cut("extra_h"), cut("extra_conv"))
+        return out
+    raise ValueError(fam)
+
+
+# each group of ``cache_cuts`` → (its layers' kind, the prefix of its first layer's parameters)
+_GROUPS = {"local": ("self", None), "global": ("self", None), "self": ("self", None), "ring": ("self", None),
+           "cross": ("cross", None), "dense": ("mla", None), "moe": ("mla", None), "mamba": ("mamba", "blocks.0.mix"),
+           "rec": ("rglru", "rec_blocks.0.0.mix"), "extra": ("rglru", "extra_rec.0.mix")}
+
+
+def layouts(cfg: ModelConfig, cache_specs: dict, layers: dict, mesh) -> dict:
+    """Each group of layers of ``cfg``'s decode step → (its kind, its
+    layout) under ``mesh`` (a placed mesh or a shape), by the caches' specs
+    (``cache_blocks``) and the parameters' grouped by layer (``layers``,
+    ``layer_specs`` of ``param_blocks``), as the step's ``_Rank`` lays each
+    layer out."""
+    out = {}
+    for group, cuts in cache_cuts(cfg, cache_specs, mesh).items():
+        kind, prefix = _GROUPS[group]
+        out[group] = (kind, layout(kind, cuts, layers.get(prefix, {}), mesh))
+    return out
+
+
 class _Rank:
     """The step's layers on this rank's blocks under a placed mesh: the
     global ``batch``, every parameter's spec (``param_blocks``, grouped by
-    layer in ``layers``, ``layer_specs``) and the caches' (``cache_blocks``,
-    the cache tree's structure). A layout that no sharded body reads
-    raises, naming the layer."""
+    layer in ``layers``, ``layer_specs``). A layout that no sharded body
+    reads (``reads``) raises, naming the layer."""
 
-    def __init__(self, mesh, batch: int, layers: dict, cache_specs: dict):
-        self.mesh, self.batch, self.layers, self.cache_specs = mesh, batch, layers, cache_specs
+    def __init__(self, mesh, batch: int, layers: dict):
+        self.mesh, self.batch, self.layers = mesh, batch, layers
         self.bspec = _decode_bspec(mesh, batch)
         self.sharded = sharded_decode_on()
 
-    def cut(self, name: str, lead: int):
-        """The dimension of one layer's block of cache ``name`` ('/' for a
-        nested one) cut over 'model', its ``lead`` stacked axes dropped."""
-        spec = self.cache_specs
-        for key in name.split("/"):
-            spec = spec[key]
-        return _model_dim(spec[lead:], self.mesh)
-
-    def _refuse(self, prefix: str, cuts):
-        raise ValueError(f"decode under {dict(self.mesh)}: {prefix}'s blocks {self.layers[prefix]} and caches cut "
-                         f"over 'model' along {cuts}: no sharded body reads this layout")
+    def _check(self, prefix: str, kind: str, cuts) -> None:
+        """Raises where the sharded bodies are on and none reads the layer's
+        layout."""
+        if self.sharded and not reads(kind, layout(kind, cuts, self.layers[prefix], self.mesh)):
+            raise ValueError(f"decode under {dict(self.mesh)}: {prefix}'s blocks {self.layers[prefix]} and caches "
+                             f"cut over 'model' along {tuple(cuts)}: no sharded body reads this layout")
 
     def _views(self, p, prefix: str, body: dict) -> dict:
         held = self.layers[prefix]
@@ -260,6 +348,7 @@ class _Rank:
         return gathered_layer(fn, dict(p.items()), self.layers[prefix], caches, self.mesh)
 
     def attention(self, p, prefix, h, kc, vc, pos, cfg, cut, *, is_global, ring):
+        self._check(prefix, "self", (cut,))
         if not self.sharded:
             return self._gathered(lambda w, k, v: decode_attention(w, h, k, v, pos, cfg, is_global=is_global,
                                                                    ring=ring)[0], p, prefix, [(kc, cut), (vc, cut)])
@@ -268,6 +357,7 @@ class _Rank:
                                         cut=cut)[0]
 
     def cross(self, p, prefix, h, ck, cv, cfg, cut):
+        self._check(prefix, "cross", (cut,))
         if not self.sharded:
             return self._gathered(lambda w, k, v: cross_decode(w, h, k, v, cfg), p, prefix, [(ck, cut), (cv, cut)])
         w = self._views(p, prefix, decode_attention_specs(cfg, self.mesh, self.batch))
@@ -280,15 +370,14 @@ class _Rank:
         return decode_mlp_sharded(w, h, cfg, batch=self.batch, kind=kind, d_ff=d_ff)
 
     def mla(self, p, prefix, h, c_kv, k_rope, pos, cfg, cuts):
-        """On latent caches both cut along S (or a 'model' axis of one rank):
-        ``c_kv`` and ``k_rope`` are cut by their own specs."""
+        """On latent caches ``c_kv`` and ``k_rope`` each cut by its own spec
+        (``mla.mla_decode_sharded``)."""
+        self._check(prefix, "mla", cuts)
         if not self.sharded:
             return self._gathered(lambda w, c, r: mla_decode(w, h, c, r, pos, cfg)[0], p, prefix,
                                   [(c_kv, cuts[0]), (k_rope, cuts[1])])
-        if cuts != (1, 1) and self.mesh.get("model", 1) > 1:
-            self._refuse(prefix, cuts)
         w = self._views(p, prefix, mla_decode_specs(cfg, self.mesh, self.batch))
-        return mla_decode_sharded(w, h, c_kv, k_rope, pos, cfg, batch=self.batch)[0]
+        return mla_decode_sharded(w, h, c_kv, k_rope, pos, cfg, batch=self.batch, cuts=cuts)[0]
 
     def ffn(self, blk, prefix, h, cfg):
         """An MLA block's second half: its dense MLP, or the routed experts'
@@ -307,26 +396,23 @@ class _Rank:
                             d_ff=cfg.moe_d_ff * cfg.num_shared_experts)
 
     def rglru(self, p, prefix, h, hc, conv, cfg, cuts):
-        """Channel-parallel where the rules cut the width (h and conv along
-        it, the gates' columns with them) or nothing over 'model'."""
+        """Channel-parallel where the rules cut the width (the gates'
+        columns, and h and conv along it or along their rows) or nothing
+        over 'model'."""
+        self._check(prefix, "rglru", cuts)
         if not self.sharded:
             return self._gathered(lambda w, s, c: rglru_decode(w, h, s, c, cfg)[0], p, prefix,
                                   [(hc, cuts[0]), (conv, cuts[1])])
-        channels = _model_dim(self.layers[prefix]["w_x"], self.mesh) == 1
-        if (channels, *cuts) not in ((True, 1, 2), (False, None, None)):
-            self._refuse(prefix, cuts)
-        return rglru_decode_sharded(p, h, hc, conv, cfg, self.mesh, batch=self.batch)
+        return rglru_decode_sharded(p, h, hc, conv, cfg, self.mesh, batch=self.batch, rows=cuts[0] == 0)
 
     def mamba(self, p, prefix, h, conv, state, cfg, cuts):
-        """On the rank's blocks of conv (its channels, or its rows where
-        conv_w is whole) and state (its rows, heads or N-block)."""
+        """On the rank's blocks of conv (its channels or its rows) and state
+        (its rows, heads or N-block)."""
+        self._check(prefix, "mamba", cuts)
         conv_cut, state_cut = cuts
         if not self.sharded:
             return self._gathered(lambda w, c, s: mamba_decode(w, h, c, s, cfg)[0], p, prefix,
                                   [(conv, conv_cut), (state, state_cut)])
-        conv_w_cut = _model_dim(self.layers[prefix]["conv_w"], self.mesh) is not None
-        if not (conv_cut == 2 or (conv_cut in (None, 0) and not conv_w_cut)) or state_cut not in (None, 0, 1, 3):
-            self._refuse(prefix, cuts)
         return mamba_decode_sharded(p, h, conv, state, cfg, self.mesh, batch=self.batch, conv_cut=conv_cut,
                                     state_cut=state_cut)
 
@@ -341,20 +427,21 @@ def _lead_axes(cfg: ModelConfig, name: str) -> int:
     return 2 if name in two.get(cfg.family, ()) else 1
 
 
-def cache_blocks(lm, batch: int, max_len: int, *, frames: int | None = None) -> dict:
+def cache_blocks(lm, batch: int, max_len: int, *, frames: int | None = None, mesh=None, abstract=None) -> dict:
     """The spec of a rank's block of every cache ``init_cache`` allocates
-    under the current (placed) mesh for the global batch ``batch`` (the
-    cache tree's structure): ``runtime.sharding.cache_spec`` of each leaf of
-    ``runtime.serve.abstract_cache(lm, batch, max_len, frames=frames)``
-    (encdec's cross caches over ``frames`` audio frames, max_len by
-    default), the reference's ``cache_specs`` but for its batch dimension:
+    under the current (placed) mesh, or under ``mesh`` (a shape will do),
+    for the global batch ``batch`` (the cache tree's structure):
+    ``runtime.sharding.cache_spec`` of each leaf of ``abstract``, by
+    default ``runtime.serve.abstract_cache(lm, batch, max_len,
+    frames=frames)`` (encdec's cross caches over ``frames`` audio frames,
+    max_len by default), the reference's ``cache_specs`` but for its batch dimension:
     the leaf's own, after its stacked layer axes, where the reference
     would take a stacked axis as long as the batch (ROADMAP C13; the same
     bytes, since the two are as long)."""
     from ..runtime.serve import abstract_cache          # runtime imports the models
     from ..runtime.sharding import cache_spec
 
-    mesh = _placed_mesh()
+    mesh = _placed_mesh() if mesh is None else mesh
     if mesh is None:
         raise ValueError("cache_blocks: no placed mesh is current (launch.mesh.make_mesh, pspec.logical_axis_rules)")
     cfg = lm.cfg
@@ -363,7 +450,7 @@ def cache_blocks(lm, batch: int, max_len: int, *, frames: int | None = None) -> 
         return cache_spec(mesh, t.shape, batch, _lead_axes(cfg, name))
 
     return {k: ({n: spec(n, t) for n, t in v.items()} if isinstance(v, dict) else spec(k, v))
-            for k, v in abstract_cache(lm, batch, max_len, frames=frames).items()}
+            for k, v in (abstract or abstract_cache(lm, batch, max_len, frames=frames)).items()}
 
 
 def param_blocks(lm) -> dict:
@@ -584,7 +671,8 @@ def decode_step(lm, tokens_t: torch.Tensor, cache: dict, pos: int, *, batch: int
         if tokens_t.shape[0] != _rows(mesh, batch, _decode_bspec(mesh, batch)):
             raise ValueError(f"decode_step: {tokens_t.shape[0]} rows of tokens for a global batch {batch} over "
                              f"{_decode_bspec(mesh, batch)}")
-        ops = _Rank(mesh, batch, layer_specs(specs) if layers is None else layers, cache_specs)
+        ops = _Rank(mesh, batch, layer_specs(specs) if layers is None else layers)
+    cuts = collections.defaultdict(lambda: (None, None)) if mesh is None else cache_cuts(cfg, cache_specs, mesh)
     x = lm._embed(tokens_t) if mesh is None else _lookup(lm, tokens_t, mesh, batch, specs)
     if fam == "dense":
         blocks = lm.blocks
@@ -595,19 +683,19 @@ def decode_step(lm, tokens_t: torch.Tensor, cache: dict, pos: int, *, batch: int
                      ("global", [i for i, c in enumerate(pat) if c == "G"], True))
             for p in range(n_p):
                 for kind, idx, is_global in kinds:
-                    cut = ops.cut(f"{kind}_k", 2)
+                    cut = cuts[kind][0]
                     for n, i in enumerate(idx):
                         j = p * period + i
                         x = _attn_block(ops, blocks[j], f"blocks.{j}", x, cache[f"{kind}_k"][p, n],
                                         cache[f"{kind}_v"][p, n], pos, cfg, cut, is_global=is_global,
                                         ring=not is_global)
         else:
-            cut = ops.cut("k", 1)
+            cut = cuts["self"][0]
             for i, blk in enumerate(blocks):
                 x = _attn_block(ops, blk, f"blocks.{i}", x, cache["k"][i], cache["v"][i], pos, cfg, cut,
                                 is_global=True, ring=False)
     elif fam == "vlm":
-        cut, cross = ops.cut("k", 2), ops.cut("cross_k", 1)
+        cut, cross = cuts["self"][0], cuts["cross"][0]
         for p, (selfs, xblk) in enumerate(zip(lm.self_blocks, lm.cross_blocks)):
             for j, blk in enumerate(selfs):
                 x = _attn_block(ops, blk, f"self_blocks.{p}.{j}", x, cache["k"][p, j], cache["v"][p, j], pos, cfg,
@@ -617,29 +705,26 @@ def decode_step(lm, tokens_t: torch.Tensor, cache: dict, pos: int, *, batch: int
         for part, name in (("dense", "dense_blocks"), ("moe", "moe_blocks")):
             if part not in cache:
                 continue
-            cuts = (ops.cut(f"{part}/c_kv", 1), ops.cut(f"{part}/k_rope", 1))
             for i, blk in enumerate(getattr(lm, name)):
                 x = _mla_block(ops, blk, f"{name}.{i}", x, cache[part]["c_kv"][i], cache[part]["k_rope"][i], pos,
-                               cfg, cuts)
+                               cfg, cuts[part])
     elif fam == "ssm":
-        cuts = (ops.cut("conv", 1), ops.cut("state", 1))
         for i, blk in enumerate(lm.blocks):
             x = x + ops.mamba(blk.mix, f"blocks.{i}.mix", rms_norm(x, blk.ln), cache["conv"][i], cache["state"][i],
-                              cfg, cuts)
+                              cfg, cuts["mamba"])
     elif fam == "hybrid":
-        cuts, ring = (ops.cut("h", 2), ops.cut("conv", 2)), ops.cut("ring_k", 1)
+        ring = cuts["ring"][0]
         for p, (recs, attn) in enumerate(zip(lm.rec_blocks, lm.attn_blocks)):
             for j, blk in enumerate(recs):
-                x = _rec_block(ops, blk, f"rec_blocks.{p}.{j}", x, cache["h"][p, j], cache["conv"][p, j], cfg, cuts)
+                x = _rec_block(ops, blk, f"rec_blocks.{p}.{j}", x, cache["h"][p, j], cache["conv"][p, j], cfg,
+                               cuts["rec"])
             x = _attn_block(ops, attn, f"attn_blocks.{p}", x, cache["ring_k"][p], cache["ring_v"][p], pos, cfg, ring,
                             is_global=False, ring=True)
-        extra = getattr(lm, "extra_rec", ())
-        if extra:
-            cuts = (ops.cut("extra_h", 1), ops.cut("extra_conv", 1))
-        for i, blk in enumerate(extra):
-            x = _rec_block(ops, blk, f"extra_rec.{i}", x, cache["extra_h"][i], cache["extra_conv"][i], cfg, cuts)
+        for i, blk in enumerate(getattr(lm, "extra_rec", ())):
+            x = _rec_block(ops, blk, f"extra_rec.{i}", x, cache["extra_h"][i], cache["extra_conv"][i], cfg,
+                           cuts["extra"])
     elif fam == "encdec":
-        cut, cross = ops.cut("k", 1), ops.cut("cross_k", 1)
+        cut, cross = cuts["self"][0], cuts["cross"][0]
         for i, (self_blk, xblk) in enumerate(zip(lm.dec_self, lm.dec_cross)):
             x = _attn_block(ops, self_blk, f"dec_self.{i}", x, cache["k"][i], cache["v"][i], pos, cfg, cut,
                             is_global=True, ring=False)

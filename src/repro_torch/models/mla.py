@@ -17,16 +17,19 @@ reference reaches no Pallas kernel there either.
 
 ``mla_decode_sharded`` is the reference's weight-stationary,
 sequence-parallel form of that decode on a rank's blocks under a placed
-mesh (``mla_decode_specs``): the latent cache sharded over 'model' along
-S, projections summed over 'data', W^UK and W^UV applied on the rank's
-heads of wkv_b where they stay (the absorbed queries gathered over
-'model', one token a row), the shards' softmax states combined by a max
-and two sums.
+mesh (``mla_decode_specs``): projections summed over 'data', W^UK and
+W^UV applied on the rank's heads of wkv_b where they stay (the absorbed
+queries gathered over 'model', one token a row), and the latent caches
+read where the rules cut them over 'model': both along S, the shards'
+softmax states combined by a max and two sums; both along the rows, the
+rank's rows whole; c_kv along its latent dimension (max_len under 512 at
+the published rank) with k_rope along S, its rows or its rope dimension,
+each cache's share of the float32 scores summed over 'model'.
 Its products are the reference's stock ones (the 576-wide latent key is no
 instance of the decode kernel). The reference's moe decode does not call
 it (its decode.py keeps the absorbed single-device form under XLA's
 partitioner: "refuted"); the port's decode step under a placed mesh does
-(``models.decode``) wherever the rules cut its caches along S.
+(``models.decode``) wherever the rules cut its caches.
 
 ``mla_sharded`` is the full-sequence MLA of training and prefill on a
 rank's rows and its blocks under a mesh (``runtime.sharding.param_specs``'
@@ -43,7 +46,7 @@ from torch import nn
 
 from .._device import warm_host_math
 from ..launch.mesh import all_gather, all_reduce, gather_dims
-from .attention import _attend, _decode_bspec, _rows, col_proj, current_mesh, row_proj
+from .attention import _attend, _decode_bspec, _rows, _write_block, col_proj, current_mesh, row_proj
 from .common import ModelConfig
 from .layers import init_linear_, linear, rms_norm, rope, row_parallel
 
@@ -217,23 +220,59 @@ def mla_decode_specs(cfg: ModelConfig, mesh, B: int) -> dict:
     return specs
 
 
+def _score_share(q: torch.Tensor, cache: torch.Tensor, cut, S: int, mesh) -> torch.Tensor:
+    """This rank's share of the float32 scores (B_loc, H, 1, S) of the
+    queries q (B_loc, 1, H, c) against a latent cache (B, S, c) held as
+    the rank's block cut over 'model' along ``cut``: the sum of the shares
+    over 'model' is the scores. Along c a partial product on the rank's
+    slice; along S or the rows the rank's block of the scores in zeros
+    elsewhere."""
+    r = mesh.coords["model"]
+    if cut == 2:
+        c = cache.shape[2]
+        return torch.einsum("bqhr,bkr->bhqk", q[..., r * c:(r + 1) * c].float(), cache.float())
+    share = q.new_zeros((q.shape[0], q.shape[2], 1, S), dtype=torch.float32)
+    if cut == 1:
+        n = cache.shape[1]
+        share[..., r * n:(r + 1) * n] = torch.einsum("bqhr,bkr->bhqk", q.float(), cache.float())
+    else:
+        n = cache.shape[0]
+        share[r * n:(r + 1) * n] = torch.einsum("bqhr,bkr->bhqk", q[r * n:(r + 1) * n].float(), cache.float())
+    return share
+
+
 def mla_decode_sharded(params, x_t: torch.Tensor, c_kv_cache: torch.Tensor, k_rope_cache: torch.Tensor, pos: int,
-                       cfg: ModelConfig, *, batch: int):
+                       cfg: ModelConfig, *, batch: int, cuts: tuple = (1, 1)):
     """One token in the absorbed form on this rank's blocks
     (``mla_decode_specs`` for the global batch ``batch``): x_t (B_loc, 1, d)
-    and this layer's latent cache shards c_kv (B_loc, S_loc, rkv) and
-    k_rope (B_loc, S_loc, dr), positions coordinate('model') · S_loc
-    onward. Writes the token's latent and rotary key on the shard that
-    owns row ``pos`` and returns (out (B_loc, 1, d), c_kv_cache,
-    k_rope_cache)."""
+    and this layer's latent caches c_kv (B, S, rkv) and k_rope (B, S, dr),
+    each held as the rank's block of its rows, cut over 'model' along the
+    dimension ``cuts`` gives for it (c_kv's, k_rope's; None: whole, 0 the
+    rows, 1 S, 2 the latent or rope dimension). Writes the token's latent
+    and rotary key into the blocks that hold them (the shard that owns row
+    ``pos``, the rank's rows, its slice) and returns (out (B_loc, 1, d),
+    c_kv_cache, k_rope_cache).
+
+    Both cut along S (the reference's layout): each shard's scores over
+    its keys and the shards' softmax states combined by a max and two
+    sums. Both along the rows: the rank's rows whole, their latents
+    gathered. c_kv whole or along r: each cache's share of the float32
+    scores (``_score_share``) summed over 'model', one softmax, and the
+    latent of the rank's slice of r gathered. Any other pair raises. W^UV
+    is applied on the rank's heads of wkv_b."""
     mesh = current_mesh()
     bspec = _decode_bspec(mesh, batch)
-    Bl, S_loc = c_kv_cache.shape[0], c_kv_cache.shape[1]
-    if Bl != _rows(mesh, batch, bspec) or x_t.shape[0] != Bl:
-        raise ValueError(f"mla_decode_sharded: rows {x_t.shape[0]} and a cache of {Bl} rows, for a global batch "
-                         f"{batch} over {bspec}")
-    if not 0 <= pos < S_loc * mesh["model"]:
-        raise ValueError(f"mla_decode_sharded: pos {pos} outside a cache of {S_loc * mesh['model']}")
+    Bl, m = _rows(mesh, batch, bspec), mesh.get("model", 1)
+    c_cut, r_cut = cuts
+    for cache, cut in ((c_kv_cache, c_cut), (k_rope_cache, r_cut)):
+        if x_t.shape[0] != Bl or cache.shape[0] != (Bl // m if cut == 0 else Bl):
+            raise ValueError(f"mla_decode_sharded: rows {x_t.shape[0]} and a cache of {cache.shape[0]} rows cut "
+                             f"along {cut}, for a global batch {batch} over {bspec}")
+    if cuts not in ((1, 1), (0, 0)) and c_cut not in (None, 2):
+        raise ValueError(f"mla_decode_sharded: latent caches cut along {cuts} over 'model' (no body reads them)")
+    S = c_kv_cache.shape[1] * (m if c_cut == 1 else 1)
+    if not 0 <= pos < S:
+        raise ValueError(f"mla_decode_sharded: pos {pos} outside a cache of {S}")
     d, H = cfg.d_model, cfg.num_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     rkv, rq = cfg.kv_lora_rank, cfg.q_lora_rank
@@ -250,31 +289,55 @@ def mla_decode_sharded(params, x_t: torch.Tensor, c_kv_cache: torch.Tensor, k_ro
     qn, qr = q[..., :dn], rope(q[..., dn:], posb, cfg.rope_theta)
     c_t = rms_norm(kv_a[..., :rkv], params["kv_norm"])
     kr_t = rope(kv_a[..., rkv:], posb, cfg.rope_theta)
-    # the single-row write, on the shard that owns row pos
-    start = mesh.coords["model"] * S_loc
-    slot = pos - start
-    if 0 <= slot < S_loc:
-        c_kv_cache[:, slot] = c_t[:, 0].to(c_kv_cache.dtype)
-        k_rope_cache[:, slot] = kr_t[:, 0].to(k_rope_cache.dtype)
+    # the single-row write, into the blocks that hold row pos (along S only the shard that owns it)
+    for cache, t, cut in ((c_kv_cache, c_t, c_cut), (k_rope_cache, kr_t, r_cut)):
+        if cut != 1 or 0 <= pos - mesh.coords["model"] * cache.shape[1] < cache.shape[1]:
+            _write_block(cache, t[:, 0], pos, cut, mesh)
     # W^UK absorbed on the rank's heads of wkv_b; the absorbed and rotary queries gathered over 'model'
     wkb = params["wkv_b"]                                         # (rkv, H_loc, dn + dv)
     qa = torch.cat([torch.einsum("bqhc,rhc->bqhr", qn, wkb[..., :dn]), qr], dim=-1)
     if H_loc != H:
         qa = all_gather(qa, "model", mesh, dim=2)
     q_abs, qr = qa[..., :rkv], qa[..., rkv:]
-    # absorbed attention over this shard's latents
-    s = (torch.einsum("bqhr,bkr->bhqk", q_abs, c_kv_cache)
-         + torch.einsum("bqhc,bkc->bhqk", qr, k_rope_cache)).float() * ((dn + dr) ** -0.5)
-    valid = start + torch.arange(S_loc, device=x_t.device) <= pos
-    s = torch.where(valid, s, torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
-    warm_host_math(s)
-    M = all_reduce(s.amax(dim=-1), "model", mesh, op="max")       # (B_loc, H, 1)
-    p = torch.exp(s - M[..., None])
-    l = all_reduce(p.sum(dim=-1), "model", mesh)
-    # the probabilities normalised by the global sum and rounded to the cache's type, as the one-device
-    # decode's softmax is; each shard's latent sum kept in float32, rounded once after the sum over 'model'
-    p = (p / torch.clamp(l, min=1e-30)[..., None]).to(c_kv_cache.dtype)
-    lat = all_reduce(torch.einsum("bhqk,bkr->bqhr", p.float(), c_kv_cache.float()), "model", mesh).to(x_t.dtype)
+    scale = (dn + dr) ** -0.5
+    if cuts == (1, 1):
+        # absorbed attention over this shard's latents
+        S_loc = c_kv_cache.shape[1]
+        start = mesh.coords["model"] * S_loc
+        s = (torch.einsum("bqhr,bkr->bhqk", q_abs, c_kv_cache)
+             + torch.einsum("bqhc,bkc->bhqk", qr, k_rope_cache)).float() * scale
+        valid = start + torch.arange(S_loc, device=x_t.device) <= pos
+        s = torch.where(valid, s, torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
+        warm_host_math(s)
+        M = all_reduce(s.amax(dim=-1), "model", mesh, op="max")       # (B_loc, H, 1)
+        p = torch.exp(s - M[..., None])
+        l = all_reduce(p.sum(dim=-1), "model", mesh)
+        # the probabilities normalised by the global sum and rounded to the cache's type, as the one-device
+        # decode's softmax is; each shard's latent sum kept in float32, rounded once after the sum over 'model'
+        p = (p / torch.clamp(l, min=1e-30)[..., None]).to(c_kv_cache.dtype)
+        lat = all_reduce(torch.einsum("bhqk,bkr->bqhr", p.float(), c_kv_cache.float()), "model", mesh).to(x_t.dtype)
+    elif cuts == (0, 0):
+        # the rank's rows whole, as the one-device decode reads them
+        n = c_kv_cache.shape[0]
+        rows = slice(mesh.coords["model"] * n, (mesh.coords["model"] + 1) * n)
+        s = (torch.einsum("bqhr,bkr->bhqk", q_abs[rows], c_kv_cache)
+             + torch.einsum("bqhc,bkc->bhqk", qr[rows], k_rope_cache)).float() * scale
+        valid = torch.arange(S, device=x_t.device) <= pos
+        warm_host_math(s)
+        p = torch.softmax(s.masked_fill(~valid, NEG_INF), dim=-1).to(x_t.dtype)
+        lat = all_gather(torch.einsum("bhqk,bkr->bqhr", p, c_kv_cache), "model", mesh, dim=0)
+    else:
+        shares = [(q_abs, c_kv_cache, c_cut), (qr, k_rope_cache, r_cut)]
+        parts = [_score_share(qp, c, cut, S, mesh) for qp, c, cut in shares if cut is not None]
+        s = all_reduce(sum(parts), "model", mesh) if parts else 0
+        s = (s + sum(torch.einsum("bqhr,bkr->bhqk", qp.float(), c.float()) for qp, c, cut in shares if cut is None)
+             ) * scale
+        valid = torch.arange(S, device=x_t.device) <= pos
+        warm_host_math(s)
+        p = torch.softmax(s.masked_fill(~valid, NEG_INF), dim=-1).to(x_t.dtype)
+        lat = torch.einsum("bhqk,bkr->bqhr", p, c_kv_cache)
+        if c_cut == 2:                                            # the rank's slice of r, gathered
+            lat = all_gather(lat, "model", mesh, dim=3)
     out = torch.einsum("bqhr,rhv->bqhv", lat[:, :, h0:h0 + H_loc], wkb[..., dn:])   # W^UV on the rank's heads
     # output projection: the rank's heads of wo row-parallel (weight-stationary)
     y = row_proj(out.reshape(Bl, 1, H_loc * dv), params["wo"].reshape(H_loc * dv, -1), d, mesh, bspec,

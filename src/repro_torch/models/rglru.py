@@ -25,7 +25,9 @@ under a placed mesh (``models.decode``): the rank's width block of the
 ``h`` and ``conv`` caches, where the rules cut them, with the same
 columns of the gates' weights; only the rank's (B, 1, w/m) conv output,
 gathered for w_r and w_i, and the row-parallel output's float32 partial
-sums move.
+sums move. Where the rules cut the caches along their rows instead (a
+batch wider than the width), the rank updates its rows of every channel
+and gathers the one-token activations between the two cuts.
 """
 from __future__ import annotations
 
@@ -175,33 +177,56 @@ def rglru_decode(params, x_t: torch.Tensor, h: torch.Tensor, conv_cache: torch.T
 
 
 def rglru_decode_sharded(params, x_t: torch.Tensor, h: torch.Tensor, conv_cache: torch.Tensor, cfg: ModelConfig,
-                         mesh, *, batch: int):
+                         mesh, *, batch: int, rows: bool = False):
     """``rglru_decode`` channel-parallel on this rank's blocks: x_t
     (B_loc, 1, d) its rows of the global batch ``batch``; ``params`` its
     w_loc columns of w_x, w_gate, conv_w, w_r and w_i and rows of out (d
     whole, or cut over 'data': weight-stationary, ``attention.col_proj``),
     conv_b and lam whole; h (B_loc, w_loc) and conv_cache (B_loc, 3, w_loc)
-    the same channels (w_loc = w where nothing is cut). The recurrence is
-    elementwise over the width: the rank convolves, gates and updates its
-    channels in place, from the whole conv output gathered over 'model'
-    for w_r and w_i, and the output's row-parallel partial sums are summed
-    over 'model' → (B_loc, 1, d)."""
+    the same channels (w_loc = w where nothing is cut), or with ``rows``
+    the rank's B_loc/m rows of them over 'model', every channel. The
+    recurrence is elementwise over the width: the rank convolves, gates
+    and updates its channels in place, from the whole conv output
+    gathered over 'model' for w_r and w_i, and the output's row-parallel
+    partial sums are summed over 'model' → (B_loc, 1, d).
+
+    With ``rows`` the rank convolves and updates its rows of every
+    channel: the one-token input, gates and state are regathered between
+    its rows and its channels, and the conv filter's (4, w_loc) blocks are
+    gathered over 'model', the one parameter block that moves."""
     rglru_decode_sharded.calls += 1
     bspec = _decode_bspec(mesh, batch)
-    d, w, wl = cfg.d_model, cfg.lru_width_, h.shape[-1]
+    d, w, wl = cfg.d_model, cfg.lru_width_, params["w_x"].shape[-1]
     c0 = mesh.coords["model"] * wl if wl != w else 0
     c = slice(c0, c0 + wl)
+
+    def widen(t):                                         # the rank's channels → every channel
+        return t if wl == w else all_gather(t, "model", mesh, dim=2)
+
     xw_t, g = col_proj(x_t, [params["w_x"], params["w_gate"]], d, mesh, bspec)      # (B_loc, 1, w_loc)
+    own = slice(None)
+    conv_w, conv_b = params["conv_w"], params["conv_b"][c]
+    if rows:
+        n = h.shape[0]
+        own = slice(mesh.coords["model"] * n, (mesh.coords["model"] + 1) * n)
+        xw_t, conv_b = widen(xw_t)[own], params["conv_b"]
+        conv_w = conv_w if wl == w else all_gather(conv_w, "model", mesh, dim=1)
     hist = torch.cat([conv_cache, xw_t.to(conv_cache.dtype)], dim=1)
-    xw = (torch.einsum("bwc,wc->bc", hist.float(), params["conv_w"].float()) + params["conv_b"][c]
-          )[:, None, :].to(x_t.dtype)
+    xw = (torch.einsum("bwc,wc->bc", hist.float(), conv_w.float()) + conv_b)[:, None, :].to(x_t.dtype)
     conv_cache.copy_(hist[:, 1:, :])
     warm_host_math(xw)
-    xw_all = xw if wl == w else all_gather(xw, "model", mesh, dim=2)
+    if rows:
+        xw_all = all_gather(xw, "model", mesh, dim=0)
+        xw = xw_all[..., c]
+    else:
+        xw_all = widen(xw)
     a, gated = _gated(xw_all @ params["w_r"], xw_all @ params["w_i"], params["lam"][c], xw)
+    if rows:
+        a, gated = widen(a)[own], widen(gated)[own]
     h.copy_(a[:, 0] * h + gated[:, 0])
+    hc = all_gather(h, "model", mesh, dim=0)[:, c] if rows else h
     gate = F.gelu(g.float(), approximate="tanh")
-    y = (h[:, None, :] * gate).to(x_t.dtype)
+    y = (hc[:, None, :] * gate).to(x_t.dtype)
     return row_proj(y, params["out"], d, mesh, bspec, cut=wl != w)
 
 

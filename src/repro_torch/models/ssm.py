@@ -290,7 +290,9 @@ def mamba_decode_sharded(params, x_t: torch.Tensor, conv_cache: torch.Tensor, st
     the same as ``conv_cache``'s where both are cut) and out_proj (d_inner
     over 'model'), the rest whole. ``conv_cache`` is the rank's block of
     (B_loc, W − 1, conv_dim) cut over 'model' along dimension ``conv_cut``
-    (0 its rows, with conv_w whole; 2 its channels; None whole), ``state``
+    (0 its rows, every channel: a cut conv_w's (W, conv_dim/m) blocks are
+    gathered over 'model', the one parameter block that moves; 2 its
+    channels; None whole), ``state``
     of (B_loc, H, P, N) along ``state_cut`` (0 its rows, 1 its heads, 3 its
     N-block, or None); a cut along P raises. Both are updated in place; only (B, 1, ·)
     projections, conv outputs and y's partial sums or rows move
@@ -311,6 +313,8 @@ def mamba_decode_sharded(params, x_t: torch.Tensor, conv_cache: torch.Tensor, st
     # the causal conv on the rank's block of the cache of the last W − 1 inputs
     rows, chans = _block(Bsz, mesh, conv_cut == 0), _block(conv_dim, mesh, conv_cut == 2)
     w = params["conv_w"]
+    if conv_cut == 0 and w.shape[1] != conv_dim:      # the rank's rows need every channel's filter
+        w = all_gather(w, "model", mesh, dim=1)
     if w.shape[1] == conv_dim:
         w = w[:, chans]
     hist = torch.cat([conv_cache, xBC_t[rows][..., chans].to(conv_cache.dtype)], dim=1)

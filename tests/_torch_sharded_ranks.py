@@ -180,7 +180,8 @@ def serve(mesh, key, case, inp, out):
     (nested caches by their '/' paths; vlm's and encdec's cross K/V too,
     ``init_cache`` run first on zero embeddings of the rank's rows): each
     step's logits rows, the cache blocks after the last step, the specs,
-    and each step's layers by the way they ran (``COUNTERS``). A case with
+    the bytes of the rank's parameters and caches (``held``), and each
+    step's layers by the way they ran (``COUNTERS``). A case with
     ``baseline`` runs with ``REPRO_SHARDED_DECODE=0``."""
     import os
 
@@ -212,6 +213,8 @@ def serve(mesh, key, case, inp, out):
     for k, t in _walk(cache):
         out[f"{key}/cache_after/{k}"] = _np(t)
     out[f"{key}/serve_calls"] = np.array(calls)
+    out[f"{key}/held"] = np.array([sum(p.numel() * p.element_size() for p in step.lm.parameters()),
+                                   sum(t.numel() * t.element_size() for _, t in _walk(cache))])
     out[f"{key}/cache_specs"] = np.array(json.dumps(csh))
     out[f"{key}/param_specs"] = np.array(json.dumps(psh))
 

@@ -379,15 +379,18 @@ def test_decode_step_under_the_mesh_equals_the_reference(runs):
                                            rtol=1e-5, atol=1e-5, err_msg=f"cache {k} at {coords}")
 
 
-def test_decode_refuses_latent_caches_cut_apart():
+def test_decode_reads_latent_caches_cut_apart():
     """At the published kv_lora_rank 512 over max_len 256 on 2 × 2 the
     rules cut c_kv (L, B, 256, 512) along its latent dimension and k_rope
-    (L, B, 256, 64) along S. No sharded MLA body reads that pair, so the
-    decode step refuses it at the first MLA layer, naming the layer and
-    both cuts (rank 0's step on ``meta``)."""
+    (L, B, 256, 64) along S (ROADMAP C14). The decode step reads that pair
+    where it lies: rank 0's step runs on ``meta``, every MLA layer through
+    ``mla_decode_sharded``, holding exactly the rules' bytes and gathering
+    no parameter block (its parity with the reference's serve step is
+    ``tests/test_torch_decode_layouts.py``'s ``mla_r_s``)."""
     from repro_torch.configs.shapes import Shape
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import meta_rank_mesh
+    from repro_torch.models import mla
     from repro_torch.runtime import pspec
 
     mesh = {"data": 2, "model": 2}
@@ -396,8 +399,11 @@ def test_decode_refuses_latent_caches_cut_apart():
         specs = decode.cache_blocks(LM(cfg, device="meta"), 4, 256)
     for part in specs:
         assert specs[part]["c_kv"][3] == "model" and specs[part]["k_rope"][2] == "model", specs
-    with pytest.raises(ValueError, match=r"blocks\.0\.attn's blocks .* along \(2, 1\): no sharded body reads"):
-        dryrun.analyze_rank_step(cfg, Shape("decode_32k", 256, 4, "decode"), mesh)
+    before = mla.mla_decode_sharded.calls
+    _, coll, whole, held, _, _, _ = dryrun.analyze_rank_step(cfg, Shape("decode_32k", 256, 4, "decode"), mesh)
+    assert mla.mla_decode_sharded.calls - before == cfg.num_layers
+    assert held == dryrun.argument_bytes(mesh, whole, "decode")
+    assert coll["parameter_gathers"] == []
 
 
 def test_decode_step_with_serving_zero3_equals_the_reference(runs, monkeypatch):
