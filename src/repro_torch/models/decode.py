@@ -87,6 +87,7 @@ from typing import Any
 
 import torch
 
+from .. import tracing
 from ..launch.mesh import all_gather, gather_dims, placed, spec_axes
 from .attention import (_batch_row_start, _decode_bspec, _gather_batch, _heads, _psum_proj, _rows, col_proj,
                         cross_decode, cross_decode_sharded, current_mesh, decode_attention, decode_attention_sharded,
@@ -152,10 +153,13 @@ def _view(t: torch.Tensor, held: tuple, want: tuple, mesh) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _attn_block(ops, p, prefix: str, x, kc, vc, pos: int, cfg: ModelConfig, cut, *, is_global: bool, ring: bool):
-    h = ops.attention(p.attn, f"{prefix}.attn", rms_norm(x, p.ln1), kc, vc, pos, cfg, cut, is_global=is_global,
-                      ring=ring)
-    x = x + h
-    return x + ops.mlp(p.mlp, f"{prefix}.mlp", rms_norm(x, p.ln2), cfg)
+    with tracing.span("decode.block", layer=prefix, kind="attn"):
+        with tracing.span("decode.attn"):
+            h = ops.attention(p.attn, f"{prefix}.attn", rms_norm(x, p.ln1), kc, vc, pos, cfg, cut,
+                              is_global=is_global, ring=ring)
+        x = x + h
+        with tracing.span("decode.mlp"):
+            return x + ops.mlp(p.mlp, f"{prefix}.mlp", rms_norm(x, p.ln2), cfg)
 
 
 def _cross_block(ops, p, prefix: str, x, ck, cv, cfg: ModelConfig, cut):
@@ -167,8 +171,11 @@ def _cross_block(ops, p, prefix: str, x, ck, cv, cfg: ModelConfig, cut):
 
 
 def _mla_block(ops, p, prefix: str, x, c_kv, k_rope, pos: int, cfg: ModelConfig, cuts):
-    x = x + ops.mla(p.attn, f"{prefix}.attn", rms_norm(x, p.ln1), c_kv, k_rope, pos, cfg, cuts)
-    return x + ops.ffn(p, prefix, rms_norm(x, p.ln2), cfg)
+    with tracing.span("decode.block", layer=prefix, kind="mla"):
+        with tracing.span("decode.mla"):
+            x = x + ops.mla(p.attn, f"{prefix}.attn", rms_norm(x, p.ln1), c_kv, k_rope, pos, cfg, cuts)
+        with tracing.span("decode.mlp" if p.moe is None else "decode.moe"):
+            return x + ops.ffn(p, prefix, rms_norm(x, p.ln2), cfg)
 
 
 def _rec_block(ops, p, prefix: str, x, h, conv, cfg: ModelConfig, cuts):
@@ -673,7 +680,8 @@ def decode_step(lm, tokens_t: torch.Tensor, cache: dict, pos: int, *, batch: int
                              f"{_decode_bspec(mesh, batch)}")
         ops = _Rank(mesh, batch, layer_specs(specs) if layers is None else layers)
     cuts = collections.defaultdict(lambda: (None, None)) if mesh is None else cache_cuts(cfg, cache_specs, mesh)
-    x = lm._embed(tokens_t) if mesh is None else _lookup(lm, tokens_t, mesh, batch, specs)
+    with tracing.span("decode.embed"):
+        x = lm._embed(tokens_t) if mesh is None else _lookup(lm, tokens_t, mesh, batch, specs)
     if fam == "dense":
         blocks = lm.blocks
         if _uses_rings(cfg):
@@ -731,4 +739,6 @@ def decode_step(lm, tokens_t: torch.Tensor, cache: dict, pos: int, *, batch: int
             x = _cross_block(ops, xblk, f"dec_cross.{i}", x, cache["cross_k"][i], cache["cross_v"][i], cfg, cross)
     else:
         raise ValueError(fam)
-    return (lm._logits(x) if mesh is None else _head_logits(lm, x, mesh, batch, specs)), cache
+    with tracing.span("decode.head"):
+        logits = lm._logits(x) if mesh is None else _head_logits(lm, x, mesh, batch, specs)
+    return logits, cache

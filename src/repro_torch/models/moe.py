@@ -55,6 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import tracing
 from .._device import warm_host_math
 from ..launch.mesh import all_gather, all_reduce, all_to_all, gather_dims, placed, spec_axes
 from .attention import _batch_row_start, current_mesh, mlp_sharded
@@ -445,24 +446,33 @@ def _shared(params, xt: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def _moe_gather(params, x: torch.Tensor, cfg: ModelConfig):
-    """The reference's ``_moe_gather`` and its shared experts."""
+    """The reference's ``_moe_gather`` and its shared experts (in
+    ``moe.combine``). While tracing is on, the (token, choice) pairs it
+    routes and those it drops count on the device (``moe.routed``,
+    ``moe.dropped``)."""
     B, S, d = x.shape
     T = B * S
     E, K = cfg.num_experts, cfg.top_k
     C = max(8, int(T * K * cfg.capacity_factor / E))
     xt = x.reshape(T, d)
-    gates, idx, probs = _route(params, xt, cfg)
-    f_e = F.one_hot(idx[:, 0], E).float().mean(dim=0)
-    aux = cfg.aux_loss_coef * E * torch.sum(f_e * probs.mean(dim=0))
-
-    pos = _positions_in_expert(idx, E)
-    keep = pos < C
-    slot = torch.where(keep, idx * C + pos, E * C).reshape(-1)  # E·C: the drop bin
-    buf = x.new_zeros((E * C + 1, d))
-    buf[slot] = xt.repeat_interleave(K, dim=0)                  # kept slots are unique
-    buf = buf[: E * C].view(E, C, d)
-    h = F.silu(torch.bmm(buf, params["w_gate"])) * torch.bmm(buf, params["w_up"])
-    out = torch.bmm(h, params["w_down"]).reshape(E * C, d)
-    flat = torch.cat([out, out.new_zeros((1, d))])
-    y = (flat[slot].view(T, K, d) * (gates * keep).to(x.dtype)[..., None]).sum(dim=1)
-    return _shared(params, xt, y).view(B, S, d), aux
+    with tracing.span("moe.route"):
+        gates, idx, probs = _route(params, xt, cfg)
+        f_e = F.one_hot(idx[:, 0], E).float().mean(dim=0)
+        aux = cfg.aux_loss_coef * E * torch.sum(f_e * probs.mean(dim=0))
+    with tracing.span("moe.dispatch"):
+        pos = _positions_in_expert(idx, E)
+        keep = pos < C
+        if tracing.is_on():
+            tracing.count("moe.routed", T * K)
+            tracing.count("moe.dropped", keep.numel() - keep.sum())
+        slot = torch.where(keep, idx * C + pos, E * C).reshape(-1)  # E·C: the drop bin
+        buf = x.new_zeros((E * C + 1, d))
+        buf[slot] = xt.repeat_interleave(K, dim=0)                  # kept slots are unique
+        buf = buf[: E * C].view(E, C, d)
+    with tracing.span("moe.experts"):
+        h = F.silu(torch.bmm(buf, params["w_gate"])) * torch.bmm(buf, params["w_up"])
+        out = torch.bmm(h, params["w_down"]).reshape(E * C, d)
+    with tracing.span("moe.combine"):
+        flat = torch.cat([out, out.new_zeros((1, d))])
+        y = (flat[slot].view(T, K, d) * (gates * keep).to(x.dtype)[..., None]).sum(dim=1)
+        return _shared(params, xt, y).view(B, S, d), aux

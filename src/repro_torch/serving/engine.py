@@ -22,6 +22,11 @@ embeddings, so vlm and encdec models raise here, as they do there.
 
 Data locality: prompts seen before are prefix-cache hits with zero
 data-transfer cost — the term the grid layer feeds into DIANA's DTC.
+
+With ``repro_torch.tracing`` on, a submission, a cycle and its parts, and
+each lockstep step's launch, readback and bookkeeping record spans, and a
+request its ``first_token`` mark on the host clock; ``first_token_time``
+and ``finish_time`` stay the engine's logical clock, as the reference's.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core import Job, MultilevelFeedbackQueues
 from ..models import LM, decode
 
@@ -91,10 +97,11 @@ class ServingEngine:
 
     def submit_group(self, reqs: list[InferenceRequest], now: float = 0.0):
         """§VIII: a bulk burst shares one group id (and thus priority)."""
-        gid = reqs[0].group_id or f"grp{reqs[0].rid}"
-        for r in reqs:
-            r.group_id = gid
-            self.submit(r, now)
+        with tracing.span("engine.submit", requests=len(reqs)):
+            gid = reqs[0].group_id or f"grp{reqs[0].rid}"
+            for r in reqs:
+                r.group_id = gid
+                self.submit(r, now)
 
     def queue_depth(self) -> int:
         return len(self.queues)
@@ -123,14 +130,16 @@ class ServingEngine:
 
     def _step(self, tokens: np.ndarray, pos: int) -> torch.Tensor:
         """One lockstep decode step → logits (B, 1, V) on the device."""
-        t = torch.from_numpy(tokens).to(device=self.lm.device, dtype=torch.int64)
-        logits, self.cache = decode.decode_step(self.lm, t, self.cache, pos)
-        return logits
+        with tracing.span("step.launch"):
+            t = torch.from_numpy(tokens).to(device=self.lm.device, dtype=torch.int64)
+            logits, self.cache = decode.decode_step(self.lm, t, self.cache, pos)
+            return logits
 
     @staticmethod
     def _greedy(logits: torch.Tensor) -> np.ndarray:
         """The first-index argmax of every slot, on the host."""
-        return torch.argmax(logits[:, 0], dim=-1).to(torch.int32).cpu().numpy()
+        with tracing.span("step.readback"):
+            return torch.argmax(logits[:, 0], dim=-1).to(torch.int32).cpu().numpy()
 
     def _decode_batch(self, batch: list[InferenceRequest]):
         B = self.num_slots
@@ -144,40 +153,48 @@ class ServingEngine:
         # prefill: lockstep decode over the prompt (pos resets per batch;
         # stale cache beyond pos is masked out)
         logits = None
-        for t in range(plen):
-            logits = self._step(prompts[:, t : t + 1], t)
-        nxt = self._greedy(logits)
-        pos = plen
-        live = {i: r for i, r in enumerate(batch)}
-        for i, r in live.items():
-            r.generated.append(int(nxt[i]))
-            r.first_token_time = self._clock
-        while live and pos < self.max_len - 1:
-            nxt = self._greedy(self._step(nxt[:, None], pos))
-            self.stats.decode_steps += 1
-            pos += 1
-            for i in list(live):
-                r = live[i]
-                r.generated.append(int(nxt[i]))
-                if len(r.generated) >= r.max_new_tokens:
-                    r.done = True
-                    r.finish_time = self._clock
-                    self.stats.served += 1
-                    del live[i]
-        for r in list(live.values()):    # hit max_len
-            r.done = True
-            r.finish_time = self._clock
-            self.stats.served += 1
+        with tracing.span("engine.prefill"):
+            for t in range(plen):
+                logits = self._step(prompts[:, t : t + 1], t)
+        with tracing.span("engine.generate"):
+            nxt = self._greedy(logits)
+            pos = plen
+            live = {i: r for i, r in enumerate(batch)}
+            with tracing.span("step.bookkeep"):
+                for i, r in live.items():
+                    r.generated.append(int(nxt[i]))
+                    r.first_token_time = self._clock
+                    tracing.mark(r.rid, "first_token")
+            while live and pos < self.max_len - 1:
+                nxt = self._greedy(self._step(nxt[:, None], pos))
+                self.stats.decode_steps += 1
+                pos += 1
+                with tracing.span("step.bookkeep"):
+                    for i in list(live):
+                        r = live[i]
+                        r.generated.append(int(nxt[i]))
+                        if len(r.generated) >= r.max_new_tokens:
+                            r.done = True
+                            r.finish_time = self._clock
+                            self.stats.served += 1
+                            del live[i]
+            for r in list(live.values()):    # hit max_len
+                r.done = True
+                r.finish_time = self._clock
+                self.stats.served += 1
 
     def step(self, now: Optional[float] = None) -> int:
         """One engine cycle: form a batch by DIANA priority and run it."""
         self._clock = now if now is not None else self._clock + 1.0
-        batch = self._form_batch(self._clock)
-        if not batch:
-            return 0
-        self.stats.batches += 1
-        self._decode_batch(batch)
-        return len(batch)
+        with tracing.span("engine.step") as sp:
+            with tracing.span("engine.form_batch"):
+                batch = self._form_batch(self._clock)
+            if not batch:
+                return 0
+            sp.set(batch=self.stats.batches, lanes=len(batch), plen=len(batch[0].prompt))
+            self.stats.batches += 1
+            self._decode_batch(batch)
+            return len(batch)
 
     def run_until_drained(
         self, max_cycles: int = 1000, on_truncation: str = "raise"
